@@ -1,0 +1,13 @@
+from matten_tpu_torch.models.tfn import (
+    OUT_FIELD,
+    ScalarTensorModel,
+    create_scalar_tensor_model,
+    create_tfn_backbone,
+)
+
+__all__ = [
+    "OUT_FIELD",
+    "ScalarTensorModel",
+    "create_scalar_tensor_model",
+    "create_tfn_backbone",
+]

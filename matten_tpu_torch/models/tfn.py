@@ -1,0 +1,170 @@
+"""TFN model assembly: hparams dict -> layer stack with irreps threaded.
+
+Counterpart of `matten_tpu/models/tfn.py` for the graph-level model:
+
+  SpeciesEmbedding -> SphericalHarmonicEdgeAttrs -> EdgeLengthEmbedding
+  -> num_layers x PointConvWithActivation -> PointConv
+  -> NodewiseLinear -> NodewiseReduce pooling
+  -> equivariant Linear head into the irreps of `output_formula`.
+
+Parameters are drawn from a seeded `torch.Generator` on the CPU and the
+model is then moved to `device`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from matten_tpu.data import keys as K
+from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.nn.conv import PointConv, PointConvWithActivation
+from matten_tpu_torch.nn.common import normal_parameter
+from matten_tpu_torch.nn.edge_geometry import SphericalHarmonicEdgeAttrs
+from matten_tpu_torch.nn.embedding import EdgeLengthEmbedding, SpeciesEmbedding
+from matten_tpu_torch.nn.nodewise import NodewiseLinear, NodewiseReduce
+from matten_tpu_torch.nn.sequential import Sequential
+from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
+from matten_tpu_torch.ops.tensor_product import LinearPlan
+
+OUT_FIELD = "model_output"
+
+
+def _resolve_avg_num_neighbors(hparams, dataset_hparams) -> Optional[float]:
+    v = hparams.get("average_num_neighbors", None)
+    if isinstance(v, str) and v.lower() == "auto":
+        return dataset_hparams["average_num_neighbors"]
+    return v
+
+
+def _check_supported(hparams: Dict[str, Any]) -> None:
+    """Reject settings whose modules the port does not have yet."""
+    unsupported = {
+        "use_atom_feats": hparams.get("use_atom_feats", False),
+        "use_global_feats": hparams.get("use_global_feats", False),
+        "graph_parallel_axis": hparams.get("graph_parallel_axis", None),
+        "scalar_target_names": tuple(hparams.get("scalar_target_names", ()) or ()),
+    }
+    for k, v in unsupported.items():
+        if v:
+            raise NotImplementedError(f"hparam {k}={v!r} is not ported yet")
+    if hparams.get("nonlinearity_type", "gate") != "gate":
+        raise NotImplementedError("only the gate nonlinearity is ported")
+    if hparams.get("radial_basis_type", "bessel") != "bessel":
+        raise NotImplementedError("only the bessel radial basis is ported")
+
+
+def create_tfn_backbone(
+    hparams: Dict[str, Any],
+    dataset_hparams: Dict[str, Any],
+    head_irreps: Irreps,
+    pooling: Optional[str],
+    generator: torch.Generator,
+) -> Sequential:
+    _check_supported(hparams)
+    irreps = {K.POSITIONS: Irreps("1o")}
+    layers = []
+
+    m = SpeciesEmbedding(
+        irreps,
+        allowed_species=dataset_hparams["allowed_species"],
+        embedding_dim=hparams.get("species_embedding_dim", 16),
+        generator=generator,
+    )
+    layers.append(m)
+    m = SphericalHarmonicEdgeAttrs(m.irreps_out, Irreps(hparams["irreps_edge_sh"]))
+    layers.append(m)
+    m = EdgeLengthEmbedding(
+        m.irreps_out,
+        num_basis=hparams.get("num_radial_basis", 8),
+        start=hparams.get("radial_basis_start", 0.0),
+        end=hparams.get("radial_basis_end", 5.0),
+    )
+    layers.append(m)
+
+    avg_num_neighbors = _resolve_avg_num_neighbors(hparams, dataset_hparams)
+    conv_irreps = Irreps(hparams["conv_layer_irreps"])
+    fc = dict(
+        fc_num_hidden_layers=hparams.get("invariant_layers", 2),
+        fc_hidden_size=hparams.get("invariant_neurons", 32),
+        avg_num_neighbors=avg_num_neighbors,
+    )
+    for _ in range(hparams.get("num_layers", 3)):
+        m = PointConvWithActivation(
+            m.irreps_out,
+            conv_irreps,
+            generator,
+            normalization=hparams.get("normalization", None),
+            **fc,
+        )
+        layers.append(m)
+    m = PointConv(m.irreps_out, conv_irreps, generator, **fc)
+    layers.append(m)
+    m = NodewiseLinear(m.irreps_out, head_irreps, generator, out_field=OUT_FIELD)
+    layers.append(m)
+    if pooling is not None:
+        layers.append(
+            NodewiseReduce(m.irreps_out, field=OUT_FIELD, out_field=OUT_FIELD, reduce=pooling)
+        )
+    return Sequential(layers)
+
+
+def _target_irreps(formula: str) -> Irreps:
+    if formula == "scalar":
+        return Irreps("0e")
+    return cartesian_tensor_map(formula).irreps
+
+
+class ScalarTensorModel(torch.nn.Module):
+    """Graph-level scalar/tensor prediction: backbone + equivariant Linear
+    head into the target irreps ([num_graphs, dim]), optional Cartesian
+    readout."""
+
+    def __init__(
+        self,
+        backbone: Sequential,
+        hidden_irreps: Irreps,
+        generator: torch.Generator,
+        output_formula: str = "ijkl=jikl=klij",
+        output_format: str = "irreps",
+    ):
+        super().__init__()
+        self.backbone = backbone
+        self.output_formula = output_formula
+        self.output_format = output_format
+        self.plan = LinearPlan(Irreps(hidden_irreps), _target_irreps(output_formula))
+        self.w_out = normal_parameter(self.plan.weight_numel, generator)
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        data = self.backbone(data)
+        out = self.plan.apply(data[OUT_FIELD], self.w_out)
+        if self.output_format == "cartesian" and self.output_formula != "scalar":
+            out = cartesian_tensor_map(self.output_formula).to_cartesian(out)
+        return out
+
+
+def create_scalar_tensor_model(
+    hparams: Dict[str, Any],
+    dataset_hparams: Dict[str, Any],
+    device: Union[str, torch.device] = "cpu",
+    seed: int = 0,
+) -> ScalarTensorModel:
+    """Build the model with N(0, 1) weights from `torch.Generator(seed)`."""
+    generator = torch.Generator().manual_seed(seed)
+    hidden = Irreps(hparams["conv_to_output_hidden_irreps_out"])
+    backbone = create_tfn_backbone(
+        hparams,
+        dataset_hparams,
+        head_irreps=hidden,
+        pooling=hparams.get("reduce", "mean"),
+        generator=generator,
+    )
+    model = ScalarTensorModel(
+        backbone,
+        hidden,
+        generator,
+        output_formula=hparams.get("output_formula", "ijkl=jikl=klij").lower(),
+        output_format=hparams.get("output_format", "irreps"),
+    )
+    return model.to(device)

@@ -1,0 +1,117 @@
+"""Equivariant gate nonlinearity.
+
+Counterpart of `matten_tpu/nn/gate.py`: `ActivationInfo` decides, from the
+tensor-product inputs and the intended output irreps, which scalars, gates
+and gated irreps are producible, and `Gate` applies
+[scalars | gates | gated] -> [act(scalars) | act(gates) * gated].
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from matten_tpu.ops.irreps import Irrep, Irreps, tp_path_exists
+from matten_tpu_torch.nn.radial import normalize2mom
+
+__all__ = ["ActivationInfo", "Gate"]
+
+
+class ActivationInfo:
+    """Static plan for the gate following a TFN convolution:
+    irreps_in = scalars + gates + gated (what the conv must output),
+    irreps_out = scalars + gated (post-activation features)."""
+
+    # parity-safe activations by scalar parity (the JAX defaults)
+    ACT_SCALARS = {"e": "silu", "o": "tanh"}
+    ACT_GATES = {"e": "sigmoid", "o": "tanh"}
+
+    def __init__(self, tp_irreps_in1: Irreps, tp_irreps_in2: Irreps, tp_irreps_out: Irreps):
+        tp_irreps_out = Irreps(tp_irreps_out).sort()[0].simplify()
+        self.irreps_scalars = Irreps(
+            [
+                (mul, ir)
+                for mul, ir in tp_irreps_out
+                if ir.l == 0 and tp_path_exists(tp_irreps_in1, tp_irreps_in2, ir)
+            ]
+        )
+        self.irreps_gated = Irreps(
+            [
+                (mul, ir)
+                for mul, ir in tp_irreps_out
+                if ir.l > 0 and tp_path_exists(tp_irreps_in1, tp_irreps_in2, ir)
+            ]
+        )
+        if self.irreps_gated.dim > 0:
+            if tp_path_exists(tp_irreps_in1, tp_irreps_in2, "0e"):
+                gate_ir = Irrep(0, 1)
+            elif tp_path_exists(tp_irreps_in1, tp_irreps_in2, "0o"):
+                gate_ir = Irrep(0, -1)
+            else:
+                raise ValueError(
+                    f"{tp_irreps_in1} x {tp_irreps_in2} cannot produce gate "
+                    f"scalars for {self.irreps_gated}"
+                )
+            self.irreps_gates = Irreps(
+                [(mul, gate_ir) for mul, _ in self.irreps_gated]
+            ).simplify()
+        else:
+            self.irreps_gates = Irreps()
+        self.irreps_in = self.irreps_scalars + self.irreps_gates + self.irreps_gated
+        gate_p = self.irreps_gates[0].ir.p if self.irreps_gates else 1
+        self.irreps_out = self.irreps_scalars + Irreps(
+            [(mul, Irrep(ir.l, ir.p * gate_p)) for mul, ir in self.irreps_gated]
+        )
+
+        def _act_name(table: Dict[str, str], p: int) -> str:
+            return table["e" if p == 1 else "o"]
+
+        self.act_scalars: Tuple[Tuple[int, str], ...] = tuple(
+            (mul, _act_name(self.ACT_SCALARS, ir.p)) for mul, ir in self.irreps_scalars
+        )
+        self.act_gates: Tuple[Tuple[int, str], ...] = tuple(
+            (mul, _act_name(self.ACT_GATES, ir.p)) for mul, ir in self.irreps_gates
+        )
+
+
+class Gate(torch.nn.Module):
+    """[scalars | gates | gated] -> [act(scalars) | act(gates) * gated]."""
+
+    def __init__(self, info: ActivationInfo):
+        super().__init__()
+        self.info = info
+        idx, base = [], 0
+        for mul, ir in info.irreps_gated:
+            idx.append(np.repeat(base + np.arange(mul), ir.dim))
+            base += mul
+        gate_index = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+        self.register_buffer(
+            "gate_index", torch.as_tensor(gate_index, dtype=torch.long), persistent=False
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        info = self.info
+        n_s = info.irreps_scalars.dim
+        n_g = info.irreps_gates.dim
+        scalars = x[..., :n_s]
+        gates = x[..., n_s : n_s + n_g]
+        gated = x[..., n_s + n_g :]
+
+        out = []
+        i = 0
+        for mul, name in info.act_scalars:
+            out.append(normalize2mom(name)(scalars[..., i : i + mul]))
+            i += mul
+        acted_gates = []
+        i = 0
+        for mul, name in info.act_gates:
+            acted_gates.append(normalize2mom(name)(gates[..., i : i + mul]))
+            i += mul
+        if acted_gates:
+            g = torch.cat(acted_gates, dim=-1)
+            out.append(gated * g[..., self.gate_index])
+        elif gated.shape[-1]:
+            out.append(gated)
+        return torch.cat(out, dim=-1)

@@ -1,0 +1,76 @@
+"""Node-wise linear map and masked per-graph pooling.
+
+Counterpart of `matten_tpu/nn/nodewise.py` (NodewiseLinear, NodewiseReduce
+with sum / mean).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import torch
+
+from matten_tpu.data import keys as K
+from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.nn.common import merge_irreps, normal_parameter
+from matten_tpu_torch.ops.scatter import scatter_mean, scatter_sum
+from matten_tpu_torch.ops.tensor_product import LinearPlan
+
+
+class NodewiseLinear(torch.nn.Module):
+    """Equivariant linear map on a node field (e3nn o3.Linear, no bias)."""
+
+    def __init__(
+        self,
+        irreps_in: Mapping,
+        irreps_out_field: Irreps,
+        generator: torch.Generator,
+        field: str = K.NODE_FEATURES,
+        out_field: Optional[str] = None,
+    ):
+        super().__init__()
+        self.field = field
+        self.out_field = out_field if out_field is not None else field
+        self.irreps_in = dict(irreps_in)
+        self.irreps_out = merge_irreps(self.irreps_in, {self.out_field: Irreps(irreps_out_field)})
+        self.plan = LinearPlan(Irreps(self.irreps_in[field]), Irreps(irreps_out_field))
+        self.w = normal_parameter(self.plan.weight_numel, generator)
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        data = dict(data)
+        data[self.out_field] = self.plan.apply(data[self.field], self.w)
+        return data
+
+
+class NodewiseReduce(torch.nn.Module):
+    """Masked segment sum / mean of a node field into per-graph features;
+    padded nodes are excluded through the node mask."""
+
+    def __init__(
+        self,
+        irreps_in: Mapping,
+        field: str = K.NODE_FEATURES,
+        out_field: Optional[str] = None,
+        reduce: str = "sum",
+    ):
+        super().__init__()
+        if reduce not in ("sum", "mean"):
+            raise ValueError(f"unsupported reduce {reduce!r}")
+        self.field = field
+        self.reduce = reduce
+        self.out_field = out_field if out_field is not None else f"{reduce}_{field}"
+        self.irreps_in = dict(irreps_in)
+        self.irreps_out = merge_irreps(self.irreps_in, {self.out_field: self.irreps_in[field]})
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        data = dict(data)
+        x = data[self.field]
+        num_graphs = data[K.CELL].reshape(-1, 3, 3).shape[0]
+        mask = data.get(K.NODE_MASK)
+        if self.reduce == "mean":
+            out = scatter_mean(x, data[K.BATCH], num_graphs, weights=mask)
+        else:
+            w = x.new_ones(x.shape[0]) if mask is None else mask.to(x.dtype)
+            out = scatter_sum(x * w[:, None], data[K.BATCH], num_graphs)
+        data[self.out_field] = out
+        return data

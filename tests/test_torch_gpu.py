@@ -1,0 +1,128 @@
+"""The port's CUDA kernel on the card, held against its plain PyTorch version.
+
+Marked `gpu`; each test skips without a CUDA device (the kernel has no CPU
+mode). The GPU machine has no JAX, and tests/conftest.py imports it, so run
+this file there without the conftest:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+Tolerances: kernel vs plain rtol=atol=1e-5 (float32, another summation
+order); the model, 2 conv layers deep, 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from matten_tpu.data import keys as K
+from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.kernels import fused_conv
+from matten_tpu_torch.ops.tensor_product import uvu_tp_plan
+
+pytestmark = pytest.mark.gpu
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+IR1, IR2 = Irreps("8x0e+4x1o+2x2e+1x3o"), Irreps("0e+1o+2e+3o")
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, seed, n_in, n_out, e):
+    rng = np.random.default_rng(seed)
+    plan = uvu_tp_plan(IR1, IR2, IR1)
+    arrs = dict(
+        x=rng.normal(size=(n_in, IR1.dim)).astype(np.float32),
+        sh=rng.normal(size=(e, IR2.dim)).astype(np.float32),
+        w=rng.normal(size=(e, plan.weight_numel)).astype(np.float32),
+        src=rng.integers(0, n_in, e).astype(np.int32),
+        # leave some nodes without edges: their rows must come out zero
+        dst=np.sort(rng.integers(0, max(n_out - 3, 1), e)).astype(np.int32),
+    )
+    return plan, {k: torch.as_tensor(v, device=dev) for k, v in arrs.items()}
+
+
+# (40, 16): halo-style n_in > n_out; (2600, 2600): beyond the JAX v2
+# kernel's RESIDENT_NODES_MAX = 2048, where JAX falls back to the v1 kernel
+@pytest.mark.parametrize(
+    "n_in,n_out,e", [(24, 24, 300), (40, 16, 500), (7, 5, 1), (2600, 2600, 40000)]
+)
+def test_kernel_matches_plain(dev, n_in, n_out, e):
+    plan, t = _inputs(dev, 1, n_in, n_out, e)
+    args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], n_out)
+    before = fused_conv.launches
+    out = fused_conv.fused_uvu_conv(*args)
+    torch.cuda.synchronize()
+    assert fused_conv.launches == before + 1
+    ref = fused_conv.uvu_conv_reference(*args)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert bool((out[n_out - 3 :] == 0).all())
+    with fused_conv.force_plain():
+        forced = fused_conv.fused_uvu_conv(*args)
+    assert fused_conv.launches == before + 1
+    # the plain version sums with atomics on the card: equal up to order
+    np.testing.assert_allclose(forced.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+def test_kernel_rejects_bad_inputs(dev):
+    plan, t = _inputs(dev, 2, 24, 24, 100)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        fused_conv.fused_uvu_conv(
+            plan, t["x"], t["sh"], t["w"], t["src"], t["dst"].flip(0).contiguous(), 24
+        )
+    with pytest.raises(ValueError, match="mixed devices"):
+        fused_conv.fused_uvu_conv(plan, t["x"].cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
+
+
+def test_backward_raises(dev):
+    plan, t = _inputs(dev, 3, 24, 24, 100)
+    w = t["w"].requires_grad_()
+    out = fused_conv.fused_uvu_conv(plan, t["x"], t["sh"], w, t["src"], t["dst"], 24)
+    with pytest.raises(NotImplementedError, match="K2"):
+        out.sum().backward()
+
+
+def test_model_forward_through_kernel(dev):
+    from matten_tpu.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+    from matten_tpu.data.structure import Structure
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.predict import batch_to_device
+
+    species = (8, 13, 14, 22, 56)
+    hp = dict(
+        species_embedding_dim=8, irreps_edge_sh="0e+1o+2e+3o+4e", num_layers=2,
+        invariant_layers=2, invariant_neurons=8, average_num_neighbors=30.0,
+        conv_layer_irreps="4x0o+4x0e+2x1o+2x1e+1x2o+1x2e+1x3o+1x3e+1x4e",
+        normalization="batch", conv_to_output_hidden_irreps_out="4x0e+2x2e+4e",
+    )
+    model = create_scalar_tensor_model(hp, dict(allowed_species=list(species)), device=dev).eval()
+    rng = np.random.default_rng(4)
+    graphs = [
+        CrystalGraph.from_structure(
+            Structure(
+                lattice=np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1,
+                frac_coords=rng.uniform(0, 1, size=(5, 3)),
+                atomic_numbers=rng.choice(species, size=5),
+            ),
+            r_cut=5.0,
+        )
+        for _ in range(3)
+    ]
+    data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(species))
+    data = batch_to_device(data, dev)
+    before = fused_conv.launches
+    with torch.inference_mode():
+        out = model(data)
+        assert fused_conv.launches == before + 3
+        with fused_conv.force_plain():
+            ref = model(data)
+    real = data[K.GRAPH_MASK]
+    np.testing.assert_allclose(
+        out[real].cpu().numpy(), ref[real].cpu().numpy(), rtol=1e-4, atol=1e-4
+    )
