@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving path and train step once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (each prints one line; any failure raises and the exit code is not 0):
   1. environment: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc builds the port's kernels from the sources in this checkout;
+  2. build: nvcc builds the port's kernels from the sources in this checkout,
+     one process per source, all started together;
   3. kernel parity: the fused uvu conv kernel (K1) against its plain PyTorch
      version at the 4 conv-layer plans of the production elasticity model,
      on the flagship batch's real edges, seeded random x and w;
-  4. model: the production ScalarTensorModel (seeded random weights) on the
+  4. backward kernel parity: the dx and dw kernels against their plain
+     versions at the same 4 plans with a seeded cotangent g, and at N = 2600
+     nodes with the last layer's plan (the regime where the JAX package
+     leaves its resident-node kernels);
+  5. model: the production ScalarTensorModel (seeded random weights) on the
      flagship batch through K1 and through the plain conv; exactly 4 K1
      launches per forward;
-  5. serving: `matten_tpu_torch.predict.predict` on the 32 flagship crystals
-     plus Si; every result a finite [3, 3, 3, 3] tensor; the K1 launch
-     count of this run is what the kernels line reports;
-  6. timings with CUDA events: forward latency and per-layer conv time,
-     kernel against plain, interleaved.
+  6. serving, the first main path: `matten_tpu_torch.predict.predict` on the
+     32 flagship crystals plus Si; every result a finite [3, 3, 3, 3]
+     tensor; launch counts set to 0 just before and read just after;
+  7. train gradients: one step's parameter gradients through the kernels
+     against a deep copy of the model under `force_plain()`;
+  8. train step, the second main path: `Trainer.train_step` (Adam, lr 0.01)
+     on the flagship batch and its targets, a few steps; exactly 4 launches
+     of each of K1, dx and dw per step, finite losses;
+  9. timings with CUDA events, kernel against plain, interleaved: the
+     forward and the train step, K1, dx and dw per layer; peak memory.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
@@ -24,17 +34,19 @@ left visible.
 
     python3 chip_smoke.py --profile DIR
 
-adds phase 7, where the forward's time goes: host wall per forward,
-per backbone layer, and a torch.profiler trace of 5 forwards (device ops,
-device busy time, host launches, host and device time of the species
-FCTPs, the radial MLP and the K1 wrapper), written to DIR.
+adds phase 10, where the time of a forward and of a train step goes: host
+wall per forward and per step, per backbone layer, the step's forward /
+backward / optimizer split, and torch.profiler traces (device ops, device
+busy time, host launches, device time of each kernel), written to DIR.
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
-r_cut 5.0), collated with `pad_spec_for` + `collate_graphs`.
+r_cut 5.0, an `elastic_tensor_full` target of 21 values per crystal),
+collated with `pad_spec_for` + `collate_graphs`.
 """
 
 import argparse
+import copy
 import functools
 import json
 import os
@@ -70,37 +82,47 @@ HPARAMS = dict(
 )
 DATASET_HPARAMS = dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0)
 
-# K1 vs plain: f32 with another summation order (per-edge CG contraction
-# and per-node sums vs einsum + index_add), relative to max |ref|
+# kernel vs plain: f32 with another summation order (per-edge CG contraction
+# and per-row sums vs einsum + index_add), max|d| relative to max|ref|
 KERNEL_TOL = 1e-5
-# whole model: the same difference carried through 4 convs, gates and BN
+# whole model: the same difference carried through 4 convs, gates and BN;
+# parameter gradients of a train step, each relative to its largest entry
 MODEL_TOL = 1e-4
 SEED = 0
 WARMUP, REPS = 3, 20
+TRAIN_STEPS = 3
+TARGET = "elastic_tensor_full"
+BIG_N = 2600  # beyond the JAX package's resident-node limit of 2048
+BIG_DEGREE = 64
+
+# one H100 SXM, NVIDIA's data sheet: HBM rate and float32 peak outside the
+# tensor cores (the kernels run in float32 on the CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def flagship_structures(n_graphs=32, atoms_lo=4, atoms_hi=12):
-    """The 32 crystals of `bench.py::build_batch`, drawn in the same order
-    (the per-graph target draw advances the generator too)."""
-    from matten_tpu.data.structure import Structure
+    """The 32 crystals of `bench.py::build_batch`, drawn in the same order,
+    and their [1, 21] targets."""
+    from matten_tpu_torch.data.structure import Structure
 
     rng = np.random.default_rng(0)
-    out = []
+    structures, targets = [], []
     for _ in range(n_graphs):
         n = int(rng.integers(atoms_lo, atoms_hi + 1))
-        out.append(
+        structures.append(
             Structure(
                 lattice=np.eye(3) * (3.5 + rng.uniform(0, 1.5)) + rng.normal(size=(3, 3)) * 0.1,
                 frac_coords=rng.uniform(0, 1, size=(n, 3)),
                 atomic_numbers=rng.choice(SPECIES_5, size=n),
             )
         )
-        rng.normal(size=(1, 21))  # bench.py's target draw
-    return out
+        targets.append(rng.normal(size=(1, 21)))
+    return structures, targets
 
 
 def si_structure():
-    from matten_tpu.data.structure import Structure
+    from matten_tpu_torch.data.structure import Structure
 
     return Structure(
         lattice=np.array([[0, 2.73, 2.73], [2.73, 0, 2.73], [2.73, 2.73, 0]]),
@@ -109,13 +131,17 @@ def si_structure():
     )
 
 
-def collate(structures):
-    from matten_tpu.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+def collate(structures, targets):
+    """(data, targets) numpy dicts of one padded batch."""
+    from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
     from matten_tpu_torch.nn.embedding import atomic_number_map
 
-    graphs = [CrystalGraph.from_structure(s, r_cut=5.0) for s in structures]
-    data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
-    return data
+    graphs = []
+    for s, y in zip(structures, targets):
+        g = CrystalGraph.from_structure(s, r_cut=5.0)
+        g.y[TARGET] = y
+        graphs.append(g)
+    return collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
 
 
 def cuda_ms(fn, torch):
@@ -156,19 +182,115 @@ def conv_layers(model):
     return out
 
 
+def kernel_work(plan, n_in, n_out, n_edges):
+    """(bytes, float32 operations) each kernel's function needs at one
+    layer: every input read once and every output written once; operations
+    as the kernels' arithmetic counts them (2 per multiply-add)."""
+    from matten_tpu_torch.kernels.fused_conv import kernel_tables
+
+    tab = kernel_tables(plan)
+    d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
+    sh_terms = int(tab.t_meta[:, 2].sum())  # multiply-adds of t_e = C . sh per edge
+    x_terms = int((tab.out_meta[:, 3] & 0xFFFF).sum())  # sum over outputs of d1
+    edge_idx = 2 * 4 * n_edges  # src, dst int32
+    return {
+        "fwd": (4 * (n_in * d1 + n_edges * (d2 + dw) + n_out * dout) + edge_idx,
+                n_edges * 2 * (sh_terms + x_terms + dout) + n_out * dout),
+        "dx": (4 * (n_out * dout + n_edges * (d2 + dw) + n_in * d1) + edge_idx,
+               n_edges * 2 * (sh_terms + x_terms + dout)),
+        "dw": (4 * (n_in * d1 + n_out * dout + n_edges * (d2 + dw)) + edge_idx,
+               n_edges * 2 * (sh_terms + x_terms + dout) + n_out * dout),
+    }
+
+
+def bound_ms(nbytes, flops):
+    """Least time of the card for the work: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_by(per_layer):
+    """What bounds the layers' summed least time: the kind of the larger share."""
+    share = {"bytes": 0.0, "operations": 0.0}
+    for t, by in per_layer:
+        share[by] += t
+    return max(share, key=share.get)
+
+
+def rel_err(out, ref):
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def counts(fused_conv):
+    return {"fwd": fused_conv.launches, "dx": fused_conv.dx_launches, "dw": fused_conv.dw_launches}
+
+
+def reset_counts(fused_conv):
+    fused_conv.launches = fused_conv.dx_launches = fused_conv.dw_launches = 0
+
+
 PROFILED_FORWARDS = 5
 DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
+KERNEL_NAMES = {"fwd": "fused_uvu_conv_fwd", "dx": "fused_uvu_conv_dx", "dw": "fused_uvu_conv_dw"}
+
+
+def traced(fn, n, out_dir, name, torch):
+    """Run fn n times under torch.profiler; write the tables and the trace
+    to out_dir; return the trace's complete events and per-run device stats.
+
+    Device numbers come from the trace's "kernel", "gpu_memcpy" and
+    "gpu_memset" events only; the "gpu_user_annotation" ranges that labels
+    add on the device side span kernels and are kept out of every count and
+    sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    by_device = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
+                 else "self_cuda_time_total")
+    (out_dir / f"{name}_table.txt").write_text(
+        ka.table(sort_by=by_device, row_limit=40) + "\n\n"
+        + ka.table(sort_by="cpu_time_total", row_limit=40))
+    trace = out_dir / f"{name}_trace.json"
+    prof.export_chrome_trace(str(trace))
+    ev = json.loads(trace.read_text())
+    ev = [e for e in (ev["traceEvents"] if isinstance(ev, dict) else ev) if e.get("ph") == "X"]
+    dev_ops = sorted((e for e in ev if e.get("cat") in DEVICE_OPS), key=lambda e: e["ts"])
+    busy, end = 0.0, -1.0  # union of device intervals, us
+    for e in dev_ops:
+        s, t = e["ts"], e["ts"] + e["dur"]
+        busy += max(0.0, t - max(s, end))
+        end = max(end, t)
+    stats = {c: sum(e["cat"] == c for e in dev_ops) / n for c in DEVICE_OPS}
+    stats["span_ms"] = (dev_ops[-1]["ts"] + dev_ops[-1]["dur"] - dev_ops[0]["ts"]) / n / 1e3
+    stats["busy_ms"] = busy / n / 1e3
+    stats["launches"] = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith("cudaLaunchKernel")
+                            for e in ev) / n
+    per_name = {}
+    for e in dev_ops:
+        if e["cat"] == "kernel":
+            per_name[e["name"]] = per_name.get(e["name"], 0.0) + e["dur"] / n / 1e3
+    stats["by_kernel"] = per_name
+    stats["per_layer"] = {
+        k: [float(np.mean(v[i::4])) for i in range(4)] if len(v) >= 4 else []
+        for k, v in ((k, [e["dur"] / 1e3 for e in dev_ops if kn in e["name"]])
+                     for k, kn in KERNEL_NAMES.items())
+    }
+    return ev, stats
+
+
+def device_summary(st):
+    return (f"{st['kernel']:g} kernels, {st['gpu_memcpy']:g} memcpys, {st['gpu_memset']:g} memsets, "
+            f"{st['launches']:g} cudaLaunchKernel calls, device busy {st['busy_ms']:.4f} ms of a "
+            f"{st['span_ms']:.4f} ms span ({100 * st['busy_ms'] / st['span_ms']:.1f}%)")
 
 
 def profile_forward(model, fwd, data, out_dir, torch):
-    """Phase 7: where the time of one forward goes. Returns the line to print.
-
-    Device numbers come from the exported trace's "kernel", "gpu_memcpy"
-    and "gpu_memset" events only; the "gpu_user_annotation" ranges that
-    the labels below add on the device side span kernels and are kept out
-    of every count and sum.
-    """
-    from torch.profiler import ProfilerActivity, profile, record_function
+    """Phase 10a: where the time of one forward goes. Returns the line to print."""
+    from torch.profiler import record_function
 
     from matten_tpu_torch.models.tfn import OUT_FIELD
     from matten_tpu_torch.nn import conv as conv_mod
@@ -212,40 +334,14 @@ def profile_forward(model, fwd, data, out_dir, torch):
     for (obj, attr, name), fn in zip(patched, saved):
         setattr(obj, attr, label(name, fn))
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED_FORWARDS):
-                fwd()
-            torch.cuda.synchronize()
+        ev, st = traced(fwd, PROFILED_FORWARDS, out_dir, "forward", torch)
     finally:
         for (obj, attr, _), fn in zip(patched, saved):
             setattr(obj, attr, fn)
-    ka = prof.key_averages()
-    by_device = ("self_device_time_total" if hasattr(ka[0], "self_device_time_total")
-                 else "self_cuda_time_total")
-    (out_dir / "profile_table.txt").write_text(
-        ka.table(sort_by=by_device, row_limit=40) + "\n\n"
-        + ka.table(sort_by="cpu_time_total", row_limit=40))
-    trace = out_dir / "forward_trace.json"
-    prof.export_chrome_trace(str(trace))
-    ev = json.loads(trace.read_text())
-    ev = [e for e in (ev["traceEvents"] if isinstance(ev, dict) else ev) if e.get("ph") == "X"]
 
     nf = PROFILED_FORWARDS
-    dev_ops = sorted((e for e in ev if e.get("cat") in DEVICE_OPS), key=lambda e: e["ts"])
-    counts = {c: sum(e["cat"] == c for e in dev_ops) / nf for c in DEVICE_OPS}
-    busy, end = 0.0, -1.0  # union of device intervals, us
-    for e in dev_ops:
-        s, t = e["ts"], e["ts"] + e["dur"]
-        busy += max(0.0, t - max(s, end))
-        end = max(end, t)
-    span = (dev_ops[-1]["ts"] + dev_ops[-1]["dur"] - dev_ops[0]["ts"]) / nf / 1e3
-    busy_ms = busy / nf / 1e3
-    launches = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith("cudaLaunchKernel")
-                   for e in ev) / nf
-    k1 = [e["dur"] / 1e3 for e in dev_ops if "fused_uvu_conv_fwd" in e["name"]]
-    k1_layers = [float(np.mean(k1[i::4])) for i in range(4)]
-
     per_label = []
+    dev_ops = [e for e in ev if e.get("cat") in DEVICE_OPS]
     for _, _, name in patched:
         host = [e["dur"] for e in ev if e.get("cat") == "user_annotation" and e["name"] == name]
         dev = 0.0
@@ -256,14 +352,50 @@ def profile_forward(model, fwd, data, out_dir, torch):
                          f"device {dev / n / 1e3:.4f} ms/call")
 
     return (
-        f"[7 profile] host wall per forward (synced, unprofiled) ms: median "
+        f"[10 profile forward] host wall per forward (synced, unprofiled) ms: median "
         f"{np.median(wall):.4f} q1 {np.percentile(wall, 25):.4f} q3 {np.percentile(wall, 75):.4f}; "
         "per layer ms (synced): " + ", ".join(f"{n} {t:.4f}" for n, t in zip(names, layer_ms))
-        + f"; under the profiler, per forward: {counts['kernel']:g} kernels, "
-        f"{counts['gpu_memcpy']:g} memcpys, {counts['gpu_memset']:g} memsets, "
-        f"{launches:g} cudaLaunchKernel calls, device busy {busy_ms:.4f} ms of a "
-        f"{span:.4f} ms span ({100 * busy_ms / span:.1f}%); K1 kernel ms per layer "
-        + " / ".join(f"{t:.4f}" for t in k1_layers) + "; " + "; ".join(per_label)
+        + "; under the profiler, per forward: " + device_summary(st) + "; K1 kernel ms per layer "
+        + " / ".join(f"{t:.4f}" for t in st["per_layer"]["fwd"]) + "; " + "; ".join(per_label)
+        + f"; trace and tables in {out_dir}"
+    )
+
+
+def profile_train(trainer, batch, out_dir, torch):
+    """Phase 10b: where the time of one train step goes. Returns the line."""
+    data, targets = batch
+    wall, split = [], np.zeros(3)
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        trainer.train_step(data, targets)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    for _ in range(REPS):
+        trainer.model.train()
+        trainer.optimizer.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        loss = trainer._compute_loss(trainer._preds(data), data, targets)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+        split += np.array([t1 - t0, t2 - t1, time.perf_counter() - t2]) * 1e3 / REPS
+    _, st = traced(lambda: trainer.train_step(data, targets), PROFILED_FORWARDS, out_dir,
+                   "train_step", torch)
+    top = sorted(st["by_kernel"].items(), key=lambda kv: -kv[1])[:6]
+    return (
+        f"[10 profile train] host wall per step (synced, unprofiled) ms: median "
+        f"{np.median(wall):.4f} q1 {np.percentile(wall, 25):.4f} q3 {np.percentile(wall, 75):.4f}; "
+        f"synced split ms: forward+loss {split[0]:.4f}, backward {split[1]:.4f}, "
+        f"optimizer {split[2]:.4f}; under the profiler, per step: " + device_summary(st)
+        + "; kernel ms per layer L0 / L1 / L2 / L3: " + "; ".join(
+            # the backward launches its kernels from the last layer down
+            f"{k} " + " / ".join(f"{t:.4f}" for t in (v if k == "fwd" else v[::-1]))
+            for k, v in st["per_layer"].items())
+        + "; top device kernels ms/step: " + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top)
         + f"; trace and tables in {out_dir}"
     )
 
@@ -271,7 +403,7 @@ def profile_forward(model, fwd, data, out_dir, torch):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
-                    help="also profile the forward and write the trace to DIR")
+                    help="also profile the forward and the train step and write the traces to DIR")
     args = ap.parse_args()
 
     # the run drives one card, cuda:0: leave only the first visible one visible
@@ -286,12 +418,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from matten_tpu.data import keys as K
+    from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import _build
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.models import create_scalar_tensor_model
     from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
     from matten_tpu_torch.predict import batch_to_device, predict
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -314,10 +447,10 @@ def main() -> int:
     ptxas = " | ".join(l.split("info    : ")[-1] for l in log if "Used" in l)
     print(f"[2 build] nvcc sm_90a built+loaded in {build_s:.2f} s; ptxas: {ptxas}", flush=True)
 
-    # flagship batch and the production model
-    structures = flagship_structures()
-    data_np = collate(structures)
-    data = batch_to_device(data_np, dev)
+    # flagship batch, its targets and the production model
+    structures, target_rows = flagship_structures()
+    data_np, targets_np = collate(structures, target_rows)
+    data, targets = batch_to_device(data_np, dev, targets_np)
     model = create_scalar_tensor_model(HPARAMS, DATASET_HPARAMS, device=dev, seed=SEED).eval()
     convs = conv_layers(model)
     n_nodes = data[K.POSITIONS].shape[0]
@@ -327,32 +460,73 @@ def main() -> int:
     sh = (sh * data[K.EDGE_MASK][:, None].float()).contiguous()
     print(f"[batch] {int(data_np[K.NODE_MASK].sum())} real nodes / N={n_nodes}, "
           f"{int(data_np[K.EDGE_MASK].sum())} real edges / E={n_edges}, "
-          f"{int(data_np[K.GRAPH_MASK].sum())} graphs / G={data_np[K.GRAPH_MASK].shape[0]}", flush=True)
+          f"{int(data_np[K.GRAPH_MASK].sum())} graphs / G={data_np[K.GRAPH_MASK].shape[0]}; "
+          f"targets {TARGET} {tuple(targets[TARGET].shape)}", flush=True)
 
     # 3. kernel parity at the 4 production layer plans
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    layer_inputs, parity, max_abs = [], [], 0.0
+    layer_inputs, parity, max_abs = [], [], {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
     for conv in convs:
         plan = conv.uvu_plan
         x = torch.randn(n_nodes, plan.irreps_in1.dim, generator=gen, device=dev)
         w = torch.randn(n_edges, plan.weight_numel, generator=gen, device=dev)
         w = (w * data[K.EDGE_MASK][:, None].float()).contiguous()
-        layer_inputs.append((plan, x, w))
+        g = torch.randn(n_nodes, plan.irreps_out.dim, generator=gen, device=dev)
+        layer_inputs.append((plan, x, w, g))
         with torch.inference_mode():
             out = fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_nodes)
             ref = fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        max_abs = max(max_abs, err)
+        rel = rel_err(out, ref)
+        max_abs["fwd"] = max(max_abs["fwd"], float((out - ref).abs().max()))
         parity.append(f"d1={plan.irreps_in1.dim} dw={plan.weight_numel} "
                       f"dout={plan.irreps_out.dim} paths={len(plan.instructions)}: {rel:.3e}")
         if not rel <= KERNEL_TOL:
             raise AssertionError(f"K1 disagrees with its plain version: {parity[-1]} > {KERNEL_TOL}")
-    print(f"[3 kernel parity] max|d|/max|ref| per layer (tol {KERNEL_TOL}): "
-          + "; ".join(parity) + f"; max|d|={max_abs:.3e}", flush=True)
+    print(f"[3 kernel parity] K1 max|d|/max|ref| per layer (tol {KERNEL_TOL}): "
+          + "; ".join(parity) + f"; max|d|={max_abs['fwd']:.3e}", flush=True)
 
-    # 4. model forward through K1 and through the plain conv
+    # 4. backward kernel parity: the 4 plans, then N = 2600 with the last plan
+    def check_backward(plan, x, w, g, sh_, src_, dst_, n_in):
+        with torch.no_grad():
+            dx = fused_conv.uvu_conv_dx(plan, g, sh_, w, src_, dst_, n_in)
+            dw = fused_conv.uvu_conv_dw(plan, x, g, sh_, src_, dst_)
+            dx_ref = fused_conv.uvu_conv_dx_reference(plan, g, sh_, w, src_, dst_, n_in)
+            dw_ref = fused_conv.uvu_conv_dw_reference(plan, x, g, sh_, src_, dst_)
+        torch.cuda.synchronize()
+        errs = []
+        for kind, out, ref in (("dx", dx, dx_ref), ("dw", dw, dw_ref)):
+            rel = rel_err(out, ref)
+            max_abs[kind] = max(max_abs[kind], float((out - ref).abs().max()))
+            errs.append(f"{kind} {rel:.3e}")
+            if not rel <= KERNEL_TOL:
+                raise AssertionError(f"the {kind} kernel disagrees with its plain version at "
+                                     f"d1={plan.irreps_in1.dim}, N={n_in}: {rel} > {KERNEL_TOL}")
+        return ", ".join(errs)
+
+    bwd_parity = [f"L{i}: " + check_backward(plan, x, w, g, sh, src, dst, n_nodes)
+                  for i, (plan, x, w, g) in enumerate(layer_inputs)]
+    plan = convs[-1].uvu_plan
+    big_e = BIG_N * BIG_DEGREE
+    gen_big = torch.Generator(device=dev).manual_seed(SEED + 1)
+    big = dict(
+        x=torch.randn(BIG_N, plan.irreps_in1.dim, generator=gen_big, device=dev),
+        w=torch.randn(big_e, plan.weight_numel, generator=gen_big, device=dev),
+        g=torch.randn(BIG_N, plan.irreps_out.dim, generator=gen_big, device=dev),
+        sh=torch.randn(big_e, plan.irreps_in2.dim, generator=gen_big, device=dev),
+        src=torch.randint(0, BIG_N, (big_e,), generator=gen_big, device=dev, dtype=torch.int32),
+        dst=torch.sort(torch.randint(0, BIG_N, (big_e,), generator=gen_big, device=dev,
+                                     dtype=torch.int32))[0],
+    )
+    bwd_parity.append(f"N={BIG_N} E={big_e} L3 plan: " + check_backward(
+        plan, big["x"], big["w"], big["g"], big["sh"], big["src"], big["dst"], BIG_N))
+    del big
+    torch.cuda.empty_cache()
+    print(f"[4 backward kernel parity] max|d|/max|ref| (tol {KERNEL_TOL}): "
+          + "; ".join(bwd_parity) + f"; max|d| dx {max_abs['dx']:.3e}, dw {max_abs['dw']:.3e}",
+          flush=True)
+
+    # 5. model forward through K1 and through the plain conv
     real = data[K.GRAPH_MASK]
 
     def fwd():
@@ -375,64 +549,151 @@ def main() -> int:
     if tuple(out_k.shape) != (real.shape[0], 21) or not bool(torch.isfinite(out_k).all()):
         raise AssertionError(f"model output {tuple(out_k.shape)} not finite [G, 21]")
     rel = float((out_k[real] - out_p[real]).abs().max() / out_p[real].abs().max())
-    print(f"[4 model] out {tuple(out_k.shape)}, {int(real.sum())} real rows: "
+    print(f"[5 model] out {tuple(out_k.shape)}, {int(real.sum())} real rows: "
           f"max|d|/max|ref| K1 vs plain = {rel:.3e} (tol {MODEL_TOL}); "
           f"{per_fwd} K1 launches per forward", flush=True)
     if not rel <= MODEL_TOL:
         raise AssertionError(f"model through K1 disagrees with the plain path: {rel}")
 
-    # 5. serving: the main path, counted
-    fused_conv.launches = 0
+    # 6. serving, the first main path, counted
+    reset_counts(fused_conv)
     results = predict(structures + [si_structure()], model, batch_size=32, device=dev)
     torch.cuda.synchronize()
-    served_launches = fused_conv.launches
+    served = counts(fused_conv)
     for i, r in enumerate(results):
         if r is None or r.shape != (3, 3, 3, 3) or not np.isfinite(r).all():
             raise AssertionError(f"predict() result {i} is not a finite [3,3,3,3] tensor")
-    if served_launches == 0:
+    if served["fwd"] == 0:
         raise AssertionError("predict() never launched K1")
     si = results[-1]
-    print(f"[5 serving] predict() on {len(results)} structures: all finite [3,3,3,3]; "
-          f"K1 launches {served_launches}; Si C_1111={si[0, 0, 0, 0]:.6f}", flush=True)
+    print(f"[6 serving] predict() on {len(results)} structures: all finite [3,3,3,3]; "
+          f"launches {served}; Si C_1111={si[0, 0, 0, 0]:.6f}", flush=True)
 
-    # 6. timings (CUDA events, medians of interleaved runs)
+    # 7. train gradients: one step through the kernels vs a deep copy under force_plain
+    task = CanonicalRegressionTask(name=TARGET)
+    config = TrainerConfig(lr=0.01)
+    train_model = create_scalar_tensor_model(HPARAMS, DATASET_HPARAMS, device=dev, seed=SEED)
+    trainer = Trainer(train_model, [task], config, device=dev)
+    trainer_p = Trainer(copy.deepcopy(train_model), [task], config, device=dev)
+
+    def step_grads(tr):
+        tr.model.train()
+        tr.model.zero_grad(set_to_none=True)
+        loss = tr._compute_loss(tr._preds(data), data, targets)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+
+    loss_k, grads_k = step_grads(trainer)
+    with fused_conv.force_plain():
+        loss_p, grads_p = step_grads(trainer_p)
+    grad_err = sorted(((rel_err(grads_k[n], r), n) for n, r in grads_p.items()), reverse=True)
+    print(f"[7 train gradients] loss {loss_k:.6f} through the kernels, {loss_p:.6f} plain; "
+          f"{len(grad_err)} parameters, max|d|/max|ref| per parameter worst: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:3]) + f" (tol {MODEL_TOL})", flush=True)
+    if not grad_err[0][0] <= MODEL_TOL:
+        raise AssertionError(f"train-step gradients disagree with the plain path: {grad_err[0]}")
+    # both models back to the same state: the gradient pass moved the running
+    # statistics of each by its own batch statistics
+    trainer_p.model.load_state_dict(trainer.model.state_dict())
+
+    # 8. train step, the second main path, counted
+    losses, trained = [], {"fwd": 0, "dx": 0, "dw": 0}
+    for _ in range(TRAIN_STEPS):
+        reset_counts(fused_conv)
+        loss, metric_sums = trainer.train_step(data, targets)
+        losses.append(float(loss))
+        step_counts = counts(fused_conv)
+        if any(v != len(convs) for v in step_counts.values()):
+            raise AssertionError(f"launches in one train step {step_counts}, expected "
+                                 f"{len(convs)} of each kernel")
+        trained = {k: trained[k] + v for k, v in step_counts.items()}
+    s_err, n_err = (float(v) for v in metric_sums[TARGET])
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    print(f"[8 train step] {TRAIN_STEPS} Adam steps (lr {config.lr}) of Trainer.train_step: "
+          f"losses {', '.join(f'{l:.6f}' for l in losses)}; last MAE {s_err / n_err:.6f} over "
+          f"{n_err:g} values; launches {trained} ({len(convs)} of each per step)", flush=True)
+
+    # 9. timings (CUDA events, medians of interleaved runs)
     fwd_k, fwd_p = interleaved(fwd, fwd_plain, torch)
-    layer_ms = []
-    for plan, x, w in layer_inputs:
-        with torch.inference_mode():
-            k_ms, p_ms = interleaved(
+
+    def step_plain():
+        with fused_conv.force_plain():
+            trainer_p.train_step(data, targets)
+
+    step_k, step_p = interleaved(lambda: trainer.train_step(data, targets), step_plain, torch)
+    layer_ms = {"fwd": [], "dx": [], "dw": []}
+    bounds = {"fwd": [], "dx": [], "dw": []}
+    for plan, x, w, g in layer_inputs:
+        with torch.no_grad():
+            layer_ms["fwd"].append(interleaved(
                 lambda: fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_nodes),
                 lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes),
                 torch,
-            )
-        layer_ms.append((k_ms, p_ms))
-    torch.cuda.reset_peak_memory_stats()
-    fwd()
-    torch.cuda.synchronize()
-    peak_k = torch.cuda.max_memory_allocated() / 2**20
-    torch.cuda.reset_peak_memory_stats()
-    fwd_plain()
-    torch.cuda.synchronize()
-    peak_p = torch.cuda.max_memory_allocated() / 2**20
-    layers = "; ".join(f"L{i} {k:.4f} vs {p:.4f}" for i, (k, p) in enumerate(layer_ms))
-    print(f"[6 timings] {card}: forward of the flagship batch (32 crystals) median "
-          f"{fwd_k:.4f} ms through K1, {fwd_p:.4f} ms plain; per-layer conv ms K1 vs plain: "
-          f"{layers}; peak memory per forward {peak_k:.1f} MiB K1, {peak_p:.1f} MiB plain",
-          flush=True)
+            ))
+            layer_ms["dx"].append(interleaved(
+                lambda: fused_conv.uvu_conv_dx(plan, g, sh, w, src, dst, n_nodes),
+                lambda: fused_conv.uvu_conv_dx_reference(plan, g, sh, w, src, dst, n_nodes),
+                torch,
+            ))
+            layer_ms["dw"].append(interleaved(
+                lambda: fused_conv.uvu_conv_dw(plan, x, g, sh, src, dst),
+                lambda: fused_conv.uvu_conv_dw_reference(plan, x, g, sh, src, dst),
+                torch,
+            ))
+        for kind, (nbytes, flops) in kernel_work(plan, n_nodes, n_nodes, n_edges).items():
+            bounds[kind].append(bound_ms(nbytes, flops))
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() / 2**20
+
+    peak_fwd = (peak(fwd), peak(fwd_plain))
+    peak_step = (peak(lambda: trainer.train_step(data, targets)), peak(step_plain))
+    per_layer = "; ".join(
+        f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f}" for k, p in layer_ms[kind])
+        for kind in layer_ms)
+    bound_txt = "; ".join(
+        f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
+    print(f"[9 timings] {card}: flagship batch (32 crystals), median ms, kernel vs plain: "
+          f"forward {fwd_k:.4f} vs {fwd_p:.4f}; train step {step_k:.4f} vs {step_p:.4f}; "
+          f"per layer L0 / L1 / L2 / L3: {per_layer}; bound ms per layer: {bound_txt}; "
+          f"peak memory MiB forward {peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, "
+          f"train step {peak_step[0]:.1f} vs {peak_step[1]:.1f}", flush=True)
 
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
+        print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
 
-    kernels = [{
-        "name": "fused_uvu_conv_fwd (K1)",
-        "route": "cuda",
-        "source": "matten_tpu_torch/kernels/csrc/fused_conv.cu",
-        "replaces": "matten_tpu/kernels/fused_conv.py:1012",
-        "launches": served_launches,
-        "max_abs_err": max_abs,
-        "ms": sum(k for k, _ in layer_ms),
-        "plain_ms": sum(p for _, p in layer_ms),
-    }]
+    sources = {"fwd": "matten_tpu_torch/kernels/csrc/fused_conv.cu",
+               "dx": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu",
+               "dw": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu"}
+    replaces = {"fwd": "matten_tpu/kernels/fused_conv.py:1012",
+                "dx": "matten_tpu/kernels/fused_conv.py:1118 and :407",
+                "dw": "matten_tpu/kernels/fused_conv.py:1118 and :552"}
+    names = {"fwd": "fused_uvu_conv_fwd (K1)", "dx": "fused_uvu_conv_dx (K2 dx, K3 transposed)",
+             "dw": "fused_uvu_conv_dw (K2 dw, K4)"}
+    kernels = []
+    for kind in ("fwd", "dx", "dw"):
+        launched = served[kind] + trained[kind]
+        if trained[kind] == 0:
+            raise AssertionError(f"the train step never launched the {kind} kernel")
+        kernels.append({
+            "name": names[kind],
+            "route": "cuda",
+            "source": sources[kind],
+            "replaces": replaces[kind],
+            "launches": launched,
+            "max_abs_err": max_abs[kind],
+            "ms": sum(k for k, _ in layer_ms[kind]),
+            "plain_ms": sum(p for _, p in layer_ms[kind]),
+            "bound_ms": sum(b for b, _ in bounds[kind]),
+            "bound_by": bound_by(bounds[kind]),
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles every `csrc/*.cu` of this package into one shared library
-with a plain C interface for sm_90a (Hopper), at first use, into
+At first use, `nvcc` compiles every `csrc/*.cu` of this package for sm_90a
+(Hopper), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, in
 `matten_tpu_torch/_build/<hash of the sources>/`; the library is loaded
 with ctypes. A changed source gets a new directory, so a stale build is
 never loaded. A failed build raises with the compiler's output.
@@ -23,7 +24,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 LIB_NAME = "libmatten_tpu_torch_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -60,20 +61,38 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
+    log, objs, procs = [], [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        fd, obj = tempfile.mkstemp(suffix=".o", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib_path)
+    try:
+        failed = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{out}")
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        (out_dir / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(tmp, lib_path)
+    finally:
+        for f in objs + [tmp]:
+            if os.path.exists(f):
+                os.unlink(f)
     return lib_path
 
 
@@ -86,7 +105,13 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_uvu_conv_fwd.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.fused_uvu_conv_fwd.restype = ctypes.c_int
-    lib.fused_uvu_conv_fwd_smem.argtypes = [i] * 5
-    lib.fused_uvu_conv_fwd_smem.restype = ctypes.c_size_t
+    lib.fused_uvu_conv_dx.argtypes = [p] * 13 + [i] * 6 + [p]
+    lib.fused_uvu_conv_dx.restype = ctypes.c_int
+    lib.fused_uvu_conv_dw.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.fused_uvu_conv_dw.restype = ctypes.c_int
+    for kind in ("fwd", "dx", "dw"):
+        fn = getattr(lib, f"fused_uvu_conv_{kind}_smem")
+        fn.argtypes = [i] * 5
+        fn.restype = ctypes.c_size_t
     _lib = lib
     return lib

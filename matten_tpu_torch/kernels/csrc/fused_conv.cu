@@ -31,11 +31,9 @@
 // bandwidth and by one block per node; wgmma/TMA staging and splitting
 // high-degree nodes are later work.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#define THREADS 256
-#define EDGES_PER_STAGE 4
+#include "fused_conv_common.cuh"
 
 __global__ void __launch_bounds__(THREADS) fused_uvu_conv_fwd_kernel(
     const float* __restrict__ x,         // [n_in, d1]
@@ -79,16 +77,7 @@ __global__ void __launch_bounds__(THREADS) fused_uvu_conv_fwd_kernel(
     __syncthreads();
 
     // t_e = CG blocks contracted with sh, shared by every channel u
-    for (int idx = tid; idx < nj * n_t; idx += THREADS) {
-      const int j = idx / n_t;
-      const int i = idx - j * n_t;
-      const int4 tm = __ldg(t_meta + i);
-      const float* c = cg + tm.x;
-      const float* y = shs + j * d2 + tm.y;
-      float s = 0.f;
-      for (int m2 = 0; m2 < tm.z; ++m2) s = fmaf(__ldg(c + m2), y[m2], s);
-      ts[j * n_t + i] = s;
-    }
+    contract_sh(shs, ts, t_meta, cg, nj, d2, n_t);
     __syncthreads();
 
     // each thread owns output components o = tid + k * THREADS

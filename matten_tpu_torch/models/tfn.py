@@ -8,7 +8,7 @@ Counterpart of `matten_tpu/models/tfn.py` for the graph-level model:
   -> equivariant Linear head into the irreps of `output_formula`.
 
 Parameters are drawn from a seeded `torch.Generator` on the CPU and the
-model is then moved to `device`.
+model is then moved to `device`, the card unless the caller passes another.
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
-from matten_tpu.data import keys as K
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.conv import PointConv, PointConvWithActivation
 from matten_tpu_torch.nn.common import normal_parameter
 from matten_tpu_torch.nn.edge_geometry import SphericalHarmonicEdgeAttrs
@@ -147,10 +147,11 @@ class ScalarTensorModel(torch.nn.Module):
 def create_scalar_tensor_model(
     hparams: Dict[str, Any],
     dataset_hparams: Dict[str, Any],
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
     seed: int = 0,
 ) -> ScalarTensorModel:
-    """Build the model with N(0, 1) weights from `torch.Generator(seed)`."""
+    """Build the model with N(0, 1) weights from `torch.Generator(seed)` on
+    `device` (default: the card; pass "cpu" for the CPU)."""
     generator = torch.Generator().manual_seed(seed)
     hidden = Irreps(hparams["conv_to_output_hidden_irreps_out"])
     backbone = create_tfn_backbone(

@@ -12,7 +12,7 @@ from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.ops.irreps import Irreps
 
 IrrepsDict = Dict[str, Optional[Irreps]]
 

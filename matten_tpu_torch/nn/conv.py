@@ -17,8 +17,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from matten_tpu.data import keys as K
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.kernels.fused_conv import fused_uvu_conv
 from matten_tpu_torch.nn.common import check_required, merge_irreps, normal_parameter
 from matten_tpu_torch.nn.gate import ActivationInfo, Gate

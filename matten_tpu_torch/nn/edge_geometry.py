@@ -1,7 +1,7 @@
 """Spherical-harmonic edge attributes from precomputed edge vectors.
 
 Counterpart of `matten_tpu/nn/edge_geometry.py` for the serving path:
-collation (`matten_tpu.data.graph.collate_graphs`) attaches EDGE_VECTORS
+collation (`matten_tpu_torch.data.graph.collate_graphs`) attaches EDGE_VECTORS
 host-side, vec = pos[dst] - pos[src] + shift @ cell, zero on padding edges.
 """
 
@@ -11,8 +11,8 @@ from typing import Dict, Mapping
 
 import torch
 
-from matten_tpu.data import keys as K
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps
 from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
 

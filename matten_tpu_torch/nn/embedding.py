@@ -10,8 +10,8 @@ from typing import Dict, Mapping, Sequence
 import numpy as np
 import torch
 
-from matten_tpu.data import keys as K
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps
 from matten_tpu_torch.nn.edge_geometry import with_edge_vectors
 from matten_tpu_torch.nn.radial import bessel_basis

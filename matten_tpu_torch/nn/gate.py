@@ -13,7 +13,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from matten_tpu.ops.irreps import Irrep, Irreps, tp_path_exists
+from matten_tpu_torch.ops.irreps import Irrep, Irreps, tp_path_exists
 from matten_tpu_torch.nn.radial import normalize2mom
 
 __all__ = ["ActivationInfo", "Gate"]

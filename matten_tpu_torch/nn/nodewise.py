@@ -10,8 +10,8 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
-from matten_tpu.data import keys as K
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps, normal_parameter
 from matten_tpu_torch.ops.scatter import scatter_mean, scatter_sum
 from matten_tpu_torch.ops.tensor_product import LinearPlan

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.ops.irreps import Irreps
 
 __all__ = ["IrrepsBatchNorm"]
 

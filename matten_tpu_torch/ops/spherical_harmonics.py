@@ -14,8 +14,8 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from matten_tpu.ops.irreps import Irreps
-from matten_tpu.ops.wigner import wigner_3j
+from matten_tpu_torch.ops.irreps import Irreps
+from matten_tpu_torch.ops.wigner import wigner_3j
 
 __all__ = ["spherical_harmonics"]
 

@@ -16,8 +16,8 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from matten_tpu.ops.irreps import Irrep, Irreps
-from matten_tpu.ops.wigner import wigner_3j
+from matten_tpu_torch.ops.irreps import Irrep, Irreps
+from matten_tpu_torch.ops.wigner import wigner_3j
 
 __all__ = [
     "Instruction",

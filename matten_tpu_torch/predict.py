@@ -16,11 +16,11 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from matten_tpu.data.graph import CrystalGraph, collate_graphs, pad_spec_for
-from matten_tpu.data.neighborlist import NeighborListError
-from matten_tpu.data.structure import Structure
-from matten_tpu.data.transform import MeanNormNormalize
-from matten_tpu.ops.elasticity import ElasticTensor
+from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+from matten_tpu_torch.data.neighborlist import NeighborListError
+from matten_tpu_torch.data.structure import Structure
+from matten_tpu_torch.data.transform import MeanNormNormalize
+from matten_tpu_torch.ops.elasticity import ElasticTensor
 from matten_tpu_torch.models.tfn import ScalarTensorModel
 from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
@@ -42,9 +42,13 @@ def check_species(structures: Sequence[Structure], allowed_species) -> None:
             )
 
 
-def batch_to_device(data, device) -> dict:
-    """Collated numpy batch -> dict of tensors on `device`."""
-    return {k: torch.as_tensor(v).to(device) for k, v in data.items()}
+def batch_to_device(data, device, targets=None):
+    """Collated numpy batch -> dict of tensors on `device`; with the targets
+    dict of the same collation, (data, targets) both on `device`."""
+    moved = {k: torch.as_tensor(v).to(device) for k, v in data.items()}
+    if targets is None:
+        return moved
+    return moved, {k: torch.as_tensor(v).to(device) for k, v in targets.items()}
 
 
 def predict(

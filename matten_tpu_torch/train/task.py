@@ -1,0 +1,82 @@
+"""Task definitions: loss + metric + transform hook per prediction target.
+
+Counterpart of `matten_tpu/train/task.py` on torch tensors, single device:
+the sums reduce over the local batch only (the JAX functions' `psum`
+arguments belong to its sharded steps and have no counterpart here).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+
+from matten_tpu_torch.data.transform import MeanNormNormalize
+
+__all__ = [
+    "Task",
+    "CanonicalRegressionTask",
+    "masked_mse_sums",
+    "masked_mse",
+    "masked_abs_err_sum",
+]
+
+
+@dataclass
+class Task:
+    name: str
+    loss_weight: float = 1.0
+    metric_weight: float = 1.0
+    per_atom: bool = False  # per-node target masked by atom_selector
+    normalizer: Optional[MeanNormNormalize] = None  # inverse before metrics
+
+    def transform_for_metric(self, x: torch.Tensor) -> torch.Tensor:
+        """Map loss-space values to metric space (denormalization)."""
+        n = self.normalizer
+        if n is not None and n.initialized:
+            norm = torch.as_tensor(n.norm * n.scale, dtype=x.dtype, device=x.device)
+            return x * norm + torch.as_tensor(n.mean, dtype=x.dtype, device=x.device)
+        return x
+
+
+class CanonicalRegressionTask(Task):
+    """MSE loss + MAE metric."""
+
+
+def masked_mse_sums(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of squared errors, element count) over rows where mask is True."""
+    m = mask.to(pred.dtype)
+    if sample_weight is not None:
+        m = m * sample_weight.to(pred.dtype)
+    se = ((pred - target) ** 2).sum(-1) * m
+    return se.sum(), m.sum() * pred.shape[-1]
+
+
+def masked_mse(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean squared error over rows where mask is True.
+
+    pred/target: [R, D]; mask: [R] bool; sample_weight: [R] or None. Mean
+    over real rows x D elements (torch `mse_loss` over the unmasked subset).
+    """
+    num, den = masked_mse_sums(pred, target, mask, sample_weight)
+    return num / den.clamp_min(1.0)
+
+
+def masked_abs_err_sum(
+    pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum |err|, element count) for streaming MAE accumulation."""
+    m = mask.to(pred.dtype)
+    ae = (pred - target).abs().sum(-1) * m
+    return ae.sum(), m.sum() * pred.shape[-1]

@@ -1,21 +1,24 @@
-"""The port's CUDA kernel on the card, held against its plain PyTorch version.
+"""The port's CUDA kernels on the card, held against their plain PyTorch versions.
 
-Marked `gpu`; each test skips without a CUDA device (the kernel has no CPU
+Marked `gpu`; each test skips without a CUDA device (the kernels have no CPU
 mode). The GPU machine has no JAX, and tests/conftest.py imports it, so run
 this file there without the conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
-Tolerances: kernel vs plain rtol=atol=1e-5 (float32, another summation
-order); the model, 2 conv layers deep, 1e-4.
+Tolerances: K1 vs plain rtol=atol=1e-5 (float32, another summation
+order); the dx and dw kernels vs plain max|d| <= 1e-5 max|ref| (their sums
+run over up to ~30 edges of both signs, so single small entries cancel);
+the model, 2 conv layers deep, 1e-4, its parameter gradients 1e-4 relative
+to each parameter's largest gradient.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from matten_tpu.data import keys as K
-from matten_tpu.ops.irreps import Irreps
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.kernels import fused_conv
 from matten_tpu_torch.ops.tensor_product import uvu_tp_plan
 
@@ -31,6 +34,11 @@ def dev():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda", 0)
+
+
+def _assert_rel(out, ref, tol=1e-5):
+    err = float((out - ref).abs().max())
+    assert err <= tol * float(ref.abs().max()), (err, float(ref.abs().max()))
 
 
 def _inputs(dev, seed, n_in, n_out, e):
@@ -79,17 +87,48 @@ def test_kernel_rejects_bad_inputs(dev):
         fused_conv.fused_uvu_conv(plan, t["x"].cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
 
 
-def test_backward_raises(dev):
-    plan, t = _inputs(dev, 3, 24, 24, 100)
-    w = t["w"].requires_grad_()
-    out = fused_conv.fused_uvu_conv(plan, t["x"], t["sh"], w, t["src"], t["dst"], 24)
-    with pytest.raises(NotImplementedError, match="K2"):
-        out.sum().backward()
+@pytest.mark.parametrize(
+    "n_in,n_out,e", [(24, 24, 300), (40, 16, 500), (7, 5, 1), (2600, 2600, 40000)]
+)
+def test_backward_kernels_match_plain(dev, n_in, n_out, e):
+    plan, t = _inputs(dev, 3, n_in, n_out, e)
+    g = torch.randn(n_out, plan.irreps_out.dim, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    before = (fused_conv.dx_launches, fused_conv.dw_launches)
+    dx = fused_conv.uvu_conv_dx(plan, g, t["sh"], t["w"], t["src"], t["dst"], n_in)
+    dw = fused_conv.uvu_conv_dw(plan, t["x"], g, t["sh"], t["src"], t["dst"])
+    torch.cuda.synchronize()
+    assert (fused_conv.dx_launches, fused_conv.dw_launches) == (before[0] + 1, before[1] + 1)
+    dx_ref = fused_conv.uvu_conv_dx_reference(plan, g, t["sh"], t["w"], t["src"], t["dst"], n_in)
+    dw_ref = fused_conv.uvu_conv_dw_reference(plan, t["x"], g, t["sh"], t["src"], t["dst"])
+    _assert_rel(dx, dx_ref)
+    _assert_rel(dw, dw_ref)
+    # the autograd backward of K1 launches the same kernels (dsh by the plain version)
+    x, sh, w = (t[k].clone().requires_grad_() for k in ("x", "sh", "w"))
+    out = fused_conv.fused_uvu_conv(plan, x, sh, w, t["src"], t["dst"], n_out)
+    out.backward(g)
+    assert (fused_conv.dx_launches, fused_conv.dw_launches) == (before[0] + 2, before[1] + 2)
+    _assert_rel(x.grad, dx_ref)
+    _assert_rel(w.grad, dw_ref)
+    with torch.enable_grad():
+        s2 = t["sh"].clone().requires_grad_()
+        ref = fused_conv.uvu_conv_reference(plan, t["x"], s2, t["w"], t["src"], t["dst"], n_out)
+        (dsh_ref,) = torch.autograd.grad(ref, s2, g)
+    _assert_rel(sh.grad, dsh_ref, 1e-4)
+
+
+def test_backward_kernels_reject_bad_inputs(dev):
+    plan, t = _inputs(dev, 4, 24, 24, 100)
+    g = torch.ones(24, plan.irreps_out.dim, device=dev)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        fused_conv.uvu_conv_dw(plan, t["x"], g, t["sh"], t["src"], t["dst"].flip(0).contiguous())
+    with pytest.raises(ValueError, match="mixed devices"):
+        fused_conv.uvu_conv_dx(plan, g.cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
 
 
 def test_model_forward_through_kernel(dev):
-    from matten_tpu.data.graph import CrystalGraph, collate_graphs, pad_spec_for
-    from matten_tpu.data.structure import Structure
+    from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+    from matten_tpu_torch.data.structure import Structure
     from matten_tpu_torch.models import create_scalar_tensor_model
     from matten_tpu_torch.nn.embedding import atomic_number_map
     from matten_tpu_torch.predict import batch_to_device
@@ -126,3 +165,21 @@ def test_model_forward_through_kernel(dev):
     np.testing.assert_allclose(
         out[real].cpu().numpy(), ref[real].cpu().numpy(), rtol=1e-4, atol=1e-4
     )
+
+    # backward through the kernels against the plain path (eval mode: the
+    # batch statistics of two forwards would differ only in the last bits)
+    def grads():
+        model.zero_grad(set_to_none=True)
+        model(data)[real].square().sum().backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = (fused_conv.launches, fused_conv.dx_launches, fused_conv.dw_launches)
+    got = grads()
+    assert (fused_conv.launches, fused_conv.dx_launches, fused_conv.dw_launches) == tuple(
+        b + 3 for b in before)
+    with fused_conv.force_plain():
+        ref = grads()
+    for n, r in ref.items():
+        scale = float(r.abs().max().clamp_min(1e-12))
+        np.testing.assert_allclose((got[n] / scale).cpu().numpy(), (r / scale).cpu().numpy(),
+                                   atol=1e-4, err_msg=n)

@@ -1,13 +1,16 @@
-"""The torch port runs without JAX.
+"""The torch port runs without JAX and without the JAX package.
 
-The GPU machine has no jax, flax, optax or orbax, so neither the port's
-sources nor chip_smoke.py may import them, or the modules of `matten_tpu`
-that pull them in. The runtime check runs in a subprocess because this
-test process has imported jax already (tests/conftest.py).
+The GPU machine has no jax, flax, optax or orbax, and the port stands
+alone: neither its sources nor chip_smoke.py may import JAX or anything of
+`matten_tpu` (it keeps its own copies of the numpy modules it shares with
+it). The runtime checks run in subprocesses because this test process has
+imported jax already (tests/conftest.py): one in the repo, one with
+`matten_tpu_torch/` copied alone into an empty directory.
 """
 
 import ast
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -15,14 +18,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = (
-    "jax", "flax", "optax", "orbax",
-    "matten_tpu.nn", "matten_tpu.kernels", "matten_tpu.train", "matten_tpu.models",
-    "matten_tpu.predict", "matten_tpu.parallel", "matten_tpu.utils",
-    "matten_tpu.data.datamodule", "matten_tpu.data.dataset",
-    "matten_tpu.ops.tensor_product", "matten_tpu.ops.spherical_harmonics",
-    "matten_tpu.ops.cartesian", "matten_tpu.ops.scatter",
-)
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "matten_tpu")
 SOURCES = sorted((ROOT / "matten_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -49,29 +45,58 @@ import sys
 import numpy as np
 import torch
 torch.set_num_threads(2)
-from matten_tpu.data.structure import Structure
+from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+from matten_tpu_torch.data.structure import Structure
 from matten_tpu_torch.models import create_scalar_tensor_model
-from matten_tpu_torch.predict import predict
+from matten_tpu_torch.nn.embedding import atomic_number_map
+from matten_tpu_torch.predict import batch_to_device, predict
+from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
 hp = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o+2e", num_layers=1,
           invariant_layers=1, invariant_neurons=4, average_num_neighbors=30.0,
           conv_layer_irreps="2x0o+2x0e+1x1o+1x1e+1x2e", normalization="batch",
           conv_to_output_hidden_irreps_out="2x0e+2e+4e")
-model = create_scalar_tensor_model(hp, dict(allowed_species=[14]))
+model = create_scalar_tensor_model(hp, dict(allowed_species=[14]), device="cpu")
 si = Structure(lattice=np.array([[0, 2.73, 2.73], [2.73, 0, 2.73], [2.73, 2.73, 0]]),
                frac_coords=[[0, 0, 0], [0.25, 0.25, 0.25]], atomic_numbers=[14, 14])
 out = predict(si, model)
 assert out.shape == (3, 3, 3, 3) and np.isfinite(out).all()
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax"))
+g = CrystalGraph.from_structure(si, r_cut=5.0)
+g.y["elastic_tensor_full"] = np.ones((1, 21))
+data, targets = collate_graphs([g], pad_spec_for([g]), species_map=atomic_number_map([14]))
+trainer = Trainer(model, [CanonicalRegressionTask(name="elastic_tensor_full")],
+                  TrainerConfig(), device="cpu")
+loss, _ = trainer.train_step(*batch_to_device(data, "cpu", targets))
+assert torch.isfinite(loss)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "matten_tpu"))
 print("LOADED", loaded)
 """
 
 
-def test_port_forward_leaves_jax_unloaded():
+def _run(cwd: Path):
     # one BLAS thread: the suite runs in several workers at once
-    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(cwd), OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", RUN], cwd=ROOT, env=env, capture_output=True, text=True,
+        [sys.executable, "-c", RUN], cwd=cwd, env=env, capture_output=True, text=True,
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_port_forward_leaves_jax_unloaded():
+    """predict() and one train step in the repo load neither JAX nor
+    `matten_tpu`."""
+    _run(ROOT)
+
+
+def test_port_runs_copied_alone(tmp_path):
+    """The same with `matten_tpu_torch/` alone in an empty directory: the
+    package needs no other file of the repo (its builds go to its own
+    `_build/`, which is not copied)."""
+    shutil.copytree(
+        ROOT / "matten_tpu_torch", tmp_path / "matten_tpu_torch",
+        ignore=shutil.ignore_patterns("_build", "__pycache__"),
+    )
+    _run(tmp_path)
+    assert (tmp_path / "matten_tpu_torch" / "_build").is_dir()

@@ -27,6 +27,7 @@ from matten_tpu.nn.conv import PointConvWithActivation as JaxPointConvWithActiva
 from matten_tpu.ops.cartesian import cartesian_tensor_map
 from matten_tpu.ops.irreps import Irreps
 from matten_tpu_torch.convert import flax_to_state_dict
+from matten_tpu_torch.data.structure import Structure as PortStructure
 from matten_tpu_torch.models import create_scalar_tensor_model
 from matten_tpu_torch.nn.conv import PointConv, PointConvWithActivation
 from matten_tpu_torch.nn.embedding import atomic_number_map
@@ -176,7 +177,7 @@ def case(request):
     jd = {k: jnp.asarray(v) for k, v in data.items()}
     variables = _fill(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jd)), seed=s)
     ref = np.asarray(jax.jit(lambda v, d: jm.apply(v, d, use_running_average=True))(variables, jd))
-    tm = create_scalar_tensor_model(HPARAMS, ds)
+    tm = create_scalar_tensor_model(HPARAMS, ds, device="cpu")
     return dict(
         data=data, ref=ref, variables=variables, structures=structures,
         model=_load(tm, variables),
@@ -221,9 +222,11 @@ def test_predict_matches_jax(case):
     )
     # a lone atom in a 20 A cell has no neighbours within 5 A: its graph
     # cannot be built and its result is None
-    lone = Structure(lattice=np.eye(3) * 20.0, frac_coords=[[0, 0, 0]],
-                     atomic_numbers=[case["structures"][0].atomic_numbers[0]])
-    first, second = case["structures"]
+    lone = PortStructure(lattice=np.eye(3) * 20.0, frac_coords=[[0, 0, 0]],
+                         atomic_numbers=[case["structures"][0].atomic_numbers[0]])
+    # the port's own Structure, with the JAX side's values
+    first, second = (PortStructure(s.lattice, s.frac_coords, s.atomic_numbers)
+                     for s in case["structures"])
     results = predict([first, lone, second], case["model"], statistics=stats)
     assert len(results) == 3 and results[1] is None
     for i, r in enumerate(results[::2]):
