@@ -9,11 +9,14 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      one process per source, all started together;
   3. kernel parity: the fused uvu conv kernel (K1) against its plain PyTorch
      version at the 4 conv-layer plans of the production elasticity model,
-     on the flagship batch's real edges, seeded random x and w;
-  4. backward kernel parity: the dx and dw kernels against their plain
-     versions at the same 4 plans with a seeded cotangent g, and at N = 2600
-     nodes with the last layer's plan (the regime where the JAX package
-     leaves its resident-node kernels);
+     on the flagship batch's real edges, seeded random x and w, and at
+     N = 2600 nodes with the last layer's plan (the regime where the JAX
+     package leaves its resident-node kernels for K3);
+  4. backward kernel parity at the same 4 plans with a seeded cotangent g
+     and at N = 2600: the merged backward kernel's dw and per-edge dx rows
+     against their plain versions, the dx segment sum against index_add_ of
+     the same rows, dx and dw of `uvu_conv_bwd` against the plain backward,
+     and two runs of `uvu_conv_bwd` bitwise equal;
   5. model: the production ScalarTensorModel (seeded random weights) on the
      flagship batch through K1 and through the plain conv; exactly 4 K1
      launches per forward;
@@ -24,9 +27,12 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      against a deep copy of the model under `force_plain()`;
   8. train step, the second main path: `Trainer.train_step` (Adam, lr 0.01)
      on the flagship batch and its targets, a few steps; exactly 4 launches
-     of each of K1, dx and dw per step, finite losses;
+     of each of K1, the merged backward and the dx segment sum per step,
+     finite losses;
   9. timings with CUDA events, kernel against plain, interleaved: the
-     forward and the train step, K1, dx and dw per layer; peak memory.
+     forward and the train step; per layer K1, the merged backward (against
+     the plain backward) and the dx segment sum (against the plain sum and
+     index_add_); each beside its bound; peak memory.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
@@ -185,21 +191,24 @@ def conv_layers(model):
 def kernel_work(plan, n_in, n_out, n_edges):
     """(bytes, float32 operations) each kernel's function needs at one
     layer: every input read once and every output written once; operations
-    as the kernels' arithmetic counts them (2 per multiply-add)."""
+    as the kernels' arithmetic counts them (2 per multiply-add, 1 per add).
+    "bwd" is the whole merged backward, g, sh, w, x, src, dst -> dx, dw;
+    "reduce" the dx segment sum alone, dxe, perm, row_ptr -> dx."""
     from matten_tpu_torch.kernels.fused_conv import kernel_tables
 
     tab = kernel_tables(plan)
     d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
     sh_terms = int(tab.t_meta[:, 2].sum())  # multiply-adds of t_e = C . sh per edge
     x_terms = int((tab.out_meta[:, 3] & 0xFFFF).sum())  # sum over outputs of d1
+    w_terms = int(((tab.out_meta[:, 3] & 0xFFFF) / (tab.out_meta[:, 3] >> 16)).sum())  # sum over weights of d1
     edge_idx = 2 * 4 * n_edges  # src, dst int32
     return {
         "fwd": (4 * (n_in * d1 + n_edges * (d2 + dw) + n_out * dout) + edge_idx,
                 n_edges * 2 * (sh_terms + x_terms + dout) + n_out * dout),
-        "dx": (4 * (n_out * dout + n_edges * (d2 + dw) + n_in * d1) + edge_idx,
-               n_edges * 2 * (sh_terms + x_terms + dout)),
-        "dw": (4 * (n_in * d1 + n_out * dout + n_edges * (d2 + dw)) + edge_idx,
-               n_edges * 2 * (sh_terms + x_terms + dout) + n_out * dout),
+        "bwd": (4 * (n_out * dout + n_edges * (d2 + dw) + n_in * d1 + n_in * d1 + n_edges * dw)
+                + edge_idx,
+                n_edges * 2 * (sh_terms + x_terms + 2 * w_terms)),
+        "reduce": (4 * (n_edges * d1 + n_edges + n_in + 1 + n_in * d1), n_edges * d1),
     }
 
 
@@ -222,16 +231,17 @@ def rel_err(out, ref):
 
 
 def counts(fused_conv):
-    return {"fwd": fused_conv.launches, "dx": fused_conv.dx_launches, "dw": fused_conv.dw_launches}
+    return {"fwd": fused_conv.launches, "bwd": fused_conv.bwd_launches,
+            "reduce": fused_conv.dx_reduce_launches}
 
 
 def reset_counts(fused_conv):
-    fused_conv.launches = fused_conv.dx_launches = fused_conv.dw_launches = 0
+    fused_conv.launches = fused_conv.bwd_launches = fused_conv.dx_reduce_launches = 0
 
 
 PROFILED_FORWARDS = 5
 DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNEL_NAMES = {"fwd": "fused_uvu_conv_fwd", "dx": "fused_uvu_conv_dx", "dw": "fused_uvu_conv_dw"}
+KERNEL_NAMES = {"fwd": "fused_uvu_conv_fwd", "bwd": "fused_uvu_conv_bwd", "reduce": "uvu_conv_dx_reduce"}
 
 
 def traced(fn, n, out_dir, name, torch):
@@ -386,6 +396,7 @@ def profile_train(trainer, batch, out_dir, torch):
     _, st = traced(lambda: trainer.train_step(data, targets), PROFILED_FORWARDS, out_dir,
                    "train_step", torch)
     top = sorted(st["by_kernel"].items(), key=lambda kv: -kv[1])[:6]
+    conv_ms = {k: sum(t for n, t in st["by_kernel"].items() if kn in n) for k, kn in KERNEL_NAMES.items()}
     return (
         f"[10 profile train] host wall per step (synced, unprofiled) ms: median "
         f"{np.median(wall):.4f} q1 {np.percentile(wall, 25):.4f} q3 {np.percentile(wall, 75):.4f}; "
@@ -395,6 +406,7 @@ def profile_train(trainer, batch, out_dir, torch):
             # the backward launches its kernels from the last layer down
             f"{k} " + " / ".join(f"{t:.4f}" for t in (v if k == "fwd" else v[::-1]))
             for k, v in st["per_layer"].items())
+        + "; conv kernels device ms/step: " + ", ".join(f"{k} {t:.4f}" for k, t in conv_ms.items())
         + "; top device kernels ms/step: " + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top)
         + f"; trace and tables in {out_dir}"
     )
@@ -422,6 +434,7 @@ def main() -> int:
     from matten_tpu_torch.kernels import _build
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.ops.scatter import scatter_sum
     from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
     from matten_tpu_torch.predict import batch_to_device, predict
     from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
@@ -463,9 +476,23 @@ def main() -> int:
           f"{int(data_np[K.GRAPH_MASK].sum())} graphs / G={data_np[K.GRAPH_MASK].shape[0]}; "
           f"targets {TARGET} {tuple(targets[TARGET].shape)}", flush=True)
 
-    # 3. kernel parity at the 4 production layer plans
+    # 3. kernel parity at the 4 production layer plans, then N = 2600 with the last plan
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    layer_inputs, parity, max_abs = [], [], {"fwd": 0.0, "dx": 0.0, "dw": 0.0}
+    layer_inputs, parity = [], []
+    max_abs = {"fwd": 0.0, "bwd": 0.0, "reduce": 0.0}
+
+    def check_forward(plan, x, w, sh_, src_, dst_, n_out):
+        with torch.inference_mode():
+            out = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out)
+            ref = fused_conv.uvu_conv_reference(plan, x, sh_, w, src_, dst_, n_out)
+        torch.cuda.synchronize()
+        rel = rel_err(out, ref)
+        max_abs["fwd"] = max(max_abs["fwd"], float((out - ref).abs().max()))
+        if not rel <= KERNEL_TOL:
+            raise AssertionError(f"K1 disagrees with its plain version at d1={plan.irreps_in1.dim}, "
+                                 f"N={n_out}: {rel} > {KERNEL_TOL}")
+        return f"{rel:.3e}"
+
     for conv in convs:
         plan = conv.uvu_plan
         x = torch.randn(n_nodes, plan.irreps_in1.dim, generator=gen, device=dev)
@@ -473,39 +500,9 @@ def main() -> int:
         w = (w * data[K.EDGE_MASK][:, None].float()).contiguous()
         g = torch.randn(n_nodes, plan.irreps_out.dim, generator=gen, device=dev)
         layer_inputs.append((plan, x, w, g))
-        with torch.inference_mode():
-            out = fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_nodes)
-            ref = fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes)
-        torch.cuda.synchronize()
-        rel = rel_err(out, ref)
-        max_abs["fwd"] = max(max_abs["fwd"], float((out - ref).abs().max()))
         parity.append(f"d1={plan.irreps_in1.dim} dw={plan.weight_numel} "
-                      f"dout={plan.irreps_out.dim} paths={len(plan.instructions)}: {rel:.3e}")
-        if not rel <= KERNEL_TOL:
-            raise AssertionError(f"K1 disagrees with its plain version: {parity[-1]} > {KERNEL_TOL}")
-    print(f"[3 kernel parity] K1 max|d|/max|ref| per layer (tol {KERNEL_TOL}): "
-          + "; ".join(parity) + f"; max|d|={max_abs['fwd']:.3e}", flush=True)
-
-    # 4. backward kernel parity: the 4 plans, then N = 2600 with the last plan
-    def check_backward(plan, x, w, g, sh_, src_, dst_, n_in):
-        with torch.no_grad():
-            dx = fused_conv.uvu_conv_dx(plan, g, sh_, w, src_, dst_, n_in)
-            dw = fused_conv.uvu_conv_dw(plan, x, g, sh_, src_, dst_)
-            dx_ref = fused_conv.uvu_conv_dx_reference(plan, g, sh_, w, src_, dst_, n_in)
-            dw_ref = fused_conv.uvu_conv_dw_reference(plan, x, g, sh_, src_, dst_)
-        torch.cuda.synchronize()
-        errs = []
-        for kind, out, ref in (("dx", dx, dx_ref), ("dw", dw, dw_ref)):
-            rel = rel_err(out, ref)
-            max_abs[kind] = max(max_abs[kind], float((out - ref).abs().max()))
-            errs.append(f"{kind} {rel:.3e}")
-            if not rel <= KERNEL_TOL:
-                raise AssertionError(f"the {kind} kernel disagrees with its plain version at "
-                                     f"d1={plan.irreps_in1.dim}, N={n_in}: {rel} > {KERNEL_TOL}")
-        return ", ".join(errs)
-
-    bwd_parity = [f"L{i}: " + check_backward(plan, x, w, g, sh, src, dst, n_nodes)
-                  for i, (plan, x, w, g) in enumerate(layer_inputs)]
+                      f"dout={plan.irreps_out.dim} paths={len(plan.instructions)}: "
+                      + check_forward(plan, x, w, sh, src, dst, n_nodes))
     plan = convs[-1].uvu_plan
     big_e = BIG_N * BIG_DEGREE
     gen_big = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -518,12 +515,48 @@ def main() -> int:
         dst=torch.sort(torch.randint(0, BIG_N, (big_e,), generator=gen_big, device=dev,
                                      dtype=torch.int32))[0],
     )
+    parity.append(f"N={BIG_N} E={big_e} L3 plan: " + check_forward(
+        plan, big["x"], big["w"], big["sh"], big["src"], big["dst"], BIG_N))
+    print(f"[3 kernel parity] K1 max|d|/max|ref| (tol {KERNEL_TOL}): "
+          + "; ".join(parity) + f"; max|d|={max_abs['fwd']:.3e}", flush=True)
+
+    # 4. backward kernel parity: the 4 plans, then N = 2600 with the last plan
+    def check_backward(plan, x, w, g, sh_, src_, dst_, n_in):
+        with torch.no_grad():
+            dxe, dw = fused_conv._launch_bwd_edges(plan, x, g, sh_, w, src_, dst_)
+            dx = fused_conv._launch_dx_reduce(dxe, fused_conv.src_order(src_, n_in), n_in)
+            dx2, dw2 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
+            dx3, dw3 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
+            dxe_ref = fused_conv.uvu_conv_dxe_reference(plan, g, sh_, w, dst_)
+            dx_sum = torch.zeros_like(dx).index_add_(0, src_.long(), dxe)
+            dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(plan, x, g, sh_, w, src_, dst_, n_in)
+        torch.cuda.synchronize()
+        errs = []
+        for kind, name, out, ref in (("bwd", "dw", dw, dw_ref), ("bwd", "dxe", dxe, dxe_ref),
+                                     ("reduce", "dx sum", dx, dx_sum),
+                                     (None, "dx", dx2, dx_ref), (None, "dw", dw2, dw_ref)):
+            rel = rel_err(out, ref)
+            if kind is not None:
+                max_abs[kind] = max(max_abs[kind], float((out - ref).abs().max()))
+            errs.append(f"{name} {rel:.3e}")
+            if not rel <= KERNEL_TOL:
+                raise AssertionError(f"{name} of the backward kernels disagrees with its plain "
+                                     f"version at d1={plan.irreps_in1.dim}, N={n_in}: {rel} > {KERNEL_TOL}")
+        if not (torch.equal(dx2, dx3) and torch.equal(dw2, dw3) and torch.equal(dx, dx2)):
+            raise AssertionError(f"the backward kernels are not bitwise reproducible at "
+                                 f"d1={plan.irreps_in1.dim}, N={n_in}")
+        return ", ".join(errs) + ", bitwise equal twice"
+
+    bwd_parity = [f"L{i}: " + check_backward(plan, x, w, g, sh, src, dst, n_nodes)
+                  for i, (plan, x, w, g) in enumerate(layer_inputs)]
     bwd_parity.append(f"N={BIG_N} E={big_e} L3 plan: " + check_backward(
         plan, big["x"], big["w"], big["g"], big["sh"], big["src"], big["dst"], BIG_N))
     del big
     torch.cuda.empty_cache()
-    print(f"[4 backward kernel parity] max|d|/max|ref| (tol {KERNEL_TOL}): "
-          + "; ".join(bwd_parity) + f"; max|d| dx {max_abs['dx']:.3e}, dw {max_abs['dw']:.3e}",
+    print(f"[4 backward kernel parity] max|d|/max|ref| (tol {KERNEL_TOL}): merged kernel dw and "
+          "per-edge dx rows vs plain, segment sum vs index_add_ of the same rows, uvu_conv_bwd "
+          "dx and dw vs the plain backward: " + "; ".join(bwd_parity)
+          + f"; max|d| merged {max_abs['bwd']:.3e}, segment sum {max_abs['reduce']:.3e}",
           flush=True)
 
     # 5. model forward through K1 and through the plain conv
@@ -597,7 +630,7 @@ def main() -> int:
     trainer_p.model.load_state_dict(trainer.model.state_dict())
 
     # 8. train step, the second main path, counted
-    losses, trained = [], {"fwd": 0, "dx": 0, "dw": 0}
+    losses, trained = [], {"fwd": 0, "bwd": 0, "reduce": 0}
     for _ in range(TRAIN_STEPS):
         reset_counts(fused_conv)
         loss, metric_sums = trainer.train_step(data, targets)
@@ -622,8 +655,11 @@ def main() -> int:
             trainer_p.train_step(data, targets)
 
     step_k, step_p = interleaved(lambda: trainer.train_step(data, targets), step_plain, torch)
-    layer_ms = {"fwd": [], "dx": [], "dw": []}
-    bounds = {"fwd": [], "dx": [], "dw": []}
+    layer_ms = {"fwd": [], "bwd": [], "reduce": []}
+    bounds = {"fwd": [], "bwd": [], "reduce": []}
+    library_ms = []  # index_add_ of the per-edge dx rows: the segment sum in one call
+    order = fused_conv.src_order(src, n_nodes)
+    src_long = src.long()
     for plan, x, w, g in layer_inputs:
         with torch.no_grad():
             layer_ms["fwd"].append(interleaved(
@@ -631,16 +667,24 @@ def main() -> int:
                 lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes),
                 torch,
             ))
-            layer_ms["dx"].append(interleaved(
-                lambda: fused_conv.uvu_conv_dx(plan, g, sh, w, src, dst, n_nodes),
-                lambda: fused_conv.uvu_conv_dx_reference(plan, g, sh, w, src, dst, n_nodes),
+            # as the train step launches it: src and dst checked by the forward
+            layer_ms["bwd"].append(interleaved(
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst, check_indices=False),
+                lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes),
                 torch,
             ))
-            layer_ms["dw"].append(interleaved(
-                lambda: fused_conv.uvu_conv_dw(plan, x, g, sh, src, dst),
-                lambda: fused_conv.uvu_conv_dw_reference(plan, x, g, sh, src, dst),
+            dxe, _ = fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dw=False)
+            layer_ms["reduce"].append(interleaved(
+                lambda: fused_conv._launch_dx_reduce(dxe, order, n_nodes),
+                lambda: scatter_sum(dxe, src, n_nodes),
                 torch,
             ))
+            acc = torch.zeros(n_nodes, dxe.shape[1], device=dev)
+            library_ms.append(interleaved(
+                lambda: acc.index_add_(0, src_long, dxe),
+                lambda: fused_conv._launch_dx_reduce(dxe, order, n_nodes),
+                torch,
+            )[0])
         for kind, (nbytes, flops) in kernel_work(plan, n_nodes, n_nodes, n_edges).items():
             bounds[kind].append(bound_ms(nbytes, flops))
 
@@ -660,7 +704,9 @@ def main() -> int:
         f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
     print(f"[9 timings] {card}: flagship batch (32 crystals), median ms, kernel vs plain: "
           f"forward {fwd_k:.4f} vs {fwd_p:.4f}; train step {step_k:.4f} vs {step_p:.4f}; "
-          f"per layer L0 / L1 / L2 / L3: {per_layer}; bound ms per layer: {bound_txt}; "
+          f"per layer L0 / L1 / L2 / L3 (bwd: the merged kernel vs the plain backward; reduce: "
+          f"the segment sum vs scatter_sum): {per_layer}; reduce library (index_add_) "
+          + " / ".join(f"{t:.4f}" for t in library_ms) + f"; bound ms per layer: {bound_txt}; "
           f"peak memory MiB forward {peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, "
           f"train step {peak_step[0]:.1f} vs {peak_step[1]:.1f}", flush=True)
 
@@ -669,15 +715,17 @@ def main() -> int:
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
 
     sources = {"fwd": "matten_tpu_torch/kernels/csrc/fused_conv.cu",
-               "dx": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu",
-               "dw": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu"}
+               "bwd": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu",
+               "reduce": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu"}
     replaces = {"fwd": "matten_tpu/kernels/fused_conv.py:1012",
-                "dx": "matten_tpu/kernels/fused_conv.py:1118 and :407",
-                "dw": "matten_tpu/kernels/fused_conv.py:1118 and :552"}
-    names = {"fwd": "fused_uvu_conv_fwd (K1)", "dx": "fused_uvu_conv_dx (K2 dx, K3 transposed)",
-             "dw": "fused_uvu_conv_dw (K2 dw, K4)"}
+                "bwd": "matten_tpu/kernels/fused_conv.py:1118, :407 and :552",
+                "reduce": "matten_tpu/kernels/fused_conv.py:1118 and :407"}
+    names = {"fwd": "fused_uvu_conv_fwd (K1)",
+             "bwd": "fused_uvu_conv_bwd (K2; K3 transposed, K4)",
+             "reduce": "uvu_conv_dx_reduce (K2 and K3 dx into src)"}
+    library = {"fwd": None, "bwd": None, "reduce": sum(library_ms)}
     kernels = []
-    for kind in ("fwd", "dx", "dw"):
+    for kind in ("fwd", "bwd", "reduce"):
         launched = served[kind] + trained[kind]
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
@@ -692,7 +740,7 @@ def main() -> int:
             "plain_ms": sum(p for _, p in layer_ms[kind]),
             "bound_ms": sum(b for b, _ in bounds[kind]),
             "bound_by": bound_by(bounds[kind]),
-            "library_ms": None,
+            "library_ms": library[kind],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,243 +1,429 @@
-// Fused uvu tensor-product convolution, backward (dx and dw), for Hopper
-// (sm_90a).
+// Fused uvu tensor-product convolution, backward, for Hopper (sm_90a): the
+// merged dx + dw pass `fused_uvu_conv_bwd` over tiles of edges, and the
+// segment sum `uvu_conv_dx_reduce` of its per-edge dx rows into the sources.
 //
 // Replaces the gradient kernels of matten_tpu/kernels/fused_conv.py: the
-// merged dx + dw pass `_build_bwd2` (K2), the transposed `_build_call` that
-// computes dx over a src-sorted permutation (K3's backward role) and the
-// per-edge weight gradient `_build_dw_call` (K4). With the forward of
+// merged backward `_build_bwd2` (K2), and, beyond the JAX package's
+// 2048-node limit, the transposed `_build_call` over a src-sorted
+// permutation (K3's dx role) and `_build_dw_call` (K4). With the forward of
 // fused_conv.cu,
 //
 //   out[n, o] = pw[o] * sum_{e : dst[e] = n} w[e, w_idx(o)]
 //               * sum_{m1} t_e[t_idx(o) + m1 * d3(o)] * x[src[e], x_idx(o) + m1]
 //   t_e[i]    = sum_{m2} C_i[m2] * sh[e, sh_off(i) + m2],
 //
-// and g = d loss / d out, the two gradients are
+// and g = d loss / d out, weight k = (path p, channel u) of input irrep i,
+// with G = g[dst[e], o_base(k) : o_base(k) + d3], gives
 //
-//   dx[n, c]  = sum_{e : src[e] = n} sum_{(p, u) reading c}
-//               sum_{m3} gw_e[o_base(p, u) + m3] * t_e[t_base(p, u, c) + m3]
-//   gw_e[o]   = pw[o] * g[dst[e], o] * w[e, w_idx(o)]
+//   Y[m1]                     = sum_{m3} t_e[t_off(p) + m1 * d3 + m3] * G[m3]
+//   dw[e, k]                  = pw_p * sum_{m1} x[src[e], x_base(i, u) + m1] * Y[m1]
+//   dxe[e, x_base(i, u) + m1] = sum_{p of irrep i} pw_p * w[e, k] * Y[m1]
+//   dx[n]                     = sum_{e : src[e] = n} dxe[e]
 //
-//   dw[e, k]  = sum_{m3} pw * g[dst[e], o_base(k) + m3]
-//               * sum_{m1} t_e[t_off(k) + m1 * d3(k) + m3] * x[src[e], x_base(k) + m1]
+// Y is shared by both gradients, so one pass computes it once per (edge,
+// weight), as the TPU kernel builds its per-block dwT and dx messages from
+// one contraction before it scatters the messages into the sources.
 //
-// where k = (p, u) runs over the plan's weights and c over the input
-// components. The per-plan tables (built once per plan by the Python
-// wrapper from the forward's tables) are:
-//   dx_ptr [d1 + 1], dx_meta [n_dx]: o_base, t_base, d3, 0 -- for each input
-//     component c, the (path, channel) pairs whose messages read it, the
-//     transposed form of the forward's out_meta;
-//   dw_meta [dw]: x_base, t_off, o_base, d1 | d3 << 16.
+// Design.
+// * Work unit: a tile of BWD_TE = 16 consecutive dst-sorted edges per block,
+//   ceil(E / 16) blocks (1344 on the flagship batch): every block does about
+//   the same work, whatever the degree of the nodes.
+// * Ownership without atomics: one lane owns one (input channel (i, u),
+//   edge) pair. It walks every path of irrep i, writes dw[e, k] once per
+//   path, keeps the channel's d1 dx values in registers and writes them once
+//   to the per-edge scratch dxe [E, d1]. The second kernel sums the dxe rows
+//   of each source node over a stable argsort of src, in edge order. No two
+//   lanes write one address and every sum has a fixed order, so dx and dw
+//   are bitwise reproducible.
+// * The lanes of a warp hold channels u of ONE irrep (consecutive u, then
+//   the next edge): they run the same paths with the same d1 and d3, so the
+//   warp never diverges, and they read w and write dw at consecutive
+//   addresses (w_off(p) + u). Per-plan tables
+//   (built by the Python wrapper from the forward's): for each input irrep
+//   its x offset, d1 and path range; for each path (o_off, t_off, w_off, d3)
+//   and pw, so channel u reads o_off + u * d3, w_off + u and x_off + u * d1;
+//   and the warp tasks (irrep, u range, edge range), dealt to the block's
+//   24 warps heaviest first, each to the least loaded warp.
+// * Shared memory per block: t_e of the tile [16][n_t | 1] (an odd row
+//   stride: lanes of different edges hit different banks, lanes of one edge
+//   read one address), the tile's sh rows with each irrep padded to 4
+//   floats (so the t_e contraction reads them 16 bytes at a time), the g
+//   rows of the tile's first BWD_GSLOTS destinations (a tile of the
+//   flagship batch, mean degree 74, spans 1-2; edges of further
+//   destinations, as on degree-1 nodes or sparse random graphs, read g
+//   through the cache), and the tile's w rows (contiguous in w, 16 * dw
+//   floats). At the production layer 3 (n_t 2067, dout 4170, dw 842) that
+//   is 132 + 2 + 33 + 54 KB: one block per SM, so 24 warps (768 threads, at
+//   most 85 registers each) are what hides latency. Where w does not fit
+//   beside the rest it is read from global memory, coalesced across u all
+//   the same.
+// * Asynchronous copies: the w rows are copied with 16-byte cp.async as the
+//   block starts and the g rows with 4-byte cp.async (a g row is only
+//   4-byte aligned) while the block contracts t_e, so neither stalls the
+//   lanes, whose only global loads are then x (d1 floats once per task).
+//   The contraction Y is unrolled for each (d1, d3), so all of a path's
+//   shared-memory loads are in flight together. dw and dxe are stored from
+//   the lanes: consecutive u write consecutive dw addresses.
+// * float32 on the CUDA cores: the contractions are d1, d3 <= 9 deep with a
+//   different CG product per edge, far below wgmma's 64-row tiles, and TF32
+//   would break the 1e-5 parity the checks hold.
 //
-// Design. Both kernels follow the forward's deterministic walk: one thread
-// block owns one output row and is the only writer of it, so there are no
-// atomics and the summation order is fixed.
-//   dx: one block per SOURCE node, over the edges sorted by source (the
-//     wrapper passes a stable argsort of src and its CSR offsets). Per edge
-//     it stages gw_e (the cotangent row of the destination times the edge's
-//     weights and path weights) and t_e in shared memory; each thread owns
-//     input components and adds their products to a shared accumulator.
-//   dw: one block per DESTINATION node, over the dst-sorted edges (the
-//     forward's CSR). The node's cotangent row g[n] times the path weights is
-//     staged once; per edge x[src] and t_e are staged, and each thread owns
-//     weights (p, u) and writes dw[e, k] once.
-// The TPU kernel merges the two passes and scatters dx into src with
-// one-hot matmuls; on the GPU that scatter would need atomics, so the two
-// gradients are separate passes here.
-//
-// What bounds them on an H100: each input read once and each output written
-// once is about 80 MB at the production layer 3 (w [E, dw] and the edge
-// arrays dominate), and the arithmetic about as many float32 multiply-adds
-// as the forward's (1.3 GFLOP there), about 24 us at the card's peak either
-// way. These first kernels are bound instead by one block per node (2.4
-// blocks per SM on the flagship batch, the highest-degree node setting the
-// time) and by shared-memory bandwidth; splitting nodes across blocks and
-// tensor cores are later work.
+// What bounds it on an H100: the function's inputs read once and its outputs
+// (dx, dw) written once are about 153 MB at the production layer 3 (w and dw,
+// 72 MB each, dominate), 46 us at 3.35 TB/s; its float32 work, about 35k
+// multiply-adds per edge (t_e 12k, Y 13k, dw and dx 9k), is 1.5 GFLOP,
+// 22 us at 67 TFLOP/s. The kernel also writes and the reduction reads the
+// dxe scratch (21 MB there). It runs its phases one after the other in a
+// block (staging, t_e, the tasks), with one block per SM, and every
+// multiply-add of Y reads an operand from shared memory: at layer 3 it
+// takes about 5x its bound (conv_bwd_phases.py splits the time by phase).
 
 #include <stdint.h>
 
-#include "fused_conv_common.cuh"
+#include <cuda_runtime.h>
 
-__global__ void __launch_bounds__(THREADS) fused_uvu_conv_dx_kernel(
-    const float* __restrict__ g,         // [n_out, dout]
-    const float* __restrict__ sh,        // [E, d2]
-    const float* __restrict__ w,         // [E, dw]
-    const int* __restrict__ dst,         // [E]
-    const int* __restrict__ perm,        // [E] edge ids sorted by src
-    const int* __restrict__ row_ptr,     // [n_in + 1] offsets into perm
-    const int4* __restrict__ t_meta,     // [n_t]: cg_off, sh_off, d2_i, 0
-    const float* __restrict__ cg,
-    const int4* __restrict__ out_meta,   // [dout]: x_idx, t_idx, w_idx, d1 | d3 << 16
-    const float* __restrict__ out_pw,    // [dout]
-    const int* __restrict__ dx_ptr,      // [d1 + 1]
-    const int4* __restrict__ dx_meta,    // [n_dx]: o_base, t_base, d3, 0
-    float* __restrict__ dx,              // [n_in, d1]
-    int d1, int d2, int dw, int dout, int n_t) {
-  extern __shared__ float smem[];
-  float* acc = smem;                               // [d1]
-  float* gws = acc + d1;                           // [EDGES_PER_STAGE, dout]
-  float* shs = gws + EDGES_PER_STAGE * dout;       // [EDGES_PER_STAGE, d2]
-  float* ts = shs + EDGES_PER_STAGE * d2;          // [EDGES_PER_STAGE, n_t]
+#define BWD_TE 16                    // edges per tile (block)
+#define BWD_WARPS 24
+#define BWD_THREADS (32 * BWD_WARPS)
+#define BWD_GSLOTS 2                 // destinations per tile with a staged g row
+#define BWD_MAX_D 9                  // irreps up to l = 4: d1, d2_i, d3 <= 9
+#define REDUCE_THREADS 256
 
-  const int node = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int k_begin = row_ptr[node];
-  const int k_end = row_ptr[node + 1];
+struct BwdArgs {
+  const float* x;          // [n_in, d1]
+  const float* g;          // [n_out, dout]
+  const float* sh;         // [E, d2]
+  const float* w;          // [E, dw]
+  const int* src;          // [E]
+  const int* dst;          // [E], non-decreasing
+  const int4* t_meta;      // [n_t]: cg offset, sh offset, d2_i, 0
+  const float* cg_t;       // [BWD_MAX_D, n_t]: C_i[m2] at m2 * n_t + i, 0 past d2_i
+  const int* t_sh;         // [n_t]: offset of entry i's sh segment in a padded sh row
+  const int* sh_src;       // [shp]: sh component of each padded slot, or -1
+  const int4* groups;      // [irreps of in1]: x_off, d1, path begin, path end
+  const int4* paths;       // [paths]: o_off, t_off, w_off, d3
+  const float* path_pw;    // [paths]
+  const int4* tasks;       // u0 | nu << 16, group, u count, j0 | ne << 16
+  const int* warp_ptr;     // [BWD_WARPS + 1] offsets of each warp's tasks
+  float* dw_out;           // [E, dw], or null: dw not wanted
+  float* dxe;              // [E, d1], or null: dx not wanted
+  int n_edges, d1, d2, shp, dw, dout, n_t;
+  int stage_w;             // 1: the tile's w rows are copied to shared memory
+};
 
-  for (int c = tid; c < d1; c += THREADS) acc[c] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += EDGES_PER_STAGE) {
-    const int nj = min(EDGES_PER_STAGE, k_end - k0);
-
-    for (int j = 0; j < nj; ++j) {
-      const int e = perm[k0 + j];
-      const float* grow = g + (size_t)dst[e] * dout;
-      const float* wrow = w + (size_t)e * dw;
-      const float* shrow = sh + (size_t)e * d2;
-      for (int o = tid; o < dout; o += THREADS) {
-        const int w_idx = __ldg(&out_meta[o].z);
-        gws[j * dout + o] = __ldg(out_pw + o) * grow[o] * wrow[w_idx];
-      }
-      for (int c = tid; c < d2; c += THREADS) shs[j * d2 + c] = shrow[c];
-    }
-    __syncthreads();
-
-    contract_sh(shs, ts, t_meta, cg, nj, d2, n_t);
-    __syncthreads();
-
-    // each thread owns input components c = tid + k * THREADS
-    for (int c = tid; c < d1; c += THREADS) {
-      const int q_begin = __ldg(dx_ptr + c);
-      const int q_end = __ldg(dx_ptr + c + 1);
-      float a = acc[c];
-      for (int j = 0; j < nj; ++j) {
-        for (int q = q_begin; q < q_end; ++q) {
-          const int4 dm = __ldg(dx_meta + q);
-          const float* gg = gws + j * dout + dm.x;
-          const float* tt = ts + j * n_t + dm.y;
-          for (int m3 = 0; m3 < dm.z; ++m3) a = fmaf(gg[m3], tt[m3], a);
-        }
-      }
-      acc[c] = a;
-    }
-    __syncthreads();
-  }
-
-  float* row = dx + (size_t)node * d1;
-  for (int c = tid; c < d1; c += THREADS) row[c] = acc[c];
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
-__global__ void __launch_bounds__(THREADS) fused_uvu_conv_dw_kernel(
-    const float* __restrict__ x,         // [n_in, d1]
-    const float* __restrict__ g,         // [n_out, dout]
-    const float* __restrict__ sh,        // [E, d2]
-    const int* __restrict__ src,         // [E]
-    const int* __restrict__ row_ptr,     // [n_out + 1] offsets of the dst-sorted edges
-    const int4* __restrict__ t_meta,
-    const float* __restrict__ cg,
-    const float* __restrict__ out_pw,    // [dout]
-    const int4* __restrict__ dw_meta,    // [dw]: x_base, t_off, o_base, d1 | d3 << 16
-    float* __restrict__ dw_out,          // [E, dw]
-    int d1, int d2, int dw, int dout, int n_t) {
-  extern __shared__ float smem[];
-  float* gp = smem;                                // [dout]
-  float* xs = gp + dout;                           // [EDGES_PER_STAGE, d1]
-  float* shs = xs + EDGES_PER_STAGE * d1;          // [EDGES_PER_STAGE, d2]
-  float* ts = shs + EDGES_PER_STAGE * d2;          // [EDGES_PER_STAGE, n_t]
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
 
-  const int node = blockIdx.x;
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Y[m1] = sum_{m3} t[m1 * D3 + m3] * G[m3] of one path: fully unrolled, so
+// all D1 * D3 shared-memory loads are in flight together
+template <int D1, int D3>
+static __device__ __forceinline__ void path_y(const float* tp, const float* gp, float (&y)[D1]) {
+  float gv[D3];
+#pragma unroll
+  for (int m3 = 0; m3 < D3; ++m3) gv[m3] = gp[m3];
+#pragma unroll
+  for (int m1 = 0; m1 < D1; ++m1) {
+    float s = 0.f;
+#pragma unroll
+    for (int m3 = 0; m3 < D3; ++m3) s = fmaf(tp[m1 * D3 + m3], gv[m3], s);
+    y[m1] = s;
+  }
+}
+
+// One lane's (channel, edge) pair over every path of the channel's irrep.
+// xrow, wrow, dwrow and drow point at the channel's entries of the edge
+// (dwrow, drow null when that gradient is not wanted); grow at g[dst].
+template <int D1>
+static __device__ __forceinline__ void channel_edge(
+    const int4* __restrict__ paths, const float* __restrict__ path_pw, const float* trow,
+    const float* grow, const float* xrow, const float* wrow, float* dwrow, float* drow,
+    int u, int q_begin, int q_end) {
+  float xv[D1], dxv[D1];
+#pragma unroll
+  for (int m1 = 0; m1 < D1; ++m1) {
+    xv[m1] = dwrow ? __ldg(xrow + m1) : 0.f;
+    dxv[m1] = 0.f;
+  }
+  int4 pm_next = q_begin < q_end ? __ldg(paths + q_begin) : make_int4(0, 0, 0, 1);
+  float pw_next = q_begin < q_end ? __ldg(path_pw + q_begin) : 0.f;
+  for (int q = q_begin; q < q_end; ++q) {
+    const int4 pm = pm_next;
+    const float pw = pw_next;
+    if (q + 1 < q_end) {  // the next path's entries load while this one computes
+      pm_next = __ldg(paths + q + 1);
+      pw_next = __ldg(path_pw + q + 1);
+    }
+    const float* gp = grow + pm.x + u * pm.w;
+    const float* tp = trow + pm.y;
+    float y[D1];
+    switch (pm.w) {  // d3 of the path, the same for the whole warp
+      case 1: path_y<D1, 1>(tp, gp, y); break;
+      case 3: path_y<D1, 3>(tp, gp, y); break;
+      case 5: path_y<D1, 5>(tp, gp, y); break;
+      case 7: path_y<D1, 7>(tp, gp, y); break;
+      default: path_y<D1, 9>(tp, gp, y); break;  // the wrapper admits l <= 4 only
+    }
+    if (dwrow) {
+      float s = 0.f;
+#pragma unroll
+      for (int m1 = 0; m1 < D1; ++m1) s = fmaf(xv[m1], y[m1], s);
+      dwrow[pm.z] = pw * s;
+    }
+    if (drow) {
+      const float wv = pw * wrow[pm.z];
+#pragma unroll
+      for (int m1 = 0; m1 < D1; ++m1) dxv[m1] = fmaf(wv, y[m1], dxv[m1]);
+    }
+  }
+  if (drow) {
+#pragma unroll
+    for (int m1 = 0; m1 < D1; ++m1) drow[m1] = dxv[m1];
+  }
+}
+
+__global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int ts_stride = a.n_t | 1;
+  float* ws = smem;                                   // [BWD_TE][dw] if stage_w
+  float* shs = ws + (a.stage_w ? BWD_TE * a.dw : 0);  // [BWD_TE][shp], 16-byte aligned
+  float* ts = shs + BWD_TE * a.shp;                   // [BWD_TE][ts_stride]
+  float* gs = ts + BWD_TE * ts_stride;                // [BWD_GSLOTS][dout]
+  int* src_s = reinterpret_cast<int*>(gs + BWD_GSLOTS * a.dout);  // [BWD_TE]
+  int* dst_s = src_s + BWD_TE;                        // [BWD_TE]
+  int* slot_s = dst_s + BWD_TE;                       // [BWD_TE]: g slot, or -1
+  int* slot_node = slot_s + BWD_TE;                   // [BWD_GSLOTS]
+  int* n_slots = slot_node + BWD_GSLOTS;              // [1]
+
   const int tid = threadIdx.x;
-  const int e_begin = row_ptr[node];
-  const int e_end = row_ptr[node + 1];
-  if (e_begin == e_end) return;
+  const int tile0 = blockIdx.x * BWD_TE;
+  const int nj = min(BWD_TE, a.n_edges - tile0);
 
-  const float* grow = g + (size_t)node * dout;
-  for (int o = tid; o < dout; o += THREADS) gp[o] = __ldg(out_pw + o) * grow[o];
-
-  for (int e0 = e_begin; e0 < e_end; e0 += EDGES_PER_STAGE) {
-    const int nj = min(EDGES_PER_STAGE, e_end - e0);
-
-    for (int j = 0; j < nj; ++j) {
-      const int e = e0 + j;
-      const float* xrow = x + (size_t)src[e] * d1;
-      const float* shrow = sh + (size_t)e * d2;
-      for (int c = tid; c < d1; c += THREADS) xs[j * d1 + c] = xrow[c];
-      for (int c = tid; c < d2; c += THREADS) shs[j * d2 + c] = shrow[c];
+  // 1. start copying the tile's w rows (contiguous, nj * dw floats; 16-byte
+  //    aligned when w is, since 16 * dw floats are); load the edge ends and
+  //    the sh rows, each sh irrep padded to a multiple of 4 floats with
+  //    zeros (rows past the last edge are zero)
+  if (a.stage_w) {
+    const float* wt = a.w + (size_t)tile0 * a.dw;
+    const int n = nj * a.dw;
+    int done = 0;
+    if ((reinterpret_cast<uintptr_t>(a.w) & 15) == 0) {
+      for (int v = tid; v < n / 4; v += BWD_THREADS) cp_async16(ws + 4 * v, wt + 4 * v);
+      done = n / 4 * 4;
     }
-    __syncthreads();
+    for (int idx = done + tid; idx < n; idx += BWD_THREADS) cp_async4(ws + idx, wt + idx);
+  }
+  if (tid < BWD_TE) {
+    src_s[tid] = tid < nj ? a.src[tile0 + tid] : 0;
+    dst_s[tid] = tid < nj ? a.dst[tile0 + tid] : -1;
+  }
+  for (int idx = tid; idx < BWD_TE * a.shp; idx += BWD_THREADS) {
+    const int j = idx / a.shp;
+    const int c = __ldg(a.sh_src + idx - j * a.shp);
+    shs[idx] = j < nj && c >= 0 ? a.sh[(size_t)(tile0 + j) * a.d2 + c] : 0.f;
+  }
+  __syncthreads();
 
-    contract_sh(shs, ts, t_meta, cg, nj, d2, n_t);
-    __syncthreads();
+  // 2. destinations: edge j lies in the run-th run of equal dst; the first
+  //    BWD_GSLOTS runs get a staged g row, later ones read g from the cache
+  if (tid < nj) {
+    int run = 0;
+    for (int k = 1; k <= tid; ++k) run += dst_s[k] != dst_s[k - 1];
+    slot_s[tid] = run < BWD_GSLOTS ? run : -1;
+    if (run < BWD_GSLOTS && (tid == 0 || dst_s[tid] != dst_s[tid - 1])) slot_node[run] = dst_s[tid];
+    if (tid == nj - 1) *n_slots = min(run + 1, BWD_GSLOTS);
+  }
+  __syncthreads();
 
-    // each thread owns weights k = tid + i * THREADS
-    for (int k = tid; k < dw; k += THREADS) {
-      const int4 wm = __ldg(dw_meta + k);
-      const int pd1 = wm.w & 0xffff;
-      const int pd3 = wm.w >> 16;
-      for (int j = 0; j < nj; ++j) {
-        const float* t = ts + j * n_t + wm.y;
-        const float* xu = xs + j * d1 + wm.x;
-        float s = 0.f;
-        for (int m3 = 0; m3 < pd3; ++m3) {
-          float a = 0.f;
-          for (int m1 = 0; m1 < pd1; ++m1) a = fmaf(t[m1 * pd3 + m3], xu[m1], a);
-          s = fmaf(gp[wm.z + m3], a, s);
-        }
-        dw_out[(size_t)(e0 + j) * dw + k] = s;
+  // 3. copy the g rows, and meanwhile contract the CG blocks with sh:
+  //    ts[j][i] = t_e[i]
+  const int ns = *n_slots;
+  for (int idx = tid; idx < ns * a.dout; idx += BWD_THREADS) {
+    const int s = idx / a.dout;
+    cp_async4(gs + idx, a.g + (size_t)slot_node[s] * a.dout + (idx - s * a.dout));
+  }
+  for (int i = tid; i < a.n_t; i += BWD_THREADS) {
+    // one CG entry for the tile's 16 edges: its coefficients load once,
+    // together, from the table padded with zeros past d2_i; the sh segment
+    // is read 4 floats at a time (its padding is zero, so the extra terms
+    // add exact zeros)
+    const int d2i = __ldg(a.t_meta + i).z;
+    float c[BWD_MAX_D];
+#pragma unroll
+    for (int m2 = 0; m2 < BWD_MAX_D; ++m2) c[m2] = __ldg(a.cg_t + (size_t)m2 * a.n_t + i);
+    const float4* y = reinterpret_cast<const float4*>(shs + __ldg(a.t_sh + i));
+#pragma unroll 4
+    for (int j = 0; j < BWD_TE; ++j) {
+      const float4* r = y + j * (a.shp / 4);
+      const float4 v0 = r[0];
+      float acc = fmaf(c[0], v0.x, 0.f);
+      acc = fmaf(c[1], v0.y, acc);
+      acc = fmaf(c[2], v0.z, acc);
+      acc = fmaf(c[3], v0.w, acc);
+      if (d2i > 4) {
+        const float4 v1 = r[1];
+        acc = fmaf(c[4], v1.x, acc);
+        acc = fmaf(c[5], v1.y, acc);
+        acc = fmaf(c[6], v1.z, acc);
+        acc = fmaf(c[7], v1.w, acc);
       }
+      if (d2i > 8) acc = fmaf(c[8], r[2].x, acc);
+      ts[j * ts_stride + i] = acc;
     }
-    __syncthreads();
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 4. the warp's tasks: lane = (u0 + lane % nu, j0 + lane / nu)
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k_end = __ldg(a.warp_ptr + warp + 1);
+  for (int k = __ldg(a.warp_ptr + warp); k < k_end; ++k) {
+    const int4 tk = __ldg(a.tasks + k);
+    const int nu = tk.x >> 16;
+    const int du = lane % nu;
+    const int dj = lane / nu;
+    const int j = (tk.w & 0xffff) + dj;
+    if (du >= tk.z || dj >= (tk.w >> 16) || j >= nj) continue;
+    const int u = (tk.x & 0xffff) + du;
+    const int e = tile0 + j;
+    const int4 gm = __ldg(a.groups + tk.y);
+    const int xb = gm.x + u * gm.y;
+    const int sl = slot_s[j];
+    const float* grow = sl >= 0 ? gs + sl * a.dout : a.g + (size_t)dst_s[j] * a.dout;
+    const float* trow = ts + j * ts_stride;
+    const float* xrow = a.x + (size_t)src_s[j] * a.d1 + xb;
+    const float* wrow = (a.stage_w ? ws + j * a.dw : a.w + (size_t)e * a.dw) + u;
+    float* dwrow = a.dw_out ? a.dw_out + (size_t)e * a.dw + u : nullptr;
+    float* drow = a.dxe ? a.dxe + (size_t)e * a.d1 + xb : nullptr;
+#define CHANNEL_EDGE(D1)                                                                  \
+  channel_edge<D1>(a.paths, a.path_pw, trow, grow, xrow, wrow, dwrow, drow, u, gm.z, gm.w)
+    switch (gm.y) {  // d1 of the irrep, the same for the whole warp
+      case 1: CHANNEL_EDGE(1); break;
+      case 3: CHANNEL_EDGE(3); break;
+      case 5: CHANNEL_EDGE(5); break;
+      case 7: CHANNEL_EDGE(7); break;
+      default: CHANNEL_EDGE(9); break;  // the wrapper admits l <= 4 only
+    }
+#undef CHANNEL_EDGE
+  }
+}
+
+// dx[n] = sum_{k in [row_ptr[n], row_ptr[n+1])} dxe[perm[k]], in k order
+// (perm is a stable argsort of src): one block per source node, threads
+// over the d1 columns, so every dxe row is read whole by one block.
+__global__ void __launch_bounds__(REDUCE_THREADS) uvu_conv_dx_reduce_kernel(
+    const float* __restrict__ dxe,      // [E, d1]
+    const int* __restrict__ perm,       // [E] edge ids sorted by src
+    const int* __restrict__ row_ptr,    // [n_in + 1] offsets into perm
+    float* __restrict__ dx,             // [n_in, d1]
+    int d1) {
+  const int node = blockIdx.x;
+  const int k_begin = row_ptr[node];
+  const int k_end = row_ptr[node + 1];
+  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
+    float acc = 0.f;
+    int k = k_begin;
+    // four loads in flight, added in order
+    for (; k + 4 <= k_end; k += 4) {
+      const float v0 = dxe[(size_t)__ldg(perm + k) * d1 + c];
+      const float v1 = dxe[(size_t)__ldg(perm + k + 1) * d1 + c];
+      const float v2 = dxe[(size_t)__ldg(perm + k + 2) * d1 + c];
+      const float v3 = dxe[(size_t)__ldg(perm + k + 3) * d1 + c];
+      acc += v0;
+      acc += v1;
+      acc += v2;
+      acc += v3;
+    }
+    for (; k < k_end; ++k) acc += dxe[(size_t)__ldg(perm + k) * d1 + c];
+    dx[(size_t)node * d1 + c] = acc;
   }
 }
 
 extern "C" {
 
-// Shared memory (bytes) one block of each kernel needs; the wrapper names it
-// when a launch fails.
-size_t fused_uvu_conv_dx_smem(int d1, int d2, int dw, int dout, int n_t) {
-  return sizeof(float) *
-         ((size_t)d1 + (size_t)EDGES_PER_STAGE * ((size_t)dout + d2 + n_t));
-}
-
-size_t fused_uvu_conv_dw_smem(int d1, int d2, int dw, int dout, int n_t) {
-  return sizeof(float) *
-         ((size_t)dout + (size_t)EDGES_PER_STAGE * ((size_t)d1 + d2 + n_t));
+// Shared memory (bytes) one block of the merged kernel needs without the
+// staged w rows; the wrapper names it when a launch fails.
+// `shp` is the padded sh row (BackwardTables.sh_src).
+size_t fused_uvu_conv_bwd_smem(int d1, int shp, int dw, int dout, int n_t) {
+  return sizeof(float) * ((size_t)BWD_TE * (n_t | 1) + (size_t)BWD_GSLOTS * dout +
+                          (size_t)BWD_TE * shp) +
+         sizeof(int) * (3 * BWD_TE + BWD_GSLOTS + 1);
 }
 
 // Both launch on `stream`, allocate nothing and return the cudaError_t of
-// the launch (0 on success).
-int fused_uvu_conv_dx(const float* g, const float* sh, const float* w,
-                      const int* dst, const int* perm, const int* row_ptr,
-                      const void* t_meta, const float* cg, const void* out_meta,
-                      const float* out_pw, const int* dx_ptr, const void* dx_meta,
-                      float* dx, int n_in, int d1, int d2, int dw, int dout,
-                      int n_t, void* stream) {
-  if (n_in == 0) return 0;
-  const size_t smem = fused_uvu_conv_dx_smem(d1, d2, dw, dout, n_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_uvu_conv_dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// the launch (0 on success). `tile_edges` and `warps` are the constants the
+// wrapper built its task table for; they must match this build's. The
+// tile's w rows are staged in shared memory when dx is wanted and they fit
+// beside the rest (they do at every production layer: 217 KB at layer 3).
+int fused_uvu_conv_bwd(const float* x, const float* g, const float* sh, const float* w,
+                       const int* src, const int* dst, const void* t_meta,
+                       const float* cg_t, const int* t_sh, const int* sh_src,
+                       const void* groups, const void* paths, const float* path_pw,
+                       const void* tasks, const int* warp_ptr, float* dw_out, float* dxe,
+                       int n_edges, int d1, int d2, int shp, int dw, int dout, int n_t,
+                       int tile_edges, int warps, void* stream) {
+  if (tile_edges != BWD_TE || warps != BWD_WARPS || shp % 4) return (int)cudaErrorInvalidValue;
+  if (n_edges == 0) return 0;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  fused_uvu_conv_dx_kernel<<<n_in, THREADS, smem, (cudaStream_t)stream>>>(
-      g, sh, w, dst, perm, row_ptr, (const int4*)t_meta, cg,
-      (const int4*)out_meta, out_pw, dx_ptr, (const int4*)dx_meta, dx, d1, d2,
-      dw, dout, n_t);
+  size_t smem = fused_uvu_conv_bwd_smem(d1, shp, dw, dout, n_t);
+  const size_t w_bytes = sizeof(float) * (size_t)BWD_TE * dw;
+  const int stage_w = dxe != nullptr && smem + w_bytes <= (size_t)optin;
+  if (stage_w) smem += w_bytes;
+  err = cudaFuncSetAttribute(
+      fused_uvu_conv_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  BwdArgs a;
+  a.x = x;
+  a.g = g;
+  a.sh = sh;
+  a.w = w;
+  a.src = src;
+  a.dst = dst;
+  a.t_meta = (const int4*)t_meta;
+  a.cg_t = cg_t;
+  a.t_sh = t_sh;
+  a.sh_src = sh_src;
+  a.groups = (const int4*)groups;
+  a.paths = (const int4*)paths;
+  a.path_pw = path_pw;
+  a.tasks = (const int4*)tasks;
+  a.warp_ptr = warp_ptr;
+  a.dw_out = dw_out;
+  a.dxe = dxe;
+  a.n_edges = n_edges;
+  a.d1 = d1;
+  a.d2 = d2;
+  a.shp = shp;
+  a.dw = dw;
+  a.dout = dout;
+  a.n_t = n_t;
+  a.stage_w = stage_w;
+  fused_uvu_conv_bwd_kernel<<<(n_edges + BWD_TE - 1) / BWD_TE, BWD_THREADS, smem,
+                              (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int fused_uvu_conv_dw(const float* x, const float* g, const float* sh,
-                      const int* src, const int* row_ptr, const void* t_meta,
-                      const float* cg, const float* out_pw, const void* dw_meta,
-                      float* dw_out, int n_out, int d1, int d2, int dw, int dout,
-                      int n_t, void* stream) {
-  if (n_out == 0) return 0;
-  const size_t smem = fused_uvu_conv_dw_smem(d1, d2, dw, dout, n_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_uvu_conv_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_uvu_conv_dw_kernel<<<n_out, THREADS, smem, (cudaStream_t)stream>>>(
-      x, g, sh, src, row_ptr, (const int4*)t_meta, cg, out_pw,
-      (const int4*)dw_meta, dw_out, d1, d2, dw, dout, n_t);
+int uvu_conv_dx_reduce(const float* dxe, const int* perm, const int* row_ptr, float* dx,
+                       int n_in, int d1, void* stream) {
+  if (n_in == 0 || d1 == 0) return 0;
+  const int threads = d1 < REDUCE_THREADS ? (d1 + 31) / 32 * 32 : REDUCE_THREADS;
+  uvu_conv_dx_reduce_kernel<<<n_in, threads, 0, (cudaStream_t)stream>>>(
+      dxe, perm, row_ptr, dx, d1);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,13 @@
-"""The port's fused uvu conv: K1 forward and the dx / dw backward kernels'
-plain versions, tables and wrapper contracts.
+"""The port's fused uvu conv: K1 forward and the merged backward's plain
+versions, tables and wrapper contracts.
 
 On the CPU the wrappers run the plain versions; the CUDA kernels themselves
 are checked against them by tests/test_torch_gpu.py (skipped without a card)
 and by chip_smoke.py. The kernels' per-plan tables are checked here by
-emulating the kernels' arithmetic from them in torch. Tolerances: forward
-rtol=atol=1e-5 (float32, another summation order); gradients atol=1e-4
-after scaling by max(|ref|, 1), as the JAX package's own gradient tests.
+replaying the kernels' arithmetic from them. Tolerances: forward and
+replays rtol=atol=1e-5 (float32 data, another summation order); gradients
+atol=1e-4 after scaling by max(|ref|, 1), as the JAX package's own gradient
+tests.
 """
 
 import jax
@@ -151,8 +152,7 @@ def _port_grads(pt, a, n):
     out = fused_conv.fused_uvu_conv(pt, x, sh, w, t["src"], t["dst"], n)
     (out ** 2).sum().backward()
     g = 2 * out.detach()
-    dx = fused_conv.uvu_conv_dx(pt, g, t["sh"], t["w"], t["src"], t["dst"], x.shape[0])
-    dw = fused_conv.uvu_conv_dw(pt, t["x"], g, t["sh"], t["src"], t["dst"])
+    dx, dw = fused_conv.uvu_conv_bwd(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], x.shape[0])
     return (x.grad.numpy(), sh.grad.numpy(), w.grad.numpy()), (dx.numpy(), dw.numpy())
 
 
@@ -222,32 +222,52 @@ def test_gradient_matches_jax_chunked_backward():
     _assert_grads_close((dx_plain, dw_plain), (gx, gw[order]))
 
 
-def _emulate_backward(plan, x, g, sh, w, src, dst):
-    """The dx and dw kernels' arithmetic, read off their tables:
-    gw[e, o] = pw g[dst, o] w[e, w_idx(o)];
-    dx[src, c] += sum_{entries of c} sum_m3 gw[e, o_base + m3] t[e, t_base + m3];
-    dw[e, k] = sum_m3 pw g[dst, o_base + m3] sum_m1 t[e, t_off + m1 d3 + m3] x[src, x_base + m1]."""
-    t_meta, cg, out_meta, out_pw = (torch.as_tensor(v) for v in fused_conv.kernel_tables(plan))
-    dx_ptr, dx_meta, dw_meta = fused_conv.backward_tables(plan)
-    G = torch.zeros(sh.shape[1], t_meta.shape[0])
-    for i, (cg_off, sh_off, d2, _) in enumerate(t_meta.tolist()):
-        G[sh_off : sh_off + d2, i] = cg[cg_off : cg_off + d2]
-    t = sh @ G
-    gd = g[dst.long()] * out_pw
-    gw = gd * w[:, out_meta[:, 2].long()]
-    xg = x[src.long()]
-    dxe = torch.zeros(sh.shape[0], x.shape[1])
-    for c in range(x.shape[1]):
-        for o_base, t_base, d3, _ in dx_meta[dx_ptr[c] : dx_ptr[c + 1]]:
-            dxe[:, c] += (gw[:, o_base : o_base + d3] * t[:, t_base : t_base + d3]).sum(1)
-    dx = torch.zeros_like(x).index_add_(0, src.long(), dxe)
-    dw = torch.zeros_like(w)
-    for k, (x_base, t_off, o_base, dims) in enumerate(dw_meta):
-        d1, d3 = dims & 0xFFFF, dims >> 16
-        for m3 in range(d3):
-            a = sum(t[:, t_off + m1 * d3 + m3] * xg[:, x_base + m1] for m1 in range(d1))
-            dw[:, k] += gd[:, o_base + m3] * a
-    return dx, dw
+def _replay_backward(plan, x, g, sh, w, src, dst, n_in):
+    """The merged backward kernel's arithmetic read off its tables, lane by
+    lane, in float64: tiles of BWD_TILE_EDGES edges (the last one partial);
+    t_e = CG blocks . sh from `cg_t` and the sh rows padded per irrep to 4
+    floats (`sh_src`, `t_sh`); each warp's tasks, each lane = (channel
+    u0 + lane % nu, edge j0 + lane // nu) over its irrep's paths (Y, dw and
+    the channel's dx); then the segment sum over `src_order`. Also counts
+    the writes to every entry of dxe and dw."""
+    tab, bt = fused_conv.kernel_tables(plan), fused_conv.backward_tables(plan)
+    order = fused_conv.src_order(src, n_in)
+    x, g, sh, w = (a.double().numpy() for a in (x, g, sh, w))
+    src, dst = src.numpy(), dst.numpy()
+    n_e, d1 = sh.shape[0], x.shape[1]
+    sh_pad = np.where(bt.sh_src >= 0, sh[:, np.maximum(bt.sh_src, 0)], 0.0)
+    t = np.zeros((n_e, tab.t_meta.shape[0]))
+    for i, (_, _, d2, _) in enumerate(tab.t_meta):
+        assert bt.t_sh[i] % 4 == 0
+        t[:, i] = sh_pad[:, bt.t_sh[i] : bt.t_sh[i] + d2] @ bt.cg_t[:d2, i]
+    dxe, dw = np.zeros((n_e, d1)), np.zeros_like(w)
+    writes_dxe, writes_dw = np.zeros(dxe.shape, int), np.zeros(dw.shape, int)
+    te = fused_conv.BWD_TILE_EDGES
+    for tile0 in range(0, n_e, te):
+        nj = min(te, n_e - tile0)
+        for k in range(bt.warp_ptr[-1]):
+            tu, grp, u_count, tj = (int(v) for v in bt.tasks[k])
+            nu = tu >> 16
+            x_off, gd1, q0, q1 = (int(v) for v in bt.groups[grp])
+            for lane in range(32):
+                du, dj = lane % nu, lane // nu
+                j = (tj & 0xFFFF) + dj
+                if du >= u_count or dj >= tj >> 16 or j >= nj:
+                    continue
+                u, e = (tu & 0xFFFF) + du, tile0 + j
+                xb = x_off + u * gd1
+                dxv = np.zeros(gd1)
+                for q in range(q0, q1):
+                    o_off, t_off, w_off, d3 = (int(v) for v in bt.paths[q])
+                    y = t[e, t_off : t_off + gd1 * d3].reshape(gd1, d3) @ g[dst[e], o_off + u * d3 : o_off + (u + 1) * d3]
+                    dw[e, w_off + u] = bt.path_pw[q] * (x[src[e], xb : xb + gd1] @ y)
+                    writes_dw[e, w_off + u] += 1
+                    dxv += bt.path_pw[q] * w[e, w_off + u] * y
+                dxe[e, xb : xb + gd1] = dxv
+                writes_dxe[e, xb : xb + gd1] += 1
+    perm, row_ptr = order.perm.numpy(), order.row_ptr.numpy()
+    dx = np.stack([dxe[perm[row_ptr[n] : row_ptr[n + 1]]].sum(0) for n in range(n_in)])
+    return dx, dw, writes_dxe, writes_dw
 
 
 @pytest.mark.parametrize(
@@ -262,41 +282,56 @@ def _emulate_backward(plan, x, g, sh, w, src, dst):
     ],
 )
 def test_backward_tables_reproduce_the_plain_versions(ir1, ir2, out):
-    _, pt, a, n = _setup(33, n_in=7, n_out=5, e=12, ir1=ir1, ir2=ir2, out=out)
+    """40 edges: two full tiles and a partial one; n_in != n_out."""
+    _, pt, a, n = _setup(33, n_in=7, n_out=5, e=40, ir1=ir1, ir2=ir2, out=out)
     t = _torch(a)
     g = torch.as_tensor(np.random.default_rng(34).normal(size=(n, pt.irreps_out.dim)).astype(np.float32))
-    dx, dw = _emulate_backward(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"])
-    dx_ref = fused_conv.uvu_conv_dx_reference(pt, g, t["sh"], t["w"], t["src"], t["dst"], 7)
-    dw_ref = fused_conv.uvu_conv_dw_reference(pt, t["x"], g, t["sh"], t["src"], t["dst"])
-    np.testing.assert_allclose(dx.numpy(), dx_ref.numpy(), **TOL)
-    np.testing.assert_allclose(dw.numpy(), dw_ref.numpy(), **TOL)
-    # every input component that some path reads has entries; each weight one row
-    assert len(fused_conv.backward_tables(pt).dw_meta) == pt.weight_numel
+    dx, dw, writes_dxe, writes_dw = _replay_backward(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 7)
+    dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 7)
+    np.testing.assert_allclose(dx, dx_ref.numpy(), **TOL)
+    np.testing.assert_allclose(dw, dw_ref.numpy(), **TOL)
+    # every (channel, edge) and every (edge, weight) has exactly one writer
+    assert (writes_dxe == 1).all() and (writes_dw == 1).all()
+    bt = fused_conv.backward_tables(pt)
+    assert len(bt.paths) == len(pt.instructions)
+    assert len(bt.warp_ptr) == fused_conv.BWD_WARPS + 1
 
 
-def test_backward_wrappers_on_cpu_run_the_plain_versions():
-    _, pt, a, n = _setup(35)
+def test_src_order_is_a_stable_argsort_with_csr_offsets():
+    src = torch.as_tensor(np.random.default_rng(37).integers(0, 6, 50).astype(np.int32))
+    order = fused_conv.src_order(src, 8)
+    assert order.perm.dtype == order.row_ptr.dtype == torch.int32
+    np.testing.assert_array_equal(order.perm.numpy(), np.argsort(src.numpy(), kind="stable"))
+    np.testing.assert_array_equal(order.row_ptr.numpy(), np.searchsorted(np.sort(src.numpy()), np.arange(9)))
+
+
+@pytest.mark.parametrize("n_in,n_out", [(24, 24), (32, 16)])
+def test_backward_wrappers_on_cpu_run_the_plain_versions(n_in, n_out):
+    _, pt, a, n = _setup(35, n_in=n_in, n_out=n_out)
     t = _torch(a)
     g = torch.ones(n, pt.irreps_out.dim)
-    before = (fused_conv.dx_launches, fused_conv.dw_launches)
-    dx = fused_conv.uvu_conv_dx(pt, g, t["sh"], t["w"], t["src"], t["dst"], 24)
-    dw = fused_conv.uvu_conv_dw(pt, t["x"], g, t["sh"], t["src"], t["dst"])
-    assert (fused_conv.dx_launches, fused_conv.dw_launches) == before
-    assert torch.equal(dx, fused_conv.uvu_conv_dx_reference(pt, g, t["sh"], t["w"], t["src"], t["dst"], 24))
-    assert torch.equal(dw, fused_conv.uvu_conv_dw_reference(pt, t["x"], g, t["sh"], t["src"], t["dst"]))
+    args = (pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in)
+    before = (fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
+    dx, dw = fused_conv.uvu_conv_bwd(*args)
+    assert (fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == before
+    dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(*args)
+    assert dx.shape == (n_in, pt.irreps_in1.dim) and dw.shape == (96, pt.weight_numel)
+    assert torch.equal(dx, dx_ref) and torch.equal(dw, dw_ref)
 
 
 def test_backward_launches_reject_bad_inputs():
     _, pt, a, n = _setup(36)
     t = _torch(a)
     g = torch.ones(n, pt.irreps_out.dim)
+
+    def launch(g=g, dst=t["dst"]):
+        fused_conv._launch_bwd(pt, t["x"], g, t["sh"], t["w"], t["src"], dst, 24)
+
     with pytest.raises(TypeError):
-        fused_conv._launch_dx(pt, g.double(), t["sh"], t["w"], t["src"], t["dst"], 24)
+        launch(g=g.double())
     with pytest.raises(ValueError, match="shape"):
-        fused_conv._launch_dx(pt, g[:, :-1].contiguous(), t["sh"], t["w"], t["src"], t["dst"], 24)
-    with pytest.raises(ValueError, match="non-decreasing"):
-        fused_conv._launch_dx(pt, g, t["sh"], t["w"], t["src"], t["dst"].flip(0).contiguous(), 24)
+        launch(g=g[:, :-1].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
-        fused_conv._launch_dw(pt, t["x"], g.t().contiguous().t(), t["sh"], t["src"], t["dst"])
+        launch(g=g.t().contiguous().t())
     with pytest.raises(ValueError, match="non-decreasing"):
-        fused_conv._launch_dw(pt, t["x"], g, t["sh"], t["src"], t["dst"].flip(0).contiguous())
+        launch(dst=t["dst"].flip(0).contiguous())

@@ -7,10 +7,11 @@ this file there without the conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerances: K1 vs plain rtol=atol=1e-5 (float32, another summation
-order); the dx and dw kernels vs plain max|d| <= 1e-5 max|ref| (their sums
-run over up to ~30 edges of both signs, so single small entries cancel);
-the model, 2 conv layers deep, 1e-4, its parameter gradients 1e-4 relative
-to each parameter's largest gradient.
+order); the backward kernels' dx and dw vs plain max|d| <= 1e-5 max|ref|
+(their sums run over many edges and paths of both signs, so single small
+entries cancel); two runs of the backward kernels bitwise equal (no
+atomics, fixed order); the model, 2 conv layers deep, 1e-4, its parameter
+gradients 1e-4 relative to each parameter's largest gradient.
 """
 
 import numpy as np
@@ -87,27 +88,74 @@ def test_kernel_rejects_bad_inputs(dev):
         fused_conv.fused_uvu_conv(plan, t["x"].cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
 
 
+# the production elasticity model's conv layers (scripts/configs/
+# materials_tensor_production.yaml): their 4 uvu plans
+PRODUCTION = dict(
+    species_embedding_dim=16, irreps_edge_sh="0e+1o+2e+3o+4e", num_radial_basis=8,
+    radial_basis_start=0.0, radial_basis_end=5.0, radial_basis_type="bessel", num_layers=3,
+    invariant_layers=2, invariant_neurons=32, average_num_neighbors=30.0,
+    conv_layer_irreps="32x0o+32x0e+16x1o+16x1e+4x2o+4x2e+2x3o+2x3e+2x4e",
+    nonlinearity_type="gate", normalization="batch",
+    conv_to_output_hidden_irreps_out="16x0e+2x2e+4e", output_format="irreps",
+    output_formula="ijkl=jikl=klij", reduce="mean",
+)
+
+
+def _production_plans(dev):
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.nn.conv import PointConv, PointConvWithActivation
+
+    model = create_scalar_tensor_model(PRODUCTION, dict(allowed_species=[8, 13, 14, 22, 56]), device=dev)
+    return [m.conv.uvu_plan if isinstance(m, PointConvWithActivation) else m.uvu_plan
+            for m in model.backbone.layers if isinstance(m, (PointConv, PointConvWithActivation))]
+
+
+def _check_backward(plan, t, g, n_in):
+    """uvu_conv_bwd (one launch of each kernel) and the autograd backward
+    of K1 against the plain backward; returns (dx, dw)."""
+    args = (plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in)
+    before = (fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
+    dx, dw = fused_conv.uvu_conv_bwd(*args)
+    torch.cuda.synchronize()
+    assert (fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == (before[0] + 1, before[1] + 1)
+    dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(*args)
+    _assert_rel(dx, dx_ref)
+    _assert_rel(dw, dw_ref)
+    return dx, dw
+
+
+def _inputs_on_graph(dev, seed, plan, n_in, src, dst):
+    rng = np.random.default_rng(seed)
+    e = len(dst)
+    arrs = dict(
+        x=rng.normal(size=(n_in, plan.irreps_in1.dim)).astype(np.float32),
+        sh=rng.normal(size=(e, plan.irreps_in2.dim)).astype(np.float32),
+        w=rng.normal(size=(e, plan.weight_numel)).astype(np.float32),
+        src=src.astype(np.int32),
+        dst=dst.astype(np.int32),
+    )
+    return {k: torch.as_tensor(v, device=dev) for k, v in arrs.items()}
+
+
+# edge counts 300 and 500 are no multiple of the 16-edge tile; (40, 16):
+# n_in != n_out; (2600, 2600, 166400): beyond the JAX v2 kernel's
+# RESIDENT_NODES_MAX = 2048, where JAX falls back to the v1 kernels K3 and K4
 @pytest.mark.parametrize(
-    "n_in,n_out,e", [(24, 24, 300), (40, 16, 500), (7, 5, 1), (2600, 2600, 40000)]
+    "n_in,n_out,e", [(24, 24, 300), (40, 16, 500), (7, 5, 1), (2600, 2600, 166400)]
 )
 def test_backward_kernels_match_plain(dev, n_in, n_out, e):
     plan, t = _inputs(dev, 3, n_in, n_out, e)
     g = torch.randn(n_out, plan.irreps_out.dim, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(5))
-    before = (fused_conv.dx_launches, fused_conv.dw_launches)
-    dx = fused_conv.uvu_conv_dx(plan, g, t["sh"], t["w"], t["src"], t["dst"], n_in)
-    dw = fused_conv.uvu_conv_dw(plan, t["x"], g, t["sh"], t["src"], t["dst"])
-    torch.cuda.synchronize()
-    assert (fused_conv.dx_launches, fused_conv.dw_launches) == (before[0] + 1, before[1] + 1)
-    dx_ref = fused_conv.uvu_conv_dx_reference(plan, g, t["sh"], t["w"], t["src"], t["dst"], n_in)
-    dw_ref = fused_conv.uvu_conv_dw_reference(plan, t["x"], g, t["sh"], t["src"], t["dst"])
-    _assert_rel(dx, dx_ref)
-    _assert_rel(dw, dw_ref)
+    _check_backward(plan, t, g, n_in)
+    dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(
+        plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in)
     # the autograd backward of K1 launches the same kernels (dsh by the plain version)
+    before = (fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
     x, sh, w = (t[k].clone().requires_grad_() for k in ("x", "sh", "w"))
     out = fused_conv.fused_uvu_conv(plan, x, sh, w, t["src"], t["dst"], n_out)
     out.backward(g)
-    assert (fused_conv.dx_launches, fused_conv.dw_launches) == (before[0] + 2, before[1] + 2)
+    assert (fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == (before[0] + 1, before[1] + 1)
     _assert_rel(x.grad, dx_ref)
     _assert_rel(w.grad, dw_ref)
     with torch.enable_grad():
@@ -117,13 +165,43 @@ def test_backward_kernels_match_plain(dev, n_in, n_out, e):
     _assert_rel(sh.grad, dsh_ref, 1e-4)
 
 
+def test_backward_kernels_match_plain_at_production_plans(dev):
+    """The 4 production plans on a flagship-sized random graph (N=320,
+    E=21504, dst sorted), and the last one on degree-1 destinations: every
+    tile then has 16 destinations, 14 of them read from the cache."""
+    rng = np.random.default_rng(6)
+    n, e = 320, 21504
+    src, dst = rng.integers(0, n, e), np.sort(rng.integers(0, n, e))
+    plans = _production_plans(dev)
+    for i, plan in enumerate(plans):
+        t = _inputs_on_graph(dev, 10 + i, plan, n, src, dst)
+        g = torch.as_tensor(rng.normal(size=(n, plan.irreps_out.dim)).astype(np.float32), device=dev)
+        _check_backward(plan, t, g, n)
+    e1 = 3000
+    t = _inputs_on_graph(dev, 20, plans[-1], n, rng.integers(0, n, e1), np.arange(e1))
+    g = torch.as_tensor(rng.normal(size=(e1, plans[-1].irreps_out.dim)).astype(np.float32), device=dev)
+    _check_backward(plans[-1], t, g, n)
+
+
+def test_backward_kernels_are_bitwise_deterministic(dev):
+    plan = _production_plans(dev)[-1]
+    rng = np.random.default_rng(7)
+    n, e = 320, 21504
+    t = _inputs_on_graph(dev, 8, plan, n, rng.integers(0, n, e), np.sort(rng.integers(0, n, e)))
+    g = torch.as_tensor(rng.normal(size=(n, plan.irreps_out.dim)).astype(np.float32), device=dev)
+    dx, dw = _check_backward(plan, t, g, n)
+    dx2, dw2 = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
 def test_backward_kernels_reject_bad_inputs(dev):
     plan, t = _inputs(dev, 4, 24, 24, 100)
     g = torch.ones(24, plan.irreps_out.dim, device=dev)
     with pytest.raises(ValueError, match="non-decreasing"):
-        fused_conv.uvu_conv_dw(plan, t["x"], g, t["sh"], t["src"], t["dst"].flip(0).contiguous())
+        fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"],
+                                t["dst"].flip(0).contiguous(), 24)
     with pytest.raises(ValueError, match="mixed devices"):
-        fused_conv.uvu_conv_dx(plan, g.cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
+        fused_conv.uvu_conv_bwd(plan, t["x"], g.cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
 
 
 def test_model_forward_through_kernel(dev):
@@ -173,9 +251,9 @@ def test_model_forward_through_kernel(dev):
         model(data)[real].square().sum().backward()
         return {n: p.grad.clone() for n, p in model.named_parameters()}
 
-    before = (fused_conv.launches, fused_conv.dx_launches, fused_conv.dw_launches)
+    before = (fused_conv.launches, fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
     got = grads()
-    assert (fused_conv.launches, fused_conv.dx_launches, fused_conv.dw_launches) == tuple(
+    assert (fused_conv.launches, fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == tuple(
         b + 3 for b in before)
     with fused_conv.force_plain():
         ref = grads()
