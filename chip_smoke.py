@@ -7,11 +7,15 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
   1. environment: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: nvcc builds the port's kernels from the sources in this checkout,
      one process per source, all started together;
-  3. kernel parity: the fused uvu conv kernel (K1) against its plain PyTorch
-     version at the 4 conv-layer plans of the production elasticity model,
-     on the flagship batch's real edges, seeded random x and w, and at
+  3. kernel parity: the fused uvu conv (K1: its item pass and the segment
+     sum of its partial rows) against its plain PyTorch version at the 4
+     conv-layer plans of the production elasticity model, on the flagship
+     batch's real edges and its edge plan, seeded random x and w; at
      N = 2600 nodes with the last layer's plan (the regime where the JAX
-     package leaves its resident-node kernels for K3);
+     package leaves its resident-node kernels for K3); and on a skewed graph
+     (one destination with 3000 edges, destinations without edges, whose
+     rows must be 0); two runs bitwise equal; the segment sum of K1's
+     partial rows against index_add_ of the same rows;
   4. backward kernel parity at the same 4 plans with a seeded cotangent g
      and at N = 2600: the merged backward kernel's dw and per-edge dx rows
      against their plain versions, the dx segment sum against index_add_ of
@@ -19,7 +23,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      and two runs of `uvu_conv_bwd` bitwise equal;
   5. model: the production ScalarTensorModel (seeded random weights) on the
      flagship batch through K1 and through the plain conv; exactly 4 K1
-     launches per forward;
+     launches (item pass and partial-row sum) per forward;
   6. serving, the first main path: `matten_tpu_torch.predict.predict` on the
      32 flagship crystals plus Si; every result a finite [3, 3, 3, 3]
      tensor; launch counts set to 0 just before and read just after;
@@ -27,12 +31,15 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      against a deep copy of the model under `force_plain()`;
   8. train step, the second main path: `Trainer.train_step` (Adam, lr 0.01)
      on the flagship batch and its targets, a few steps; exactly 4 launches
-     of each of K1, the merged backward and the dx segment sum per step,
-     finite losses;
+     per step of each of K1's item pass, the segment sum in its two roles
+     (K1's partial rows, dx) and the merged backward; finite losses;
   9. timings with CUDA events, kernel against plain, interleaved: the
-     forward and the train step; per layer K1, the merged backward (against
-     the plain backward) and the dx segment sum (against the plain sum and
-     index_add_); each beside its bound; peak memory.
+     forward and the train step; per layer K1 with its partial-row sum (on
+     the batch's edge plan, as the model calls it), the merged backward
+     (against the plain backward) and the segment sum in both roles
+     (against the plain sum and index_add_ of the same rows); each beside
+     its bound; peak memory of a forward and a train step above what is
+     resident before it.
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
@@ -43,7 +50,9 @@ left visible.
 adds phase 10, where the time of a forward and of a train step goes: host
 wall per forward and per step, per backbone layer, the step's forward /
 backward / optimizer split, and torch.profiler traces (device ops, device
-busy time, host launches, device time of each kernel), written to DIR.
+busy time, host launches, device time of each kernel), written to DIR; and
+the device time per layer of K1, its item pass, the segment sum in both
+roles and index_add_ of the same rows, with the L2 cache warm and flushed.
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
@@ -100,6 +109,7 @@ TRAIN_STEPS = 3
 TARGET = "elastic_tensor_full"
 BIG_N = 2600  # beyond the JAX package's resident-node limit of 2048
 BIG_DEGREE = 64
+SKEW_DEGREE, SKEW_EMPTY, SKEW_REST = 3000, 16, 1237  # E = 4237, no multiple of 16
 
 # one H100 SXM, NVIDIA's data sheet: HBM rate and float32 peak outside the
 # tensor cores (the kernels run in float32 on the CUDA cores)
@@ -188,12 +198,15 @@ def conv_layers(model):
     return out
 
 
-def kernel_work(plan, n_in, n_out, n_edges):
+def kernel_work(plan, n_in, n_out, n_edges, n_items):
     """(bytes, float32 operations) each kernel's function needs at one
     layer: every input read once and every output written once; operations
     as the kernels' arithmetic counts them (2 per multiply-add, 1 per add).
-    "bwd" is the whole merged backward, g, sh, w, x, src, dst -> dx, dw;
-    "reduce" the dx segment sum alone, dxe, perm, row_ptr -> dx."""
+    "fwd" is K1's function, x, sh, w, src, dst -> out (its partial rows are
+    a cost of the implementation, not work of the function); "bwd" the
+    whole merged backward, g, sh, w, x, src, dst -> dx, dw; "fwd_sum" the
+    segment sum of K1's partial rows alone, partial, item_ptr -> out;
+    "dx_sum" the dx segment sum alone, dxe, perm, row_ptr -> dx."""
     from matten_tpu_torch.kernels.fused_conv import kernel_tables
 
     tab = kernel_tables(plan)
@@ -208,7 +221,8 @@ def kernel_work(plan, n_in, n_out, n_edges):
         "bwd": (4 * (n_out * dout + n_edges * (d2 + dw) + n_in * d1 + n_in * d1 + n_edges * dw)
                 + edge_idx,
                 n_edges * 2 * (sh_terms + x_terms + 2 * w_terms)),
-        "reduce": (4 * (n_edges * d1 + n_edges + n_in + 1 + n_in * d1), n_edges * d1),
+        "fwd_sum": (4 * (n_items * dout + n_out + 1 + n_out * dout), n_items * dout),
+        "dx_sum": (4 * (n_edges * d1 + n_edges + n_in + 1 + n_in * d1), n_edges * d1),
     }
 
 
@@ -226,22 +240,45 @@ def bound_by(per_layer):
     return max(share, key=share.get)
 
 
+def own_peak_mib(fn, torch):
+    """MiB that fn's run adds at its peak to what is allocated before it."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
 def rel_err(out, ref):
     return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
+# each kernel's launch counter in kernels/fused_conv.py; "fwd_sum" and
+# "dx_sum" are the two roles of the one segment sum kernel
+COUNTERS = {"fwd": "launches", "fwd_sum": "fwd_sum_launches", "bwd": "bwd_launches",
+            "dx_sum": "dx_sum_launches"}
+
+
 def counts(fused_conv):
-    return {"fwd": fused_conv.launches, "bwd": fused_conv.bwd_launches,
-            "reduce": fused_conv.dx_reduce_launches}
+    return {k: getattr(fused_conv, c) for k, c in COUNTERS.items()}
 
 
 def reset_counts(fused_conv):
-    fused_conv.launches = fused_conv.bwd_launches = fused_conv.dx_reduce_launches = 0
+    for c in COUNTERS.values():
+        setattr(fused_conv, c, 0)
 
 
 PROFILED_FORWARDS = 5
 DEVICE_OPS = ("kernel", "gpu_memcpy", "gpu_memset")
-KERNEL_NAMES = {"fwd": "fused_uvu_conv_fwd", "bwd": "fused_uvu_conv_bwd", "reduce": "uvu_conv_dx_reduce"}
+# what each kind's kernel name holds in a trace: the segment sum runs its
+# two roles as two instances of one template, segment_sum_kernel<V, PERM>
+KERNEL_NAMES = {"fwd": ("fused_uvu_conv_fwd",), "fwd_sum": ("segment_sum_kernel", "false>"),
+                "bwd": ("fused_uvu_conv_bwd",), "dx_sum": ("segment_sum_kernel", "true>")}
+
+
+def is_kind(name, kind):
+    return all(p in name for p in KERNEL_NAMES[kind])
 
 
 def traced(fn, n, out_dir, name, torch):
@@ -286,8 +323,8 @@ def traced(fn, n, out_dir, name, torch):
     stats["by_kernel"] = per_name
     stats["per_layer"] = {
         k: [float(np.mean(v[i::4])) for i in range(4)] if len(v) >= 4 else []
-        for k, v in ((k, [e["dur"] / 1e3 for e in dev_ops if kn in e["name"]])
-                     for k, kn in KERNEL_NAMES.items())
+        for k, v in ((k, [e["dur"] / 1e3 for e in dev_ops if is_kind(e["name"], k)])
+                     for k in KERNEL_NAMES)
     }
     return ev, stats
 
@@ -365,8 +402,9 @@ def profile_forward(model, fwd, data, out_dir, torch):
         f"[10 profile forward] host wall per forward (synced, unprofiled) ms: median "
         f"{np.median(wall):.4f} q1 {np.percentile(wall, 25):.4f} q3 {np.percentile(wall, 75):.4f}; "
         "per layer ms (synced): " + ", ".join(f"{n} {t:.4f}" for n, t in zip(names, layer_ms))
-        + "; under the profiler, per forward: " + device_summary(st) + "; K1 kernel ms per layer "
-        + " / ".join(f"{t:.4f}" for t in st["per_layer"]["fwd"]) + "; " + "; ".join(per_label)
+        + "; under the profiler, per forward: " + device_summary(st) + "; kernel ms per layer "
+        + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in st["per_layer"][k]) for k in ("fwd", "fwd_sum"))
+        + "; " + "; ".join(per_label)
         + f"; trace and tables in {out_dir}"
     )
 
@@ -396,7 +434,7 @@ def profile_train(trainer, batch, out_dir, torch):
     _, st = traced(lambda: trainer.train_step(data, targets), PROFILED_FORWARDS, out_dir,
                    "train_step", torch)
     top = sorted(st["by_kernel"].items(), key=lambda kv: -kv[1])[:6]
-    conv_ms = {k: sum(t for n, t in st["by_kernel"].items() if kn in n) for k, kn in KERNEL_NAMES.items()}
+    conv_ms = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k)) for k in KERNEL_NAMES}
     return (
         f"[10 profile train] host wall per step (synced, unprofiled) ms: median "
         f"{np.median(wall):.4f} q1 {np.percentile(wall, 25):.4f} q3 {np.percentile(wall, 75):.4f}; "
@@ -404,12 +442,50 @@ def profile_train(trainer, batch, out_dir, torch):
         f"optimizer {split[2]:.4f}; under the profiler, per step: " + device_summary(st)
         + "; kernel ms per layer L0 / L1 / L2 / L3: " + "; ".join(
             # the backward launches its kernels from the last layer down
-            f"{k} " + " / ".join(f"{t:.4f}" for t in (v if k == "fwd" else v[::-1]))
+            f"{k} " + " / ".join(f"{t:.4f}" for t in (v if k.startswith("fwd") else v[::-1]))
             for k, v in st["per_layer"].items())
         + "; conv kernels device ms/step: " + ", ".join(f"{k} {t:.4f}" for k, t in conv_ms.items())
         + "; top device kernels ms/step: " + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top)
         + f"; trace and tables in {out_dir}"
     )
+
+
+L2_FLUSH_BYTES = 2**27  # written before a cold call: more than the H100's 50 MB L2
+FLUSH_KERNEL = "FillFunctor"  # the flush's own kernel, left out of the cold times
+
+
+def profile_sums(sum_inputs, out_dir, torch):
+    """Phase 10c: device ms per call and layer of K1 (item pass and partial-
+    row sum), its item pass, the segment sum in both roles, and index_add_
+    of the same rows, each under torch.profiler over REPS calls: warm (the
+    rows in L2 from the call before, as in a loop of calls) and cold (L2
+    flushed before each call, as after the kernel that wrote the rows and
+    the others of the step)."""
+    from matten_tpu_torch.kernels import fused_conv
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=sum_inputs[0][1].device)
+    names = ("K1", "item pass", "fwd_sum", "index_add_ fwd", "dx_sum", "index_add_ dx")
+    ops = {(name, temp): [] for temp in ("warm", "cold") for name in names}
+    for i, (k1, partial, edges, item_node, dxe, src_long) in enumerate(sum_inputs):
+        acc_f = torch.zeros(edges.n_out, partial.shape[1], device=partial.device)
+        acc_d = torch.zeros(edges.n_in, dxe.shape[1], device=dxe.device)
+        fns = {"K1": k1, "fwd_sum": lambda: fused_conv._launch_fwd_sum(partial, edges),
+               "index_add_ fwd": lambda: acc_f.index_add_(0, item_node, partial),
+               "dx_sum": lambda: fused_conv._launch_dx_sum(dxe, edges.order, edges.n_in),
+               "index_add_ dx": lambda: acc_d.index_add_(0, src_long, dxe)}
+        for name, fn in fns.items():
+            for temp, run in (("warm", fn), ("cold", lambda: (flush.zero_(), fn()))):
+                run()
+                _, st = traced(run, REPS, out_dir, f"L{i}_{name.replace(' ', '_')}_{temp}", torch)
+                by_kernel = {n: t for n, t in st["by_kernel"].items() if FLUSH_KERNEL not in n}
+                ops[name, temp].append(sum(by_kernel.values()))
+                if name == "K1":
+                    ops["item pass", temp].append(sum(
+                        t for n, t in by_kernel.items() if is_kind(n, "fwd")))
+    return ("[10 profile sums] device ms per call L0 / L1 / L2 / L3 (sum): " + "; ".join(
+        f"{name} {temp} " + " / ".join(f"{t:.4f}" for t in v) + f" ({sum(v):.4f})"
+        for (name, temp), v in ops.items()))
 
 
 def main() -> int:
@@ -476,22 +552,35 @@ def main() -> int:
           f"{int(data_np[K.GRAPH_MASK].sum())} graphs / G={data_np[K.GRAPH_MASK].shape[0]}; "
           f"targets {TARGET} {tuple(targets[TARGET].shape)}", flush=True)
 
-    # 3. kernel parity at the 4 production layer plans, then N = 2600 with the last plan
+    # 3. kernel parity at the 4 production layer plans, then N = 2600 with
+    #    the last plan, then a skewed graph
     gen = torch.Generator(device=dev).manual_seed(SEED)
     layer_inputs, parity = [], []
-    max_abs = {"fwd": 0.0, "bwd": 0.0, "reduce": 0.0}
+    max_abs = {k: 0.0 for k in COUNTERS}
+    edges = fused_conv.edge_plan(src, dst, n_nodes, n_nodes, with_src_order=True)
 
-    def check_forward(plan, x, w, sh_, src_, dst_, n_out):
+    def check_forward(plan, x, w, sh_, src_, dst_, n_out, n_in=None):
+        n_in = n_out if n_in is None else n_in
+        plan_e = fused_conv.edge_plan(src_, dst_, n_in, n_out)
         with torch.inference_mode():
-            out = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out)
+            out = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out, plan_e)
+            out2 = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out, plan_e)
             ref = fused_conv.uvu_conv_reference(plan, x, sh_, w, src_, dst_, n_out)
+            partial = fused_conv._launch_items(plan, x, sh_, w, src_, plan_e)
+            summed = fused_conv._launch_fwd_sum(partial, plan_e)
+            item_node = torch.repeat_interleave(
+                torch.arange(n_out, device=dev), (plan_e.item_ptr[1:] - plan_e.item_ptr[:-1]).long())
+            sum_ref = torch.zeros_like(summed).index_add_(0, item_node, partial)
         torch.cuda.synchronize()
-        rel = rel_err(out, ref)
+        rel, rel_sum = rel_err(out, ref), rel_err(summed, sum_ref)
         max_abs["fwd"] = max(max_abs["fwd"], float((out - ref).abs().max()))
-        if not rel <= KERNEL_TOL:
-            raise AssertionError(f"K1 disagrees with its plain version at d1={plan.irreps_in1.dim}, "
-                                 f"N={n_out}: {rel} > {KERNEL_TOL}")
-        return f"{rel:.3e}"
+        max_abs["fwd_sum"] = max(max_abs["fwd_sum"], float((summed - sum_ref).abs().max()))
+        if not (rel <= KERNEL_TOL and rel_sum <= KERNEL_TOL):
+            raise AssertionError(f"K1 or its partial-row sum disagrees with its plain version at "
+                                 f"d1={plan.irreps_in1.dim}, N={n_out}: {rel}, {rel_sum} > {KERNEL_TOL}")
+        if not (torch.equal(out, out2) and torch.equal(out, summed)):
+            raise AssertionError(f"K1 is not bitwise reproducible at d1={plan.irreps_in1.dim}, N={n_out}")
+        return out, f"{rel:.3e} (partial-row sum {rel_sum:.3e}; {plan_e.n_items} items)"
 
     for conv in convs:
         plan = conv.uvu_plan
@@ -502,7 +591,7 @@ def main() -> int:
         layer_inputs.append((plan, x, w, g))
         parity.append(f"d1={plan.irreps_in1.dim} dw={plan.weight_numel} "
                       f"dout={plan.irreps_out.dim} paths={len(plan.instructions)}: "
-                      + check_forward(plan, x, w, sh, src, dst, n_nodes))
+                      + check_forward(plan, x, w, sh, src, dst, n_nodes)[1])
     plan = convs[-1].uvu_plan
     big_e = BIG_N * BIG_DEGREE
     gen_big = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -516,15 +605,37 @@ def main() -> int:
                                      dtype=torch.int32))[0],
     )
     parity.append(f"N={BIG_N} E={big_e} L3 plan: " + check_forward(
-        plan, big["x"], big["w"], big["sh"], big["src"], big["dst"], BIG_N))
-    print(f"[3 kernel parity] K1 max|d|/max|ref| (tol {KERNEL_TOL}): "
-          + "; ".join(parity) + f"; max|d|={max_abs['fwd']:.3e}", flush=True)
+        plan, big["x"], big["w"], big["sh"], big["src"], big["dst"], BIG_N)[1])
+    # skewed: one destination with SKEW_DEGREE edges, the first SKEW_EMPTY
+    # destinations (but it) without edges; n_in != n_out
+    skew_dst = torch.cat([torch.full((SKEW_DEGREE,), SKEW_EMPTY // 2, device=dev, dtype=torch.int32),
+                          torch.randint(SKEW_EMPTY, n_nodes, (SKEW_REST,), generator=gen_big, device=dev,
+                                        dtype=torch.int32)]).sort()[0]
+    skew_e = SKEW_DEGREE + SKEW_REST
+    skew_n_in = n_nodes + 7
+    skew_out, txt = check_forward(
+        plan, torch.randn(skew_n_in, plan.irreps_in1.dim, generator=gen_big, device=dev),
+        torch.randn(skew_e, plan.weight_numel, generator=gen_big, device=dev),
+        torch.randn(skew_e, plan.irreps_in2.dim, generator=gen_big, device=dev),
+        torch.randint(0, skew_n_in, (skew_e,), generator=gen_big, device=dev, dtype=torch.int32),
+        skew_dst, n_nodes, skew_n_in)
+    empty = torch.ones(n_nodes, dtype=torch.bool, device=dev)
+    empty[skew_dst.long()] = False
+    n_empty = int(empty.sum())
+    if n_empty < SKEW_EMPTY - 1 or not bool((skew_out[empty] == 0).all()):
+        raise AssertionError(f"K1 on the skewed graph: {n_empty} destinations without edges, "
+                             "their rows not all zero")
+    parity.append(f"skewed, one destination of degree {SKEW_DEGREE}, {n_empty} without edges "
+                  f"(rows 0), E={skew_e}, n_in={skew_n_in}, L3 plan: {txt}")
+    print(f"[3 kernel parity] K1 max|d|/max|ref| (tol {KERNEL_TOL}), two runs bitwise equal: "
+          + "; ".join(parity) + f"; max|d|={max_abs['fwd']:.3e}, partial-row sum vs index_add_ "
+          f"{max_abs['fwd_sum']:.3e}", flush=True)
 
     # 4. backward kernel parity: the 4 plans, then N = 2600 with the last plan
     def check_backward(plan, x, w, g, sh_, src_, dst_, n_in):
         with torch.no_grad():
             dxe, dw = fused_conv._launch_bwd_edges(plan, x, g, sh_, w, src_, dst_)
-            dx = fused_conv._launch_dx_reduce(dxe, fused_conv.src_order(src_, n_in), n_in)
+            dx = fused_conv._launch_dx_sum(dxe, fused_conv.src_order(src_, n_in), n_in)
             dx2, dw2 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
             dx3, dw3 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
             dxe_ref = fused_conv.uvu_conv_dxe_reference(plan, g, sh_, w, dst_)
@@ -533,7 +644,7 @@ def main() -> int:
         torch.cuda.synchronize()
         errs = []
         for kind, name, out, ref in (("bwd", "dw", dw, dw_ref), ("bwd", "dxe", dxe, dxe_ref),
-                                     ("reduce", "dx sum", dx, dx_sum),
+                                     ("dx_sum", "dx sum", dx, dx_sum),
                                      (None, "dx", dx2, dx_ref), (None, "dw", dw2, dw_ref)):
             rel = rel_err(out, ref)
             if kind is not None:
@@ -556,7 +667,7 @@ def main() -> int:
     print(f"[4 backward kernel parity] max|d|/max|ref| (tol {KERNEL_TOL}): merged kernel dw and "
           "per-edge dx rows vs plain, segment sum vs index_add_ of the same rows, uvu_conv_bwd "
           "dx and dw vs the plain backward: " + "; ".join(bwd_parity)
-          + f"; max|d| merged {max_abs['bwd']:.3e}, segment sum {max_abs['reduce']:.3e}",
+          + f"; max|d| merged {max_abs['bwd']:.3e}, segment sum {max_abs['dx_sum']:.3e}",
           flush=True)
 
     # 5. model forward through K1 and through the plain conv
@@ -570,21 +681,21 @@ def main() -> int:
         with fused_conv.force_plain():
             return fwd()
 
-    before = fused_conv.launches
+    reset_counts(fused_conv)
     out_k = fwd()
-    per_fwd = fused_conv.launches - before
+    per_fwd = counts(fused_conv)
     out_p = fwd_plain()
     torch.cuda.synchronize()
-    if per_fwd != len(convs):
-        raise AssertionError(f"{per_fwd} K1 launches per forward, expected {len(convs)}")
-    if fused_conv.launches - before != per_fwd:
-        raise AssertionError("the plain forward launched K1")
+    if per_fwd != {"fwd": len(convs), "fwd_sum": len(convs), "bwd": 0, "dx_sum": 0}:
+        raise AssertionError(f"launches per forward {per_fwd}, expected {len(convs)} of K1's two")
+    if counts(fused_conv) != per_fwd:
+        raise AssertionError("the plain forward launched a kernel")
     if tuple(out_k.shape) != (real.shape[0], 21) or not bool(torch.isfinite(out_k).all()):
         raise AssertionError(f"model output {tuple(out_k.shape)} not finite [G, 21]")
     rel = float((out_k[real] - out_p[real]).abs().max() / out_p[real].abs().max())
     print(f"[5 model] out {tuple(out_k.shape)}, {int(real.sum())} real rows: "
           f"max|d|/max|ref| K1 vs plain = {rel:.3e} (tol {MODEL_TOL}); "
-          f"{per_fwd} K1 launches per forward", flush=True)
+          f"launches per forward {per_fwd}", flush=True)
     if not rel <= MODEL_TOL:
         raise AssertionError(f"model through K1 disagrees with the plain path: {rel}")
 
@@ -596,8 +707,8 @@ def main() -> int:
     for i, r in enumerate(results):
         if r is None or r.shape != (3, 3, 3, 3) or not np.isfinite(r).all():
             raise AssertionError(f"predict() result {i} is not a finite [3,3,3,3] tensor")
-    if served["fwd"] == 0:
-        raise AssertionError("predict() never launched K1")
+    if served["fwd"] == 0 or served["fwd_sum"] == 0:
+        raise AssertionError(f"predict() did not launch both of K1's kernels: {served}")
     si = results[-1]
     print(f"[6 serving] predict() on {len(results)} structures: all finite [3,3,3,3]; "
           f"launches {served}; Si C_1111={si[0, 0, 0, 0]:.6f}", flush=True)
@@ -630,7 +741,7 @@ def main() -> int:
     trainer_p.model.load_state_dict(trainer.model.state_dict())
 
     # 8. train step, the second main path, counted
-    losses, trained = [], {"fwd": 0, "bwd": 0, "reduce": 0}
+    losses, trained = [], {k: 0 for k in COUNTERS}
     for _ in range(TRAIN_STEPS):
         reset_counts(fused_conv)
         loss, metric_sums = trainer.train_step(data, targets)
@@ -655,48 +766,41 @@ def main() -> int:
             trainer_p.train_step(data, targets)
 
     step_k, step_p = interleaved(lambda: trainer.train_step(data, targets), step_plain, torch)
-    layer_ms = {"fwd": [], "bwd": [], "reduce": []}
-    bounds = {"fwd": [], "bwd": [], "reduce": []}
-    library_ms = []  # index_add_ of the per-edge dx rows: the segment sum in one call
-    order = fused_conv.src_order(src, n_nodes)
+    layer_ms = {k: [] for k in COUNTERS}
+    bounds = {k: [] for k in COUNTERS}
+    # index_add_ of the same rows: each segment sum's function in one call
+    library_ms = {"fwd_sum": [], "dx_sum": []}
     src_long = src.long()
+    item_node = torch.repeat_interleave(
+        torch.arange(n_nodes, device=dev), (edges.item_ptr[1:] - edges.item_ptr[:-1]).long())
+    sum_inputs = []  # for phase 10
     for plan, x, w, g in layer_inputs:
         with torch.no_grad():
+            # as the model calls it: on the batch's edge plan
+            k1 = functools.partial(fused_conv.fused_uvu_conv, plan, x, sh, w, src, dst, n_nodes, edges)
             layer_ms["fwd"].append(interleaved(
-                lambda: fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_nodes),
-                lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes),
-                torch,
-            ))
-            # as the train step launches it: src and dst checked by the forward
+                k1, lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
+            # as the train step launches it: src and dst checked by the edge plan
             layer_ms["bwd"].append(interleaved(
-                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst, check_indices=False),
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst),
                 lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes),
                 torch,
             ))
+            partial = fused_conv._launch_items(plan, x, sh, w, src, edges)
             dxe, _ = fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dw=False)
-            layer_ms["reduce"].append(interleaved(
-                lambda: fused_conv._launch_dx_reduce(dxe, order, n_nodes),
-                lambda: scatter_sum(dxe, src, n_nodes),
-                torch,
-            ))
-            acc = torch.zeros(n_nodes, dxe.shape[1], device=dev)
-            library_ms.append(interleaved(
-                lambda: acc.index_add_(0, src_long, dxe),
-                lambda: fused_conv._launch_dx_reduce(dxe, order, n_nodes),
-                torch,
-            )[0])
-        for kind, (nbytes, flops) in kernel_work(plan, n_nodes, n_nodes, n_edges).items():
+            for kind, rows, idx, fn in (
+                    ("fwd_sum", partial, item_node, lambda: fused_conv._launch_fwd_sum(partial, edges)),
+                    ("dx_sum", dxe, src_long, lambda: fused_conv._launch_dx_sum(dxe, edges.order, n_nodes))):
+                layer_ms[kind].append(interleaved(fn, lambda: scatter_sum(rows, idx, n_nodes), torch))
+                acc = torch.zeros(n_nodes, rows.shape[1], device=dev)
+                library_ms[kind].append(interleaved(lambda: acc.index_add_(0, idx, rows), fn, torch)[0])
+            sum_inputs.append((k1, partial, edges, item_node, dxe, src_long))
+        for kind, (nbytes, flops) in kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items).items():
             bounds[kind].append(bound_ms(nbytes, flops))
 
-    def peak(fn):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() / 2**20
-
-    peak_fwd = (peak(fwd), peak(fwd_plain))
-    peak_step = (peak(lambda: trainer.train_step(data, targets)), peak(step_plain))
+    peak_fwd = (own_peak_mib(fwd, torch), own_peak_mib(fwd_plain, torch))
+    peak_step = (own_peak_mib(lambda: trainer.train_step(data, targets), torch),
+                 own_peak_mib(step_plain, torch))
     per_layer = "; ".join(
         f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f}" for k, p in layer_ms[kind])
         for kind in layer_ms)
@@ -704,28 +808,35 @@ def main() -> int:
         f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
     print(f"[9 timings] {card}: flagship batch (32 crystals), median ms, kernel vs plain: "
           f"forward {fwd_k:.4f} vs {fwd_p:.4f}; train step {step_k:.4f} vs {step_p:.4f}; "
-          f"per layer L0 / L1 / L2 / L3 (bwd: the merged kernel vs the plain backward; reduce: "
-          f"the segment sum vs scatter_sum): {per_layer}; reduce library (index_add_) "
-          + " / ".join(f"{t:.4f}" for t in library_ms) + f"; bound ms per layer: {bound_txt}; "
-          f"peak memory MiB forward {peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, "
+          f"per layer L0 / L1 / L2 / L3 (fwd: K1 with its partial-row sum vs the plain version; "
+          f"bwd: the merged kernel vs the plain backward; fwd_sum, dx_sum: the segment sum vs "
+          f"scatter_sum): {per_layer}; index_add_ of the same rows "
+          + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) for k, v in library_ms.items())
+          + f"; bound ms per layer: {bound_txt}; "
+          f"peak memory MiB above the resident: forward {peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, "
           f"train step {peak_step[0]:.1f} vs {peak_step[1]:.1f}", flush=True)
 
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
+        print(profile_sums(sum_inputs, args.profile / "sums", torch), flush=True)
 
     sources = {"fwd": "matten_tpu_torch/kernels/csrc/fused_conv.cu",
+               "fwd_sum": "matten_tpu_torch/kernels/csrc/segment_sum.cu",
                "bwd": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu",
-               "reduce": "matten_tpu_torch/kernels/csrc/fused_conv_bwd.cu"}
+               "dx_sum": "matten_tpu_torch/kernels/csrc/segment_sum.cu"}
     replaces = {"fwd": "matten_tpu/kernels/fused_conv.py:1012",
+                "fwd_sum": "matten_tpu/kernels/fused_conv.py:1012",
                 "bwd": "matten_tpu/kernels/fused_conv.py:1118, :407 and :552",
-                "reduce": "matten_tpu/kernels/fused_conv.py:1118 and :407"}
-    names = {"fwd": "fused_uvu_conv_fwd (K1)",
+                "dx_sum": "matten_tpu/kernels/fused_conv.py:1118 and :407"}
+    names = {"fwd": "fused_uvu_conv_fwd (K1; ms with its partial-row sum)",
+             "fwd_sum": "segment_sum (K1's partial rows into dst)",
              "bwd": "fused_uvu_conv_bwd (K2; K3 transposed, K4)",
-             "reduce": "uvu_conv_dx_reduce (K2 and K3 dx into src)"}
-    library = {"fwd": None, "bwd": None, "reduce": sum(library_ms)}
+             "dx_sum": "segment_sum (K2 and K3 dx into src)"}
+    library = {"fwd": None, "fwd_sum": sum(library_ms["fwd_sum"]), "bwd": None,
+               "dx_sum": sum(library_ms["dx_sum"])}
     kernels = []
-    for kind in ("fwd", "bwd", "reduce"):
+    for kind in COUNTERS:
         launched = served[kind] + trained[kind]
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")

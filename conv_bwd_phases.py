@@ -28,11 +28,11 @@ import torch
 import chip_smoke as cs
 
 TASKS = "  for (int k = __ldg(a.warp_ptr + warp); k < k_end; ++k) {"
-T_E = "  for (int i = tid; i < a.n_t; i += BWD_THREADS) {"
+T_E = "  contract_te<BWD_THREADS>("
 VARIANTS = {
     "full": [],
     "no_tasks": [(TASKS, TASKS.replace("k < k_end;", "k < k_end && a.n_t < 0;"))],
-    "no_t": [(T_E, T_E.replace("i < a.n_t;", "i < a.n_t && a.n_edges < 0;"))],
+    "no_t": [(T_E, "  if (a.n_edges < 0) contract_te<BWD_THREADS>(")],
 }
 VARIANTS["prologue"] = VARIANTS["no_tasks"] + VARIANTS["no_t"]
 
@@ -40,7 +40,8 @@ VARIANTS["prologue"] = VARIANTS["no_tasks"] + VARIANTS["no_t"]
 def build(_build):
     """{variant: ctypes library}, nvcc run for all variants at once."""
     source = (_build._CSRC / "fused_conv_bwd.cu").read_text()
-    out = _build.BUILD_ROOT / ("phases-" + hashlib.sha256(source.encode()).hexdigest()[:16])
+    common = (_build._CSRC / "fused_conv_common.cuh").read_bytes()
+    out = _build.BUILD_ROOT / ("phases-" + hashlib.sha256(source.encode() + common).hexdigest()[:16])
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, edits in VARIANTS.items():
@@ -50,8 +51,8 @@ def build(_build):
                 raise SystemExit(f"conv_bwd_phases: the kernel source no longer has {old!r}")
             text = text.replace(old, new)
         (out / f"{name}.cu").write_text(text)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out / f"{name}.so"),
-               str(out / f"{name}.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build._CSRC), "-shared",
+               "-o", str(out / f"{name}.so"), str(out / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -94,14 +95,15 @@ def main() -> int:
         w = torch.randn(e, dw, generator=gen, device=dev)
         g = torch.randn(n, dout, generator=gen, device=dev)
         t_meta = fc._tables_on(plan, dev)[0]
-        tables = fc._bwd_tables_on(plan, dev)
+        tt = fc._tile_tables_on(plan, dev)
         dxe, dw_out = torch.empty(e, d1, device=dev), torch.empty(e, dw, device=dev)
-        ptrs = [x, g, sh, w, src, dst, t_meta, *tables, dw_out, dxe]
+        ptrs = [x, g, sh, w, src, dst, t_meta, tt.cg_t, tt.t_sh, tt.sh_src, tt.groups, tt.paths,
+                tt.path_pw, tt.tasks, tt.warp_ptr, dw_out, dxe]
         times = []
         for name, lib in libs.items():
             def launch():
                 rc = lib.fused_uvu_conv_bwd(
-                    *(t.data_ptr() for t in ptrs), e, d1, d2, len(tables[2]), dw, dout, t_meta.shape[0],
+                    *(t.data_ptr() for t in ptrs), e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0],
                     fc.BWD_TILE_EDGES, fc.BWD_WARPS, torch.cuda.current_stream(dev).cuda_stream)
                 if rc != 0:
                     raise SystemExit(f"conv_bwd_phases: {name} launch failed (cudaError {rc})")

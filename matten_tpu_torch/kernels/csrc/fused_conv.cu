@@ -9,145 +9,248 @@
 //
 // where o runs over the plan's output components; each o belongs to exactly
 // one path p = (l1, l2, l3) and channel u, and i over the (m1, m3) entries
-// of the CG blocks C = wigner_3j(l1, l2, l3) that the paths share. The
-// per-plan tables (out_meta, out_pw, t_meta, cg) are built once per plan by
-// the Python wrapper and read through the read-only cache.
+// of the CG blocks C = wigner_3j(l1, l2, l3) that the paths share.
 //
-// Design. Edges arrive sorted by destination; the wrapper passes CSR row
-// offsets. One thread block owns one destination node: it walks the node's
-// edges EDGES_PER_STAGE at a time, stages x[src], sh and w of those edges in
-// shared memory, contracts the CG blocks with sh once per edge, and then
-// every thread adds the messages of its own output components to a
-// shared-memory accumulator that it alone touches. The node's [dout] row is
-// written once at the end. Messages never reach device memory, there are no
-// atomics, and the summation order is fixed, so the result is deterministic.
+// Design.
+// * Work unit: an item, a run of at most FWD_TE = 16 consecutive edges of
+//   ONE destination (edges arrive sorted by destination). Items number
+//   sum_n ceil(deg(n) / 16), 1488 on the flagship batch, and each does about
+//   the same work, so the highest-degree node (159 edges there) no longer
+//   sets the time as it did with one block per node. One block per item;
+//   the block finds its (node, first edge) by a binary search over
+//   item_ptr = cumsum(ceil(deg / 16)), which the wrapper's per-batch edge
+//   plan holds with the dst CSR offsets.
+// * Partial rows, no atomics: the block writes pw * (the item's sum) as one
+//   row of a scratch [items, dout], and segment_sum.cu adds each node's rows
+//   in item order into out (nodes without edges get zeros). Every sum has a
+//   fixed order, so the result is bitwise reproducible.
+// * Staging, as in the merged backward (fused_conv_common.cuh): the item's
+//   w rows (16-byte cp.async) and x[src] rows (4-byte cp.async) are copied
+//   while the block stages the padded sh rows and contracts them with the CG
+//   blocks into t_e [16][n_t | 1], one CG entry per thread over the item's
+//   edges. At the production layer 3 (n_t 2067, dw 842, d1 246) that is
+//   132 + 54 + 16 + 2 KB: one block of 24 warps per SM.
+// * Lanes: a warp task is (path p, up to 32 channels u); lane = (channel u,
+//   edge group): nu = the channels (a power of two, up to 32) and 32 / nu
+//   groups of the item's edges, so every production path (multiplicities
+//   32, 16, 4, 2) fills the warp. A lane keeps the d3 outputs (u, m3) of its
+//   channel in registers over its edges, with the (d1, d3) contraction
+//   unrolled, then the edge groups are added by a butterfly of shuffles (a
+//   fixed order) and the first group writes the partial row. The lanes of a
+//   warp run one path, so the warp never diverges; t_e reads are broadcasts
+//   within a group (odd row stride across groups), and w reads are
+//   consecutive in u. The tasks are dealt to the 24 warps heaviest first by
+//   the wrapper (fused_conv.py::tile_tables).
+// * float32 on the CUDA cores: the contractions are d1, d3 <= 9 deep with a
+//   different CG product per edge, far below wgmma's 64-row tiles, and TF32
+//   would break the 1e-5 parity the checks hold.
 //
-// What bounds it on an H100: device-memory traffic is the inputs read once
-// (w [E, dw] dominates: at the production layer 3, 21504 x 842 x 4 B, about
-// 72 MB per call) plus the [N, dout] output; the plain PyTorch version writes
-// and reads [E, dout] messages instead (about 360 MB at that layer). The
-// arithmetic, about 2 * sum_o d1(o) FMAs per edge, is done from shared memory
-// in fp32 on the CUDA cores, so this first kernel is bound by shared-memory
-// bandwidth and by one block per node; wgmma/TMA staging and splitting
-// high-degree nodes are later work.
+// What bounds it on an H100: the function's inputs read once and its output
+// written once are about 75 MB at layer 3 (w [E, dw] dominates: 21504 x 842
+// x 4 B), 22 us at 3.35 TB/s; its float32 work, about 2 * (12k + 13k)
+// multiply-adds per edge (t_e, then the contraction), about 1.1 GFLOP, 16 us
+// at 67 TFLOP/s. The partial rows add a write and a read of [items, dout]
+// (25 MB at layer 3). The phases of a block run one after the other (copy,
+// t_e, the tasks) with one block per SM, and the tasks read an operand from
+// shared memory for every multiply-add: shared-memory issue and latency,
+// not device memory, set the time.
 
-#include <stdint.h>
+#include "fused_conv_common.cuh"
 
-#include <cuda_runtime.h>
+#define FWD_TE 16  // edges per item (block)
+#define FWD_WARPS 24
+#define FWD_THREADS (32 * FWD_WARPS)
 
-#define THREADS 256
-#define EDGES_PER_STAGE 4
+struct FwdArgs {
+  const float* x;          // [n_in, d1]
+  const float* sh;         // [E, d2]
+  const float* w;          // [E, dw]
+  const int* src;          // [E]
+  const int* row_ptr;      // [n_out + 1] offsets of each destination's edges
+  const int* item_ptr;     // [n_out + 1] offsets of each destination's items
+  const int4* t_meta;      // [n_t]: cg offset, sh offset, d2_i, 0
+  const float* cg_t;       // [CONV_MAX_D, n_t]: C_i[m2] at m2 * n_t + i, 0 past d2_i
+  const int* t_sh;         // [n_t]: offset of entry i's sh segment in a padded sh row
+  const int* sh_src;       // [shp]: sh component of each padded slot, or -1
+  const int4* groups;      // [irreps of in1]: x_off, d1, path begin, path end
+  const int4* paths;       // [paths]: o_off, t_off, w_off, d3
+  const float* path_pw;    // [paths]
+  const int4* tasks;       // path, group, u0 | nu << 16, u count | ne << 16
+  const int* warp_ptr;     // [FWD_WARPS + 1] offsets of each warp's tasks
+  float* partial;          // [items, dout]
+  int n_out, d1, d2, shp, dw, dout, n_t;
+};
 
-// t_e[i] = sum_{m2} C_i[m2] * sh[e, sh_off(i) + m2] for the nj edges staged
-// in shared memory (shs [nj, d2] -> ts [nj, n_t]); t_meta[i] = (cg offset,
-// sh offset, d2_i, 0). Every thread of the block takes part.
-static __device__ __forceinline__ void contract_sh(
-    const float* shs, float* ts, const int4* __restrict__ t_meta,
-    const float* __restrict__ cg, int nj, int d2, int n_t) {
-  for (int idx = threadIdx.x; idx < nj * n_t; idx += THREADS) {
-    const int j = idx / n_t;
-    const int i = idx - j * n_t;
-    const int4 tm = __ldg(t_meta + i);
-    const float* c = cg + tm.x;
-    const float* y = shs + j * d2 + tm.y;
-    float s = 0.f;
-    for (int m2 = 0; m2 < tm.z; ++m2) s = fmaf(__ldg(c + m2), y[m2], s);
-    ts[j * n_t + i] = s;
+// One lane's channel of one path over edges j0, j0 + ne, ... < nj of the
+// item: acc[m3] = sum_j w[j, w_off + u] * sum_{m1} t_j[m1 * D3 + m3] x_j[m1];
+// then the sum over the warp's edge groups (lanes lane ^ nu, ^ 2 nu, ...).
+template <int D1, int D3>
+static __device__ __forceinline__ void item_path(
+    const float* tp, int ts_stride, const float* xp, int xs_stride, const float* wp, int dw,
+    int j0, int ne, int nj, int nu, float pw, float* orow) {
+  float acc[D3];
+#pragma unroll
+  for (int m3 = 0; m3 < D3; ++m3) acc[m3] = 0.f;
+  for (int j = j0; j < nj; j += ne) {
+    const float* t = tp + j * ts_stride;
+    float xv[D1];
+#pragma unroll
+    for (int m1 = 0; m1 < D1; ++m1) xv[m1] = xp[j * xs_stride + m1];
+    const float wv = wp[j * dw];
+#pragma unroll
+    for (int m3 = 0; m3 < D3; ++m3) {
+      float y = 0.f;
+#pragma unroll
+      for (int m1 = 0; m1 < D1; ++m1) y = fmaf(t[m1 * D3 + m3], xv[m1], y);
+      acc[m3] = fmaf(wv, y, acc[m3]);
+    }
+  }
+  for (int off = nu; off < 32; off <<= 1) {
+#pragma unroll
+    for (int m3 = 0; m3 < D3; ++m3) acc[m3] += __shfl_xor_sync(0xffffffffu, acc[m3], off);
+  }
+  if (orow) {
+#pragma unroll
+    for (int m3 = 0; m3 < D3; ++m3) orow[m3] = pw * acc[m3];
   }
 }
 
-__global__ void __launch_bounds__(THREADS) fused_uvu_conv_fwd_kernel(
-    const float* __restrict__ x,         // [n_in, d1]
-    const float* __restrict__ sh,        // [E, d2]
-    const float* __restrict__ w,         // [E, dw]
-    const int* __restrict__ src,         // [E]
-    const int* __restrict__ row_ptr,     // [n_out + 1]
-    const int4* __restrict__ t_meta,     // [n_t]: cg_off, sh_off, d2_i, 0
-    const float* __restrict__ cg,        // CG entries, d2_i per t entry
-    const int4* __restrict__ out_meta,   // [dout]: x_idx, t_idx, w_idx, d1 | d3 << 16
-    const float* __restrict__ out_pw,    // [dout] path weight of each component
-    float* __restrict__ out,             // [n_out, dout]
-    int d1, int d2, int dw, int dout, int n_t) {
-  extern __shared__ float smem[];
-  float* acc = smem;                               // [dout]
-  float* xs = acc + dout;                          // [EDGES_PER_STAGE, d1]
-  float* ws = xs + EDGES_PER_STAGE * d1;           // [EDGES_PER_STAGE, dw]
-  float* shs = ws + EDGES_PER_STAGE * dw;          // [EDGES_PER_STAGE, d2]
-  float* ts = shs + EDGES_PER_STAGE * d2;          // [EDGES_PER_STAGE, n_t]
-
-  const int node = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int e_begin = row_ptr[node];
-  const int e_end = row_ptr[node + 1];
-
-  for (int o = tid; o < dout; o += THREADS) acc[o] = 0.f;
-
-  for (int e0 = e_begin; e0 < e_end; e0 += EDGES_PER_STAGE) {
-    const int nj = min(EDGES_PER_STAGE, e_end - e0);
-
-    // stage the gathered source features and the edge arrays
-    for (int j = 0; j < nj; ++j) {
-      const int e = e0 + j;
-      const float* xrow = x + (size_t)src[e] * d1;
-      const float* wrow = w + (size_t)e * dw;
-      const float* shrow = sh + (size_t)e * d2;
-      for (int c = tid; c < d1; c += THREADS) xs[j * d1 + c] = xrow[c];
-      for (int c = tid; c < dw; c += THREADS) ws[j * dw + c] = wrow[c];
-      for (int c = tid; c < d2; c += THREADS) shs[j * d2 + c] = shrow[c];
-    }
-    __syncthreads();
-
-    // t_e = CG blocks contracted with sh, shared by every channel u
-    contract_sh(shs, ts, t_meta, cg, nj, d2, n_t);
-    __syncthreads();
-
-    // each thread owns output components o = tid + k * THREADS
-    for (int o = tid; o < dout; o += THREADS) {
-      const int4 om = __ldg(out_meta + o);
-      const int pd1 = om.w & 0xffff;
-      const int pd3 = om.w >> 16;
-      float a = acc[o];
-      for (int j = 0; j < nj; ++j) {
-        const float* t = ts + j * n_t + om.y;
-        const float* xu = xs + j * d1 + om.x;
-        float s = 0.f;
-        for (int m1 = 0; m1 < pd1; ++m1) s = fmaf(t[m1 * pd3], xu[m1], s);
-        a = fmaf(ws[j * dw + om.z], s, a);
-      }
-      acc[o] = a;
-    }
-    __syncthreads();
+template <int D1>
+static __device__ __forceinline__ void item_path_d3(
+    int d3, const float* tp, int ts_stride, const float* xp, int xs_stride, const float* wp,
+    int dw, int j0, int ne, int nj, int nu, float pw, float* orow) {
+  switch (d3) {  // the same for the whole warp
+    case 1: item_path<D1, 1>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 3: item_path<D1, 3>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 5: item_path<D1, 5>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 7: item_path<D1, 7>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    default: item_path<D1, 9>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
   }
+}
 
-  float* orow = out + (size_t)node * dout;
-  for (int o = tid; o < dout; o += THREADS) orow[o] = acc[o] * __ldg(out_pw + o);
+__global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(const FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int ts_stride = a.n_t | 1;
+  const int xs_stride = a.d1 | 1;
+  const int ws_len = (FWD_TE * a.dw + 3 + 3) / 4 * 4;  // the rows, their pad, 16-byte multiple
+  float* ws = smem;                                    // [FWD_TE][dw] from ws + w_pad
+  float* shs = ws + ws_len;                            // [FWD_TE][shp], 16-byte aligned
+  float* ts = shs + FWD_TE * a.shp;                    // [FWD_TE][ts_stride]
+  float* xs = ts + FWD_TE * ts_stride;                 // [FWD_TE][xs_stride]
+
+  // 1. the item: its destination node (the last n with item_ptr[n] <= item)
+  //    and its edges e0 .. e0 + nj - 1
+  const int item = blockIdx.x;
+  int lo = 0, hi = a.n_out;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(a.item_ptr + mid) <= item) lo = mid; else hi = mid;
+  }
+  const int e_node = __ldg(a.row_ptr + lo);
+  const int e0 = e_node + (item - __ldg(a.item_ptr + lo)) * FWD_TE;
+  const int nj = min(FWD_TE, __ldg(a.row_ptr + lo + 1) - e0);
+
+  // 2. start copying the w rows (contiguous in w) and the x[src] rows; stage
+  //    the padded sh rows and contract them with the CG blocks
+  const int w_pad = cp_async_rows<FWD_THREADS>(ws, a.w + (size_t)e0 * a.dw, nj * a.dw);
+  for (int idx = threadIdx.x; idx < nj * a.d1; idx += FWD_THREADS) {
+    const int j = idx / a.d1;
+    const int c = idx - j * a.d1;
+    cp_async4(xs + j * xs_stride + c, a.x + (size_t)__ldg(a.src + e0 + j) * a.d1 + c);
+  }
+  stage_sh_rows<FWD_THREADS>(shs, a.sh, a.sh_src, e0, nj, a.d2, a.shp);
+  __syncthreads();
+  contract_te<FWD_THREADS>(ts, ts_stride, shs, a.shp, a.t_meta, a.cg_t, a.t_sh, a.n_t, nj);
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 3. the warp's tasks: lane = (channel u0 + lane % nu, edges lane / nu,
+  //    + ne, ...); idle lanes join the shuffles with zeros
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* prow = a.partial + (size_t)item * a.dout;
+  const int k_end = __ldg(a.warp_ptr + warp + 1);
+  for (int k = __ldg(a.warp_ptr + warp); k < k_end; ++k) {
+    const int4 tk = __ldg(a.tasks + k);
+    const int nu = tk.z >> 16;
+    const int ne = tk.w >> 16;
+    const int du = lane & (nu - 1);
+    const int dj = lane / nu;
+    const bool on = du < (tk.w & 0xffff) && dj < ne;
+    const int u = (tk.z & 0xffff) + (on ? du : 0);
+    const int4 pm = __ldg(a.paths + tk.x);
+    const int4 gm = __ldg(a.groups + tk.y);
+    const float pw = __ldg(a.path_pw + tk.x);
+    const float* tp = ts + pm.y;
+    const float* xp = xs + gm.x + u * gm.y;
+    const float* wp = ws + w_pad + pm.z + u;
+    float* orow = on && dj == 0 ? prow + pm.x + u * pm.w : nullptr;
+    const int j0 = on ? dj : nj;
+#define ITEM_PATH(D1) \
+  item_path_d3<D1>(pm.w, tp, ts_stride, xp, xs_stride, wp, a.dw, j0, ne, nj, nu, pw, orow)
+    switch (gm.y) {  // d1 of the path's input irrep, the same for the whole warp
+      case 1: ITEM_PATH(1); break;
+      case 3: ITEM_PATH(3); break;
+      case 5: ITEM_PATH(5); break;
+      case 7: ITEM_PATH(7); break;
+      default: ITEM_PATH(9); break;  // the wrapper admits l <= 4 only
+    }
+#undef ITEM_PATH
+  }
 }
 
 extern "C" {
 
 // Shared memory (bytes) one block needs; the wrapper names it when a launch
-// fails (the production plans need at most about 68 KB of the 227 KB).
-size_t fused_uvu_conv_fwd_smem(int d1, int d2, int dw, int dout, int n_t) {
-  return sizeof(float) *
-         ((size_t)dout + (size_t)EDGES_PER_STAGE * ((size_t)d1 + dw + d2 + n_t));
+// fails (about 204 KB at the production layer 3, of the 227 KB a block may
+// have). `shp` is the padded sh row (TileTables.sh_src).
+size_t fused_uvu_conv_fwd_smem(int d1, int shp, int dw, int dout, int n_t) {
+  return sizeof(float) * ((size_t)(FWD_TE * dw + 6) / 4 * 4 + (size_t)FWD_TE * shp +
+                          (size_t)FWD_TE * (n_t | 1) + (size_t)FWD_TE * (d1 | 1));
 }
 
-// Launches on `stream`; allocates nothing. Returns the cudaError_t of the
-// launch (0 on success).
-int fused_uvu_conv_fwd(const float* x, const float* sh, const float* w,
-                       const int* src, const int* row_ptr, const void* t_meta,
-                       const float* cg, const void* out_meta, const float* out_pw,
-                       float* out, int n_out, int d1, int d2, int dw, int dout,
-                       int n_t, void* stream) {
-  if (n_out == 0) return 0;
-  const size_t smem = fused_uvu_conv_fwd_smem(d1, d2, dw, dout, n_t);
+// Launches one block per item on `stream`; allocates nothing. `tile_edges`
+// and `warps` are the constants the wrapper built its task table for; they
+// must match this build's. Returns the cudaError_t of the launch (0 on
+// success).
+int fused_uvu_conv_fwd(const float* x, const float* sh, const float* w, const int* src,
+                       const int* row_ptr, const int* item_ptr, const void* t_meta,
+                       const float* cg_t, const int* t_sh, const int* sh_src,
+                       const void* groups, const void* paths, const float* path_pw,
+                       const void* tasks, const int* warp_ptr, float* partial, int n_items,
+                       int n_out, int d1, int d2, int shp, int dw, int dout, int n_t,
+                       int tile_edges, int warps, void* stream) {
+  if (tile_edges != FWD_TE || warps != FWD_WARPS || shp % 4) return (int)cudaErrorInvalidValue;
+  if (n_items == 0) return 0;
+  const size_t smem = fused_uvu_conv_fwd_smem(d1, shp, dw, dout, n_t);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_uvu_conv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_uvu_conv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  fused_uvu_conv_fwd_kernel<<<n_out, THREADS, smem, (cudaStream_t)stream>>>(
-      x, sh, w, src, row_ptr, (const int4*)t_meta, cg, (const int4*)out_meta,
-      out_pw, out, d1, d2, dw, dout, n_t);
+  FwdArgs a;
+  a.x = x;
+  a.sh = sh;
+  a.w = w;
+  a.src = src;
+  a.row_ptr = row_ptr;
+  a.item_ptr = item_ptr;
+  a.t_meta = (const int4*)t_meta;
+  a.cg_t = cg_t;
+  a.t_sh = t_sh;
+  a.sh_src = sh_src;
+  a.groups = (const int4*)groups;
+  a.paths = (const int4*)paths;
+  a.path_pw = path_pw;
+  a.tasks = (const int4*)tasks;
+  a.warp_ptr = warp_ptr;
+  a.partial = partial;
+  a.n_out = n_out;
+  a.d1 = d1;
+  a.d2 = d2;
+  a.shp = shp;
+  a.dw = dw;
+  a.dout = dout;
+  a.n_t = n_t;
+  fused_uvu_conv_fwd_kernel<<<n_items, FWD_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Fused uvu tensor-product convolution, backward, for Hopper (sm_90a): the
-// merged dx + dw pass `fused_uvu_conv_bwd` over tiles of edges, and the
-// segment sum `uvu_conv_dx_reduce` of its per-edge dx rows into the sources.
+// merged dx + dw pass `fused_uvu_conv_bwd` over tiles of edges. Its per-edge
+// dx rows are summed into the sources by segment_sum.cu.
 //
 // Replaces the gradient kernels of matten_tpu/kernels/fused_conv.py: the
 // merged backward `_build_bwd2` (K2), and, beyond the JAX package's
@@ -31,7 +31,7 @@
 // * Ownership without atomics: one lane owns one (input channel (i, u),
 //   edge) pair. It walks every path of irrep i, writes dw[e, k] once per
 //   path, keeps the channel's d1 dx values in registers and writes them once
-//   to the per-edge scratch dxe [E, d1]. The second kernel sums the dxe rows
+//   to the per-edge scratch dxe [E, d1]. segment_sum.cu sums the dxe rows
 //   of each source node over a stable argsort of src, in edge order. No two
 //   lanes write one address and every sum has a fixed order, so dx and dw
 //   are bitwise reproducible.
@@ -78,16 +78,12 @@
 // multiply-add of Y reads an operand from shared memory: at layer 3 it
 // takes about 5x its bound (conv_bwd_phases.py splits the time by phase).
 
-#include <stdint.h>
-
-#include <cuda_runtime.h>
+#include "fused_conv_common.cuh"
 
 #define BWD_TE 16                    // edges per tile (block)
 #define BWD_WARPS 24
 #define BWD_THREADS (32 * BWD_WARPS)
 #define BWD_GSLOTS 2                 // destinations per tile with a staged g row
-#define BWD_MAX_D 9                  // irreps up to l = 4: d1, d2_i, d3 <= 9
-#define REDUCE_THREADS 256
 
 struct BwdArgs {
   const float* x;          // [n_in, d1]
@@ -97,7 +93,7 @@ struct BwdArgs {
   const int* src;          // [E]
   const int* dst;          // [E], non-decreasing
   const int4* t_meta;      // [n_t]: cg offset, sh offset, d2_i, 0
-  const float* cg_t;       // [BWD_MAX_D, n_t]: C_i[m2] at m2 * n_t + i, 0 past d2_i
+  const float* cg_t;       // [CONV_MAX_D, n_t]: C_i[m2] at m2 * n_t + i, 0 past d2_i
   const int* t_sh;         // [n_t]: offset of entry i's sh segment in a padded sh row
   const int* sh_src;       // [shp]: sh component of each padded slot, or -1
   const int4* groups;      // [irreps of in1]: x_off, d1, path begin, path end
@@ -110,20 +106,6 @@ struct BwdArgs {
   int n_edges, d1, d2, shp, dw, dout, n_t;
   int stage_w;             // 1: the tile's w rows are copied to shared memory
 };
-
-static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-static __device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Y[m1] = sum_{m3} t[m1 * D3 + m3] * G[m3] of one path: fully unrolled, so
 // all D1 * D3 shared-memory loads are in flight together
@@ -195,8 +177,8 @@ static __device__ __forceinline__ void channel_edge(
 __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(const BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int ts_stride = a.n_t | 1;
-  float* ws = smem;                                   // [BWD_TE][dw] if stage_w
-  float* shs = ws + (a.stage_w ? BWD_TE * a.dw : 0);  // [BWD_TE][shp], 16-byte aligned
+  float* ws = smem;  // [BWD_TE][dw] from ws + w_pad, if stage_w
+  float* shs = ws + (a.stage_w ? (BWD_TE * a.dw + 6) / 4 * 4 : 0);  // [BWD_TE][shp], 16-byte aligned
   float* ts = shs + BWD_TE * a.shp;                   // [BWD_TE][ts_stride]
   float* gs = ts + BWD_TE * ts_stride;                // [BWD_GSLOTS][dout]
   int* src_s = reinterpret_cast<int*>(gs + BWD_GSLOTS * a.dout);  // [BWD_TE]
@@ -209,29 +191,14 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
   const int tile0 = blockIdx.x * BWD_TE;
   const int nj = min(BWD_TE, a.n_edges - tile0);
 
-  // 1. start copying the tile's w rows (contiguous, nj * dw floats; 16-byte
-  //    aligned when w is, since 16 * dw floats are); load the edge ends and
-  //    the sh rows, each sh irrep padded to a multiple of 4 floats with
-  //    zeros (rows past the last edge are zero)
-  if (a.stage_w) {
-    const float* wt = a.w + (size_t)tile0 * a.dw;
-    const int n = nj * a.dw;
-    int done = 0;
-    if ((reinterpret_cast<uintptr_t>(a.w) & 15) == 0) {
-      for (int v = tid; v < n / 4; v += BWD_THREADS) cp_async16(ws + 4 * v, wt + 4 * v);
-      done = n / 4 * 4;
-    }
-    for (int idx = done + tid; idx < n; idx += BWD_THREADS) cp_async4(ws + idx, wt + idx);
-  }
+  // 1. start copying the tile's w rows (contiguous, nj * dw floats); load
+  //    the edge ends and the padded sh rows
+  const int w_pad = a.stage_w ? cp_async_rows<BWD_THREADS>(ws, a.w + (size_t)tile0 * a.dw, nj * a.dw) : 0;
   if (tid < BWD_TE) {
     src_s[tid] = tid < nj ? a.src[tile0 + tid] : 0;
     dst_s[tid] = tid < nj ? a.dst[tile0 + tid] : -1;
   }
-  for (int idx = tid; idx < BWD_TE * a.shp; idx += BWD_THREADS) {
-    const int j = idx / a.shp;
-    const int c = __ldg(a.sh_src + idx - j * a.shp);
-    shs[idx] = j < nj && c >= 0 ? a.sh[(size_t)(tile0 + j) * a.d2 + c] : 0.f;
-  }
+  stage_sh_rows<BWD_THREADS>(shs, a.sh, a.sh_src, tile0, nj, a.d2, a.shp);
   __syncthreads();
 
   // 2. destinations: edge j lies in the run-th run of equal dst; the first
@@ -252,35 +219,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
     const int s = idx / a.dout;
     cp_async4(gs + idx, a.g + (size_t)slot_node[s] * a.dout + (idx - s * a.dout));
   }
-  for (int i = tid; i < a.n_t; i += BWD_THREADS) {
-    // one CG entry for the tile's 16 edges: its coefficients load once,
-    // together, from the table padded with zeros past d2_i; the sh segment
-    // is read 4 floats at a time (its padding is zero, so the extra terms
-    // add exact zeros)
-    const int d2i = __ldg(a.t_meta + i).z;
-    float c[BWD_MAX_D];
-#pragma unroll
-    for (int m2 = 0; m2 < BWD_MAX_D; ++m2) c[m2] = __ldg(a.cg_t + (size_t)m2 * a.n_t + i);
-    const float4* y = reinterpret_cast<const float4*>(shs + __ldg(a.t_sh + i));
-#pragma unroll 4
-    for (int j = 0; j < BWD_TE; ++j) {
-      const float4* r = y + j * (a.shp / 4);
-      const float4 v0 = r[0];
-      float acc = fmaf(c[0], v0.x, 0.f);
-      acc = fmaf(c[1], v0.y, acc);
-      acc = fmaf(c[2], v0.z, acc);
-      acc = fmaf(c[3], v0.w, acc);
-      if (d2i > 4) {
-        const float4 v1 = r[1];
-        acc = fmaf(c[4], v1.x, acc);
-        acc = fmaf(c[5], v1.y, acc);
-        acc = fmaf(c[6], v1.z, acc);
-        acc = fmaf(c[7], v1.w, acc);
-      }
-      if (d2i > 8) acc = fmaf(c[8], r[2].x, acc);
-      ts[j * ts_stride + i] = acc;
-    }
-  }
+  contract_te<BWD_THREADS>(ts, ts_stride, shs, a.shp, a.t_meta, a.cg_t, a.t_sh, a.n_t, nj);
   cp_async_wait_all();
   __syncthreads();
 
@@ -303,7 +242,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
     const float* grow = sl >= 0 ? gs + sl * a.dout : a.g + (size_t)dst_s[j] * a.dout;
     const float* trow = ts + j * ts_stride;
     const float* xrow = a.x + (size_t)src_s[j] * a.d1 + xb;
-    const float* wrow = (a.stage_w ? ws + j * a.dw : a.w + (size_t)e * a.dw) + u;
+    const float* wrow = (a.stage_w ? ws + w_pad + j * a.dw : a.w + (size_t)e * a.dw) + u;
     float* dwrow = a.dw_out ? a.dw_out + (size_t)e * a.dw + u : nullptr;
     float* drow = a.dxe ? a.dxe + (size_t)e * a.d1 + xb : nullptr;
 #define CHANNEL_EDGE(D1)                                                                  \
@@ -319,37 +258,6 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
   }
 }
 
-// dx[n] = sum_{k in [row_ptr[n], row_ptr[n+1])} dxe[perm[k]], in k order
-// (perm is a stable argsort of src): one block per source node, threads
-// over the d1 columns, so every dxe row is read whole by one block.
-__global__ void __launch_bounds__(REDUCE_THREADS) uvu_conv_dx_reduce_kernel(
-    const float* __restrict__ dxe,      // [E, d1]
-    const int* __restrict__ perm,       // [E] edge ids sorted by src
-    const int* __restrict__ row_ptr,    // [n_in + 1] offsets into perm
-    float* __restrict__ dx,             // [n_in, d1]
-    int d1) {
-  const int node = blockIdx.x;
-  const int k_begin = row_ptr[node];
-  const int k_end = row_ptr[node + 1];
-  for (int c = threadIdx.x; c < d1; c += blockDim.x) {
-    float acc = 0.f;
-    int k = k_begin;
-    // four loads in flight, added in order
-    for (; k + 4 <= k_end; k += 4) {
-      const float v0 = dxe[(size_t)__ldg(perm + k) * d1 + c];
-      const float v1 = dxe[(size_t)__ldg(perm + k + 1) * d1 + c];
-      const float v2 = dxe[(size_t)__ldg(perm + k + 2) * d1 + c];
-      const float v3 = dxe[(size_t)__ldg(perm + k + 3) * d1 + c];
-      acc += v0;
-      acc += v1;
-      acc += v2;
-      acc += v3;
-    }
-    for (; k < k_end; ++k) acc += dxe[(size_t)__ldg(perm + k) * d1 + c];
-    dx[(size_t)node * d1 + c] = acc;
-  }
-}
-
 extern "C" {
 
 // Shared memory (bytes) one block of the merged kernel needs without the
@@ -361,7 +269,7 @@ size_t fused_uvu_conv_bwd_smem(int d1, int shp, int dw, int dout, int n_t) {
          sizeof(int) * (3 * BWD_TE + BWD_GSLOTS + 1);
 }
 
-// Both launch on `stream`, allocate nothing and return the cudaError_t of
+// Launches on `stream`, allocates nothing and returns the cudaError_t of
 // the launch (0 on success). `tile_edges` and `warps` are the constants the
 // wrapper built its task table for; they must match this build's. The
 // tile's w rows are staged in shared memory when dx is wanted and they fit
@@ -381,7 +289,7 @@ int fused_uvu_conv_bwd(const float* x, const float* g, const float* sh, const fl
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
   size_t smem = fused_uvu_conv_bwd_smem(d1, shp, dw, dout, n_t);
-  const size_t w_bytes = sizeof(float) * (size_t)BWD_TE * dw;
+  const size_t w_bytes = sizeof(float) * (((size_t)BWD_TE * dw + 6) / 4 * 4);
   const int stage_w = dxe != nullptr && smem + w_bytes <= (size_t)optin;
   if (stage_w) smem += w_bytes;
   err = cudaFuncSetAttribute(
@@ -415,15 +323,6 @@ int fused_uvu_conv_bwd(const float* x, const float* g, const float* sh, const fl
   a.stage_w = stage_w;
   fused_uvu_conv_bwd_kernel<<<(n_edges + BWD_TE - 1) / BWD_TE, BWD_THREADS, smem,
                               (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int uvu_conv_dx_reduce(const float* dxe, const int* perm, const int* row_ptr, float* dx,
-                       int n_in, int d1, void* stream) {
-  if (n_in == 0 || d1 == 0) return 0;
-  const int threads = d1 < REDUCE_THREADS ? (d1 + 31) / 32 * 32 : REDUCE_THREADS;
-  uvu_conv_dx_reduce_kernel<<<n_in, threads, 0, (cudaStream_t)stream>>>(
-      dxe, perm, row_ptr, dx, d1);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,100 @@
+// Device code that the fused uvu conv's forward (fused_conv.cu) and its
+// merged backward (fused_conv_bwd.cu) share: both walk runs of at most 16
+// consecutive dst-sorted edges per block, stage the run's sh rows, w rows
+// and the CG blocks contracted with sh (t_e) in shared memory, and read the
+// same per-plan tables (kernels/fused_conv.py::tile_tables).
+//
+//   t_e[i] = sum_{m2} C_i[m2] * sh[e, sh_off(i) + m2]
+//
+// over the (m1, m3) entries i of the CG blocks C = wigner_3j(l1, l2, l3)
+// that the plan's paths share.
+
+#pragma once
+
+#include <stdint.h>
+
+#include <cuda_runtime.h>
+
+#define CONV_MAX_D 9  // irreps up to l = 4: d1, d2_i, d3 <= 9
+
+static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+static __device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying n contiguous floats from global `src` to shared memory at
+// dst + pad, pad = the float offset of src within its 16-byte line, so that
+// both sides share their 16-byte alignment and the bulk moves 16 bytes per
+// cp.async; dst is 16-byte aligned and has room for n + 3 floats. Returns
+// pad. Every thread of the block calls it; cp_async_wait_all then
+// __syncthreads before the copy is read.
+template <int THREADS>
+static __device__ __forceinline__ int cp_async_rows(float* dst, const float* src, int n) {
+  const int pad = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+  const int head = min((4 - pad) & 3, n);
+  float* d = dst + pad;
+  const int nv = (n - head) / 4;
+  for (int i = threadIdx.x; i < head; i += THREADS) cp_async4(d + i, src + i);
+  for (int v = threadIdx.x; v < nv; v += THREADS) cp_async16(d + head + 4 * v, src + head + 4 * v);
+  for (int i = head + 4 * nv + threadIdx.x; i < n; i += THREADS) cp_async4(d + i, src + i);
+  return pad;
+}
+
+// The sh rows of edges e0 .. e0 + nj - 1 into shs [nj][shp], each sh irrep
+// padded to a multiple of 4 floats with zeros (sh_src: the sh component of
+// each padded slot, or -1), so that contract_te reads them 16 bytes at a time.
+template <int THREADS>
+static __device__ __forceinline__ void stage_sh_rows(
+    float* shs, const float* __restrict__ sh, const int* __restrict__ sh_src,
+    int e0, int nj, int d2, int shp) {
+  for (int idx = threadIdx.x; idx < nj * shp; idx += THREADS) {
+    const int j = idx / shp;
+    const int c = __ldg(sh_src + idx - j * shp);
+    shs[idx] = c >= 0 ? __ldg(sh + (size_t)(e0 + j) * d2 + c) : 0.f;
+  }
+}
+
+// ts[j][i] = t_e[i] of the nj staged edges (row stride ts_stride). One CG
+// entry per thread for all nj edges: its coefficients load once, together,
+// from cg_t [CONV_MAX_D][n_t] (zero past d2_i); the sh segment (t_sh[i]:
+// where entry i's irrep starts in a padded row) is read 4 floats at a time,
+// and its zero padding adds exact zeros.
+template <int THREADS>
+static __device__ __forceinline__ void contract_te(
+    float* ts, int ts_stride, const float* shs, int shp, const int4* __restrict__ t_meta,
+    const float* __restrict__ cg_t, const int* __restrict__ t_sh, int n_t, int nj) {
+  for (int i = threadIdx.x; i < n_t; i += THREADS) {
+    const int d2i = __ldg(t_meta + i).z;
+    float c[CONV_MAX_D];
+#pragma unroll
+    for (int m2 = 0; m2 < CONV_MAX_D; ++m2) c[m2] = __ldg(cg_t + (size_t)m2 * n_t + i);
+    const float4* y = reinterpret_cast<const float4*>(shs + __ldg(t_sh + i));
+#pragma unroll 4
+    for (int j = 0; j < nj; ++j) {
+      const float4* r = y + j * (shp / 4);
+      const float4 v0 = r[0];
+      float acc = fmaf(c[0], v0.x, 0.f);
+      acc = fmaf(c[1], v0.y, acc);
+      acc = fmaf(c[2], v0.z, acc);
+      acc = fmaf(c[3], v0.w, acc);
+      if (d2i > 4) {
+        const float4 v1 = r[1];
+        acc = fmaf(c[4], v1.x, acc);
+        acc = fmaf(c[5], v1.y, acc);
+        acc = fmaf(c[6], v1.z, acc);
+        acc = fmaf(c[7], v1.w, acc);
+      }
+      if (d2i > 8) acc = fmaf(c[8], r[2].x, acc);
+      ts[j * ts_stride + i] = acc;
+    }
+  }
+}

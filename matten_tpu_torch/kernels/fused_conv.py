@@ -5,26 +5,34 @@ counterpart of `_build_fwd2`, dispatched by `fused_uvu_conv_t`) computes
 
     out[n] = sum_{e : dst[e] = n} TP_uvu(x[src[e]], sh[e], w[e])
 
-without storing the [E, dout] messages. Its gradient (`uvu_conv_bwd`) is
-two kernels, the counterparts of the merged backward `_build_bwd2` (K2) and
-of the chunked pair the JAX package takes beyond 2048 nodes, the transposed
-`_build_call` (K3) for dx and `_build_dw_call` (K4) for dw:
+without storing the [E, dout] messages, as two kernels:
+
+    part[i]   = sum_{e in item i} TP_uvu(x[src[e]], sh[e], w[e])
+                (items: runs of at most 16 edges of one destination)
+    out[n]    = sum_{items i of n} part[i]               (a segment sum)
+
+Its gradient (`uvu_conv_bwd`) is two kernels, the counterparts of the
+merged backward `_build_bwd2` (K2) and of the chunked pair the JAX package
+takes beyond 2048 nodes, the transposed `_build_call` (K3) for dx and
+`_build_dw_call` (K4) for dw:
 
     dw[e, k]  = d out[dst[e]] / d w[e, k]  contracted with g[dst[e]]
     dxe[e]    = TP_uvu^T(g[dst[e]], sh[e], w[e])       (one pass over edge tiles)
-    dx[n]     = sum_{e : src[e] = n} dxe[e]              (a segment sum)
+    dx[n]     = sum_{e : src[e] = n} dxe[e]              (the same segment sum)
 
 On CUDA tensors each wrapper launches its hand-written kernels
-(`csrc/fused_conv.cu`, `csrc/fused_conv_bwd.cu`, built by `_build.py`) or
-raises; on CPU tensors it runs the kernels' plain version
-(`uvu_conv_reference`, `uvu_conv_bwd_reference`). The gradient with
+(`csrc/fused_conv.cu`, `csrc/fused_conv_bwd.cu`, `csrc/segment_sum.cu`,
+built by `_build.py`) or raises; on CPU tensors it runs the kernels' plain
+version (`uvu_conv_reference`, `uvu_conv_bwd_reference`). The gradient with
 respect to sh comes from autograd of the plain forward, and only when sh
-requires it, as in the JAX backward. The TPU machinery of the JAX kernels
-(transposed [D, E] layout, one-hot-matmul gathers and scatters, node-chunk
-owner maps, VMEM budgets, m-major rows) has no counterpart here: edges
-arrive sorted by destination, the forward walks each destination's CSR
-segment, the backward walks tiles of consecutive edges, and its dx rows are
-summed over a stable src-sorted permutation of the edges.
+requires it, as in the JAX backward. The edges' checks and layout (`EdgePlan`:
+the dst CSR, K1's items, the src order) are built once per batch with one
+host sync, so the launches themselves never wait on the card. The TPU
+machinery of the JAX kernels (transposed [D, E] layout, one-hot-matmul
+gathers and scatters, node-chunk owner maps, VMEM budgets, m-major rows)
+has no counterpart here: edges arrive sorted by destination, both passes
+walk runs of consecutive edges, and every sum into the nodes is a
+deterministic segment sum.
 """
 
 from __future__ import annotations
@@ -45,24 +53,32 @@ __all__ = [
     "uvu_conv_bwd",
     "uvu_conv_reference",
     "uvu_conv_bwd_reference",
+    "EdgePlan",
+    "edge_plan",
     "SrcOrder",
     "src_order",
     "force_plain",
 ]
 
-# kernel launches in this process: K1 (`launches`), the merged backward and
-# the dx segment sum; each wrapper adds one per launch of its kernel and
-# nothing else touches them except a caller resetting them
+# kernel launches in this process: K1's item pass (`launches`), the segment
+# sum in its two roles (K1's partial rows, dx), the merged backward; each
+# is added to right where its kernel launches and nothing else touches them
+# except a caller resetting them
 launches = 0
+fwd_sum_launches = 0
 bwd_launches = 0
-dx_reduce_launches = 0
+dx_sum_launches = 0
 
-# the merged backward's launch shape (csrc/fused_conv_bwd.cu: BWD_TE,
-# BWD_WARPS); its task table is built for it and the launch checks both
+# the kernels' launch shapes (csrc/fused_conv.cu: FWD_TE, FWD_WARPS;
+# csrc/fused_conv_bwd.cu: BWD_TE, BWD_WARPS); their task tables are built
+# for them and the launches check both
+FWD_ITEM_EDGES = 16
+FWD_WARPS = 24
 BWD_TILE_EDGES = 16
 BWD_WARPS = 24
-# irreps the merged backward takes: l <= 4 (d1, d3 <= 9), the production range
-BWD_MAX_D = 9
+# irreps the kernels take: l <= 4 (d1, d2_i, d3 <= 9), the production range
+# (csrc/fused_conv_common.cuh: CONV_MAX_D)
+CONV_MAX_D = 9
 
 _force_plain = False
 
@@ -220,43 +236,68 @@ def kernel_tables(plan: TensorProductPlan) -> KernelTables:
     )
 
 
-class BackwardTables(NamedTuple):
-    """Per-plan constant tables of the merged backward kernel (numpy),
-    derived from the forward's `KernelTables`."""
 
-    cg_t: np.ndarray  # [BWD_MAX_D, n_t] float32: C_i[m2] at [m2, i], 0 past d2_i
+
+class TileTables(NamedTuple):
+    """Per-plan constant tables of the edge-run kernels, K1's item pass and
+    the merged backward (numpy), derived from the forward's `KernelTables`."""
+
+    cg_t: np.ndarray  # [CONV_MAX_D, n_t] float32: C_i[m2] at [m2, i], 0 past d2_i
     t_sh: np.ndarray  # [n_t] int32: where entry i's sh irrep starts in a padded sh row
     sh_src: np.ndarray  # [padded sh row] int32: sh component of each slot, -1 for padding
     groups: np.ndarray  # [irreps of in1, 4] int32: x_off, d1, path begin, path end
     paths: np.ndarray  # [paths, 4] int32: o_off, t_off, w_off, d3
     path_pw: np.ndarray  # [paths] float32
-    tasks: np.ndarray  # [tasks, 4] int32: u0 | nu << 16, group, u count, j0 | ne << 16
-    warp_ptr: np.ndarray  # [BWD_WARPS + 1] int32: each warp's tasks
+    tasks: np.ndarray  # backward [tasks, 4] int32: u0 | nu << 16, group, u count, j0 | ne << 16
+    warp_ptr: np.ndarray  # [BWD_WARPS + 1] int32: each backward warp's tasks
+    fwd_tasks: np.ndarray  # K1 [tasks, 4] int32: path, group, u0 | nu << 16, u count | ne << 16
+    fwd_warp_ptr: np.ndarray  # [FWD_WARPS + 1] int32: each K1 warp's tasks
+
+
+def _deal(tasks, n_warps: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(tasks, warp_ptr): (cost, task) pairs dealt to n_warps warps,
+    heaviest first, each to the warp with the least work so far."""
+    load = [0] * n_warps
+    per_warp = [[] for _ in range(n_warps)]
+    for c, task in sorted(tasks, key=lambda ct: -ct[0]):
+        wi = int(np.argmin(load))
+        load[wi] += c
+        per_warp[wi].append(task)
+    return (np.asarray([t for ts in per_warp for t in ts], dtype=np.int32).reshape(-1, 4),
+            np.cumsum([0] + [len(t) for t in per_warp]).astype(np.int32))
 
 
 @functools.lru_cache(maxsize=None)
-def backward_tables(plan: TensorProductPlan) -> BackwardTables:
-    """Tables of the merged backward kernel.
+def tile_tables(plan: TensorProductPlan) -> TileTables:
+    """Tables of K1's item pass and the merged backward.
 
-    A lane of the kernel owns one input channel (irrep i, u) of one edge
-    and every weight k = (path p of i, u) that reads it. Channel u of irrep
-    i reads x at x_off(i) + u d1, and path p's weight k = w_off(p) + u, its
-    output components o_off(p) + u d3 + m3 and the CG block entries t_off(p)
-    + m1 d3 + m3: so `groups` and `paths` hold every channel's entries up to
-    the stride in u. Offsets come from the forward's `out_meta` at the first
-    component of each path (u = 0, m3 = 0).
+    Channel u of input irrep i reads x at x_off(i) + u d1; its path p has
+    the weight k = w_off(p) + u, the output components o_off(p) + u d3 + m3
+    and the CG block entries t_off(p) + m1 d3 + m3: so `groups` and `paths`
+    hold every channel's entries up to the stride in u. Offsets come from
+    the forward's `out_meta` at the first component of each path (u = 0,
+    m3 = 0).
 
-    The lanes of one warp task hold nu consecutive channels u of one irrep
-    (nu = min(mul, 32)) and 32 // nu consecutive edges of the tile. The
-    tasks of a tile are dealt to the block's warps heaviest first, each to
-    the warp with the least work so far (work: the lane's multiply-adds)."""
+    The merged backward: a lane owns one input channel (i, u) of one edge
+    and every weight that reads it. The lanes of one warp task hold nu
+    consecutive channels u of one irrep (nu = min(mul, 32)) and 32 // nu
+    consecutive edges of the tile (work: the lane's multiply-adds).
+
+    K1: a lane owns the d3 outputs of one channel u of one path over a
+    group of the item's edges. The lanes of one warp task hold nu channels
+    (the power of two at or above min(mul, 32)) and 32 // nu groups of
+    edges (strided: edge j in group j % ne), which shuffles add at the end
+    (work: the lane's multiply-adds and shuffles).
+
+    The tasks of a tile or item are dealt to the block's warps heaviest
+    first, each to the warp with the least work so far."""
     tab = kernel_tables(plan)
     big = [ir for irreps in (plan.irreps_in1, plan.irreps_in2, plan.irreps_out)
-           for _, ir in irreps if ir.dim > BWD_MAX_D]
+           for _, ir in irreps if ir.dim > CONV_MAX_D]
     if big:
-        raise ValueError(f"the conv backward kernel takes irreps up to l=4, got {big}")
+        raise ValueError(f"the conv kernels take irreps up to l=4, got {big}")
     n_t = tab.t_meta.shape[0]
-    cg_t = np.zeros((BWD_MAX_D, n_t), dtype=np.float32)
+    cg_t = np.zeros((CONV_MAX_D, n_t), dtype=np.float32)
     for i, (cg_off, _, d2, _) in enumerate(tab.t_meta):
         cg_t[:d2, i] = tab.cg[cg_off : cg_off + d2]
     # each sh irrep padded to a multiple of 4 floats, for 16-byte reads
@@ -283,7 +324,7 @@ def backward_tables(plan: TensorProductPlan) -> BackwardTables:
         cost.append(sum(d1 * d3 + d3 + 2 * d1 for _, _, _, d3, _ in by_irrep[i]))
 
     te = BWD_TILE_EDGES
-    tasks = []  # (cost, task)
+    bwd_tasks = []  # (cost, task)
     for gi, (mul, _) in enumerate(plan.irreps_in1):
         if not mul:
             continue
@@ -293,23 +334,28 @@ def backward_tables(plan: TensorProductPlan) -> BackwardTables:
         for u0 in range(0, mul, nu):
             for j0 in range(0, te, ne):
                 task = (u0 | nu << 16, gi, min(nu, mul - u0), j0 | min(ne, te - j0) << 16)
-                tasks.append((cost[gi], task))
-    load = [0] * BWD_WARPS
-    per_warp = [[] for _ in range(BWD_WARPS)]
-    for c, task in sorted(tasks, key=lambda ct: -ct[0]):
-        wi = int(np.argmin(load))
-        load[wi] += c
-        per_warp[wi].append(task)
-    warp_ptr = np.cumsum([0] + [len(t) for t in per_warp]).astype(np.int32)
-    return BackwardTables(
+                bwd_tasks.append((cost[gi], task))
+
+    fwd_tasks = []
+    for gi, (mul, ir) in enumerate(plan.irreps_in1):
+        d1 = ir.dim
+        for q in range(groups[gi][2], groups[gi][3]):
+            d3 = paths[q][3]
+            for u0 in range(0, mul, 32):
+                n_u = min(32, mul - u0)
+                nu = 1 << (n_u - 1).bit_length()
+                ne = min(32 // nu, FWD_ITEM_EDGES)
+                work = -(-FWD_ITEM_EDGES // ne) * (d1 * d3 + d1 + d3 + 1) + ((32 // nu).bit_length() - 1) * d3
+                fwd_tasks.append((work, (q, gi, u0 | nu << 16, n_u | ne << 16)))
+    return TileTables(
         cg_t,
         t_sh,
         np.asarray(sh_src, dtype=np.int32),
         np.asarray(groups, dtype=np.int32).reshape(-1, 4),
         np.asarray(paths, dtype=np.int32).reshape(-1, 4),
         np.asarray(path_pw, dtype=np.float32),
-        np.asarray([t for ts in per_warp for t in ts], dtype=np.int32).reshape(-1, 4),
-        warp_ptr,
+        *_deal(bwd_tasks, BWD_WARPS),
+        *_deal(fwd_tasks, FWD_WARPS),
     )
 
 
@@ -319,8 +365,8 @@ def _tables_on(plan: TensorProductPlan, device: torch.device) -> Tuple[torch.Ten
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_tables_on(plan: TensorProductPlan, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    return tuple(torch.as_tensor(a, device=device) for a in backward_tables(plan))
+def _tile_tables_on(plan: TensorProductPlan, device: torch.device) -> TileTables:
+    return TileTables(*(torch.as_tensor(a, device=device) for a in tile_tables(plan)))
 
 
 class SrcOrder(NamedTuple):
@@ -332,10 +378,56 @@ class SrcOrder(NamedTuple):
 
 def src_order(src: torch.Tensor, n_in: int) -> SrcOrder:
     """Stable argsort of src and its CSR offsets (one sort and one
-    searchsorted on the device, no host sync). Every conv layer of a batch
-    shares src, so a caller builds this once per batch."""
+    searchsorted on the device, no host sync)."""
     src_sorted, perm = torch.sort(src, stable=True)
     return SrcOrder(perm.to(torch.int32), _row_ptr(src_sorted, n_in))
+
+
+class EdgePlan(NamedTuple):
+    """A batch's edges as the conv kernels walk them, checked once."""
+
+    src: torch.Tensor  # [E] int32: the edges the plan was built for
+    dst: torch.Tensor  # [E] int32, non-decreasing
+    n_in: int
+    n_out: int
+    row_ptr: torch.Tensor  # [n_out + 1] int32 offsets of each destination's edges
+    item_ptr: torch.Tensor  # [n_out + 1] int32 offsets of each destination's K1 items
+    n_items: int
+    order: Optional[SrcOrder]  # the dx segment sum's src order, or None: sorted when needed
+
+
+def edge_plan(src: torch.Tensor, dst: torch.Tensor, n_in: int, n_out: int,
+              with_src_order: bool = False) -> EdgePlan:
+    """Check a batch's edges and lay them out for the conv kernels.
+
+    Checks src in [0, n_in) and dst non-decreasing in [0, n_out), with one
+    device reduction and one host sync, which also reads K1's item count.
+    Lays out the dst CSR offsets and K1's items, the runs of at most
+    FWD_ITEM_EDGES consecutive edges of one destination (item_ptr =
+    cumsum(ceil(deg / FWD_ITEM_EDGES))), and with `with_src_order` the src
+    order of the dx segment sum. Every conv layer of a batch shares its
+    edges, so a caller builds this once per batch and hands it to every
+    call: the launches then never wait on the card."""
+    e = src.shape[0] if src.dim() == 1 else -1
+    _check("edge_plan", {"src": (src, torch.int32, (e,)), "dst": (dst, torch.int32, (e,))})
+    if n_in < 0 or n_out < 0:
+        raise ValueError(f"edge_plan: n_in={n_in}, n_out={n_out}")
+    row_ptr = _row_ptr(dst, n_out)
+    items = torch.div(row_ptr[1:] - row_ptr[:-1] + FWD_ITEM_EDGES - 1, FWD_ITEM_EDGES,
+                      rounding_mode="floor")
+    item_ptr = torch.cat([row_ptr.new_zeros(1), torch.cumsum(items, 0, dtype=torch.int32)])
+    bad, n_items = False, 0
+    if e:
+        bad = (src < 0).any() | (src >= n_in).any() | (dst < 0).any() | (dst >= n_out).any()
+        bad = bad | (dst[1:] < dst[:-1]).any()
+        bad, n_items = torch.stack([bad.to(torch.int32), item_ptr[-1]]).tolist()
+    if bad:
+        raise ValueError(
+            "edge_plan: dst must be non-decreasing in [0, n_out) and "
+            "src in [0, n_in) (collate_graphs sorts edges by destination)"
+        )
+    order = src_order(src, n_in) if with_src_order else None
+    return EdgePlan(src, dst, n_in, n_out, row_ptr, item_ptr, n_items, order)
 
 
 def _check(fn: str, expect: Dict[str, Tuple[torch.Tensor, torch.dtype, Tuple[int, ...]]]) -> None:
@@ -361,20 +453,11 @@ def _edge_checks(plan, sh, src, dst):
     }
 
 
-def _check_indices(fn: str, src, dst, n_in: int, n_out: int) -> None:
-    """src in [0, n_in), dst non-decreasing in [0, n_out): one device
-    reduction and one host sync."""
-    if n_in < 0 or n_out < 0:
-        raise ValueError(f"{fn}: n_in={n_in}, n_out={n_out}")
-    if not dst.numel():
-        return
-    bad = (src < 0).any() | (src >= n_in).any() | (dst < 0).any() | (dst >= n_out).any()
-    bad = bad | (dst[1:] < dst[:-1]).any()
-    if bool(bad):
-        raise ValueError(
-            f"{fn}: dst must be non-decreasing in [0, n_out) and "
-            "src in [0, n_in) (collate_graphs sorts edges by destination)"
-        )
+def _check_plan(fn: str, edges: EdgePlan, src, dst, n_in: int, n_out: int) -> None:
+    """The edge plan belongs to these edges and node counts (no device work)."""
+    if (edges.src.data_ptr(), edges.dst.data_ptr(), edges.src.shape, edges.n_in, edges.n_out) != (
+            src.data_ptr(), dst.data_ptr(), src.shape, n_in, n_out):
+        raise ValueError(f"{fn}: the edge plan was built for other edges or node counts")
 
 
 def _row_ptr(sorted_idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -384,57 +467,104 @@ def _row_ptr(sorted_idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _launch_failed(lib, kind: str, rc: int, plan) -> RuntimeError:
-    d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
+    d1, dw, dout = plan.irreps_in1.dim, plan.weight_numel, plan.irreps_out.dim
     n_t = kernel_tables(plan).t_meta.shape[0]
-    if kind == "bwd":  # the merged backward stages padded sh rows
-        d2 = len(backward_tables(plan).sh_src)
-    smem = getattr(lib, f"fused_uvu_conv_{kind}_smem")(d1, d2, dw, dout, n_t)
+    shp = len(tile_tables(plan).sh_src)  # both kernels stage padded sh rows
+    smem = getattr(lib, f"fused_uvu_conv_{kind}_smem")(d1, shp, dw, dout, n_t)
     return RuntimeError(
         f"fused_uvu_conv_{kind}: kernel launch failed (cudaError {rc}; the plan "
         f"needs {smem} B of shared memory per block)"
     )
 
 
-def _launch(plan, x, sh, w, src, dst, n_out: int) -> torch.Tensor:
-    """K1: out [n_out, dout]."""
+def _segment_sum(rows: torch.Tensor, ptr: torch.Tensor, perm: Optional[torch.Tensor],
+                 n_seg: int) -> torch.Tensor:
+    """The segment sum kernel: out [n_seg, width], out[s] = the rows
+    (rows[perm[k]] with perm, a permutation of the rows) of k in [ptr[s],
+    ptr[s + 1]), in k order; ptr[n_seg] is the number of rows. Its two
+    roles are told apart by perm: without, K1's partial rows into dst
+    (`fwd_sum_launches`); with, the dx rows into src (`dx_sum_launches`)."""
+    global fwd_sum_launches, dx_sum_launches
+    from matten_tpu_torch.kernels._build import load_library
+
+    r, width = rows.shape
+    expect = {"rows": (rows, torch.float32, (r, width)), "ptr": (ptr, torch.int32, (n_seg + 1,))}
+    if perm is not None:
+        expect["perm"] = (perm, torch.int32, (r,))
+    _check("segment_sum", expect)
+    out = torch.empty((n_seg, width), dtype=torch.float32, device=rows.device)
+    if n_seg == 0 or width == 0:
+        return out
+    lib = load_library()
+    with torch.cuda.device(rows.device):
+        rc = lib.segment_sum(
+            rows.data_ptr(), None if perm is None else perm.data_ptr(), ptr.data_ptr(),
+            out.data_ptr(), n_seg, width, r, torch.cuda.current_stream(rows.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"segment_sum: kernel launch failed (cudaError {rc})")
+    if perm is None:
+        fwd_sum_launches += 1
+    else:
+        dx_sum_launches += 1
+    return out
+
+
+def _launch_items(plan, x, sh, w, src, edges: EdgePlan) -> torch.Tensor:
+    """K1's item pass: the partial rows [items, dout], each item's messages
+    summed, for tensors that `_launch` checked."""
     global launches
     from matten_tpu_torch.kernels._build import load_library
 
+    dev = x.device
+    d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
+    partial = torch.empty((edges.n_items, dout), dtype=torch.float32, device=dev)
+    if not edges.n_items:
+        return partial
+    t_meta = _tables_on(plan, dev)[0]
+    tt = _tile_tables_on(plan, dev)
+    lib = load_library()
+    with torch.cuda.device(dev):
+        rc = lib.fused_uvu_conv_fwd(
+            x.data_ptr(), sh.data_ptr(), w.data_ptr(), src.data_ptr(),
+            edges.row_ptr.data_ptr(), edges.item_ptr.data_ptr(), t_meta.data_ptr(),
+            tt.cg_t.data_ptr(), tt.t_sh.data_ptr(), tt.sh_src.data_ptr(),
+            tt.groups.data_ptr(), tt.paths.data_ptr(), tt.path_pw.data_ptr(),
+            tt.fwd_tasks.data_ptr(), tt.fwd_warp_ptr.data_ptr(), partial.data_ptr(),
+            edges.n_items, edges.n_out, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0],
+            FWD_ITEM_EDGES, FWD_WARPS, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise _launch_failed(lib, "fwd", rc, plan)
+    launches += 1
+    return partial
+
+
+def _launch_fwd_sum(partial: torch.Tensor, edges: EdgePlan) -> torch.Tensor:
+    """K1's partial rows summed per destination in item order: out [n_out,
+    dout] (destinations without edges get zeros)."""
+    return _segment_sum(partial, edges.item_ptr, None, edges.n_out)
+
+
+def _launch(plan, x, sh, w, src, dst, n_out: int, edges: Optional[EdgePlan] = None) -> torch.Tensor:
+    """K1: its item pass, then the segment sum of the partial rows into
+    out [n_out, dout]. Without `edges` it builds (and checks) the plan."""
     e = sh.shape[0] if sh.dim() == 2 else -1
     _check("fused_uvu_conv", {
         "x": (x, torch.float32, (x.shape[0], plan.irreps_in1.dim)),
         **_edge_checks(plan, sh, src, dst),
         "w": (w, torch.float32, (e, plan.weight_numel)),
     })
-    n_in = x.shape[0]
-    _check_indices("fused_uvu_conv", src, dst, n_in, n_out)
-    dev = x.device
-    d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
-    out = torch.empty((n_out, dout), dtype=torch.float32, device=dev)
-    if n_out == 0:
-        return out
-    row_ptr = _row_ptr(dst, n_out)
-    t_meta, cg, out_meta, out_pw = _tables_on(plan, dev)
-    lib = load_library()
-    with torch.cuda.device(dev):
-        rc = lib.fused_uvu_conv_fwd(
-            x.data_ptr(), sh.data_ptr(), w.data_ptr(), src.data_ptr(),
-            row_ptr.data_ptr(), t_meta.data_ptr(), cg.data_ptr(),
-            out_meta.data_ptr(), out_pw.data_ptr(), out.data_ptr(),
-            n_out, d1, d2, dw, dout, t_meta.shape[0],
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise _launch_failed(lib, "fwd", rc, plan)
-    launches += 1
-    return out
+    if edges is None:
+        edges = edge_plan(src, dst, x.shape[0], n_out)
+    else:
+        _check_plan("fused_uvu_conv", edges, src, dst, x.shape[0], n_out)
+    return _launch_fwd_sum(_launch_items(plan, x, sh, w, src, edges), edges)
 
 
-def _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx: bool = True, want_dw: bool = True,
-                      check_indices: bool = True):
+def _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx: bool = True, want_dw: bool = True):
     """The merged backward kernel: (dxe [E, d1] or None, dw [E, dw] or
-    None). `check_indices=False` skips the data check (and its host sync)
-    for src/dst that a forward launch checked."""
+    None), for src and dst that an `edge_plan` checked."""
     global bwd_launches
     from matten_tpu_torch.kernels._build import load_library
 
@@ -445,24 +575,23 @@ def _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx: bool = True, want_dw
         **_edge_checks(plan, sh, src, dst),
         "w": (w, torch.float32, (e, plan.weight_numel)),
     })
-    n_out = g.shape[0]
-    if check_indices:
-        _check_indices("fused_uvu_conv_bwd", src, dst, x.shape[0], n_out)
     dev = g.device
     d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
     dxe = torch.empty((e, d1), dtype=torch.float32, device=dev) if want_dx else None
     dw_out = torch.empty((e, dw), dtype=torch.float32, device=dev) if want_dw else None
     if e == 0 or not (want_dx or want_dw):
         return dxe, dw_out
-    t_meta, _, _, _ = _tables_on(plan, dev)
-    tables = _bwd_tables_on(plan, dev)
+    t_meta = _tables_on(plan, dev)[0]
+    tt = _tile_tables_on(plan, dev)
     lib = load_library()
     with torch.cuda.device(dev):
         rc = lib.fused_uvu_conv_bwd(
             x.data_ptr(), g.data_ptr(), sh.data_ptr(), w.data_ptr(), src.data_ptr(),
-            dst.data_ptr(), t_meta.data_ptr(), *(t.data_ptr() for t in tables),
+            dst.data_ptr(), t_meta.data_ptr(), tt.cg_t.data_ptr(), tt.t_sh.data_ptr(),
+            tt.sh_src.data_ptr(), tt.groups.data_ptr(), tt.paths.data_ptr(),
+            tt.path_pw.data_ptr(), tt.tasks.data_ptr(), tt.warp_ptr.data_ptr(),
             dw_out.data_ptr() if want_dw else None, dxe.data_ptr() if want_dx else None,
-            e, d1, d2, len(tables[2]), dw, dout, t_meta.shape[0], BWD_TILE_EDGES, BWD_WARPS,
+            e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0], BWD_TILE_EDGES, BWD_WARPS,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -471,52 +600,36 @@ def _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx: bool = True, want_dw
     return dxe, dw_out
 
 
-def _launch_dx_reduce(dxe: torch.Tensor, order: SrcOrder, n_in: int) -> torch.Tensor:
-    """The dx segment sum: dx [n_in, d1], dx[n] = sum of the dxe rows of the
-    edges whose source is n, in edge order (nodes with none get zeros)."""
-    global dx_reduce_launches
-    from matten_tpu_torch.kernels._build import load_library
-
-    e, d1 = dxe.shape
-    _check("uvu_conv_dx_reduce", {
-        "dxe": (dxe, torch.float32, (e, d1)),
-        "perm": (order.perm, torch.int32, (e,)),
-        "row_ptr": (order.row_ptr, torch.int32, (n_in + 1,)),
-    })
-    dx = torch.empty((n_in, d1), dtype=torch.float32, device=dxe.device)
-    if n_in == 0 or d1 == 0:
-        return dx
-    lib = load_library()
-    with torch.cuda.device(dxe.device):
-        rc = lib.uvu_conv_dx_reduce(
-            dxe.data_ptr(), order.perm.data_ptr(), order.row_ptr.data_ptr(), dx.data_ptr(),
-            n_in, d1, torch.cuda.current_stream(dxe.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"uvu_conv_dx_reduce: kernel launch failed (cudaError {rc})")
-    dx_reduce_launches += 1
-    return dx
+def _launch_dx_sum(dxe: torch.Tensor, order: SrcOrder, n_in: int) -> torch.Tensor:
+    """dx [n_in, d1]: the segment sum of the dxe rows of the edges whose
+    source is n, in edge order (nodes with none get zeros)."""
+    return _segment_sum(dxe, order.row_ptr, order.perm, n_in)
 
 
-def _launch_bwd(plan, x, g, sh, w, src, dst, n_in: int, order: Optional[SrcOrder] = None,
-                want_dx: bool = True, want_dw: bool = True, check_indices: bool = True):
-    """Both backward kernels: (dx [n_in, d1] or None, dw [E, dw] or None)."""
+def _launch_bwd(plan, x, g, sh, w, src, dst, n_in: int, edges: Optional[EdgePlan] = None,
+                want_dx: bool = True, want_dw: bool = True):
+    """Both backward kernels: (dx [n_in, d1] or None, dw [E, dw] or None).
+    Without `edges` it builds (and checks) the plan."""
     if x.shape[0] != n_in:
         raise ValueError(f"uvu_conv_bwd: x has {x.shape[0]} rows, n_in={n_in}")
-    dxe, dw = _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx, want_dw, check_indices)
+    n_out = g.shape[0]
+    if edges is None:
+        edges = edge_plan(src, dst, n_in, n_out, with_src_order=want_dx)
+    else:
+        _check_plan("uvu_conv_bwd", edges, src, dst, n_in, n_out)
+    dxe, dw = _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx, want_dw)
     if not want_dx:
         return None, dw
-    if order is None:
-        order = src_order(src, n_in)
-    return _launch_dx_reduce(dxe, order, n_in), dw
+    order = edges.order if edges.order is not None else src_order(src, n_in)
+    return _launch_dx_sum(dxe, order, n_in), dw
 
 
 class _FusedUvuConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, sh, w, src, dst, plan, n_out, order):
+    def forward(ctx, x, sh, w, src, dst, plan, n_out, edges):
         ctx.save_for_backward(x, sh, w, src, dst)
-        ctx.plan, ctx.n_out, ctx.order = plan, n_out, order
-        return _launch(plan, x, sh, w, src, dst, n_out)
+        ctx.plan, ctx.n_out, ctx.edges = plan, n_out, edges
+        return _launch(plan, x, sh, w, src, dst, n_out, edges)
 
     @staticmethod
     def backward(ctx, g):
@@ -525,9 +638,7 @@ class _FusedUvuConv(torch.autograd.Function):
         g = g.contiguous()
         dsh = None
         want_dx, want_sh, want_dw = ctx.needs_input_grad[:3]
-        # src/dst were checked by the forward launch
-        dx, dw = _launch_bwd(plan, x, g, sh, w, src, dst, x.shape[0], ctx.order,
-                             want_dx, want_dw, check_indices=False)
+        dx, dw = _launch_bwd(plan, x, g, sh, w, src, dst, x.shape[0], ctx.edges, want_dx, want_dw)
         if want_sh:
             # dsh by autograd of the plain version, as the JAX backward does
             with torch.enable_grad():
@@ -557,18 +668,22 @@ def fused_uvu_conv(
     src: torch.Tensor,
     dst: torch.Tensor,
     n_out: int,
-    order: Optional[SrcOrder] = None,
+    edges: Optional[EdgePlan] = None,
 ) -> torch.Tensor:
     """uvu TP of x[src] with sh under per-edge weights w, summed into dst.
 
     x [n_in, d1], sh [E, d2], w [E, dw] float32; src, dst [E] int32 with
     dst non-decreasing; returns [n_out, dout]. CPU tensors take the plain
     version; CUDA tensors launch K1 (or raise), and its gradient launches
-    the merged backward and the dx segment sum. `order`, `src_order(src,
-    n_in)` built once for the batch, saves the backward its own sort."""
+    the merged backward and the dx segment sum. `edges`, `edge_plan(src,
+    dst, n_in, n_out)` built once for the batch, spares the call its own
+    checks and their host sync (and, with its src order, the backward its
+    sort)."""
     if _route("fused_uvu_conv", (x, sh, w, src, dst)):
         return uvu_conv_reference(plan, x, sh, w, src, dst, n_out)
-    return _FusedUvuConv.apply(x, sh, w, src, dst, plan, n_out, order)
+    if edges is None:
+        edges = edge_plan(src, dst, x.shape[0], n_out)
+    return _FusedUvuConv.apply(x, sh, w, src, dst, plan, n_out, edges)
 
 
 def uvu_conv_bwd(
@@ -580,7 +695,7 @@ def uvu_conv_bwd(
     src: torch.Tensor,
     dst: torch.Tensor,
     n_in: int,
-    order: Optional[SrcOrder] = None,
+    edges: Optional[EdgePlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradients of `fused_uvu_conv` with respect to x and w for the output
     cotangent g [n_out, dout]: (dx [n_in, d1], dw [E, dw]). CPU tensors
@@ -588,4 +703,4 @@ def uvu_conv_bwd(
     and the dx segment sum (or raise)."""
     if _route("uvu_conv_bwd", (x, g, sh, w, src, dst)):
         return uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_in)
-    return _launch_bwd(plan, x, g, sh, w, src, dst, n_in, order)
+    return _launch_bwd(plan, x, g, sh, w, src, dst, n_in, edges)

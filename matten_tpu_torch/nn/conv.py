@@ -19,7 +19,7 @@ import torch
 
 from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
-from matten_tpu_torch.kernels.fused_conv import SrcOrder, fused_uvu_conv, src_order
+from matten_tpu_torch.kernels.fused_conv import edge_plan, fused_uvu_conv
 from matten_tpu_torch.nn.common import check_required, merge_irreps, normal_parameter
 from matten_tpu_torch.nn.gate import ActivationInfo, Gate
 from matten_tpu_torch.nn.norm import IrrepsBatchNorm
@@ -31,11 +31,12 @@ from matten_tpu_torch.ops.tensor_product import (
 )
 
 
-# the conv backward's src order of the edges in the batch dict: built on
-# the card by the first PointConv of a forward that records gradients, and
-# read by the others, which share the edges
-EDGE_SRC_ORDER = "edge_src_order"  # [E] int32 edge ids in stable src order
-EDGE_SRC_ROW_PTR = "edge_src_row_ptr"  # [N + 1] int32 offsets of each source's edges
+# the conv kernels' edge plan (`kernels.fused_conv.EdgePlan`: the checked
+# edges, the dst CSR, K1's items and, when gradients are recorded, the src
+# order of the backward) in the batch dict: built on the card by the first
+# PointConv of a forward, with the forward's one host sync, and read by the
+# others, which share the edges
+EDGE_PLAN = "edge_plan"
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,25 +110,28 @@ class PointConv(torch.nn.Module):
         feats = apply_sc(feats, self.w_lin1, self.lin1_plan)
         edge_weights = self.radial_mlp(data[K.EDGE_EMBEDDING])
 
-        # the stable src order that the conv's backward sums dx over: sorted
-        # on the card once per batch, by the first conv layer, for them all
-        order = None
-        if src.is_cuda and torch.is_grad_enabled():
-            if EDGE_SRC_ORDER not in data:
-                data[EDGE_SRC_ORDER], data[EDGE_SRC_ROW_PTR] = src_order(
-                    src.contiguous(), num_nodes
-                )
-            order = SrcOrder(data[EDGE_SRC_ORDER], data[EDGE_SRC_ROW_PTR])
+        # the edges checked and laid out on the card once per batch, by the
+        # first conv layer, for them all
+        if src.is_cuda and EDGE_PLAN not in data:
+            data[EDGE_PLAN] = edge_plan(
+                src.contiguous(), dst.contiguous(), num_nodes, num_nodes,
+                with_src_order=torch.is_grad_enabled(),
+            )
+        edges = data.get(EDGE_PLAN)
+        if edges is not None:
+            src, dst = edges.src, edges.dst
 
+        # src and dst: the plan's (contiguous) on the card, the plain
+        # version's strided views on the CPU
         agg = fused_uvu_conv(
             self.uvu_plan,
             feats.contiguous(),
             data[K.EDGE_ATTRS].contiguous(),
             edge_weights.contiguous(),
-            src.contiguous(),
-            dst.contiguous(),
+            src,
+            dst,
             num_nodes,
-            order,
+            edges,
         )
         if self.avg_num_neighbors is not None:
             agg = agg / float(np.sqrt(self.avg_num_neighbors))

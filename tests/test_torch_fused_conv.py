@@ -118,6 +118,8 @@ def test_kernel_tables_reproduce_the_plain_version(ir1, ir2, out):
 
 
 def test_launch_rejects_bad_inputs():
+    """K1's launch without an edge plan builds one, which checks the
+    indices; given a plan, it checks that the plan is the edges'."""
     _, pt, a, n = _setup(24)
     t = _torch(a)
     args = [t["x"], t["sh"], t["w"], t["src"], t["dst"]]
@@ -130,8 +132,137 @@ def test_launch_rejects_bad_inputs():
     unsorted = args[:4] + [t["dst"].flip(0).contiguous()]
     with pytest.raises(ValueError, match="non-decreasing"):
         fused_conv._launch(pt, *unsorted, n)
+    out_of_range = args[:3] + [(t["src"] + 24).contiguous(), t["dst"]]
+    with pytest.raises(ValueError, match="src in"):
+        fused_conv._launch(pt, *out_of_range, n)
     with pytest.raises(ValueError, match="shape"):
         fused_conv._launch(pt, args[0][:, :-1].contiguous(), *args[1:], n)
+    other = fused_conv.edge_plan(t["src"], t["dst"], 24, n + 1)
+    with pytest.raises(ValueError, match="edge plan"):
+        fused_conv._launch(pt, *args, n, other)
+    with pytest.raises(ValueError, match="edge plan"):
+        fused_conv._launch(pt, *args[:3], t["src"].clone(), t["dst"], n,
+                           fused_conv.edge_plan(t["src"], t["dst"], 24, n))
+
+
+def test_edge_plan_rejects_bad_edges():
+    src = torch.as_tensor(np.array([0, 3, 1, 2], np.int32))
+    dst = torch.as_tensor(np.array([0, 0, 2, 3], np.int32))
+    plan = fused_conv.edge_plan(src, dst, 4, 4)
+    assert plan.n_items == 3 and plan.order is None
+    for s, d, n_in, n_out in ((src, dst.flip(0).contiguous(), 4, 4), (src, dst, 3, 4),
+                              (src, dst, 4, 3), (src - 1, dst, 4, 4)):
+        with pytest.raises(ValueError, match="non-decreasing"):
+            fused_conv.edge_plan(s, d, n_in, n_out)
+    with pytest.raises(TypeError):
+        fused_conv.edge_plan(src.long(), dst, 4, 4)
+    with pytest.raises(ValueError, match="shape"):
+        fused_conv.edge_plan(src, dst[:3], 4, 4)
+
+
+def _replay_forward(plan, x, sh, w, edges):
+    """K1's item pass read off its tables, lane by lane, in float64: each
+    block finds its item (node, first edge) by the kernel's binary search
+    over item_ptr; each K1 warp task's lanes (channel u0 + lane % nu, edges
+    lane // nu, + ne, ...) sum their channel's d3 outputs over their edges,
+    the edge groups are added, and pw times the sum is the item's partial
+    row. Returns the partial rows, the writes to each entry, and each
+    item's (node, first edge, edge count)."""
+    tab, tt = fused_conv.kernel_tables(plan), fused_conv.tile_tables(plan)
+    x, sh, w = (a.double().numpy() for a in (x, sh, w))
+    src = edges.src.numpy()
+    row_ptr, item_ptr = edges.row_ptr.numpy(), edges.item_ptr.numpy()
+    sh_pad = np.where(tt.sh_src >= 0, sh[:, np.maximum(tt.sh_src, 0)], 0.0)
+    t = np.zeros((sh.shape[0], tab.t_meta.shape[0]))
+    for i, (_, _, d2, _) in enumerate(tab.t_meta):
+        t[:, i] = sh_pad[:, tt.t_sh[i] : tt.t_sh[i] + d2] @ tt.cg_t[:d2, i]
+    te, dout = fused_conv.FWD_ITEM_EDGES, plan.irreps_out.dim
+    partial = np.zeros((edges.n_items, dout))
+    writes = np.zeros(partial.shape, int)
+    spans = []
+    for item in range(edges.n_items):
+        lo, hi = 0, edges.n_out
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if item_ptr[mid] <= item else (lo, mid)
+        e0 = row_ptr[lo] + (item - item_ptr[lo]) * te
+        nj = min(te, row_ptr[lo + 1] - e0)
+        spans.append((lo, e0, nj))
+        for q, gi, tu, tn in tt.fwd_tasks:
+            nu, u0, n_u, ne = tu >> 16, tu & 0xFFFF, tn & 0xFFFF, tn >> 16
+            assert nu & (nu - 1) == 0 and n_u <= nu and nu * ne <= 32
+            x_off, d1, _, _ = tt.groups[gi]
+            o_off, t_off, w_off, d3 = tt.paths[q]
+            for du in range(n_u):
+                u = u0 + du
+                lanes = []
+                for dj in range(ne):
+                    acc = np.zeros(d3)
+                    for e in range(e0 + dj, e0 + nj, ne):
+                        blk = t[e, t_off : t_off + d1 * d3].reshape(d1, d3)
+                        acc += w[e, w_off + u] * (x[src[e], x_off + u * d1 : x_off + (u + 1) * d1] @ blk)
+                    lanes.append(acc)
+                partial[item, o_off + u * d3 : o_off + (u + 1) * d3] = tt.path_pw[q] * np.sum(lanes, 0)
+                writes[item, o_off + u * d3 : o_off + (u + 1) * d3] += 1
+    return partial, writes, spans
+
+
+@pytest.mark.parametrize(
+    "ir1,ir2,out",
+    [
+        (IR1, IR2, IR1),
+        # 3x: a channel count that is no power of two (nu = 4, one idle lane)
+        (Irreps("3x0e+2x1o"), Irreps("0e+1o+2e"), Irreps("3x0e+2x1o+1x2e")),
+    ],
+)
+def test_k1_item_map_and_partial_rows_reproduce_the_plain_version(ir1, ir2, out):
+    """Destinations of degree 0, 1, 16, 0, 17 and 159 (E = 193, no multiple
+    of 16): the items partition the edges in order, at most 16 edges of
+    one destination each, ceil(deg / 16) per destination; the replayed
+    partial rows, each entry written once, summed per destination in item
+    order, give the plain version."""
+    deg = np.array([0, 1, 16, 0, 17, 159])
+    n_out, n_in = len(deg), 9
+    dst = np.repeat(np.arange(n_out), deg).astype(np.int32)
+    _, pt, a, _ = _setup(38, n_in=n_in, n_out=n_out, e=len(dst), ir1=ir1, ir2=ir2, out=out)
+    a["dst"] = dst
+    t = _torch(a)
+    edges = fused_conv.edge_plan(t["src"], t["dst"], n_in, n_out)
+    np.testing.assert_array_equal(edges.item_ptr.numpy(), np.concatenate([[0], np.cumsum(-(-deg // 16))]))
+    partial, writes, spans = _replay_forward(pt, t["x"], t["sh"], t["w"], edges)
+    assert edges.n_items == len(spans) == 14
+    covered = np.concatenate([np.arange(e0, e0 + nj) for _, e0, nj in spans])
+    np.testing.assert_array_equal(covered, np.arange(len(dst)))
+    for node, e0, nj in spans:
+        assert 1 <= nj <= 16 and (dst[e0 : e0 + nj] == node).all()
+    assert (writes == 1).all()
+    # index_add_ on the CPU adds the rows one after another, in item order
+    item_node = torch.repeat_interleave(torch.arange(n_out), (edges.item_ptr[1:] - edges.item_ptr[:-1]).long())
+    got = torch.zeros(n_out, partial.shape[1], dtype=torch.float64).index_add_(
+        0, item_node, torch.as_tensor(partial))
+    ref = fused_conv.uvu_conv_reference(pt, t["x"], t["sh"], t["w"], t["src"], t["dst"], n_out)
+    np.testing.assert_allclose(got.numpy(), ref.double().numpy(), **TOL)
+    assert (got[deg == 0] == 0).all()
+
+
+def test_segment_sum_rejects_bad_inputs_and_counts_no_launch():
+    """The segment sum checks its rows, offsets and permutation before it
+    builds or launches anything; a refused call counts in neither role."""
+    rows = torch.zeros(50, 5)
+    ptr = torch.as_tensor(np.array([0, 0, 3, 3, 50], np.int32))
+    perm = torch.arange(50, dtype=torch.int32)
+    before = (fused_conv.fwd_sum_launches, fused_conv.dx_sum_launches)
+    with pytest.raises(TypeError):
+        fused_conv._segment_sum(rows.double(), ptr, None, 4)
+    with pytest.raises(TypeError):
+        fused_conv._segment_sum(rows, ptr.long(), perm, 4)
+    with pytest.raises(ValueError, match="shape"):
+        fused_conv._segment_sum(rows, ptr, None, 5)
+    with pytest.raises(ValueError, match="shape"):
+        fused_conv._segment_sum(rows, ptr, perm[:49], 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_conv._segment_sum(torch.zeros(5, 50).t(), ptr, perm, 4)
+    assert (fused_conv.fwd_sum_launches, fused_conv.dx_sum_launches) == before
 
 
 # ---------------------------------------------------------------- backward
@@ -230,7 +361,7 @@ def _replay_backward(plan, x, g, sh, w, src, dst, n_in):
     u0 + lane % nu, edge j0 + lane // nu) over its irrep's paths (Y, dw and
     the channel's dx); then the segment sum over `src_order`. Also counts
     the writes to every entry of dxe and dw."""
-    tab, bt = fused_conv.kernel_tables(plan), fused_conv.backward_tables(plan)
+    tab, bt = fused_conv.kernel_tables(plan), fused_conv.tile_tables(plan)
     order = fused_conv.src_order(src, n_in)
     x, g, sh, w = (a.double().numpy() for a in (x, g, sh, w))
     src, dst = src.numpy(), dst.numpy()
@@ -292,7 +423,7 @@ def test_backward_tables_reproduce_the_plain_versions(ir1, ir2, out):
     np.testing.assert_allclose(dw, dw_ref.numpy(), **TOL)
     # every (channel, edge) and every (edge, weight) has exactly one writer
     assert (writes_dxe == 1).all() and (writes_dw == 1).all()
-    bt = fused_conv.backward_tables(pt)
+    bt = fused_conv.tile_tables(pt)
     assert len(bt.paths) == len(pt.instructions)
     assert len(bt.warp_ptr) == fused_conv.BWD_WARPS + 1
 
@@ -311,9 +442,9 @@ def test_backward_wrappers_on_cpu_run_the_plain_versions(n_in, n_out):
     t = _torch(a)
     g = torch.ones(n, pt.irreps_out.dim)
     args = (pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in)
-    before = (fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
+    before = (fused_conv.bwd_launches, fused_conv.dx_sum_launches)
     dx, dw = fused_conv.uvu_conv_bwd(*args)
-    assert (fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == before
+    assert (fused_conv.bwd_launches, fused_conv.dx_sum_launches) == before
     dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(*args)
     assert dx.shape == (n_in, pt.irreps_in1.dim) and dw.shape == (96, pt.weight_numel)
     assert torch.equal(dx, dx_ref) and torch.equal(dw, dw_ref)

@@ -7,11 +7,12 @@ this file there without the conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 Tolerances: K1 vs plain rtol=atol=1e-5 (float32, another summation
-order); the backward kernels' dx and dw vs plain max|d| <= 1e-5 max|ref|
-(their sums run over many edges and paths of both signs, so single small
-entries cancel); two runs of the backward kernels bitwise equal (no
-atomics, fixed order); the model, 2 conv layers deep, 1e-4, its parameter
-gradients 1e-4 relative to each parameter's largest gradient.
+order); the backward kernels' dx and dw, K1 at the production plans and the
+segment sum vs index_add_ max|d| <= 1e-5 max|ref| (their sums run over many
+edges and paths of both signs, so single small entries cancel); two runs of
+K1 and of the backward kernels bitwise equal (no atomics, fixed order); the
+model, 2 conv layers deep, 1e-4, its parameter gradients 1e-4 relative to
+each parameter's largest gradient.
 """
 
 import numpy as np
@@ -84,6 +85,8 @@ def test_kernel_rejects_bad_inputs(dev):
         fused_conv.fused_uvu_conv(
             plan, t["x"], t["sh"], t["w"], t["src"], t["dst"].flip(0).contiguous(), 24
         )
+    with pytest.raises(ValueError, match="src in"):
+        fused_conv.fused_uvu_conv(plan, t["x"], t["sh"], t["w"], (t["src"] + 24).contiguous(), t["dst"], 24)
     with pytest.raises(ValueError, match="mixed devices"):
         fused_conv.fused_uvu_conv(plan, t["x"].cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
 
@@ -114,10 +117,10 @@ def _check_backward(plan, t, g, n_in):
     """uvu_conv_bwd (one launch of each kernel) and the autograd backward
     of K1 against the plain backward; returns (dx, dw)."""
     args = (plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in)
-    before = (fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
+    before = (fused_conv.bwd_launches, fused_conv.dx_sum_launches)
     dx, dw = fused_conv.uvu_conv_bwd(*args)
     torch.cuda.synchronize()
-    assert (fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == (before[0] + 1, before[1] + 1)
+    assert (fused_conv.bwd_launches, fused_conv.dx_sum_launches) == (before[0] + 1, before[1] + 1)
     dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(*args)
     _assert_rel(dx, dx_ref)
     _assert_rel(dw, dw_ref)
@@ -151,11 +154,11 @@ def test_backward_kernels_match_plain(dev, n_in, n_out, e):
     dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(
         plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in)
     # the autograd backward of K1 launches the same kernels (dsh by the plain version)
-    before = (fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
+    before = (fused_conv.bwd_launches, fused_conv.dx_sum_launches)
     x, sh, w = (t[k].clone().requires_grad_() for k in ("x", "sh", "w"))
     out = fused_conv.fused_uvu_conv(plan, x, sh, w, t["src"], t["dst"], n_out)
     out.backward(g)
-    assert (fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == (before[0] + 1, before[1] + 1)
+    assert (fused_conv.bwd_launches, fused_conv.dx_sum_launches) == (before[0] + 1, before[1] + 1)
     _assert_rel(x.grad, dx_ref)
     _assert_rel(w.grad, dw_ref)
     with torch.enable_grad():
@@ -192,6 +195,100 @@ def test_backward_kernels_are_bitwise_deterministic(dev):
     dx, dw = _check_backward(plan, t, g, n)
     dx2, dw2 = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def test_k1_matches_plain_and_is_bitwise_deterministic_at_production_plans(dev):
+    """K1 (item pass and partial-row sum) at the 4 production plans on a
+    flagship-sized random graph (N=320, E=21504) and at N=2600 with the
+    last plan: against the plain version, and two runs bitwise equal."""
+    rng = np.random.default_rng(11)
+    plans = _production_plans(dev)
+    cases = [(plan, 320, 21504) for plan in plans] + [(plans[-1], 2600, 2600 * 64)]
+    for i, (plan, n, e) in enumerate(cases):
+        t = _inputs_on_graph(dev, 30 + i, plan, n, rng.integers(0, n, e), np.sort(rng.integers(0, n, e)))
+        args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], n)
+        edges = fused_conv.edge_plan(t["src"], t["dst"], n, n)
+        before = (fused_conv.launches, fused_conv.fwd_sum_launches)
+        out = fused_conv.fused_uvu_conv(*args, edges)
+        out2 = fused_conv.fused_uvu_conv(*args, edges)
+        torch.cuda.synchronize()
+        assert (fused_conv.launches, fused_conv.fwd_sum_launches) == (before[0] + 2, before[1] + 2)
+        assert torch.equal(out, out2)
+        _assert_rel(out, fused_conv.uvu_conv_reference(*args))
+        del t, out, out2
+
+
+def test_k1_skewed_degrees(dev):
+    """One destination with 3000 edges (188 items), destinations without
+    edges (their rows must be 0), E = 3000 + 1237, no multiple of 16, and
+    n_in != n_out; the last production plan."""
+    plan = _production_plans(dev)[-1]
+    rng = np.random.default_rng(12)
+    n_in, n_out = 50, 40
+    dst = np.sort(np.concatenate([np.full(3000, 17), rng.integers(20, 35, 1237)]))
+    t = _inputs_on_graph(dev, 13, plan, n_in, rng.integers(0, n_in, len(dst)), dst)
+    args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], n_out)
+    edges = fused_conv.edge_plan(t["src"], t["dst"], n_in, n_out)
+    out = fused_conv.fused_uvu_conv(*args, edges)
+    torch.cuda.synchronize()
+    _assert_rel(out, fused_conv.uvu_conv_reference(*args))
+    empty = np.setdiff1d(np.arange(n_out), dst)
+    assert len(empty) == 24 and bool((out[torch.as_tensor(empty, device=dev)] == 0).all())
+    assert torch.equal(out, fused_conv.fused_uvu_conv(*args, edges))
+
+
+@pytest.mark.parametrize("width", [1, 16, 246, 4170, 400, 7])
+def test_segment_sum_matches_index_add_in_both_roles(dev, width):
+    """The shared segment sum: dx rows over a stable src order (rows [E,
+    width] into n_in nodes) and K1's partial rows over item offsets with
+    empty segments, against index_add_ of the same rows; widths that take
+    its 4-, 8- and 16-byte loads; two runs bitwise equal."""
+    rng = np.random.default_rng(width)
+    e, n_in = 3000, 70
+    src = torch.as_tensor(rng.integers(0, n_in - 5, e).astype(np.int32), device=dev)
+    rows = torch.as_tensor(rng.normal(size=(e, width)).astype(np.float32), device=dev)
+    order = fused_conv.src_order(src, n_in)
+    before = fused_conv.dx_sum_launches
+    dx = fused_conv._launch_dx_sum(rows, order, n_in)
+    assert fused_conv.dx_sum_launches == before + 1
+    ref = torch.zeros(n_in, width, device=dev).index_add_(0, src.long(), rows)
+    _assert_rel(dx, ref)
+    assert torch.equal(dx, fused_conv._launch_dx_sum(rows, order, n_in))
+    assert bool((dx[n_in - 5 :] == 0).all())
+    counts = rng.integers(0, 12, 300)
+    counts[rng.integers(0, 300, 30)] = 0
+    ptr = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32), device=dev)
+    part = rows[: int(counts.sum())].contiguous()
+    seg = torch.repeat_interleave(torch.arange(300, device=dev), torch.as_tensor(counts, device=dev))
+    before = (fused_conv.fwd_sum_launches, fused_conv.dx_sum_launches)
+    out = fused_conv._segment_sum(part, ptr, None, 300)
+    assert (fused_conv.fwd_sum_launches, fused_conv.dx_sum_launches) == (before[0] + 1, before[1])
+    _assert_rel(out, torch.zeros(300, width, device=dev).index_add_(0, seg, part))
+    assert bool((out[torch.as_tensor(counts == 0, device=dev)] == 0).all())
+
+
+def test_k1_and_backward_with_an_edge_plan_do_not_sync(dev):
+    """Given the batch's edge plan, K1's launches and the backward's run
+    without a host sync (torch.cuda.set_sync_debug_mode("error") raises on
+    one); the first calls, which build the kernels and copy the plan's
+    tables to the card, run before."""
+    plan, t = _inputs(dev, 14, 300, 300, 5000)
+    g = torch.randn(300, plan.irreps_out.dim, device=dev)
+    edges = fused_conv.edge_plan(t["src"], t["dst"], 300, 300, with_src_order=True)
+    args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"])
+    fused_conv.fused_uvu_conv(*args, 300, edges)
+    fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300, edges)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fused_conv.fused_uvu_conv(*args, 300, edges)
+        dx, dw = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300, edges)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_allclose(out.cpu().numpy(), fused_conv.uvu_conv_reference(*args, 300).cpu().numpy(), **TOL)
+    dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300)
+    _assert_rel(dx, dx_ref)
+    _assert_rel(dw, dw_ref)
 
 
 def test_backward_kernels_reject_bad_inputs(dev):
@@ -233,10 +330,10 @@ def test_model_forward_through_kernel(dev):
     ]
     data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(species))
     data = batch_to_device(data, dev)
-    before = fused_conv.launches
+    before = (fused_conv.launches, fused_conv.fwd_sum_launches)
     with torch.inference_mode():
         out = model(data)
-        assert fused_conv.launches == before + 3
+        assert (fused_conv.launches, fused_conv.fwd_sum_launches) == (before[0] + 3, before[1] + 3)
         with fused_conv.force_plain():
             ref = model(data)
     real = data[K.GRAPH_MASK]
@@ -251,10 +348,10 @@ def test_model_forward_through_kernel(dev):
         model(data)[real].square().sum().backward()
         return {n: p.grad.clone() for n, p in model.named_parameters()}
 
-    before = (fused_conv.launches, fused_conv.bwd_launches, fused_conv.dx_reduce_launches)
+    counters = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches")
+    before = [getattr(fused_conv, c) for c in counters]
     got = grads()
-    assert (fused_conv.launches, fused_conv.bwd_launches, fused_conv.dx_reduce_launches) == tuple(
-        b + 3 for b in before)
+    assert [getattr(fused_conv, c) for c in counters] == [b + 3 for b in before]
     with fused_conv.force_plain():
         ref = grads()
     for n, r in ref.items():
