@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's serving path and train step once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving paths and train steps once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -39,8 +39,31 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      (against the plain backward) and the segment sum in both roles
      (against the plain sum and index_add_ of the same rows); each beside
      its bound; peak memory of a forward and a train step above what is
-     resident before it.
-The line before the last is the kernels JSON; the last line is
+     resident before it;
+ 11. NMR kernel parity: the per-atom NMR model (the `model` section of
+     scripts/configs/atomic_tensor.yaml, SH lmax 2) on its batch, the 16
+     crystals `bench.py::build_batch(np.random.default_rng(2), 16,
+     per_atom=True)` draws with an `atom_selector` marking the Si atoms: K1
+     (item pass and partial-row sum), the merged backward and the dx sum at
+     its 4 conv plans against their plain versions, two runs bitwise equal;
+ 12. NMR forward, the third main path: the `AtomicTensorModel` through the
+     kernels and under `force_plain()`, exactly 4 launches of K1's two
+     kernels per forward;
+ 13. NMR train step, the fourth main path: gradients against a deep copy
+     under `force_plain()`, then `Trainer.train_step` (Adam, lr 0.01,
+     weight decay 1e-5, the YAML's optimizer) a few steps, 4 launches of
+     each counter per step, finite losses;
+ 14. from disk, the fifth main path: a checkpoint directory of each family
+     (`CheckpointManager` + `save_sidecar`, a target normalizer from
+     `DatasetStatistics.compute`; the elasticity one holds phase 5's
+     weights), then `predict(structures, checkpoint_dir)` on the card, equal
+     to the in-memory `predict` of the same weights, the kernels launched;
+     the NMR results finite symmetric [n_atoms, 3, 3] arrays;
+ 15. NMR timings with CUDA events, interleaved: the forward and the train
+     step against plain, per layer K1 (with its sum) and the merged
+     backward against plain, each beside its bound.
+The line before the last is the kernels JSON (its times are phase 9's; its
+launches count every main path's run: phases 6, 8 and 12-14); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
 left visible.
@@ -50,9 +73,11 @@ left visible.
 adds phase 10, where the time of a forward and of a train step goes: host
 wall per forward and per step, per backbone layer, the step's forward /
 backward / optimizer split, and torch.profiler traces (device ops, device
-busy time, host launches, device time of each kernel), written to DIR; and
-the device time per layer of K1, its item pass, the segment sum in both
-roles and index_add_ of the same rows, with the L2 cache warm and flushed.
+busy time, host launches, device time of each kernel), written to DIR; the
+device time per layer of K1, its item pass, the segment sum in both roles
+and index_add_ of the same rows, with the L2 cache warm and flushed; and
+the same train-step profile of the NMR model (each conv kernel's device
+time per layer at its plans).
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
@@ -67,6 +92,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -96,6 +122,28 @@ HPARAMS = dict(
     reduce="mean",
 )
 DATASET_HPARAMS = dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0)
+# the per-atom NMR configuration: the `model` section of
+# scripts/configs/atomic_tensor.yaml; "auto" takes the batch's own average
+# number of neighbours, as the data module hands it to the model
+NMR_HPARAMS = dict(
+    species_embedding_dim=16,
+    irreps_edge_sh="0e+1o+2e",
+    radial_basis_type="bessel",
+    num_radial_basis=8,
+    radial_basis_start=0.0,
+    radial_basis_end=5.0,
+    num_layers=3,
+    invariant_layers=2,
+    invariant_neurons=32,
+    average_num_neighbors="auto",
+    conv_layer_irreps="32x0o+32x0e+16x1o+16x1e+4x2o+4x2e",
+    nonlinearity_type="gate",
+    normalization="batch",
+    output_format="irreps",
+    output_formula="ij=ji",
+)
+NMR_TARGET = "nmr_tensor"
+SI = 14  # the NMR targets are Si shieldings: the atom selector marks the Si atoms
 
 # kernel vs plain: f32 with another summation order (per-edge CG contraction
 # and per-row sums vs einsum + index_add), max|d| relative to max|ref|
@@ -107,6 +155,10 @@ SEED = 0
 WARMUP, REPS = 3, 20
 TRAIN_STEPS = 3
 TARGET = "elastic_tensor_full"
+# the `data` sidecar entries a checkpoint of each family carries
+ELASTIC_DATA = dict(r_cut=5.0, tensor_target_name=TARGET)
+NMR_DATA = dict(r_cut=5.0, tensor_target_name=NMR_TARGET, tensor_target_formula="ij=ji",
+                atom_selector="atom_selector")
 BIG_N = 2600  # beyond the JAX package's resident-node limit of 2048
 BIG_DEGREE = 64
 SKEW_DEGREE, SKEW_EMPTY, SKEW_REST = 3000, 16, 1237  # E = 4237, no multiple of 16
@@ -117,12 +169,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 
-def flagship_structures(n_graphs=32, atoms_lo=4, atoms_hi=12):
-    """The 32 crystals of `bench.py::build_batch`, drawn in the same order,
-    and their [1, 21] targets."""
+def draw_structures(seed=0, n_graphs=32, per_atom=False, atoms_lo=4, atoms_hi=12):
+    """The crystals of `bench.py::build_batch(np.random.default_rng(seed),
+    n_graphs, per_atom=per_atom)`, drawn in the same order (each target
+    right after its crystal), and their targets: [1, 21] per crystal, or
+    [n, 6] per atom."""
     from matten_tpu_torch.data.structure import Structure
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     structures, targets = [], []
     for _ in range(n_graphs):
         n = int(rng.integers(atoms_lo, atoms_hi + 1))
@@ -133,7 +187,7 @@ def flagship_structures(n_graphs=32, atoms_lo=4, atoms_hi=12):
                 atomic_numbers=rng.choice(SPECIES_5, size=n),
             )
         )
-        targets.append(rng.normal(size=(1, 21)))
+        targets.append(rng.normal(size=(n, 6) if per_atom else (1, 21)))
     return structures, targets
 
 
@@ -147,16 +201,30 @@ def si_structure():
     )
 
 
-def collate(structures, targets):
-    """(data, targets) numpy dicts of one padded batch."""
-    from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
-    from matten_tpu_torch.nn.embedding import atomic_number_map
+def graphs_of(structures, targets, target=TARGET, selected=None):
+    """Graphs at r_cut 5.0 with their targets. With `selected`, a per-atom
+    target and an `atom_selector` that marks the atoms of that atomic
+    number, whose rows alone carry the target (a dataset's dense layout)."""
+    from matten_tpu_torch.data.graph import CrystalGraph
 
     graphs = []
     for s, y in zip(structures, targets):
         g = CrystalGraph.from_structure(s, r_cut=5.0)
-        g.y[TARGET] = y
+        if selected is not None:
+            sel = s.atomic_numbers == selected
+            g.y["atom_selector"] = sel
+            y = np.where(sel[:, None], y, 0.0)
+        g.y[target] = y
         graphs.append(g)
+    return graphs
+
+
+def collate(structures, targets, target=TARGET, selected=None):
+    """(data, targets) numpy dicts of one padded batch."""
+    from matten_tpu_torch.data.graph import collate_graphs, pad_spec_for
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+
+    graphs = graphs_of(structures, targets, target, selected)
     return collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
 
 
@@ -238,6 +306,15 @@ def bound_by(per_layer):
     for t, by in per_layer:
         share[by] += t
     return max(share, key=share.get)
+
+
+def step_grads(trainer, data, targets):
+    """One train-mode forward and backward: (loss, parameter gradients)."""
+    trainer.model.train()
+    trainer.model.zero_grad(set_to_none=True)
+    loss = trainer._compute_loss(trainer._preds(data), data, targets)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
 
 
 def own_peak_mib(fn, torch):
@@ -409,7 +486,7 @@ def profile_forward(model, fwd, data, out_dir, torch):
     )
 
 
-def profile_train(trainer, batch, out_dir, torch):
+def profile_train(trainer, batch, out_dir, torch, name="train"):
     """Phase 10b: where the time of one train step goes. Returns the line."""
     data, targets = batch
     wall, split = [], np.zeros(3)
@@ -432,11 +509,11 @@ def profile_train(trainer, batch, out_dir, torch):
         torch.cuda.synchronize()
         split += np.array([t1 - t0, t2 - t1, time.perf_counter() - t2]) * 1e3 / REPS
     _, st = traced(lambda: trainer.train_step(data, targets), PROFILED_FORWARDS, out_dir,
-                   "train_step", torch)
+                   f"{name}_step", torch)
     top = sorted(st["by_kernel"].items(), key=lambda kv: -kv[1])[:6]
     conv_ms = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k)) for k in KERNEL_NAMES}
     return (
-        f"[10 profile train] host wall per step (synced, unprofiled) ms: median "
+        f"[10 profile {name}] host wall per step (synced, unprofiled) ms: median "
         f"{np.median(wall):.4f} q1 {np.percentile(wall, 25):.4f} q3 {np.percentile(wall, 75):.4f}; "
         f"synced split ms: forward+loss {split[0]:.4f}, backward {split[1]:.4f}, "
         f"optimizer {split[2]:.4f}; under the profiler, per step: " + device_summary(st)
@@ -488,6 +565,194 @@ def profile_sums(sum_inputs, out_dir, torch):
         for (name, temp), v in ops.items()))
 
 
+def max_rel(results, refs):
+    """Largest max|d| / max|ref| over pairs of numpy results."""
+    return max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) / max(float(np.abs(np.asarray(b)).max()), 1e-30)
+               for a, b in zip(results, refs))
+
+
+def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, elastic_structures,
+               elastic_targets):
+    """Phases 11-15, the per-atom NMR model at full width, and serving both
+    families from a checkpoint directory. Returns the launch counts of the
+    main-path runs among them (the forward (12), the train steps (13) and
+    `predict` from disk (14)), and the NMR trainer and batch, for phase 10."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
+    from matten_tpu_torch.data.graph import collate_graphs, pad_spec_for
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_atomic_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
+    from matten_tpu_torch.predict import batch_to_device, predict
+    from matten_tpu_torch.train import (CanonicalRegressionTask, CheckpointManager, Trainer,
+                                        TrainerConfig, save_sidecar)
+
+    # the NMR batch: bench.py's per-atom draw, 16 crystals, Si atoms selected
+    structures, rows = draw_structures(seed=2, n_graphs=16, per_atom=True)
+    graphs = graphs_of(structures, rows, NMR_TARGET, SI)
+    stats = DatasetStatistics.compute(graphs, TensorDatasetConfig(**NMR_DATA), normalize_tensor_target=True)
+    ds_hp = dict(allowed_species=list(SPECIES_5), average_num_neighbors=stats.average_num_neighbors)
+    data_np, targets_np = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
+    data, targets = batch_to_device(data_np, dev, targets_np)
+    model = create_atomic_tensor_model(NMR_HPARAMS, ds_hp, device=dev, seed=SEED).eval()
+    convs = conv_layers(model)
+    n_nodes, n_edges = data[K.POSITIONS].shape[0], data[K.EDGE_INDEX].shape[1]
+    src, dst = data[K.EDGE_INDEX][0].contiguous(), data[K.EDGE_INDEX][1].contiguous()
+    emask = data[K.EDGE_MASK][:, None].float()
+    sh = (spherical_harmonics(NMR_HPARAMS["irreps_edge_sh"], data[K.EDGE_VECTORS]) * emask).contiguous()
+    edges = fused_conv.edge_plan(src, dst, n_nodes, n_nodes, with_src_order=True)
+    real, sel = data[K.NODE_MASK], targets["atom_selector"]
+    print(f"[NMR batch] {int(real.sum())} real nodes / N={n_nodes}, {int(data_np[K.EDGE_MASK].sum())} real "
+          f"edges / E={n_edges}, {len(structures)} graphs; {int(sel.sum())} Si atoms selected ({sel.dtype}); average "
+          f"neighbours {stats.average_num_neighbors:.4f}; targets {NMR_TARGET} {tuple(targets[NMR_TARGET].shape)}",
+          flush=True)
+
+    # 11. kernel parity at the 4 NMR plans
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    layer_inputs, parity = [], []
+    for i, conv in enumerate(convs):
+        plan = conv.uvu_plan
+        x = torch.randn(n_nodes, plan.irreps_in1.dim, generator=gen, device=dev)
+        w = (torch.randn(n_edges, plan.weight_numel, generator=gen, device=dev) * emask).contiguous()
+        g = torch.randn(n_nodes, plan.irreps_out.dim, generator=gen, device=dev)
+        layer_inputs.append((plan, x, w, g))
+        parity.append(f"L{i} d1={plan.irreps_in1.dim} dw={plan.weight_numel} dout={plan.irreps_out.dim} "
+                      f"paths={len(plan.instructions)}: K1 {check_forward(plan, x, w, sh, src, dst, n_nodes)[1]}; "
+                      + check_backward(plan, x, w, g, sh, src, dst, n_nodes))
+    print(f"[11 NMR kernel parity] max|d|/max|ref| (tol {KERNEL_TOL}), two runs bitwise equal: "
+          + "; ".join(parity), flush=True)
+
+    # 12. the NMR forward through the kernels and through the plain conv
+    def fwd():
+        with torch.inference_mode():
+            return model(data)
+
+    def fwd_plain():
+        with fused_conv.force_plain():
+            return fwd()
+
+    reset_counts(fused_conv)
+    out_k = fwd()
+    launched = counts(fused_conv)
+    out_p = fwd_plain()
+    torch.cuda.synchronize()
+    if launched != {"fwd": len(convs), "fwd_sum": len(convs), "bwd": 0, "dx_sum": 0}:
+        raise AssertionError(f"NMR launches per forward {launched}, expected {len(convs)} of K1's two")
+    if counts(fused_conv) != launched:
+        raise AssertionError("the plain NMR forward launched a kernel")
+    if tuple(out_k.shape) != (n_nodes, 6) or not bool(torch.isfinite(out_k).all()):
+        raise AssertionError(f"NMR model output {tuple(out_k.shape)} not finite [N, 6]")
+    rel = rel_err(out_k[real], out_p[real])
+    print(f"[12 NMR forward] out {tuple(out_k.shape)}, {int(real.sum())} real rows: max|d|/max|ref| K1 vs "
+          f"plain = {rel:.3e} (tol {MODEL_TOL}); launches per forward {launched}", flush=True)
+    if not rel <= MODEL_TOL:
+        raise AssertionError(f"NMR model through K1 disagrees with the plain path: {rel}")
+
+    # 13. the NMR train step: gradients against force_plain, then Adam steps, counted
+    task = CanonicalRegressionTask(name=NMR_TARGET, per_atom=True)
+    config = TrainerConfig(lr=0.01, weight_decay=1e-5)
+    trainer = Trainer(create_atomic_tensor_model(NMR_HPARAMS, ds_hp, device=dev, seed=SEED), [task], config,
+                      device=dev)
+    trainer_p = Trainer(copy.deepcopy(trainer.model), [task], config, device=dev)
+    loss_k, grads_k = step_grads(trainer, data, targets)
+    with fused_conv.force_plain():
+        loss_p, grads_p = step_grads(trainer_p, data, targets)
+    grad_err = sorted(((rel_err(grads_k[n], r), n) for n, r in grads_p.items()), reverse=True)
+    if not grad_err[0][0] <= MODEL_TOL:
+        raise AssertionError(f"NMR train-step gradients disagree with the plain path: {grad_err[0]}")
+    trainer_p.model.load_state_dict(trainer.model.state_dict())
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        reset_counts(fused_conv)
+        loss, metric_sums = trainer.train_step(data, targets)
+        losses.append(float(loss))
+        step_counts = counts(fused_conv)
+        if any(v != len(convs) for v in step_counts.values()):
+            raise AssertionError(f"launches in one NMR train step {step_counts}, expected {len(convs)} of each")
+        launched = {k: launched[k] + v for k, v in step_counts.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"NMR train losses not finite: {losses}")
+    s_err, n_err = (float(v) for v in metric_sums[NMR_TARGET])
+    print(f"[13 NMR train step] loss {loss_k:.6f} through the kernels, {loss_p:.6f} plain; gradients of "
+          f"{len(grad_err)} parameters, max|d|/max|ref| worst: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:3]) + f" (tol {MODEL_TOL}); {TRAIN_STEPS} Adam steps "
+          f"(lr {config.lr}, weight decay {config.weight_decay}): losses {', '.join(f'{l:.6f}' for l in losses)}; "
+          f"last MAE {s_err / n_err:.6f} over {n_err:g} values (Si rows only); {len(convs)} launches of each "
+          "kernel per step", flush=True)
+
+    # 14. both families served from a checkpoint directory
+    elastic_stats = DatasetStatistics.compute(graphs_of(elastic_structures, elastic_targets),
+                                              TensorDatasetConfig(**ELASTIC_DATA), normalize_tensor_target=True)
+    families = (
+        ("elasticity", elastic_model, {"model": elastic_model.state_dict()}, HPARAMS, ELASTIC_DATA,
+         DATASET_HPARAMS, elastic_stats, elastic_structures),
+        ("NMR", trainer.model, trainer.state_dict(), NMR_HPARAMS, NMR_DATA, ds_hp, stats, structures),
+    )
+    served = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fam_model, state, hp, data_hp, fam_ds, fam_stats, fam_structures in families:
+            ckpt = Path(tmp) / name
+            save_sidecar(ckpt, {"model": hp, "data": data_hp, "dataset_hparams": fam_ds,
+                                "normalize_tensor_target": True}, fam_stats.to_arrays())
+            manager = CheckpointManager(ckpt)
+            manager.save(0, state, {"val/score": 1.0})
+            manager.save_last(state)
+            batch = fam_structures + [si_structure()]
+            reset_counts(fused_conv)
+            results = predict(batch, ckpt)
+            torch.cuda.synchronize()
+            c = counts(fused_conv)
+            if c["fwd"] == 0 or c["fwd_sum"] == 0:
+                raise AssertionError(f"predict from the {name} checkpoint did not launch K1: {c}")
+            launched = {k: launched[k] + v for k, v in c.items()}
+            refs = predict(batch, fam_model, fam_stats.target_normalizer)
+            for s, r in zip(batch, results):
+                shape = (len(s), 3, 3) if name == "NMR" else (3, 3, 3, 3)
+                if r is None or r.shape != shape or not np.isfinite(r).all():
+                    raise AssertionError(f"predict from the {name} checkpoint: not a finite {shape} tensor")
+                if name == "NMR" and np.abs(r - r.transpose(0, 2, 1)).max() > 1e-6 * np.abs(r).max():
+                    raise AssertionError("an NMR prediction is not symmetric")
+            err = max_rel(results, refs)
+            served.append(f"{name} {len(batch)} structures, max|d|/max|ref| {err:.3e} against the in-memory "
+                          f"predict, launches {c}")
+            if not err <= 1e-6:
+                raise AssertionError(f"predict from the {name} checkpoint disagrees with the in-memory one: {err}")
+    print("[14 from disk] CheckpointManager + save_sidecar, then predict(structures, checkpoint_dir) on the "
+          "card (tol 1e-6): " + "; ".join(served) + f"; Si NMR tensor of atom 0 diagonal "
+          f"{np.diag(results[-1][0]).round(6).tolist()}", flush=True)
+
+    # 15. timings (CUDA events, medians of interleaved runs)
+    fwd_k, fwd_p = interleaved(fwd, fwd_plain, torch)
+
+    def step_plain():
+        with fused_conv.force_plain():
+            trainer_p.train_step(data, targets)
+
+    step_k, step_p = interleaved(lambda: trainer.train_step(data, targets), step_plain, torch)
+    layer_ms, bounds = {"fwd": [], "bwd": []}, {"fwd": [], "bwd": []}
+    for plan, x, w, g in layer_inputs:
+        with torch.no_grad():
+            layer_ms["fwd"].append(interleaved(
+                functools.partial(fused_conv.fused_uvu_conv, plan, x, sh, w, src, dst, n_nodes, edges),
+                lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
+            layer_ms["bwd"].append(interleaved(
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst),
+                lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes), torch))
+        work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items)
+        for kind in bounds:
+            bounds[kind].append(bound_ms(*work[kind]))
+    print(f"[15 NMR timings] {card}: NMR batch (16 crystals), median ms, kernel vs plain: forward "
+          f"{fwd_k:.4f} vs {fwd_p:.4f}; train step {step_k:.4f} vs {step_p:.4f}; per layer L0 / L1 / L2 / L3 "
+          f"(fwd: K1 with its partial-row sum vs the plain version; bwd: the merged kernel vs the plain "
+          "backward): " + "; ".join(
+              f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f}" for k, p in layer_ms[kind]) for kind in layer_ms)
+          + "; bound ms per layer: " + "; ".join(
+              f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
+          + f"; K1 items {edges.n_items}", flush=True)
+    return launched, trainer, (data, targets)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
@@ -537,7 +802,7 @@ def main() -> int:
     print(f"[2 build] nvcc sm_90a built+loaded in {build_s:.2f} s; ptxas: {ptxas}", flush=True)
 
     # flagship batch, its targets and the production model
-    structures, target_rows = flagship_structures()
+    structures, target_rows = draw_structures()  # the flagship batch
     data_np, targets_np = collate(structures, target_rows)
     data, targets = batch_to_device(data_np, dev, targets_np)
     model = create_scalar_tensor_model(HPARAMS, DATASET_HPARAMS, device=dev, seed=SEED).eval()
@@ -720,16 +985,9 @@ def main() -> int:
     trainer = Trainer(train_model, [task], config, device=dev)
     trainer_p = Trainer(copy.deepcopy(train_model), [task], config, device=dev)
 
-    def step_grads(tr):
-        tr.model.train()
-        tr.model.zero_grad(set_to_none=True)
-        loss = tr._compute_loss(tr._preds(data), data, targets)
-        loss.backward()
-        return float(loss.detach()), {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
-
-    loss_k, grads_k = step_grads(trainer)
+    loss_k, grads_k = step_grads(trainer, data, targets)
     with fused_conv.force_plain():
-        loss_p, grads_p = step_grads(trainer_p)
+        loss_p, grads_p = step_grads(trainer_p, data, targets)
     grad_err = sorted(((rel_err(grads_k[n], r), n) for n, r in grads_p.items()), reverse=True)
     print(f"[7 train gradients] loss {loss_k:.6f} through the kernels, {loss_p:.6f} plain; "
           f"{len(grad_err)} parameters, max|d|/max|ref| per parameter worst: "
@@ -816,10 +1074,15 @@ def main() -> int:
           f"peak memory MiB above the resident: forward {peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, "
           f"train step {peak_step[0]:.1f} vs {peak_step[1]:.1f}", flush=True)
 
+    # 11-15. the per-atom NMR model, and both families served from disk
+    nmr, nmr_trainer, nmr_batch = nmr_phases(dev, card, torch, check_forward, check_backward, model,
+                                             structures, target_rows)
+
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
         print(profile_sums(sum_inputs, args.profile / "sums", torch), flush=True)
+        print(profile_train(nmr_trainer, nmr_batch, args.profile, torch, name="nmr_train"), flush=True)
 
     sources = {"fwd": "matten_tpu_torch/kernels/csrc/fused_conv.cu",
                "fwd_sum": "matten_tpu_torch/kernels/csrc/segment_sum.cu",
@@ -837,7 +1100,7 @@ def main() -> int:
                "dx_sum": sum(library_ms["dx_sum"])}
     kernels = []
     for kind in COUNTERS:
-        launched = served[kind] + trained[kind]
+        launched = served[kind] + trained[kind] + nmr[kind]
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
         kernels.append({

@@ -77,7 +77,7 @@ def main() -> int:
 
     libs = build(_build)
     dev = torch.device("cuda", 0)
-    data_np, targets_np = cs.collate(*cs.flagship_structures())
+    data_np, targets_np = cs.collate(*cs.draw_structures())
     data, _ = batch_to_device(data_np, dev, targets_np)
     model = create_scalar_tensor_model(cs.HPARAMS, cs.DATASET_HPARAMS, device=dev, seed=cs.SEED)
     n, e = data[K.POSITIONS].shape[0], data[K.EDGE_INDEX].shape[1]

@@ -9,17 +9,26 @@ position (`layers_0`, `layers_1`, ...), which maps onto the port's
 `torch.nn.Linear` weights [out, in]. Every flax leaf must land on exactly
 one model entry of the same shape and every entry must be filled, so a
 shifted layer index (e.g. the DEBUG-level anomaly layers the JAX factory
-interleaves) fails loudly instead of loading wrong weights.
+interleaves) fails loudly instead of loading wrong weights. Both model
+families convert: the graph-level tree ends in the head's `w_out`, the
+per-atom tree in the backbone's NodewiseLinear head.
+
+`convert_checkpoint` turns a model trained with the JAX package into a
+checkpoint directory of the port, which `predict(structures, directory)`
+serves on the card: the caller restores the flax variables (e.g. with
+orbax, on a machine that has it) and passes them with the JAX sidecar's
+hparams and statistics arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from pathlib import Path
+from typing import Any, Dict, Iterator, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict"]
+__all__ = ["flax_to_state_dict", "convert_checkpoint"]
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -60,8 +69,31 @@ def flax_to_state_dict(
             raise ValueError(
                 f"{'/'.join(path)}: shape {value.shape} != model {tuple(target[key].shape)}"
             )
-        out[key] = torch.as_tensor(np.ascontiguousarray(value), dtype=target[key].dtype)
+        out[key] = torch.as_tensor(np.array(value, order="C"), dtype=target[key].dtype)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"model entries with no flax leaf: {missing}")
     return out
+
+
+def convert_checkpoint(
+    variables: Mapping,
+    hparams: Dict[str, Any],
+    statistics_arrays: Dict[str, np.ndarray],
+    out_dir: Union[str, Path],
+) -> Path:
+    """Write a port checkpoint directory for trained flax variables.
+
+    `hparams` and `statistics_arrays` are the JAX checkpoint's sidecars
+    (`load_sidecar`): they pick the model family and rebuild it on the CPU;
+    the variables are mapped onto it with `flax_to_state_dict` and saved as
+    the directory's `last` state next to copies of the sidecars. Returns
+    the directory."""
+    from matten_tpu_torch.predict import model_from_sidecar
+    from matten_tpu_torch.train.checkpoint import CheckpointManager, save_sidecar
+
+    model, _, _ = model_from_sidecar(hparams, statistics_arrays, device="cpu")
+    model.load_state_dict(flax_to_state_dict(variables, model))
+    save_sidecar(out_dir, hparams, statistics_arrays)
+    CheckpointManager(out_dir).save_last({"model": model.state_dict()})
+    return Path(out_dir)

@@ -1,11 +1,14 @@
 """TFN model assembly: hparams dict -> layer stack with irreps threaded.
 
-Counterpart of `matten_tpu/models/tfn.py` for the graph-level model:
+Counterpart of `matten_tpu/models/tfn.py`, both model families:
 
   SpeciesEmbedding -> SphericalHarmonicEdgeAttrs -> EdgeLengthEmbedding
   -> num_layers x PointConvWithActivation -> PointConv
-  -> NodewiseLinear -> NodewiseReduce pooling
-  -> equivariant Linear head into the irreps of `output_formula`.
+  -> NodewiseLinear head
+  -> graph-level `ScalarTensorModel`: NodewiseReduce pooling, then an
+     equivariant Linear head into the irreps of `output_formula`;
+     per-atom `AtomicTensorModel`: the NodewiseLinear head maps straight
+     into those irreps (one row per node, no pooling).
 
 Parameters are drawn from a seeded `torch.Generator` on the CPU and the
 model is then moved to `device`, the card unless the caller passes another.
@@ -144,6 +147,25 @@ class ScalarTensorModel(torch.nn.Module):
         return out
 
 
+class AtomicTensorModel(torch.nn.Module):
+    """Per-node tensor prediction: the backbone's NodewiseLinear head maps
+    into the target irreps ([num_nodes, dim], a row per padded node too);
+    no pooling, no extra head; optional Cartesian readout."""
+
+    def __init__(self, backbone: Sequential, output_formula: str = "ij=ji",
+                 output_format: str = "irreps"):
+        super().__init__()
+        self.backbone = backbone
+        self.output_formula = output_formula
+        self.output_format = output_format
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
+        out = self.backbone(data)[OUT_FIELD]
+        if self.output_format == "cartesian" and self.output_formula != "scalar":
+            out = cartesian_tensor_map(self.output_formula).to_cartesian(out)
+        return out
+
+
 def create_scalar_tensor_model(
     hparams: Dict[str, Any],
     dataset_hparams: Dict[str, Any],
@@ -166,6 +188,32 @@ def create_scalar_tensor_model(
         hidden,
         generator,
         output_formula=hparams.get("output_formula", "ijkl=jikl=klij").lower(),
+        output_format=hparams.get("output_format", "irreps"),
+    )
+    return model.to(device)
+
+
+def create_atomic_tensor_model(
+    hparams: Dict[str, Any],
+    dataset_hparams: Dict[str, Any],
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> AtomicTensorModel:
+    """Build the per-atom model with N(0, 1) weights from
+    `torch.Generator(seed)` on `device` (default: the card; pass "cpu" for
+    the CPU)."""
+    generator = torch.Generator().manual_seed(seed)
+    formula = hparams.get("output_formula", "ij=ji").lower()
+    backbone = create_tfn_backbone(
+        hparams,
+        dataset_hparams,
+        head_irreps=_target_irreps(formula),
+        pooling=None,
+        generator=generator,
+    )
+    model = AtomicTensorModel(
+        backbone,
+        output_formula=formula,
         output_format=hparams.get("output_format", "irreps"),
     )
     return model.to(device)

@@ -1,7 +1,7 @@
-"""Node-wise linear map and masked per-graph pooling.
+"""Node-wise linear map, masked per-graph pooling and node selection.
 
 Counterpart of `matten_tpu/nn/nodewise.py` (NodewiseLinear, NodewiseReduce
-with sum / mean).
+with sum / mean, NodewiseSelect).
 """
 
 from __future__ import annotations
@@ -73,4 +73,30 @@ class NodewiseReduce(torch.nn.Module):
             w = x.new_ones(x.shape[0]) if mask is None else mask.to(x.dtype)
             out = scatter_sum(x * w[:, None], data[K.BATCH], num_graphs)
         data[self.out_field] = out
+        return data
+
+
+class NodewiseSelect(torch.nn.Module):
+    """Zero a node field outside a boolean per-node selector (e.g.
+    atom_selector), at the field's shape; losses and metrics reduce over
+    the same mask."""
+
+    def __init__(
+        self,
+        irreps_in: Mapping,
+        field: str = K.NODE_FEATURES,
+        out_field: Optional[str] = None,
+        mask_field: str = K.ATOM_SELECTOR,
+    ):
+        super().__init__()
+        self.field = field
+        self.mask_field = mask_field
+        self.out_field = out_field if out_field is not None else f"selected_{field}"
+        self.irreps_in = dict(irreps_in)
+        self.irreps_out = merge_irreps(self.irreps_in, {self.out_field: self.irreps_in[field]})
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        data = dict(data)
+        x = data[self.field]
+        data[self.out_field] = x * data[self.mask_field][:, None].to(x.dtype)
         return data

@@ -1,33 +1,49 @@
 """Serving API: structures -> predicted Cartesian tensors.
 
-Counterpart of `matten_tpu/predict.py::predict` for a model already in
-memory: structures go through `CrystalGraph.from_structure`, then
-`pad_spec_for` + `collate_graphs`, then the forward under
-`torch.inference_mode()`, then the optional `MeanNormNormalize.inverse`,
-then the Cartesian readout (`ElasticTensor` for [3, 3, 3, 3] outputs).
-Structures whose graph cannot be built come back as None.
+Counterpart of `matten_tpu/predict.py`. `predict(structures,
+checkpoint_dir)` serves a trained model from its directory: the sidecars
+(`hparams.json`, `dataset_statistics.npz`) rebuild the dataset config, the
+statistics and the model of the right family, and the weights come from
+the best epoch of `index.json`, else from `last` (`load_pretrained`). The
+same call takes a model already in memory, `predict(structures, model,
+statistics)`. Structures go through `load_tensor_dataset` (graphs at the
+checkpoint's r_cut), `pad_spec_for` + `collate_graphs`, the forward in eval
+mode under `torch.inference_mode()`, the optional
+`MeanNormNormalize.inverse`, and the Cartesian readout: a tensor per
+crystal for the graph-level model (an `ElasticTensor` for [3, 3, 3, 3]),
+[n_atoms, 3, 3] per crystal for the per-atom model. Structures whose graph
+cannot be built come back as None.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import List, Optional, Sequence, Union
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
-from matten_tpu_torch.data.neighborlist import NeighborListError
+from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig, load_tensor_dataset
+from matten_tpu_torch.data.graph import collate_graphs, pad_spec_for
 from matten_tpu_torch.data.structure import Structure
 from matten_tpu_torch.data.transform import MeanNormNormalize
-from matten_tpu_torch.ops.elasticity import ElasticTensor
-from matten_tpu_torch.models.tfn import ScalarTensorModel
+from matten_tpu_torch.models.tfn import (
+    AtomicTensorModel,
+    ScalarTensorModel,
+    create_atomic_tensor_model,
+    create_scalar_tensor_model,
+)
 from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
+from matten_tpu_torch.ops.elasticity import ElasticTensor
+from matten_tpu_torch.train.checkpoint import CheckpointManager, load_sidecar
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["predict", "check_species", "batch_to_device"]
+__all__ = ["predict", "load_pretrained", "model_from_sidecar", "check_species", "batch_to_device"]
+
+Model = Union[ScalarTensorModel, AtomicTensorModel]
 
 
 def check_species(structures: Sequence[Structure], allowed_species) -> None:
@@ -51,44 +67,87 @@ def batch_to_device(data, device, targets=None):
     return moved, {k: torch.as_tensor(v).to(device) for k, v in targets.items()}
 
 
+def model_from_sidecar(
+    hparams: Dict[str, Any], statistics_arrays: Dict[str, np.ndarray], device
+) -> Tuple[Model, TensorDatasetConfig, DatasetStatistics]:
+    """(model with fresh weights on `device`, dataset config, statistics) as
+    a checkpoint's sidecars describe them; `cfg.per_atom` picks the family."""
+    data_hp = hparams["data"]
+    if data_hp.get("tensor_target_format", "irreps") != "irreps" or data_hp.get("scalar_target_names"):
+        raise NotImplementedError("only irreps tensor targets are ported, without scalar targets")
+    cfg = TensorDatasetConfig(
+        r_cut=data_hp.get("r_cut", 5.0),
+        tensor_target_name=data_hp.get("tensor_target_name", "elastic_tensor_full"),
+        tensor_target_formula=data_hp.get("tensor_target_formula", "ijkl=jikl=klij"),
+        atom_selector=data_hp.get("atom_selector"),
+    )
+    statistics = DatasetStatistics.from_arrays(statistics_arrays, cfg)
+    create = create_atomic_tensor_model if cfg.per_atom else create_scalar_tensor_model
+    return create(hparams["model"], hparams["dataset_hparams"], device=device), cfg, statistics
+
+
+def load_pretrained(
+    checkpoint_dir: Union[str, Path], device: Union[str, torch.device, None] = None
+) -> Tuple[Model, TensorDatasetConfig, DatasetStatistics, bool]:
+    """Rebuild (model in eval mode with the checkpoint's weights, dataset
+    config, statistics, whether the targets were normalized) on `device`
+    (default: the card). The weights are those of the best epoch in
+    `index.json`, else of `last`."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    hparams, stats_arrays = load_sidecar(checkpoint_dir)
+    model, cfg, statistics = model_from_sidecar(hparams, stats_arrays, device)
+    manager = CheckpointManager(checkpoint_dir)
+    state = manager.restore(last=manager.best_epoch is None, device=device)
+    model.load_state_dict(state["model"])
+    normalize = bool(hparams.get("normalize_tensor_target", False))
+    return model.eval(), cfg, statistics, normalize
+
+
 def predict(
     structures: Union[Structure, dict, Sequence[Union[Structure, dict]]],
-    model: ScalarTensorModel,
+    checkpoint_dir_or_model: Union[str, Path, Model],
     statistics: Optional[MeanNormNormalize] = None,
     batch_size: int = 32,
     device: Union[str, torch.device, None] = None,
-    r_cut: float = 5.0,
+    r_cut: Optional[float] = None,
 ) -> Union[Optional[np.ndarray], List[Optional[np.ndarray]]]:
     """Predict the target tensor of one or more structures.
 
     `structures` are `Structure` objects or pymatgen `Structure.as_dict()`
-    payloads. `statistics` is the target normalizer the model was trained
-    with (None: outputs are already in target units). `device` defaults to
-    the model's. Returns a Cartesian tensor per structure (an
-    `ElasticTensor` for elasticity), None where graph construction failed.
+    payloads. `checkpoint_dir_or_model` is a checkpoint directory (served
+    on `device`, default the card, with the checkpoint's own statistics and
+    r_cut) or a model in memory (served on `device`, default the model's,
+    with `statistics`, the target normalizer it was trained with or None,
+    and `r_cut`, default 5.0). Returns a Cartesian tensor per structure
+    (an `ElasticTensor` for elasticity; [n_atoms, 3, 3] for the per-atom
+    model), None where graph construction failed: as in the JAX package,
+    any error while a structure's graph is built gives None and a warning.
     """
     single = not isinstance(structures, (list, tuple))
     if single:
         structures = [structures]
     structures = [s if isinstance(s, Structure) else Structure.from_dict(s) for s in structures]
+    if isinstance(checkpoint_dir_or_model, torch.nn.Module):
+        model, normalizer = checkpoint_dir_or_model, statistics
+        r_cut = 5.0 if r_cut is None else r_cut
+        if device is None:
+            device = next(model.parameters()).device
+    else:
+        if statistics is not None or r_cut is not None:
+            raise ValueError("a checkpoint directory brings its own statistics and r_cut")
+        model, cfg, stats, normalize = load_pretrained(checkpoint_dir_or_model, device)
+        normalizer = stats.target_normalizer if normalize else None
+        r_cut, device = cfg.r_cut, next(model.parameters()).device
     if model.output_format != "irreps":
         raise ValueError("predict() reads irreps outputs; build the model with output_format='irreps'")
-    if device is None:
-        device = next(model.parameters()).device
     species = model.backbone.layers[0].allowed_species
     check_species(structures, species)
-
-    graphs, ok = [], []
-    for i, s in enumerate(structures):
-        try:
-            graphs.append(CrystalGraph.from_structure(s, r_cut=r_cut))
-            ok.append(i)
-        except NeighborListError as e:
-            logger.warning("structure %d failed graph conversion: %s", i, e)
-    if not graphs:
-        raise RuntimeError("Cannot successfully convert any structures.")
+    graphs, failed = load_tensor_dataset(
+        None, TensorDatasetConfig(r_cut=r_cut, tensor_target_name=None), structures=structures
+    )
     species_map = atomic_number_map(species)
     cmap = cartesian_tensor_map(model.output_formula)
+    per_atom = isinstance(model, AtomicTensorModel)
 
     model.eval()
     results: List[np.ndarray] = []
@@ -96,17 +155,24 @@ def predict(
         for i in range(0, len(graphs), batch_size):
             chunk = graphs[i : i + batch_size]
             data, _ = collate_graphs(chunk, pad_spec_for(chunk), species_map=species_map)
-            out = model(batch_to_device(data, device))
-            out = out[: len(chunk)].double().cpu().numpy()
-            if statistics is not None:
-                out = np.asarray(statistics.inverse(out))
-            for v in out:
+            out = model(batch_to_device(data, device)).double().cpu().numpy()
+            if per_atom:
+                # the real nodes' rows, graph after graph; padded rows dropped
+                counts = np.cumsum([g.num_nodes for g in chunk])
+                rows = np.split(out[: counts[-1]], counts[:-1])
+            else:
+                rows = out[: len(chunk)]
+            for v in rows:
+                if normalizer is not None:
+                    v = np.asarray(normalizer.inverse(v))
                 cart = cmap.to_cartesian(torch.from_numpy(v)).numpy()
                 results.append(ElasticTensor(cart) if cart.shape == (3, 3, 3, 3) else cart)
 
-    final: List[Optional[np.ndarray]] = [None] * len(structures)
-    for i, r in zip(ok, results):
-        final[i] = r
-    if len(ok) < len(structures):
-        logger.warning("%d structures failed conversion -> None", len(structures) - len(ok))
+    final: List[Optional[np.ndarray]] = []
+    it = iter(results)
+    failed_set = set(failed)
+    for i in range(len(structures)):
+        final.append(None if i in failed_set else next(it))
+    if failed:
+        logger.warning("%d structures failed conversion -> None", len(failed))
     return final[0] if single else final

@@ -10,13 +10,15 @@ optax: "adam" is `torch.optim.Adam(weight_decay=...)` (L2 added to the
 gradients), "adamw" is `AdamW` (decoupled decay) and "sgd" is `SGD` with
 weight decay.
 
-`fit()`, the evaluation loop and checkpoints are not ported yet.
+`state_dict` / `load_state_dict` give and take what
+`train.checkpoint.CheckpointManager` saves. `fit()` and the evaluation loop
+are not ported yet.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional, Tuple, Union
+from dataclasses import asdict, dataclass, field as dc_field
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -171,3 +173,24 @@ class Trainer:
     def set_lr(self, lr: float) -> None:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The train state a checkpoint holds: the model's `state_dict`
+        (with the batch-norm running statistics), the optimizer's, and the
+        plateau scheduler's fields (None without a scheduler)."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": None if self.scheduler is None else asdict(self.scheduler),
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore a `state_dict()`: the model strictly, then the optimizer
+        and the scheduler."""
+        if (state["scheduler"] is None) != (self.scheduler is None):
+            raise ValueError("the checkpoint's scheduler does not match this trainer's config")
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.scheduler is not None:
+            self.scheduler = ReduceLROnPlateau(**state["scheduler"])

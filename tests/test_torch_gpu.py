@@ -12,7 +12,9 @@ segment sum vs index_add_ max|d| <= 1e-5 max|ref| (their sums run over many
 edges and paths of both signs, so single small entries cancel); two runs of
 K1 and of the backward kernels bitwise equal (no atomics, fixed order); the
 model, 2 conv layers deep, 1e-4, its parameter gradients 1e-4 relative to
-each parameter's largest gradient.
+each parameter's largest gradient; the per-atom model at the NMR
+configuration's width 1e-4; `predict` from a checkpoint directory equal to
+the in-memory `predict` of the same weights within 1e-6 relative.
 """
 
 import numpy as np
@@ -104,13 +106,35 @@ PRODUCTION = dict(
 )
 
 
-def _production_plans(dev):
-    from matten_tpu_torch.models import create_scalar_tensor_model
+# the per-atom NMR model (scripts/configs/atomic_tensor.yaml): SH lmax 2,
+# conv irreps up to l = 2
+NMR = dict(
+    species_embedding_dim=16, irreps_edge_sh="0e+1o+2e", num_radial_basis=8,
+    radial_basis_start=0.0, radial_basis_end=5.0, radial_basis_type="bessel", num_layers=3,
+    invariant_layers=2, invariant_neurons=32, average_num_neighbors=30.0,
+    conv_layer_irreps="32x0o+32x0e+16x1o+16x1e+4x2o+4x2e", nonlinearity_type="gate",
+    normalization="batch", output_format="irreps", output_formula="ij=ji",
+)
+SPECIES_5 = (8, 13, 14, 22, 56)
+
+
+def _conv_plans(model):
     from matten_tpu_torch.nn.conv import PointConv, PointConvWithActivation
 
-    model = create_scalar_tensor_model(PRODUCTION, dict(allowed_species=[8, 13, 14, 22, 56]), device=dev)
     return [m.conv.uvu_plan if isinstance(m, PointConvWithActivation) else m.uvu_plan
             for m in model.backbone.layers if isinstance(m, (PointConv, PointConvWithActivation))]
+
+
+def _production_plans(dev):
+    from matten_tpu_torch.models import create_scalar_tensor_model
+
+    return _conv_plans(create_scalar_tensor_model(PRODUCTION, dict(allowed_species=list(SPECIES_5)), device=dev))
+
+
+def _nmr_plans(dev):
+    from matten_tpu_torch.models import create_atomic_tensor_model
+
+    return _conv_plans(create_atomic_tensor_model(NMR, dict(allowed_species=list(SPECIES_5)), device=dev))
 
 
 def _check_backward(plan, t, g, n_in):
@@ -358,3 +382,99 @@ def test_model_forward_through_kernel(dev):
         scale = float(r.abs().max().clamp_min(1e-12))
         np.testing.assert_allclose((got[n] / scale).cpu().numpy(), (r / scale).cpu().numpy(),
                                    atol=1e-4, err_msg=n)
+
+
+def test_kernels_match_plain_and_are_bitwise_deterministic_at_nmr_plans(dev):
+    """K1 (item pass and partial-row sum) and the merged backward with its
+    dx sum at the 4 plans of the NMR model (SH rows 9 wide, padded to 16;
+    4x2o / 4x2e paths) on an NMR-batch-sized random graph, against their
+    plain versions, and two runs bitwise equal."""
+    plans = _nmr_plans(dev)
+    shapes = [(p.irreps_in1.dim, p.weight_numel, p.irreps_out.dim, len(p.instructions)) for p in plans]
+    assert shapes == [(16, 48, 144, 3), (100, 216, 696, 15), (168, 336, 1104, 27), (200, 432, 1392, 30)]
+    rng = np.random.default_rng(16)
+    n, e = 192, 10000
+    src, dst = rng.integers(0, n, e), np.sort(rng.integers(0, n - 4, e))
+    for i, plan in enumerate(plans):
+        t = _inputs_on_graph(dev, 50 + i, plan, n, src, dst)
+        args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], n)
+        edges = fused_conv.edge_plan(t["src"], t["dst"], n, n, with_src_order=True)
+        out = fused_conv.fused_uvu_conv(*args, edges)
+        assert torch.equal(out, fused_conv.fused_uvu_conv(*args, edges))
+        _assert_rel(out, fused_conv.uvu_conv_reference(*args))
+        assert bool((out[n - 4 :] == 0).all())
+        g = torch.as_tensor(rng.normal(size=(n, plan.irreps_out.dim)).astype(np.float32), device=dev)
+        dx, dw = _check_backward(plan, t, g, n)
+        dx2, dw2 = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n, edges)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def _nmr_structures(n=6, seed=8):
+    from matten_tpu_torch.data.structure import Structure
+
+    rng = np.random.default_rng(seed)
+    return [
+        Structure(
+            lattice=np.eye(3) * (3.5 + rng.uniform(0, 1.5)) + rng.normal(size=(3, 3)) * 0.1,
+            frac_coords=rng.uniform(0, 1, size=(k, 3)),
+            atomic_numbers=rng.choice(SPECIES_5, size=k),
+        )
+        for k in rng.integers(4, 13, n)
+    ]
+
+
+def test_atomic_model_forward_through_kernels(dev):
+    """The NMR model at full width: 4 launches of each of K1's kernels per
+    forward, its real rows against the plain path."""
+    from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+    from matten_tpu_torch.models import create_atomic_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.predict import batch_to_device
+
+    model = create_atomic_tensor_model(NMR, dict(allowed_species=list(SPECIES_5)), device=dev).eval()
+    graphs = [CrystalGraph.from_structure(s, r_cut=5.0) for s in _nmr_structures()]
+    data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
+    data = batch_to_device(data, dev)
+    before = (fused_conv.launches, fused_conv.fwd_sum_launches)
+    with torch.inference_mode():
+        out = model(data)
+        assert (fused_conv.launches, fused_conv.fwd_sum_launches) == (before[0] + 4, before[1] + 4)
+        with fused_conv.force_plain():
+            ref = model(data)
+    real = data[K.NODE_MASK]
+    assert out.shape == (real.shape[0], 6) and bool(torch.isfinite(out).all())
+    _assert_rel(out[real], ref[real], 1e-4)
+
+
+def test_predict_from_checkpoint_dir_on_the_card(dev, tmp_path):
+    """`predict(structures, directory)` of both families on the card equals
+    the in-memory `predict` of the same weights and launches K1."""
+    from matten_tpu_torch.data.dataset import DatasetStatistics
+    from matten_tpu_torch.data.transform import MeanNormNormalize
+    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
+    from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
+    from matten_tpu_torch.predict import predict
+    from matten_tpu_torch.train import CheckpointManager, save_sidecar
+
+    structures = _nmr_structures(seed=9)
+    ds = dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0)
+    rng = np.random.default_rng(10)
+    for name, hp, create, data_hp in (
+            ("elastic", PRODUCTION, create_scalar_tensor_model, {"tensor_target_name": "elastic_tensor_full"}),
+            ("nmr", NMR, create_atomic_tensor_model,
+             {"tensor_target_name": "nmr_tensor", "tensor_target_formula": "ij=ji",
+              "atom_selector": "atom_selector"})):
+        irreps = cartesian_tensor_map(hp["output_formula"]).irreps
+        norm = MeanNormNormalize(irreps, mean=rng.normal(size=irreps.dim), norm=rng.uniform(0.5, 2, irreps.dim))
+        model = create(hp, ds, device=dev, seed=3)
+        save_sidecar(tmp_path / name, {"model": hp, "data": dict(data_hp, r_cut=5.0), "dataset_hparams": ds,
+                                       "normalize_tensor_target": True},
+                     DatasetStatistics(tuple(SPECIES_5), 30.0, norm).to_arrays())
+        CheckpointManager(tmp_path / name).save(0, {"model": model.state_dict()}, {"val/score": 1.0})
+        mem = predict(structures, model, norm)
+        before = (fused_conv.launches, fused_conv.fwd_sum_launches)
+        disk = predict(structures, tmp_path / name)
+        assert fused_conv.launches > before[0] and fused_conv.fwd_sum_launches > before[1]
+        for a, b, s in zip(mem, disk, structures):
+            assert b.shape == ((len(s), 3, 3) if name == "nmr" else (3, 3, 3, 3))
+            _assert_rel(torch.as_tensor(np.asarray(b)), torch.as_tensor(np.asarray(a)), 1e-6)

@@ -1,11 +1,13 @@
 """The torch port runs without JAX and without the JAX package.
 
-The GPU machine has no jax, flax, optax or orbax, and the port stands
-alone: neither its sources nor chip_smoke.py may import JAX or anything of
-`matten_tpu` (it keeps its own copies of the numpy modules it shares with
-it). The runtime checks run in subprocesses because this test process has
-imported jax already (tests/conftest.py): one in the repo, one with
-`matten_tpu_torch/` copied alone into an empty directory.
+The GPU machine has no jax, flax, optax, orbax, pandas or pyyaml, and the
+port stands alone: neither its sources nor chip_smoke.py may import any of
+them or anything of `matten_tpu` (it keeps its own copies of the numpy
+modules it shares with it). The runtime checks run in subprocesses because
+this test process has imported jax already (tests/conftest.py): one in the
+repo, one with `matten_tpu_torch/` copied alone into an empty directory.
+Each serves a model from a checkpoint directory it writes, and takes a
+train step of each model family.
 """
 
 import ast
@@ -18,7 +20,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "matten_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "yaml", "matten_tpu")
 SOURCES = sorted((ROOT / "matten_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,33 +44,52 @@ def test_source_imports_nothing_of_jax(path):
 
 RUN = """
 import sys
+import tempfile
 import numpy as np
 import torch
 torch.set_num_threads(2)
+from matten_tpu_torch.data.dataset import DatasetStatistics
 from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
 from matten_tpu_torch.data.structure import Structure
-from matten_tpu_torch.models import create_scalar_tensor_model
+from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
 from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.predict import batch_to_device, predict
-from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+from matten_tpu_torch.train import (CanonicalRegressionTask, CheckpointManager, Trainer,
+                                    TrainerConfig, save_sidecar)
 hp = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o+2e", num_layers=1,
           invariant_layers=1, invariant_neurons=4, average_num_neighbors=30.0,
           conv_layer_irreps="2x0o+2x0e+1x1o+1x1e+1x2e", normalization="batch",
           conv_to_output_hidden_irreps_out="2x0e+2e+4e")
-model = create_scalar_tensor_model(hp, dict(allowed_species=[14]), device="cpu")
+nmr_hp = dict(hp, output_formula="ij=ji")
+ds = dict(allowed_species=[14])
+model = create_scalar_tensor_model(hp, ds, device="cpu")
 si = Structure(lattice=np.array([[0, 2.73, 2.73], [2.73, 0, 2.73], [2.73, 2.73, 0]]),
                frac_coords=[[0, 0, 0], [0.25, 0.25, 0.25]], atomic_numbers=[14, 14])
 out = predict(si, model)
 assert out.shape == (3, 3, 3, 3) and np.isfinite(out).all()
-g = CrystalGraph.from_structure(si, r_cut=5.0)
-g.y["elastic_tensor_full"] = np.ones((1, 21))
-data, targets = collate_graphs([g], pad_spec_for([g]), species_map=atomic_number_map([14]))
-trainer = Trainer(model, [CanonicalRegressionTask(name="elastic_tensor_full")],
-                  TrainerConfig(), device="cpu")
-loss, _ = trainer.train_step(*batch_to_device(data, "cpu", targets))
-assert torch.isfinite(loss)
-loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "matten_tpu"))
+for name, hps, create, y, data_hp in (
+        ("elastic_tensor_full", hp, create_scalar_tensor_model, np.ones((1, 21)), {}),
+        ("nmr_tensor", nmr_hp, create_atomic_tensor_model, np.ones((2, 6)),
+         dict(tensor_target_formula="ij=ji", atom_selector="atom_selector"))):
+    g = CrystalGraph.from_structure(si, r_cut=5.0)
+    g.y[name] = y
+    if data_hp:
+        g.y["atom_selector"] = np.array([True, False])
+    data, targets = collate_graphs([g], pad_spec_for([g]), species_map=atomic_number_map([14]))
+    trainer = Trainer(create(hps, ds, device="cpu"),
+                      [CanonicalRegressionTask(name=name, per_atom=bool(data_hp))],
+                      TrainerConfig(), device="cpu")
+    loss, _ = trainer.train_step(*batch_to_device(data, "cpu", targets))
+    assert torch.isfinite(loss)
+    with tempfile.TemporaryDirectory() as d:
+        save_sidecar(d, {"model": hps, "data": dict(data_hp, tensor_target_name=name),
+                         "dataset_hparams": ds, "normalize_tensor_target": False},
+                     DatasetStatistics(allowed_species=(14,)).to_arrays())
+        CheckpointManager(d).save_last(trainer.state_dict())
+        out = predict([si], d, device="cpu")[0]
+    assert out.shape == ((2, 3, 3) if data_hp else (3, 3, 3, 3)) and np.isfinite(out).all()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "matten_tpu"))
 print("LOADED", loaded)
 """
 
@@ -85,8 +106,9 @@ def _run(cwd: Path):
 
 
 def test_port_forward_leaves_jax_unloaded():
-    """predict() and one train step in the repo load neither JAX nor
-    `matten_tpu`."""
+    """predict() from memory and from a checkpoint directory, and a train
+    step of each model family, in the repo, load none of JAX, pandas,
+    pyyaml or `matten_tpu`."""
     _run(ROOT)
 
 
