@@ -76,7 +76,11 @@ def create_tfn_backbone(
         generator=generator,
     )
     layers.append(m)
-    m = SphericalHarmonicEdgeAttrs(m.irreps_out, Irreps(hparams["irreps_edge_sh"]))
+    m = SphericalHarmonicEdgeAttrs(
+        m.irreps_out,
+        Irreps(hparams["irreps_edge_sh"]),
+        require_position_gradients=hparams.get("require_position_gradients", False),
+    )
     layers.append(m)
     m = EdgeLengthEmbedding(
         m.irreps_out,

@@ -1,8 +1,12 @@
-"""Spherical-harmonic edge attributes from precomputed edge vectors.
+"""Edge displacement vectors and spherical-harmonic edge attributes.
 
-Counterpart of `matten_tpu/nn/edge_geometry.py` for the serving path:
-collation (`matten_tpu_torch.data.graph.collate_graphs`) attaches EDGE_VECTORS
-host-side, vec = pos[dst] - pos[src] + shift @ cell, zero on padding edges.
+Counterpart of `matten_tpu/nn/edge_geometry.py` on one device. Collation
+(`matten_tpu_torch.data.graph.collate_graphs`) attaches EDGE_VECTORS
+host-side by default, vec = pos[dst] - pos[src] + shift @ cell, zero on
+padding edges; batches collated with `precompute_edge_vectors=False` get
+the same vectors in the graph, differentiable with respect to POSITIONS and
+CELL. The node-sharded halo gather of the JAX module (`pos_full`) belongs to
+graph parallelism and is not ported.
 """
 
 from __future__ import annotations
@@ -17,29 +21,59 @@ from matten_tpu_torch.nn.common import merge_irreps
 from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
 
 
-def with_edge_vectors(data: Dict[str, torch.Tensor]) -> None:
-    """Attach EDGE_LENGTH in place from the precomputed EDGE_VECTORS."""
-    if K.EDGE_VECTORS not in data:
-        raise ValueError(
-            "EDGE_VECTORS missing: collate with precompute_edge_vectors=True"
-        )
-    if K.EDGE_LENGTH not in data:
-        data[K.EDGE_LENGTH] = torch.linalg.norm(data[K.EDGE_VECTORS], dim=-1)
+def with_edge_vectors(data: Dict[str, torch.Tensor], require_position_gradients: bool = False) -> None:
+    """Attach EDGE_VECTORS and EDGE_LENGTH in place (idempotent).
+
+    vec(e) = pos[dst] - pos[src] + shift(e) @ cell[batch[dst]], with src =
+    edge_index[0] and dst = edge_index[1], zero on padding edges. Vectors
+    precomputed at collation are constants with respect to the positions:
+    with `require_position_gradients` their presence raises, so a model that
+    needs d(output)/d(pos) is trained on batches collated with
+    `precompute_edge_vectors=False`."""
+    if K.EDGE_VECTORS in data:
+        if require_position_gradients:
+            raise ValueError(
+                "precomputed EDGE_VECTORS are constants w.r.t. positions, but "
+                "this model requires position gradients "
+                "(require_position_gradients=True). Set the datamodule knob "
+                "precompute_edge_vectors=false so edge vectors are computed "
+                "in-graph from POSITIONS."
+            )
+        if K.EDGE_LENGTH not in data:
+            data[K.EDGE_LENGTH] = torch.linalg.norm(data[K.EDGE_VECTORS], dim=-1)
+        return
+    pos = data[K.POSITIONS]
+    src, dst = data[K.EDGE_INDEX].long()
+    vec = pos[dst] - pos[src]
+    if K.CELL in data:
+        cell = data[K.CELL].reshape(-1, 3, 3)
+        shift = data[K.EDGE_CELL_SHIFT]
+        if cell.shape[0] > 1:
+            # edges stay within one graph: batch[dst] == batch[src]
+            vec = vec + torch.einsum("ei,eij->ej", shift, cell[data[K.BATCH].long()[dst]])
+        else:
+            vec = vec + shift @ cell[0]
+    if K.EDGE_MASK in data:
+        vec = vec * data[K.EDGE_MASK][:, None].to(vec.dtype)
+    data[K.EDGE_VECTORS] = vec
+    data[K.EDGE_LENGTH] = torch.linalg.norm(vec, dim=-1)
 
 
 class SphericalHarmonicEdgeAttrs(torch.nn.Module):
     """edge_attrs = Y_l(r_hat) for l in `irreps_edge_sh` (component norm),
-    zeroed on padding edges (Y_0 would be 1)."""
+    zeroed on padding edges (Y_0 would be 1). `require_position_gradients`
+    refuses precomputed edge vectors (see `with_edge_vectors`)."""
 
-    def __init__(self, irreps_in: Mapping, irreps_edge_sh: Irreps):
+    def __init__(self, irreps_in: Mapping, irreps_edge_sh: Irreps, require_position_gradients: bool = False):
         super().__init__()
         self.irreps_in = dict(irreps_in)
         self.irreps_edge_sh = Irreps(irreps_edge_sh)
+        self.require_position_gradients = bool(require_position_gradients)
         self.irreps_out = merge_irreps(self.irreps_in, {K.EDGE_ATTRS: self.irreps_edge_sh})
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = dict(data)
-        with_edge_vectors(data)
+        with_edge_vectors(data, self.require_position_gradients)
         sh = spherical_harmonics(self.irreps_edge_sh, data[K.EDGE_VECTORS])
         if K.EDGE_MASK in data:
             sh = sh * data[K.EDGE_MASK][:, None].to(sh.dtype)

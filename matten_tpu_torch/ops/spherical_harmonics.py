@@ -35,6 +35,13 @@ def _sh_constants(lmax: int) -> tuple:
     return tuple(consts)
 
 
+@functools.lru_cache(maxsize=None)
+def _recursion_table(l: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """c_l * w3j(l-1, 1, l) on `device`, copied there once (a copy per call
+    would sync the host with the card in every forward)."""
+    return torch.as_tensor(wigner_3j(l - 1, 1, l) * _sh_constants(l)[l], dtype=dtype, device=device)
+
+
 def _degrees(lmax_or_irreps: Union[int, Irreps, str, Sequence[int]]) -> list:
     if isinstance(lmax_or_irreps, int):
         return list(range(lmax_or_irreps + 1))
@@ -63,13 +70,12 @@ def spherical_harmonics(
     ls = _degrees(lmax_or_irreps)
     lmax = max(ls)
     consts = _sh_constants(lmax)
-    dtype, device = vectors.dtype, vectors.device
 
     n = torch.linalg.norm(vectors, dim=-1, keepdim=True)
     v = vectors / torch.where(n > 0, n, torch.ones_like(n))
-    ys = [torch.ones(v.shape[:-1] + (1,), dtype=dtype, device=device), v]
+    ys = [torch.ones(v.shape[:-1] + (1,), dtype=v.dtype, device=v.device), v]
     for l in range(2, lmax + 1):
-        c = torch.as_tensor(wigner_3j(l - 1, 1, l) * consts[l], dtype=dtype, device=device)
+        c = _recursion_table(l, v.dtype, v.device)
         ys.append(torch.einsum("...i,...j,ijk->...k", ys[-1], v, c))
     ys[1] = ys[1] * consts[1]
     return torch.cat([ys[l] for l in ls], dim=-1)

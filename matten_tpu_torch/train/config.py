@@ -1,0 +1,100 @@
+"""Train config -> TrainerConfig (shared by both train scripts).
+
+Counterpart of `matten_tpu/train/config.py`. The optimizer and the LR
+scheduler are chosen by the basename of their `class_path` (the reference's
+class_path/init_args surface), and an unknown class raises instead of
+training with the defaults; the `ModelCheckpoint` and `EarlyStopping`
+callbacks give `save_top_k` and the early-stopping patience.
+
+`trainer.scan_steps` is accepted and not used: it groups same-shape
+batches into one dispatch on the TPU, a dispatch knob with no counterpart
+here.
+
+The multi-device surface (`trainer.devices > 1`, `trainer.mesh`) is not
+ported yet: `build_mesh_spec` refuses it, so a multi-device config never
+trains on one card without a word.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from matten_tpu_torch.train.trainer import TrainerConfig
+
+__all__ = ["build_trainer_config", "build_mesh_spec"]
+
+# class_path basename (case-insensitive) -> trainer optimizer kind
+_OPTIMIZERS = {"adam": "adam", "adamw": "adamw", "sgd": "sgd"}
+_PLATEAU_NAMES = {"reducelronplateau", "reduce_on_plateau", "plateau"}
+_NONE_NAMES = {"none", "null", ""}
+
+
+def _basename(class_path: str) -> str:
+    return class_path.rsplit(".", 1)[-1].lower()
+
+
+def _parse_optimizer(section: Optional[Dict[str, Any]]) -> str:
+    """Map optimizer.class_path to a supported kind (default adam)."""
+    cp = (section or {}).get("class_path")
+    if cp is None:
+        return "adam"
+    kind = _OPTIMIZERS.get(_basename(str(cp)))
+    if kind is None:
+        raise ValueError(
+            f"unsupported optimizer.class_path {cp!r}: the trainer implements "
+            f"{sorted(set(_OPTIMIZERS))} (matched by class basename)"
+        )
+    return kind
+
+
+def _parse_scheduler(section: Optional[Dict[str, Any]]) -> str:
+    """Map lr_scheduler.class_path to 'plateau' | 'none'."""
+    if section is None:
+        return "plateau"
+    cp = section.get("class_path")
+    if cp is None or _basename(str(cp)) in _NONE_NAMES:
+        return "none"
+    if _basename(str(cp)) in _PLATEAU_NAMES:
+        return "plateau"
+    raise ValueError(
+        f"unsupported lr_scheduler.class_path {cp!r}: the trainer implements "
+        f"ReduceLROnPlateau (or none/null to disable)"
+    )
+
+
+def build_trainer_config(config: Dict[str, Any]) -> TrainerConfig:
+    tr = config.get("trainer", {}) or {}
+    opt_sec = config.get("optimizer") or {}
+    sched_sec = config.get("lr_scheduler")
+    opt = opt_sec.get("init_args", {}) or {}
+    sched = (sched_sec or {}).get("init_args", {}) or {}
+    cb = {c.get("class_path", ""): c.get("init_args", {}) for c in tr.get("callbacks", [])}
+    early = next((v for k, v in cb.items() if "EarlyStopping" in k), {})
+    ckpt = next((v for k, v in cb.items() if "ModelCheckpoint" in k), {})
+    return TrainerConfig(
+        max_epochs=tr.get("max_epochs", 10),
+        lr=opt.get("lr", 0.01),
+        weight_decay=opt.get("weight_decay", 1e-5),
+        optimizer=_parse_optimizer(opt_sec),
+        scheduler=_parse_scheduler(sched_sec),
+        lr_factor=sched.get("factor", 0.5),
+        lr_patience=sched.get("patience", 50),
+        early_stopping_patience=early.get("patience", 150),
+        save_top_k=ckpt.get("save_top_k", 3),
+        checkpoint_dir=tr.get("checkpoint_dir", "checkpoints"),
+        seed=config.get("seed_everything", 35),
+        save_last_every_epochs=int(tr.get("save_last_every_epochs", 1)),
+    )
+
+
+def build_mesh_spec(config: Dict[str, Any]) -> None:
+    """None for one device. `trainer.devices > 1` or a `trainer.mesh`
+    section raise `NotImplementedError`: data and graph parallelism are not
+    ported yet (ROADMAP item 6)."""
+    tr = config.get("trainer", {}) or {}
+    if tr.get("mesh"):
+        raise NotImplementedError("trainer.mesh: graph and data parallelism are not ported yet (ROADMAP item 6)")
+    devices = int(tr.get("devices", 1) or 1)
+    if devices > 1:
+        raise NotImplementedError(f"trainer.devices={devices}: data parallelism is not ported yet (ROADMAP item 6)")
+    return None

@@ -7,8 +7,8 @@ arguments belong to its sharded steps and have no counterpart here).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -30,14 +30,28 @@ class Task:
     metric_weight: float = 1.0
     per_atom: bool = False  # per-node target masked by atom_selector
     normalizer: Optional[MeanNormNormalize] = None  # inverse before metrics
+    # (normalizer state, dtype, device) -> its norm and mean on the device
+    _on_device: Optional[Tuple[Any, Tuple[torch.Tensor, torch.Tensor]]] = field(
+        default=None, init=False, repr=False, compare=False)
 
     def transform_for_metric(self, x: torch.Tensor) -> torch.Tensor:
         """Map loss-space values to metric space (denormalization)."""
         n = self.normalizer
         if n is not None and n.initialized:
-            norm = torch.as_tensor(n.norm * n.scale, dtype=x.dtype, device=x.device)
-            return x * norm + torch.as_tensor(n.mean, dtype=x.dtype, device=x.device)
+            norm, mean = self._on(x.dtype, x.device)
+            return x * norm + mean
         return x
+
+    def _on(self, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The normalizer's norm * scale and mean on `device`, copied there
+        once per normalizer state (a copy per step would sync the host with
+        the card)."""
+        n = self.normalizer
+        key = (n.norm.tobytes(), n.mean.tobytes(), n.scale, dtype, device)
+        if self._on_device is None or self._on_device[0] != key:
+            self._on_device = (key, (torch.as_tensor(n.norm * n.scale, dtype=dtype, device=device),
+                                     torch.as_tensor(n.mean, dtype=dtype, device=device)))
+        return self._on_device[1]
 
 
 class CanonicalRegressionTask(Task):

@@ -1,33 +1,49 @@
-"""The train step: masked MSE, Adam + L2 in torch semantics, plateau LR.
+"""The training loop: train and eval steps, plateau LR, early stopping,
+best-k and `last` checkpoints, resume.
 
-Counterpart of the single-device step of `matten_tpu/train/trainer.py`
-(`Trainer._train_step_impl` and `_eval_step_impl`): a forward in train mode
-(batch norm on batch statistics, running statistics updated), the weighted
-multi-task masked MSE over real rows, backward, and one optimizer update;
-the streaming-MAE metric sums come from the same forward. The optimizers
-are torch's own, with the semantics the JAX `_make_tx` reproduces through
-optax: "adam" is `torch.optim.Adam(weight_decay=...)` (L2 added to the
-gradients), "adamw" is `AdamW` (decoupled decay) and "sgd" is `SGD` with
-weight decay.
+Counterpart of the single-device `matten_tpu/train/trainer.py`. A train
+step is a forward in train mode (batch norm on batch statistics, running
+statistics updated), the weighted multi-task masked MSE over real rows,
+backward, and one optimizer update; the streaming-MAE metric sums come from
+the same forward. The optimizers are torch's own, with the semantics the
+JAX `_make_tx` reproduces through optax: "adam" is
+`torch.optim.Adam(weight_decay=...)` (L2 added to the gradients), "adamw"
+is `AdamW` (decoupled decay) and "sgd" is `SGD` with weight decay.
 
-`state_dict` / `load_state_dict` give and take what
-`train.checkpoint.CheckpointManager` saves. `fit()` and the evaluation loop
-are not ported yet.
+`fit(datamodule, resume=False)` trains `self.model` in place, epoch after
+epoch: the loader reseeded per epoch, the train steps, an evaluation on the
+val set, the plateau scheduler on `val/score`, then a best-k save, early
+stopping, and the rolling `last` checkpoint with the loop state that
+`resume=True` continues from. It returns `self.history`, one record per
+epoch with the JAX loop's keys. The JAX loop's `scan_steps` grouping is a
+TPU dispatch device and has no counterpart.
+
+On the card batches are copied from pinned host memory with non-blocking
+copies on a side stream, one batch ahead of the step that uses them; the
+step losses and the evaluation sums stay on the device and are read back
+once per epoch and once per evaluation. The only other host sync of a step
+is the forward's edge check (`kernels.fused_conv.edge_plan`).
 """
 
 from __future__ import annotations
 
+import logging
+import time
 from dataclasses import asdict, dataclass, field as dc_field
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
 import torch
 
 from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.train.checkpoint import CheckpointManager
 from matten_tpu_torch.train.task import Task, masked_abs_err_sum, masked_mse
+
+logger = logging.getLogger(__name__)
 
 __all__ = ["TrainerConfig", "Trainer", "ReduceLROnPlateau"]
 
 MetricSums = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+TensorBatch = Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]
 
 
 @dataclass
@@ -59,12 +75,8 @@ class ReduceLROnPlateau:
 
 @dataclass
 class TrainerConfig:
-    """The JAX `TrainerConfig` without its checkpoint fields (`checkpoint_dir`,
-    `save_top_k`, `save_last_every_epochs`) and its TPU dispatch field
-    (`scan_steps`). The step and the scheduler read `lr`, `weight_decay`,
-    `optimizer`, `scheduler`, `lr_factor` and `lr_patience`; `max_epochs`,
-    `early_stopping_patience`, `log_every_epochs` and `seed` are for
-    `fit()`, which is not ported yet, and nothing reads them."""
+    """The JAX `TrainerConfig` without its TPU dispatch field
+    (`scan_steps`)."""
 
     max_epochs: int = 1000
     lr: float = 0.01
@@ -77,8 +89,13 @@ class TrainerConfig:
     lr_factor: float = 0.5
     lr_patience: int = 50
     early_stopping_patience: int = 150
+    checkpoint_dir: Optional[str] = None
+    save_top_k: int = 3
     log_every_epochs: int = 1
     seed: int = 35
+    # save the rolling `last` checkpoint every N epochs (and always at the
+    # final or stopping epoch); a crash loses fewer than N epochs
+    save_last_every_epochs: int = 1
 
 
 def make_optimizer(params, config: TrainerConfig) -> torch.optim.Optimizer:
@@ -92,7 +109,10 @@ class Trainer:
     """One model, its tasks and its optimizer on one device.
 
     `device` defaults to the card (`cuda`); the model is moved there. Batches
-    passed to the steps must already be on it (`predict.batch_to_device`)."""
+    passed to the steps must already be on it (`predict.batch_to_device`);
+    `fit`, `test` and `_run_eval` take numpy batches from loaders and copy
+    them. `metrics_logger`, an object with `.log(record, step=)`, gets each
+    epoch's history record."""
 
     def __init__(
         self,
@@ -100,17 +120,26 @@ class Trainer:
         tasks: List[Task],
         config: TrainerConfig,
         device: Union[str, torch.device, None] = None,
+        metrics_logger=None,
     ):
         self.device = torch.device("cuda") if device is None else torch.device(device)
         self.model = model.to(self.device)
         self.tasks = tasks
         self.config = config
+        self.metrics_logger = metrics_logger
         self.optimizer = make_optimizer(self.model.parameters(), config)
         self.scheduler = (
             ReduceLROnPlateau(factor=config.lr_factor, patience=config.lr_patience)
             if config.scheduler != "none"
             else None
         )
+        self.history: List[Dict[str, float]] = []
+        self._ckpt_manager = (
+            CheckpointManager(config.checkpoint_dir, save_top_k=config.save_top_k)
+            if config.checkpoint_dir is not None
+            else None
+        )
+        self._copy_stream = None
 
     # ------------------------------------------------------------------
     def _task_mask(self, task: Task, data: Dict, targets: Dict) -> torch.Tensor:
@@ -194,3 +223,203 @@ class Trainer:
         self.optimizer.load_state_dict(state["optimizer"])
         if self.scheduler is not None:
             self.scheduler = ReduceLROnPlateau(**state["scheduler"])
+
+    # ------------------------------------------------------------------
+    def _device_batches(self, loader: Iterable) -> Iterator[Tuple[Tuple[Dict, Dict], TensorBatch]]:
+        """(numpy batch, the batch on the device) for each batch of `loader`.
+
+        On the card each batch is pinned and copied with non-blocking copies
+        on a side stream while the step before it runs; the compute stream
+        waits for the copy, and the copied tensors are marked as used by it
+        (`record_stream`) so their memory is not handed out again under a
+        running step."""
+        if self.device.type != "cuda":
+            # predict imports the train package: import it here, not at the top
+            from matten_tpu_torch.predict import batch_to_device
+
+            for batch in loader:
+                yield batch, batch_to_device(batch[0], self.device, batch[1])
+            return
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        stream, current = self._copy_stream, torch.cuda.current_stream(self.device)
+
+        def copy(batch):
+            with torch.cuda.stream(stream):
+                return tuple(
+                    {k: torch.as_tensor(v).pin_memory().to(self.device, non_blocking=True)
+                     for k, v in part.items()}
+                    for part in batch
+                )
+
+        it = iter(loader)
+        batch = next(it, None)
+        copied = copy(batch) if batch is not None else None
+        while batch is not None:
+            current.wait_stream(stream)
+            for part in copied:
+                for t in part.values():
+                    t.record_stream(current)
+            nxt = next(it, None)
+            pending = copy(nxt) if nxt is not None else None
+            yield batch, copied
+            batch, copied = nxt, pending
+
+    def _run_eval(self, loader: Iterable) -> Dict[str, float]:
+        """Loss and MAE per task over a loader, and the score (the sum of
+        metric_weight * MAE). The sums stay on the device and are read back
+        once. An empty loader gives loss nan and score inf, so it never
+        becomes the best checkpoint."""
+        n = 0
+        loss_sum = torch.zeros((), device=self.device)
+        sums = {t.name: [torch.zeros((), device=self.device)] * 2 for t in self.tasks}
+        for _, (data, targets) in self._device_batches(loader):
+            n += 1
+            loss, ms = self.eval_step(data, targets)
+            loss_sum = loss_sum + loss
+            for name, (s, c) in ms.items():
+                sums[name] = [sums[name][0] + s, sums[name][1] + c]
+        if n == 0:
+            return {"loss": float("nan"), "score": float("inf")}
+        packed = torch.stack([loss_sum] + [x for t in self.tasks for x in sums[t.name]]).tolist()
+        out = {"loss": packed[0] / n}
+        score = 0.0
+        for i, t in enumerate(self.tasks):
+            mae = packed[1 + 2 * i] / max(packed[2 + 2 * i], 1.0)
+            out[f"mae/{t.name}"] = mae
+            score += t.metric_weight * mae
+        out["score"] = score
+        return out
+
+    def test(self, datamodule) -> Dict[str, float]:
+        """`_run_eval` over the test loader with the current weights."""
+        return self._run_eval(datamodule.test_dataloader())
+
+    def _manager(self) -> CheckpointManager:
+        if self._ckpt_manager is None:
+            raise ValueError("no checkpoint_dir configured")
+        return self._ckpt_manager
+
+    def restore_last(self) -> None:
+        """Load the `last` checkpoint into the model, optimizer and scheduler."""
+        self.load_state_dict(self._manager().restore(last=True, device=self.device))
+
+    def restore_best(self) -> None:
+        """Load the best-val/score checkpoint (what the scripts test)."""
+        self.load_state_dict(self._manager().restore(device=self.device))
+
+    def has_best(self) -> bool:
+        return self._ckpt_manager is not None and self._ckpt_manager.best_epoch is not None
+
+    def _loop_state(self, epoch, best_score, best_epoch, epochs_no_improve) -> Dict[str, Any]:
+        return {
+            "epoch": epoch,
+            "best_score": best_score,
+            "best_epoch": best_epoch,
+            "epochs_no_improve": epochs_no_improve,
+            "scheduler": (
+                {"best": self.scheduler.best, "num_bad": self.scheduler.num_bad, "scale": self.scheduler.scale}
+                if self.scheduler is not None
+                else None
+            ),
+        }
+
+    def fit(self, datamodule, resume: bool = False) -> List[Dict[str, float]]:
+        """Train until max_epochs or an early stop; returns `self.history`.
+
+        `resume=True` continues from the `last` checkpoint: the model,
+        optimizer and scheduler state, the epoch index, the best score and
+        epoch, and the early-stopping counter, so a killed run reproduces
+        the uninterrupted run's schedule and batch order."""
+        cfg = self.config
+        train_loader = datamodule.train_dataloader()
+        val_loader = datamodule.val_dataloader()
+
+        start_epoch = 0
+        best_score = float("inf")
+        best_epoch = -1
+        epochs_no_improve = 0
+        t_start = time.time()
+
+        if resume and self._ckpt_manager is not None and self._ckpt_manager.has_last():
+            self.restore_last()
+            loop = self._ckpt_manager.load_loop_state()
+            if loop is not None:
+                start_epoch = int(loop["epoch"]) + 1
+                best_score = float(loop["best_score"])
+                best_epoch = int(loop["best_epoch"])
+                epochs_no_improve = int(loop["epochs_no_improve"])
+                sch = loop.get("scheduler")
+                if self.scheduler is not None and sch is not None:
+                    self.scheduler.best = float(sch["best"])
+                    self.scheduler.num_bad = int(sch["num_bad"])
+                    self.scheduler.scale = float(sch["scale"])
+                    self.set_lr(cfg.lr * self.scheduler.scale)
+            logger.info("resumed from `last` at epoch %d", start_epoch)
+
+        for epoch in range(start_epoch, cfg.max_epochs):
+            t0 = time.time()
+            # per-epoch reseed: epoch k draws the same batch order whether or
+            # not training was interrupted before it
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            train_losses = []
+            epoch_edges = 0
+            for (host, _), (data, targets) in self._device_batches(train_loader):
+                epoch_edges += int(host[K.EDGE_MASK].sum())
+                loss, _ = self.train_step(data, targets)
+                train_losses.append(loss)
+
+            val_metrics = self._run_eval(val_loader)
+            score = val_metrics["score"]
+            train_loss = torch.stack(train_losses).mean().item() if train_losses else float("nan")
+
+            # plateau scheduler, then best-k save and early stopping on val/score
+            if self.scheduler is not None and self.scheduler.step(score):
+                new_lr = cfg.lr * self.scheduler.scale
+                logger.info("epoch %d: reducing lr to %g", epoch, new_lr)
+                self.set_lr(new_lr)
+
+            if score < best_score:
+                best_score = score
+                best_epoch = epoch
+                epochs_no_improve = 0
+                if self._ckpt_manager is not None:
+                    self._ckpt_manager.save(epoch, self.state_dict(), metrics={"val/score": score})
+            else:
+                epochs_no_improve += 1
+
+            epoch_time = time.time() - t0
+            rec = {
+                "epoch": epoch,
+                "train/loss": train_loss,
+                "val/loss": val_metrics["loss"],
+                "val/score": score,
+                "lr_scale": self.scheduler.scale if self.scheduler else 1.0,
+                "epoch_time": epoch_time,
+                "cumulative_time": time.time() - t_start,
+                "train/edges_per_s": epoch_edges / max(epoch_time, 1e-9),
+            }
+            rec.update({f"val/{k}": v for k, v in val_metrics.items() if k.startswith("mae")})
+            self.history.append(rec)
+            if self.metrics_logger is not None:
+                self.metrics_logger.log(rec, step=epoch)
+            if epoch % cfg.log_every_epochs == 0:
+                logger.info(
+                    "epoch %d: train loss %.5f | val score %.5f | %.2fs",
+                    epoch, rec["train/loss"], score, epoch_time,
+                )
+            stop = epochs_no_improve > cfg.early_stopping_patience
+            if self._ckpt_manager is not None and (
+                stop
+                or epoch == cfg.max_epochs - 1
+                or (epoch + 1) % max(cfg.save_last_every_epochs, 1) == 0
+            ):
+                self._ckpt_manager.save_last(
+                    self.state_dict(),
+                    self._loop_state(epoch, best_score, best_epoch, epochs_no_improve),
+                )
+            if stop:
+                logger.info("early stopping at epoch %d (best %.5f @ %d)", epoch, best_score, best_epoch)
+                break
+        return self.history

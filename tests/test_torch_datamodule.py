@@ -1,0 +1,250 @@
+"""The port's BatchLoader and TensorDataModule against the JAX package's.
+
+- `BatchLoader` on the same graphs and seed yields the batches the JAX
+  loader yields with `node_chunk=None` (the port's layout: the JAX
+  default chunk-aligns batches above 128 padded nodes for its TPU kernel):
+  every key, shape, dtype and value equal, over two epochs with
+  `set_epoch`, for each loader option (buckets 1 and 4, `batch_by_size` on
+  and off, `drop_last`, a ragged tail, no shuffle, per-atom targets, a
+  dataset of one-atom graphs, no precomputed edge vectors); the pad ladders
+  are equal.
+- `TensorDataModule.setup` on files pandas writes (an elasticity set with a
+  feature column and an NMR set with an atom selector, targets normalized)
+  gives the JAX module's graphs and failed rows exactly, its statistics
+  within 1e-12, its dataset hand-off and its loaders' batches.
+- The graph cache round-trips, and a cache the JAX package wrote in the
+  same root is not read.
+"""
+
+import dataclasses
+import logging
+
+import numpy as np
+import pandas as pd
+import pytest
+
+from matten_tpu.data.datamodule import BatchLoader as JaxLoader
+from matten_tpu.data.datamodule import TensorDataModule as JaxDataModule
+from matten_tpu.data.graph import CrystalGraph as JaxGraph
+from matten_tpu.data.structure import Structure as JaxStructure
+from matten_tpu_torch.data import datamodule as pdm
+from matten_tpu_torch.data.datamodule import BatchLoader, TensorDataModule
+from matten_tpu_torch.data.graph import CrystalGraph
+from matten_tpu_torch.nn.embedding import atomic_number_map
+
+SPECIES = (8, 14)
+SMAP = atomic_number_map(SPECIES)
+
+
+def _jax_graphs(seed, n, atoms=(2, 6), nmr=False):
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n):
+        k = int(rng.integers(*atoms)) if atoms[1] > atoms[0] else atoms[0]
+        s = JaxStructure(
+            lattice=np.eye(3) * (3.6 + rng.uniform(0, 1.0)) + rng.normal(size=(3, 3)) * 0.1,
+            frac_coords=rng.uniform(0, 1, size=(k, 3)),
+            atomic_numbers=rng.choice(SPECIES, size=k),
+        )
+        g = JaxGraph.from_structure(s, r_cut=5.0)
+        if nmr:
+            sel = s.atomic_numbers == 14
+            g.y["nmr_tensor"] = np.where(sel[:, None], rng.normal(size=(k, 6)), 0.0)
+            g.y["atom_selector"] = sel
+        else:
+            g.y["elastic_tensor_full"] = rng.normal(size=(1, 21))
+        graphs.append(g)
+    return graphs
+
+
+def _port(graphs):
+    """The same graphs as the port's CrystalGraph."""
+    return [
+        CrystalGraph(**{f.name: getattr(g, f.name) for f in dataclasses.fields(JaxGraph)})
+        for g in graphs
+    ]
+
+
+def _pads(loader):
+    return [(p.num_nodes, p.num_edges, p.num_graphs, p.node_chunk, p.edge_block) for p in loader.pads]
+
+
+def _assert_batches_equal(ours, ref):
+    assert len(ours) == len(ref) > 0
+    for (d, t), (jd, jt) in zip(ours, ref):
+        for got, want in ((d, jd), (t, jt)):
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+CASES = {
+    "buckets1": dict(num_buckets=1),
+    "buckets4": dict(num_buckets=4),
+    "by_size": dict(num_buckets=4, batch_by_size=True),
+    "by_size_buckets1_drop_last": dict(num_buckets=1, batch_by_size=True, drop_last=True),
+    "drop_last": dict(num_buckets=4, drop_last=True),
+    "no_shuffle": dict(num_buckets=4, shuffle=False),
+    "no_edge_vectors": dict(num_buckets=4, precompute_edge_vectors=False),
+    "nmr": dict(num_buckets=4, nmr=True),
+    "one_atom_graphs": dict(num_buckets=4, atoms=(1, 1)),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=list(CASES))
+def test_batch_loader_matches_jax(case):
+    kw = dict(CASES[case])
+    nmr, atoms = kw.pop("nmr", False), kw.pop("atoms", (2, 6))
+    kw.setdefault("shuffle", True)
+    graphs = _jax_graphs(seed=len(case), n=23, atoms=atoms, nmr=nmr)  # 23 = 4 x 5 + a ragged 3
+    jl = JaxLoader(graphs, batch_size=5, species_map=SMAP, seed=3, node_chunk=None, **kw)
+    pl = BatchLoader(_port(graphs), batch_size=5, species_map=SMAP, seed=3, **kw)
+    assert _pads(pl) == _pads(jl)
+    assert len(pl) == len(jl) == (4 if kw.get("drop_last") else 5)
+    for epoch in (0, 1):
+        jl.set_epoch(epoch)
+        pl.set_epoch(epoch)
+        _assert_batches_equal(list(pl), list(jl))
+
+
+def test_node_chunk_takes_only_no_chunking():
+    graphs = _port(_jax_graphs(seed=1, n=6))
+    for chunk in (None, "auto"):
+        BatchLoader(graphs, batch_size=2, species_map=SMAP, node_chunk=chunk)
+    with pytest.raises(ValueError, match="TPU layout"):
+        BatchLoader(graphs, batch_size=2, species_map=SMAP, node_chunk=128)
+
+
+def test_batch_by_size_single_window_warns(caplog):
+    """Mirrors tests/data/test_data_layer.py: one sort window warns."""
+    graphs = _port(_jax_graphs(seed=15, n=6))
+    with caplog.at_level(logging.WARNING):
+        BatchLoader(graphs, batch_size=4, species_map=SMAP, batch_by_size=True)
+    assert any("batch membership" in r.message for r in caplog.records)
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        BatchLoader(graphs, batch_size=1, species_map=SMAP, batch_by_size=True)
+    assert not any("batch membership" in r.message for r in caplog.records)
+
+
+# ---------------------------------------------------------------- data module
+
+
+def _symmetric_elastic(rng):
+    t = rng.normal(size=(3, 3, 3, 3))
+    t = (t + t.transpose(1, 0, 2, 3)) / 2
+    t = (t + t.transpose(0, 1, 3, 2)) / 2
+    return (t + t.transpose(2, 3, 0, 1)) / 2
+
+
+def _write(path, kind, n, seed):
+    """A pandas-written dataset file (orient "columns", pandas' default)."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        k = int(rng.integers(2, 5))
+        z = rng.choice(SPECIES, size=k)
+        z[0] = 14
+        s = JaxStructure(np.eye(3) * (3.8 + rng.uniform(0, 1.0)) + rng.normal(size=(3, 3)) * 0.1,
+                         rng.uniform(0, 1, size=(k, 3)), z)
+        row = {"structure": s.to_dict()}
+        if kind == "elasticity":
+            row["elastic_tensor_full"] = (_symmetric_elastic(rng) * 50.0 + 10.0).tolist()
+            row["density"] = float(rng.uniform(1.0, 5.0))
+        else:
+            sel = z == 14
+            t = rng.normal(size=(int(sel.sum()), 3, 3)) * 20.0 + 300.0
+            row["nmr_tensor"] = ((t + t.transpose(0, 2, 1)) / 2).tolist()
+            # one bad row: a selector that does not match the atom count
+            row["atom_selector"] = sel.tolist() + ([True] if i == 3 else [])
+        rows.append(row)
+    pd.DataFrame(rows).to_json(path)
+
+
+DATA = {
+    "elasticity": dict(tensor_target_name="elastic_tensor_full", global_featurizer="density",
+                       normalize_global_features=True),
+    "nmr": dict(tensor_target_name="nmr_tensor", tensor_target_formula="ij=ji", atom_selector="atom_selector"),
+}
+
+
+def _data_config(tmp_path, kind, reuse=False):
+    for split, (n, seed) in {"train": (10, 1), "val": (6, 2), "test": (5, 3)}.items():
+        if not (tmp_path / f"{kind}_{split}.json").exists():
+            _write(tmp_path / f"{kind}_{split}.json", kind, n, seed)
+    return dict(DATA[kind], root=str(tmp_path), r_cut=4.0, reuse=reuse, normalize_tensor_target=True,
+                trainset_filename=f"{kind}_train.json", valset_filename=f"{kind}_val.json",
+                testset_filename=f"{kind}_test.json",
+                loader_kwargs=dict(batch_size=4, num_buckets=2, node_chunk=None))
+
+
+@pytest.mark.parametrize("kind", list(DATA))
+def test_data_module_matches_jax(tmp_path, kind):
+    cfg = _data_config(tmp_path, kind)
+    jdm, pdm_ = JaxDataModule(**cfg, seed=5), TensorDataModule(**cfg, seed=5)
+    jdm.setup()
+    pdm_.setup()
+    assert pdm_.failed == jdm.failed
+    assert (pdm_.failed["train"] == [3]) == (kind == "nmr")
+    for split in ("train", "val", "test"):
+        assert len(pdm_.graphs[split]) == len(jdm.graphs[split]) > 0
+        for g, jg in zip(pdm_.graphs[split], jdm.graphs[split]):
+            for f in dataclasses.fields(JaxGraph):
+                a, b = getattr(g, f.name), getattr(jg, f.name)
+                if isinstance(b, dict):
+                    assert sorted(a) == sorted(b)
+                    for k in b:
+                        np.testing.assert_array_equal(a[k], b[k], err_msg=f"{f.name}[{k}]")
+                else:
+                    np.testing.assert_array_equal(a, b, err_msg=f.name)
+    ours, ref = pdm_.statistics.to_arrays(), jdm.statistics.to_arrays()
+    assert sorted(ours) == sorted(ref)
+    for k in ref:
+        np.testing.assert_allclose(ours[k], ref[k], rtol=1e-12, atol=1e-12, err_msg=k)
+    assert pdm_.get_to_model_info() == jdm.get_to_model_info()
+    np.testing.assert_array_equal(pdm_.species_map, jdm.species_map)
+    for name in ("train_dataloader", "val_dataloader", "test_dataloader"):
+        pl, jl = getattr(pdm_, name)(), getattr(jdm, name)()
+        assert _pads(pl) == _pads(jl)
+        pl.set_epoch(1)
+        jl.set_epoch(1)
+        _assert_batches_equal(list(pl), list(jl))
+
+
+def test_graph_cache_round_trips_and_skips_the_jax_cache(tmp_path, monkeypatch):
+    cfg = _data_config(tmp_path, "elasticity", reuse=True)
+    # the JAX package's cache, written first into the same root
+    JaxDataModule(**cfg).setup()
+    jax_files = sorted((tmp_path / "processed").iterdir())
+    assert len(jax_files) == 3
+    first = TensorDataModule(**cfg)
+    first.setup()
+    files = sorted(set((tmp_path / "processed").iterdir()) - set(jax_files))
+    assert len(files) == 3 and all(f.suffix == ".pkl" for f in files)
+    assert all(type(g) is CrystalGraph for split in first.graphs.values() for g in split)
+
+    def no_reading(*args, **kwargs):
+        raise AssertionError("the cache was not used")
+
+    monkeypatch.setattr(pdm, "load_tensor_dataset", no_reading)
+    second = TensorDataModule(**cfg)
+    second.setup()
+    for split in first.graphs:
+        assert len(second.graphs[split]) == len(first.graphs[split])
+        for a, b in zip(second.graphs[split], first.graphs[split]):
+            assert type(a) is CrystalGraph
+            np.testing.assert_array_equal(a.pos, b.pos)
+            np.testing.assert_array_equal(a.edge_index, b.edge_index)
+    np.testing.assert_allclose(second.statistics.to_arrays()["target_mean"],
+                               first.statistics.to_arrays()["target_mean"], rtol=0, atol=0)
+
+
+def test_data_module_refuses_what_is_not_ported(tmp_path):
+    cfg = _data_config(tmp_path, "elasticity")
+    for extra in (dict(tensor_target_format="cartesian"), dict(scalar_target_names=["k_voigt"]),
+                  dict(tensor_target_scale=2.0), dict(num_shards=2)):
+        with pytest.raises(NotImplementedError):
+            TensorDataModule(**cfg, **extra)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TensorDataModule(**cfg).set_sharding(num_shards=2)

@@ -478,3 +478,65 @@ def test_predict_from_checkpoint_dir_on_the_card(dev, tmp_path):
         for a, b, s in zip(mem, disk, structures):
             assert b.shape == ((len(s), 3, 3) if name == "nmr" else (3, 3, 3, 3))
             _assert_rel(torch.as_tensor(np.asarray(b)), torch.as_tensor(np.asarray(a)), 1e-6)
+
+
+def test_fit_launch_counts_and_host_syncs(dev):
+    """A 2-epoch `fit` on the card, after a warm-up epoch that builds the
+    kernels and copies their tables: one launch of each of K1's kernels per
+    conv layer in every train step and val batch, and of the merged
+    backward and the dx sum in every train step. Under
+    `set_sync_debug_mode("warn")` the loop's host syncs are the forward's
+    edge check (`edge_plan`) once per train step and val batch, and two per
+    epoch: the val sums and the mean train loss, each read back once."""
+    import dataclasses
+    import warnings
+
+    from matten_tpu_torch.data.datamodule import BatchLoader
+    from matten_tpu_torch.data.graph import CrystalGraph
+    from matten_tpu_torch.data.transform import MeanNormNormalize
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+
+    rng = np.random.default_rng(21)
+    graphs = []
+    for s in _nmr_structures(n=16, seed=20):
+        g = CrystalGraph.from_structure(s, r_cut=5.0)
+        g.y["elastic_tensor_full"] = rng.normal(size=(1, 21))
+        graphs.append(g)
+    smap = atomic_number_map(SPECIES_5)
+
+    class DataModule:
+        def train_dataloader(self):
+            return BatchLoader(graphs[:10], batch_size=4, species_map=smap, shuffle=True)
+
+        def val_dataloader(self):
+            return BatchLoader(graphs[10:], batch_size=4, species_map=smap)
+
+    irreps = cartesian_tensor_map("ijkl=jikl=klij").irreps
+    task = CanonicalRegressionTask(name="elastic_tensor_full", normalizer=MeanNormNormalize(
+        irreps, mean=rng.normal(size=21), norm=rng.uniform(0.5, 2.0, 21)))
+    hp = dict(PRODUCTION, num_layers=2)
+    model = create_scalar_tensor_model(hp, dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0),
+                                       device=dev)
+    trainer = Trainer(model, [task], TrainerConfig(max_epochs=1, lr=0.01), device=dev)
+    trainer.fit(DataModule())
+    torch.cuda.synchronize()
+    trainer.config = dataclasses.replace(trainer.config, max_epochs=2)
+    counters = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches")
+    before = [getattr(fused_conv, c) for c in counters]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            history = trainer.fit(DataModule())[1:]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    steps, val, convs = 2 * 3, 2 * 2, 3
+    assert [getattr(fused_conv, c) - b for c, b in zip(counters, before)] == [
+        convs * (steps + val)] * 2 + [convs * steps] * 2
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == steps + val + 2 * 2, syncs
+    assert [h["epoch"] for h in history] == [0, 1]
+    assert all(np.isfinite(h[k]) for h in history for k in ("train/loss", "val/loss", "val/score"))

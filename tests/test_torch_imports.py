@@ -1,13 +1,14 @@
 """The torch port runs without JAX and without the JAX package.
 
-The GPU machine has no jax, flax, optax, orbax, pandas or pyyaml, and the
-port stands alone: neither its sources nor chip_smoke.py may import any of
-them or anything of `matten_tpu` (it keeps its own copies of the numpy
-modules it shares with it). The runtime checks run in subprocesses because
-this test process has imported jax already (tests/conftest.py): one in the
-repo, one with `matten_tpu_torch/` copied alone into an empty directory.
-Each serves a model from a checkpoint directory it writes, and takes a
-train step of each model family.
+The GPU machine has no jax, flax, optax, orbax, pandas, pyyaml or sklearn,
+and the port stands alone: neither its sources nor chip_smoke.py may import
+any of them or anything of `matten_tpu` (it keeps its own copies of the
+numpy modules it shares with it). The runtime checks run in subprocesses
+because this test process has imported jax already (tests/conftest.py): one
+in the repo, one with `matten_tpu_torch/` copied alone into an empty
+directory. Each serves a model from a checkpoint directory it writes, and
+takes a train step of each model family; in the copy alone, the materials
+train script's `main` also trains a model from a data file on the CPU.
 """
 
 import ast
@@ -20,7 +21,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "yaml", "matten_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "yaml", "sklearn", "matten_tpu")
 SOURCES = sorted((ROOT / "matten_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -88,17 +89,49 @@ for name, hps, create, y, data_hp in (
         CheckpointManager(d).save_last(trainer.state_dict())
         out = predict([si], d, device="cpu")[0]
     assert out.shape == ((2, 3, 3) if data_hp else (3, 3, 3, 3)) and np.isfinite(out).all()
+"""
+
+LOADED = """
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "matten_tpu"))
+                ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "sklearn", "matten_tpu"))
 print("LOADED", loaded)
 """
 
+MAIN = """
+import json
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from matten_tpu_torch.data.structure import Structure
+from matten_tpu_torch.scripts.train_materials_tensor import main
+rng = np.random.default_rng(0)
+rows = []
+for _ in range(6):
+    s = Structure(np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1, rng.uniform(0, 1, (3, 3)),
+                  rng.choice([8, 14], 3))
+    t = rng.normal(size=(3, 3, 3, 3))
+    t = (t + t.transpose(1, 0, 2, 3) + t.transpose(0, 1, 3, 2) + t.transpose(2, 3, 0, 1)) / 4
+    rows.append({"structure": s.to_dict(), "elastic_tensor_full": t.tolist()})
+with open("tiny.json", "w") as f:
+    json.dump(rows, f)
+model = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o", num_layers=1, invariant_layers=1,
+             invariant_neurons=4, average_num_neighbors="auto", conv_layer_irreps="2x0e+1x1o+1x2e",
+             normalization="batch", conv_to_output_hidden_irreps_out="2x0e+2e+4e")
+config = {"seed_everything": 7, "model": model,
+          "data": {"root": ".", "trainset_filename": "tiny.json", "valset_filename": "tiny.json",
+                   "testset_filename": "tiny.json", "r_cut": 5.0, "loader_kwargs": {"batch_size": 3}},
+          "trainer": {"max_epochs": 2, "checkpoint_dir": "ckpt"}}
+metrics = main(config, device="cpu")
+assert np.isfinite(metrics["score"]), metrics
+"""
 
-def _run(cwd: Path):
+
+def _run(cwd: Path, code: str = RUN):
     # one BLAS thread: the suite runs in several workers at once
     env = dict(os.environ, PYTHONPATH=str(cwd), OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", RUN], cwd=cwd, env=env, capture_output=True, text=True,
+        [sys.executable, "-c", code + LOADED], cwd=cwd, env=env, capture_output=True, text=True,
         timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
@@ -122,3 +155,15 @@ def test_port_runs_copied_alone(tmp_path):
     )
     _run(tmp_path)
     assert (tmp_path / "matten_tpu_torch" / "_build").is_dir()
+
+
+def test_train_script_runs_copied_alone(tmp_path):
+    """The materials train script's `main` trains from a data file on the
+    CPU with `matten_tpu_torch/` alone in an empty directory, loading none
+    of JAX, pandas, pyyaml, sklearn or `matten_tpu`."""
+    shutil.copytree(
+        ROOT / "matten_tpu_torch", tmp_path / "matten_tpu_torch",
+        ignore=shutil.ignore_patterns("_build", "__pycache__"),
+    )
+    _run(tmp_path, MAIN)
+    assert (tmp_path / "ckpt" / "hparams.json").is_file() and (tmp_path / "ckpt" / "last").is_dir()

@@ -1,0 +1,284 @@
+"""The port's config reader, `build_trainer_config` and train scripts
+against the JAX package's on the CPU.
+
+- `load_config` equals `yaml.safe_load` on the configs in
+  `scripts/configs/` and on strings that exercise YAML 1.1's number rules
+  (`0.` is a float, `1e-5` a string) and its nulls and booleans; input
+  outside the subset raises.
+- `build_trainer_config` equals the JAX function field by field; a
+  multi-device config raises.
+- Both scripts' `main(config, device="cpu")` train and test on a tiny
+  pandas-written set; their `hparams.json` and `dataset_statistics.npz`
+  equal those the JAX scripts write for the same config and data (1e-12),
+  and `predict(structures, directory)` serves what they wrote. A rerun with
+  `restore: true` adds one epoch; the command line runs as a module.
+"""
+
+import importlib.util
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+import yaml
+
+from matten_tpu.data.structure import Structure as JaxStructure
+from matten_tpu.train import Trainer as JaxTrainer
+from matten_tpu.train.config import build_trainer_config as jax_build_trainer_config
+from matten_tpu_torch.data.structure import Structure
+from matten_tpu_torch.predict import predict
+from matten_tpu_torch.scripts import train_atomic_tensor, train_materials_tensor
+from matten_tpu_torch.train.config import build_mesh_spec, build_trainer_config
+from matten_tpu_torch.utils.config_yaml import load_config, loads
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+CONFIGS = sorted((ROOT / "scripts" / "configs").glob("*.yaml"))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_load_config_equals_safe_load(path):
+    assert load_config(path) == yaml.safe_load(path.read_text())
+
+
+NUMBERS = """\
+a: 0.
+b: 0.00001
+c: 1e-5
+d: 1.0e-5
+e: 1.0e5
+f: null
+g: ~
+h:
+i: true
+j: Off
+k: yes
+l: 0x1F
+m: 017
+n: 08
+o: 1_000
+p: -.inf
+q: .nan
+r: +5
+s: -0.5
+t: .5
+u: '0.'
+v: "1e-5"
+x: []
+y: {}
+z: 3. # a comment
+"""
+
+
+def test_load_config_number_rules():
+    ours, ref = loads(NUMBERS), yaml.safe_load(NUMBERS)
+    assert list(ours) == list(ref)
+    for k in ref:
+        assert type(ours[k]) is type(ref[k]), k
+        if isinstance(ref[k], float) and math.isnan(ref[k]):
+            assert math.isnan(ours[k])
+        else:
+            assert ours[k] == ref[k], k
+    assert ours["a"] == 0.0 and isinstance(ours["a"], float)
+    assert ours["c"] == "1e-5" and ours["b"] == 1e-5 and ours["f"] is None
+
+
+def test_load_config_lists_and_nesting():
+    text = ("top:\n- a: 1\n  b:\n    - x\n    - 'y # z'\n- c\n-\n  d: 2\nk: v # c\n"
+            "n:\n  - 1\n  -   e: f\n      g: h\n")
+    assert loads(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("text", [
+    "a: &x 1\n", "a: *x\n", "a: !!str 1\n", "a: |\n  t\n", "a: >\n  t\n", "a: [1, 2]\n",
+    "a: {b: 1}\n", "a: b\n  c\n", "---\na: 1\n", "a: 2001-12-14\n", "a:\n\tb: 1\n", "a: b: c\n",
+    "<<: 1\n", "a: 'open\n", "a: 1:20\n", 'a: "\\x41"\n',
+], ids=["anchor", "alias", "tag", "literal", "folded", "flow_list", "flow_map", "multiline",
+        "document", "timestamp", "tab", "nested_colon", "merge", "open_quote", "base60", "escape"])
+def test_load_config_refuses_outside_the_subset(text):
+    with pytest.raises(ValueError, match="outside the YAML subset"):
+        loads(text)
+
+
+def _trainer_cases():
+    base = {"trainer": {"max_epochs": 1}}
+    cases = [load_config(p) for p in CONFIGS] + [base]
+    for cp in ("torch.optim.Adam", "torch.optim.AdamW", "torch.optim.SGD", "optax.adam"):
+        cases.append(dict(base, optimizer={"class_path": cp, "init_args": {"lr": 0.02}}))
+    for cp in ("torch.optim.lr_scheduler.ReduceLROnPlateau", "none"):
+        cases.append(dict(base, lr_scheduler={"class_path": cp}))
+    cases.append(dict(base, trainer={"callbacks": [
+        {"class_path": "ModelCheckpoint", "init_args": {"save_top_k": 5}},
+        {"class_path": "EarlyStopping", "init_args": {"patience": 7}}], "save_last_every_epochs": 4}))
+    return cases
+
+
+@pytest.mark.parametrize("config", _trainer_cases())
+def test_build_trainer_config_matches_jax(config):
+    ours, ref = build_trainer_config(config), jax_build_trainer_config(config)
+    fields = vars(ours)
+    assert set(fields) == set(vars(ref)) - {"scan_steps"}
+    for k, v in fields.items():
+        assert v == getattr(ref, k), k
+
+
+def test_build_trainer_config_refuses_unknown_classes():
+    base = {"trainer": {"max_epochs": 1}}
+    with pytest.raises(ValueError, match="optimizer.class_path"):
+        build_trainer_config(dict(base, optimizer={"class_path": "torch.optim.LBFGS"}))
+    with pytest.raises(ValueError, match="lr_scheduler.class_path"):
+        build_trainer_config(dict(base, lr_scheduler={"class_path": "torch.optim.lr_scheduler.StepLR"}))
+
+
+def test_multi_device_configs_raise():
+    assert build_mesh_spec({"trainer": {}}) is None
+    assert build_mesh_spec({"trainer": {"devices": 1}}) is None
+    for tr in ({"devices": 4}, {"mesh": {"data": 2, "graph": 2, "mode": "node"}}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            build_mesh_spec({"trainer": tr})
+    config = dict(load_config(ROOT / "scripts" / "configs" / "materials_tensor.yaml"))
+    config["trainer"] = dict(config["trainer"], devices=2)
+    with pytest.raises(NotImplementedError):
+        train_materials_tensor.main(config, device="cpu")
+
+
+# ---------------------------------------------------------------- scripts
+
+
+def _symmetric_elastic(rng):
+    t = rng.normal(size=(3, 3, 3, 3))
+    t = (t + t.transpose(1, 0, 2, 3)) / 2
+    t = (t + t.transpose(0, 1, 3, 2)) / 2
+    return (t + t.transpose(2, 3, 0, 1)) / 2
+
+
+def _write_tiny_dataset(path, kind, n=6, seed=0):
+    """As tests/test_scripts.py writes it: pandas' default layout."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        z = rng.choice([8, 14], 3)
+        z[0] = 14
+        s = JaxStructure(np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1, rng.uniform(0, 1, (3, 3)), z)
+        row = {"structure": s.to_dict()}
+        if kind == "materials":
+            row["elastic_tensor_full"] = (_symmetric_elastic(rng) * 20.0).tolist()
+        else:
+            t = rng.normal(size=(int((z == 14).sum()), 3, 3)) * 10.0 + 100.0
+            row["nmr_tensor"] = ((t + t.transpose(0, 2, 1)) / 2).tolist()
+            row["atom_selector"] = (z == 14).tolist()
+        rows.append(row)
+    pd.DataFrame(rows).to_json(path)
+
+
+MODEL = {
+    "species_embedding_dim": 8,
+    "irreps_edge_sh": "0e + 1o + 2e",
+    "radial_basis_type": "bessel",
+    "num_radial_basis": 4,
+    "radial_basis_start": 0.0,
+    "radial_basis_end": 5.0,
+    "num_layers": 1,
+    "invariant_layers": 1,
+    "invariant_neurons": 8,
+    "average_num_neighbors": "auto",
+    "conv_layer_irreps": "4x0e+2x1o+2x2e",
+    "nonlinearity_type": "gate",
+    "normalization": "batch",
+}
+FAMILIES = {
+    "materials": dict(
+        model=dict(MODEL, conv_to_output_hidden_irreps_out="4x0e + 2x2e + 4e", output_format="irreps",
+                   output_formula="ijkl=jikl=klij", reduce="mean"),
+        data=dict(tensor_target_name="elastic_tensor_full"),
+        shape=lambda s: (3, 3, 3, 3)),
+    "atomic": dict(
+        model=dict(MODEL, output_format="irreps", output_formula="ij=ji"),
+        data=dict(tensor_target_name="nmr_tensor", tensor_target_formula="ij=ji", atom_selector="atom_selector"),
+        shape=lambda s: (len(s), 3, 3)),
+}
+
+
+def _config(tmp_path, kind, ckpt):
+    return {
+        "seed_everything": 7,
+        "data": dict(FAMILIES[kind]["data"], root=str(tmp_path), trainset_filename="tiny.json",
+                     valset_filename="tiny.json", testset_filename="tiny.json", r_cut=5.0, reuse=False,
+                     normalize_tensor_target=True, loader_kwargs={"batch_size": 3, "shuffle": True}),
+        "model": FAMILIES[kind]["model"],
+        "trainer": {"max_epochs": 2, "checkpoint_dir": str(tmp_path / ckpt)},
+        "optimizer": {"class_path": "torch.optim.Adam", "init_args": {"lr": 0.01, "weight_decay": 1e-5}},
+        "lr_scheduler": {"init_args": {"factor": 0.5, "patience": 50}},
+    }
+
+
+def _jax_script(kind):
+    path = ROOT / "scripts" / f"train_{kind}_tensor.py"
+    spec = importlib.util.spec_from_file_location(f"jax_train_{kind}_tensor", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("kind", list(FAMILIES))
+def test_script_matches_jax_sidecars_and_serves(tmp_path, monkeypatch, kind):
+    _write_tiny_dataset(tmp_path / "tiny.json", kind)
+    script = {"materials": train_materials_tensor, "atomic": train_atomic_tensor}[kind]
+    metrics = script.main(_config(tmp_path, kind, "port"), device="cpu")
+    assert np.isfinite(metrics["score"]) and np.isfinite(metrics["loss"])
+    port = tmp_path / "port"
+    assert {"hparams.json", "dataset_statistics.npz", "index.json", "last", "loop_state.json"} <= {
+        p.name for p in port.iterdir()}
+
+    # the JAX script writes its sidecars before fit: its fit and test are
+    # not needed for them and are skipped here
+    monkeypatch.chdir(tmp_path)  # its logger writes matten_tpu.log to the working directory
+    monkeypatch.setattr(JaxTrainer, "fit", lambda self, state, dm, **kw: state)
+    monkeypatch.setattr(JaxTrainer, "test", lambda self, state, dm: {})
+    _jax_script(kind).main(_config(tmp_path, kind, "jax"))
+    jax_dir = tmp_path / "jax"
+    assert json.loads((port / "hparams.json").read_text()) == json.loads((jax_dir / "hparams.json").read_text())
+    ours, ref = dict(np.load(port / "dataset_statistics.npz")), dict(np.load(jax_dir / "dataset_statistics.npz"))
+    assert sorted(ours) == sorted(ref)
+    for k in ref:
+        np.testing.assert_allclose(ours[k], ref[k], rtol=1e-12, atol=1e-12, err_msg=k)
+
+    rng = np.random.default_rng(3)
+    structures = [Structure(np.eye(3) * 4.0, rng.uniform(0, 1, (k, 3)), [14] + [8] * (k - 1)) for k in (2, 3)]
+    results = predict(structures, port, device="cpu")
+    for s, r in zip(structures, results):
+        assert r.shape == FAMILIES[kind]["shape"](s) and np.isfinite(r).all()
+
+
+def test_restore_adds_one_epoch(tmp_path):
+    _write_tiny_dataset(tmp_path / "tiny.json", "materials")
+    config = _config(tmp_path, "materials", "ckpt")
+    train_materials_tensor.main(config, device="cpu")
+    loop = json.loads((tmp_path / "ckpt" / "loop_state.json").read_text())
+    assert loop["epoch"] == 1
+    config = dict(config, restore=True, trainer=dict(config["trainer"], max_epochs=3))
+    train_materials_tensor.main(config, device="cpu")
+    assert json.loads((tmp_path / "ckpt" / "loop_state.json").read_text())["epoch"] == 2
+
+
+def test_command_line_runs_the_script(tmp_path):
+    """`python -m matten_tpu_torch.scripts.train_atomic_tensor config.yaml
+    --device cpu` reads a YAML file pyyaml wrote."""
+    _write_tiny_dataset(tmp_path / "tiny.json", "atomic")
+    config = _config(tmp_path, "atomic", "ckpt")
+    config["trainer"]["max_epochs"] = 1
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(config, default_flow_style=False))
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "matten_tpu_torch.scripts.train_atomic_tensor", str(tmp_path / "config.yaml"),
+         "--device", "cpu"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "test metrics (best checkpoint)" in proc.stderr
+    assert (tmp_path / "ckpt" / "last").is_dir()
