@@ -88,9 +88,32 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      `train_atomic_tensor.main` and scripts/configs/atomic_tensor.yaml (its
      model, batch 2) on 32 crystals with an `atom_selector` column, 2
      epochs; the NMR rows from disk finite symmetric [n_atoms, 3, 3]; the
-     same checks against the plain versions at its batch-2 batches.
+     same checks against the plain versions at its batch-2 batches;
+ 18. the variants configuration, the eighth main path: the production model
+     with instance norm, the norm activation, the gaussian basis, max
+     pooling, an atom and a global feature column and a `k_voigt` head
+     beside the tensor (task weights 1.0 / 0.5), on the flagship crystals
+     with seeded features, `k_voigt` and target weights (8 all-padding
+     graphs): its 4 conv plans beside the production ones, K1 (item pass
+     and partial-row sum), the merged backward and the dx sum at them
+     against their plain versions, two runs bitwise equal; the forward
+     (both outputs) and one step's gradients of the weighted two-task loss
+     against `force_plain()`, all finite; a few Adam steps with 4 launches
+     of each counter per step; per-layer times against plain and bound;
+ 19. fit, variants, the ninth main path: `train_materials_tensor.main` on
+     the card with materials_tensor_production.yaml and the variants
+     overrides (the data: both feature columns standardized, `k_voigt`
+     logged and standardized, the tensor scaled by 0.1, weights from a
+     string column), 256 + 64 crystals drawn as in phase 16 with those
+     columns, 3 epochs: exact launches, both tasks' MAE in a finite
+     history; `predict(structures, directory)` refuses the model (it reads
+     feature columns, which structures alone lack; the JAX `predict` fails
+     on it), and the directory's model (`load_pretrained`) on the test
+     batches equals the in-memory best model within 1e-6; the evaluation
+     and the gradients per pad shape against `force_plain()`; epoch times,
+     train edges/s and the setup time.
 The line before the last is the kernels JSON (its times are phase 9's; its
-launches count every main path's run: phases 6, 8, 12-14 and 16-17); the last line is
+launches count every main path's run: phases 6, 8, 12-14 and 16-19); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
 left visible.
@@ -103,8 +126,8 @@ backward / optimizer split, and torch.profiler traces (device ops, device
 busy time, host launches, device time of each kernel), written to DIR; the
 device time per layer of K1, its item pass, the segment sum in both roles
 and index_add_ of the same rows, with the L2 cache warm and flushed; and
-the same train-step profile of the NMR model (each conv kernel's device
-time per layer at its plans).
+the same train-step profile of the NMR model and of the variants model
+(each conv kernel's device time per layer at its plans).
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
@@ -1073,6 +1096,265 @@ def fit_phases(fused_conv, torch, card):
     return {k: elastic[k] + nmr[k] for k in COUNTERS}
 
 
+# phases 18-19: the variants configuration, materials_tensor_production.yaml
+# with every model and data option the port refused before PR 7
+SCALAR = "k_voigt"
+VARIANT_MODEL = dict(normalization="instance", nonlinearity_type="norm", radial_basis_type="gaussian",
+                     reduce="max", use_atom_feats=True, use_global_feats=True,
+                     task_weights={TARGET: 1.0, SCALAR: 0.5})
+SOURCE_WEIGHTS = {"dft": 1.0, "experiment": 2.0}  # the weight column's values -> the crystal's loss weight
+VARIANT_DATA = dict(atom_featurizer="site_feat", global_featurizer="density", normalize_atom_features=True,
+                    normalize_global_features=True, scalar_target_names=[SCALAR], log_scalar_targets=[True],
+                    normalize_scalar_targets=[True], tensor_target_scale=0.1,
+                    tensor_target_weight={"source": SOURCE_WEIGHTS})
+
+
+def variant_hparams():
+    """The model hparams and dataset hand-off of the variants configuration
+    at the production widths, as the materials script builds them (one
+    feature column each: the hand-off's sizes 1 and 1)."""
+    hp = {k: v for k, v in VARIANT_MODEL.items() if k != "task_weights"}
+    return (dict(HPARAMS, **hp, tensor_target_name=TARGET, scalar_target_names=[SCALAR]),
+            dict(DATASET_HPARAMS, atom_feats_size=1, global_feats_size=1))
+
+
+def variant_tasks():
+    from matten_tpu_torch.train import CanonicalRegressionTask
+
+    return [CanonicalRegressionTask(name=n, loss_weight=w, metric_weight=w)
+            for n, w in VARIANT_MODEL["task_weights"].items()]
+
+
+def with_variant_columns(rows, seed):
+    """The fit rows with the variants configuration's columns, drawn from
+    `np.random.default_rng(seed)`: a positive `k_voigt`, one per-atom
+    feature (`site_feat`), one per-crystal feature (`density`) and the
+    string weight column (`source`)."""
+    rng = np.random.default_rng(seed)
+    for row in rows:
+        n = len(row["structure"]["sites"])
+        row.update(k_voigt=float(rng.uniform(50.0, 300.0)), site_feat=rng.normal(size=n).tolist(),
+                   density=float(rng.uniform(2.0, 8.0)), source=str(rng.choice(sorted(SOURCE_WEIGHTS))))
+    return rows
+
+
+def variant_phases(dev, card, torch, check_forward, check_backward, production, structures, targets, sh, src,
+                   dst):
+    """Phase 18: the variants model at full width on the flagship crystals
+    (with seeded feature columns, `k_voigt` and target weights): its 4 conv
+    plans against the production ones, the kernels at them against their
+    plain versions, the forward and one step's gradients against
+    `force_plain()`, a few train steps, per-layer timings. Returns the
+    launches of its main-path runs, and its trainer and batch."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import Trainer, TrainerConfig
+
+    hp, ds_hp = variant_hparams()
+    rng = np.random.default_rng(SEED + 18)
+    graphs = []
+    for s, y in zip(structures, targets):
+        x = {"atom_feats": rng.normal(size=(len(s), 1)), "global_feats": rng.normal(size=(1, 1)),
+             "target_weight": np.asarray([[SOURCE_WEIGHTS[str(rng.choice(sorted(SOURCE_WEIGHTS)))]]])}
+        graphs.append(CrystalGraph.from_structure(s, r_cut=5.0, x=x, y={TARGET: y, SCALAR: rng.normal(size=(1, 1))}))
+    data_np, targets_np = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
+    data, targets_d = batch_to_device(data_np, dev, targets_np)
+    real = data[K.GRAPH_MASK]
+    n_nodes, n_edges = data[K.POSITIONS].shape[0], data[K.EDGE_INDEX].shape[1]
+    model = create_scalar_tensor_model(hp, ds_hp, device=dev, seed=SEED).eval()
+    convs = conv_layers(model)
+
+    def shape(conv):
+        p = conv.uvu_plan
+        return (p.irreps_in1.dim, p.weight_numel, p.irreps_out.dim, len(p.instructions))
+
+    plans = [shape(c) for c in convs]
+    differ = [i for i, (c, q) in enumerate(zip(convs, conv_layers(production))) if shape(c) != shape(q)]
+    print(f"[18 variants batch] {int(real.sum())} real graphs / G={real.shape[0]} ({real.shape[0] - int(real.sum())} "
+          f"all-padding), N={n_nodes}, E={n_edges}; node features {convs[0].irreps_in[K.NODE_FEATURES]} (an "
+          f"embedding of {hp['species_embedding_dim']}, 1 atom and 1 global feature); conv plans d1/dw/dout/paths "
+          + ", ".join(f"L{i} {'/'.join(map(str, q))}" for i, q in enumerate(plans))
+          + f"; differing from production at L{differ}", flush=True)
+
+    # the kernels at the variant plans
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    emask = data[K.EDGE_MASK][:, None].float()
+    layer_inputs, parity = [], []
+    for i, conv in enumerate(convs):
+        plan = conv.uvu_plan
+        x = torch.randn(n_nodes, plan.irreps_in1.dim, generator=gen, device=dev)
+        w = (torch.randn(n_edges, plan.weight_numel, generator=gen, device=dev) * emask).contiguous()
+        g = torch.randn(n_nodes, plan.irreps_out.dim, generator=gen, device=dev)
+        layer_inputs.append((plan, x, w, g))
+        parity.append(f"L{i}: K1 {check_forward(plan, x, w, sh, src, dst, n_nodes)[1]}; "
+                      + check_backward(plan, x, w, g, sh, src, dst, n_nodes))
+
+    # the forward through the kernels and under force_plain
+    def fwd():
+        with torch.inference_mode():
+            return model(data)
+
+    reset_counts(fused_conv)
+    out_k = fwd()
+    launched = counts(fused_conv)
+    with fused_conv.force_plain():
+        out_p = fwd()
+    torch.cuda.synchronize()
+    if launched != {"fwd": len(convs), "fwd_sum": len(convs), "bwd": 0, "dx_sum": 0}:
+        raise AssertionError(f"variants launches per forward {launched}, expected {len(convs)} of K1's two")
+    if counts(fused_conv) != launched:
+        raise AssertionError("the plain variants forward launched a kernel")
+    if sorted(out_k) != sorted([TARGET, SCALAR]) or tuple(out_k[TARGET].shape) != (real.shape[0], 21) \
+            or tuple(out_k[SCALAR].shape) != (real.shape[0], 1):
+        raise AssertionError(f"variants outputs {({k: tuple(v.shape) for k, v in out_k.items()})}")
+    fwd_err = {k: rel_err(out_k[k][real], out_p[k][real]) for k in out_k}
+    if not all(torch.isfinite(v).all() for v in out_k.values()) or not max(fwd_err.values()) <= MODEL_TOL:
+        raise AssertionError(f"the variants forward through the kernels disagrees with plain: {fwd_err}")
+
+    # one step's gradients against a deep copy under force_plain, then Adam steps, counted
+    config = TrainerConfig(lr=0.01, weight_decay=1e-5)
+    trainer = Trainer(create_scalar_tensor_model(hp, ds_hp, device=dev, seed=SEED), variant_tasks(), config,
+                      device=dev)
+    trainer_p = Trainer(copy.deepcopy(trainer.model), variant_tasks(), config, device=dev)
+    loss_k, grads_k = step_grads(trainer, data, targets_d)
+    with fused_conv.force_plain():
+        loss_p, grads_p = step_grads(trainer_p, data, targets_d)
+    if not all(bool(torch.isfinite(g).all()) for g in grads_k.values()):
+        raise AssertionError("a variants gradient is not finite (instance norm over the all-padding graphs?)")
+    grad_err = sorted(((rel_err(grads_k[n], r), n) for n, r in grads_p.items()), reverse=True)
+    if not grad_err[0][0] <= MODEL_TOL:
+        raise AssertionError(f"variants train-step gradients disagree with the plain path: {grad_err[:3]}")
+    trainer_p.model.load_state_dict(trainer.model.state_dict())
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        reset_counts(fused_conv)
+        loss, metric_sums = trainer.train_step(data, targets_d)
+        losses.append(float(loss))
+        step_counts = counts(fused_conv)
+        if any(v != len(convs) for v in step_counts.values()):
+            raise AssertionError(f"launches in one variants train step {step_counts}, expected {len(convs)} of each")
+        launched = {k: launched[k] + v for k, v in step_counts.items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"variants train losses not finite: {losses}")
+    maes = {n: float(s) / float(c) for n, (s, c) in metric_sums.items()}
+
+    # per-layer timings, kernel against plain, beside the bound
+    layer_ms, bounds = {"fwd": [], "bwd": []}, {"fwd": [], "bwd": []}
+    edges = fused_conv.edge_plan(src, dst, n_nodes, n_nodes)
+    for plan, x, w, g in layer_inputs:
+        with torch.no_grad():
+            layer_ms["fwd"].append(interleaved(
+                functools.partial(fused_conv.fused_uvu_conv, plan, x, sh, w, src, dst, n_nodes, edges),
+                lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
+            layer_ms["bwd"].append(interleaved(
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst),
+                lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes), torch))
+        work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items)
+        for kind in bounds:
+            bounds[kind].append(bound_ms(*work[kind]))
+    print(f"[18 variants kernels and gradients] {card}: max|d|/max|ref| (tol {KERNEL_TOL}), two runs bitwise "
+          "equal: " + "; ".join(parity)
+          + f"; forward through the kernels vs plain (tol {MODEL_TOL}): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in fwd_err.items())
+          + f"; one step's gradients (loss {loss_k:.6f} vs {loss_p:.6f} plain, {len(grad_err)} parameters, all "
+          "finite) worst: " + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:3]) + f" (tol {MODEL_TOL}); "
+          f"{TRAIN_STEPS} Adam steps: losses {', '.join(f'{l:.6f}' for l in losses)}, last MAE "
+          + ", ".join(f"{n} {m:.6f}" for n, m in maes.items())
+          + f"; launches {launched} ({len(convs)} of K1's two per forward, {len(convs)} of each per step); "
+          "median ms per layer "
+          "L0 / L1 / L2 / L3, kernel vs plain: " + "; ".join(
+              f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f}" for k, p in layer_ms[kind]) for kind in layer_ms)
+          + "; bound ms per layer: " + "; ".join(
+              f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
+          + f"; K1 items {edges.n_items}", flush=True)
+    return launched, trainer, (data, targets_d)
+
+
+def variants_fit_phase(fused_conv, torch, card):
+    """Phase 19: `train_materials_tensor.main` on the card with the variants
+    configuration, from data files with its columns; exact launches, both
+    tasks' MAE in a finite history, the checkpoint directory (`predict`
+    from structures refuses a model that reads feature columns, as the JAX
+    `predict` fails on it; the directory's model, `load_pretrained`, on the
+    test batches equal to the in-memory best model), and the kernels
+    against their plain versions at the fit's batches. Returns the launches."""
+    from matten_tpu_torch.data.structure import Structure
+    from matten_tpu_torch.predict import batch_to_device, load_pretrained, predict
+    from matten_tpu_torch.scripts import train_materials_tensor
+    from matten_tpu_torch.utils.config_yaml import load_config
+
+    label = "19 fit, variants"
+    convs = HPARAMS["num_layers"] + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train = with_variant_columns(fit_rows(4, FIT_TRAIN), 40)
+        val = with_variant_columns(fit_rows(5, FIT_VAL), 50)
+        write_records(tmp / "train.json", train)
+        write_records(tmp / "val.json", val)
+        config = load_config(CONFIGS / "materials_tensor_production.yaml")
+        config["model"].update(VARIANT_MODEL)
+        config["data"].update(VARIANT_DATA, root=str(tmp), trainset_filename="train.json",
+                              valset_filename="val.json", testset_filename="val.json")
+        config["trainer"].update(max_epochs=FIT_EPOCHS, checkpoint_dir=str(tmp / "variants_ckpt"))
+        config["restore"] = False
+        ckpt = Path(config["trainer"]["checkpoint_dir"])
+        batch = config["data"]["loader_kwargs"]["batch_size"]
+        metrics, trainer, setup_s, launched = run_script(train_materials_tensor, config, fused_conv, torch)
+        expect = fit_expected(convs, FIT_EPOCHS, FIT_TRAIN, FIT_VAL, FIT_VAL, batch)
+        if launched != expect:
+            raise AssertionError(f"{label}: launches {launched}, expected {expect}")
+        history = trainer.history
+        maes = [f"val/mae/{TARGET}", f"val/mae/{SCALAR}"]
+        if [h["epoch"] for h in history] != list(range(FIT_EPOCHS)) or not all(m in h for h in history for m in maes):
+            raise AssertionError(f"{label}: history {history}")
+        values = [h[k] for h in history for k in ("train/loss", "val/loss", "val/score", *maes)]
+        if not all(np.isfinite(values + list(metrics.values()))) or f"mae/{SCALAR}" not in metrics:
+            raise AssertionError(f"{label}: history or test metrics not finite or incomplete: {history} {metrics}")
+        weights = [g.x["target_weight"][0, 0] for g in trainer.datamodule.graphs["train"]]
+        (e_err, e_name), (g_err, g_name), shapes = fit_against_plain(label, trainer, convs, fused_conv, torch)
+
+        # the directory: predict from structures refuses the feature model;
+        # its model on the test batches equals the in-memory best model
+        structures = [Structure.from_dict(r["structure"]) for r in val[:4]]
+        try:
+            predict(structures, ckpt)
+        except ValueError as e:
+            if "feature columns" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{label}: predict(structures, directory) served a model that reads features")
+        disk, _, _, _ = load_pretrained(ckpt)
+        reset_counts(fused_conv)
+        err = 0.0
+        with torch.inference_mode():
+            for d, _ in trainer.datamodule.test_dataloader():
+                d = batch_to_device(d, trainer.device)
+                a, b = disk(d), trainer.model.eval()(d)
+                err = max([err] + [rel_err(a[k], b[k]) for k in b])
+        torch.cuda.synchronize()
+        served = counts(fused_conv)
+        if served["fwd"] == 0 or not err <= 1e-6:
+            raise AssertionError(f"{label}: the directory's model against the in-memory one: {err}, launches {served}")
+    print(f"[{label}] {card}: train_materials_tensor.main on the card with materials_tensor_production.yaml and "
+          f"the overrides model {json.dumps(VARIANT_MODEL)}, data {json.dumps(VARIANT_DATA)}; {FIT_TRAIN} train / "
+          f"{FIT_VAL} val / {FIT_VAL} test crystals, batch {batch}, {FIT_EPOCHS} epochs (train weights "
+          f"{sorted(set(map(float, weights)))}): epoch times after the first (s) "
+          + ", ".join(f"{h['epoch_time']:.4f}" for h in history[1:])
+          + "; train edges/s " + ", ".join(f"{h['train/edges_per_s']:.1f}" for h in history[1:])
+          + f" (epoch 0: {history[0]['epoch_time']:.4f} s); setup to fit {setup_s:.4f} s; val MAE per epoch "
+          + "; ".join(", ".join(f"{m.split('/')[-1]} {h[m]:.6g}" for m in maes) for h in history)
+          + f"; test {json.dumps(metrics)}; launches {launched} (expected); predict(structures, directory) refuses "
+          f"the feature model; the directory's model on the test batches against the in-memory best model: "
+          f"max|d|/max|ref| {err:.3e} (tol 1e-6), launches {served}; against the plain versions at the fit batches: "
+          f"evaluation worst {e_name} {e_err:.3e} (tol {FIT_EVAL_TOL}), gradients on the first batch of each of "
+          f"the {len(shapes)} pad shapes {shapes} worst {g_name} {g_err:.3e} (tol {MODEL_TOL})", flush=True)
+    return {k: launched[k] + served[k] for k in COUNTERS}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
@@ -1401,11 +1683,17 @@ def main() -> int:
     # 16-17. both train scripts from data files, on the card
     fitted = fit_phases(fused_conv, torch, card)
 
+    # 18-19. the variants configuration: its kernels and gradients, then its fit
+    variants, variant_trainer, variant_batch = variant_phases(
+        dev, card, torch, check_forward, check_backward, model, structures, target_rows, sh, src, dst)
+    variants_fit = variants_fit_phase(fused_conv, torch, card)
+
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
         print(profile_sums(sum_inputs, args.profile / "sums", torch), flush=True)
         print(profile_train(nmr_trainer, nmr_batch, args.profile, torch, name="nmr_train"), flush=True)
+        print(profile_train(variant_trainer, variant_batch, args.profile, torch, name="variants_train"), flush=True)
 
     sources = {"fwd": "matten_tpu_torch/kernels/csrc/fused_conv.cu",
                "fwd_sum": "matten_tpu_torch/kernels/csrc/segment_sum.cu",
@@ -1423,7 +1711,7 @@ def main() -> int:
                "dx_sum": sum(library_ms["dx_sum"])}
     kernels = []
     for kind in COUNTERS:
-        launched = served[kind] + trained[kind] + nmr[kind] + fitted[kind]
+        launched = served[kind] + trained[kind] + nmr[kind] + fitted[kind] + variants[kind] + variants_fit[kind]
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
         kernels.append({

@@ -10,8 +10,10 @@ position (`layers_0`, `layers_1`, ...), which maps onto the port's
 one model entry of the same shape and every entry must be filled, so a
 shifted layer index (e.g. the DEBUG-level anomaly layers the JAX factory
 interleaves) fails loudly instead of loading wrong weights. Both model
-families convert: the graph-level tree ends in the head's `w_out`, the
-per-atom tree in the backbone's NodewiseLinear head.
+families convert: the graph-level tree ends in the head's `w_out` (and, for
+a multi-task model, one `w_{name}` per scalar head beside it), the per-atom
+tree in the backbone's NodewiseLinear head; an instance norm's `weight` and
+`bias` sit under its conv layer's `norm`, as a batch norm's do.
 
 `convert_checkpoint` turns a model trained with the JAX package into a
 checkpoint directory of the port, which `predict(structures, directory)`

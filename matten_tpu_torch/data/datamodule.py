@@ -74,7 +74,8 @@ class BatchLoader:
         if node_chunk not in (None, "auto"):
             raise ValueError(
                 f"node_chunk={node_chunk!r} selects the JAX package's chunk-aligned "
-                "TPU layout; this loader takes None or 'auto' (no chunking)"
+                "TPU layout; this loader takes None or 'auto' (no chunking); the JAX "
+                "loader's other layouts are ROADMAP item 6"
             )
         self.graphs = graphs
         self.batch_size = batch_size
@@ -251,10 +252,12 @@ class BatchLoader:
 class TensorDataModule:
     """Train/val/test datasets + statistics + loaders.
 
-    Takes the `data` section of a train config. Targets are irreps tensors
-    (`tensor_target_format` "irreps", scale 1, no target weights, no scalar
-    targets): the options of the JAX module beyond those raise
-    `NotImplementedError`, as the port's dataset reader has none of them."""
+    Takes the `data` section of a train config: the tensor target as irreps
+    or flat Cartesian components, scaled, optionally normalized (irreps
+    only), with per-crystal weights; scalar targets, optionally logged and
+    standardized; atom and global feature columns, optionally standardized.
+    The sharded layouts (`num_shards` other than 1) raise
+    `NotImplementedError`."""
 
     # loader_kwargs keys forwarded verbatim to BatchLoader
     _LOADER_PASSTHROUGH = (
@@ -295,17 +298,6 @@ class TensorDataModule:
         seed: int = 0,
         num_shards: int = 1,
     ):
-        unported = {
-            "tensor_target_format": tensor_target_format != "irreps",
-            "tensor_target_scale": tensor_target_scale != 1.0,
-            "tensor_target_weight": bool(tensor_target_weight),
-            "scalar_target_names": bool(scalar_target_names),
-            "log_scalar_targets": any(log_scalar_targets or ()),
-            "normalize_scalar_targets": any(normalize_scalar_targets or ()),
-        }
-        for k, bad in unported.items():
-            if bad:
-                raise NotImplementedError(f"data option {k} is not ported yet")
         if num_shards != 1:
             raise NotImplementedError(
                 f"num_shards={num_shards}: the sharded batch layouts are not ported "
@@ -319,11 +311,20 @@ class TensorDataModule:
                 return (spec,)
             return tuple(spec)
 
+        if normalize_tensor_target and tensor_target_format != "irreps":
+            # the JAX module's statistics have no normalizer of Cartesian
+            # targets either: its setup fails on the missing normalizer
+            raise ValueError("normalize_tensor_target needs tensor_target_format: irreps")
         self.cfg = TensorDatasetConfig(
             r_cut=r_cut,
             tensor_target_name=tensor_target_name,
+            tensor_target_format=tensor_target_format,
             tensor_target_formula=tensor_target_formula,
+            tensor_target_scale=tensor_target_scale,
             atom_selector=atom_selector,
+            scalar_target_names=tuple(scalar_target_names or ()),
+            log_scalar_targets=tuple(log_scalar_targets or ()),
+            tensor_target_weight=tensor_target_weight,
             atom_feats_columns=_cols(atom_featurizer),
             global_feats_columns=_cols(global_featurizer),
         )
@@ -332,6 +333,7 @@ class TensorDataModule:
         self.root = Path(root)
         self.filenames = dict(train=trainset_filename, val=valset_filename, test=testset_filename)
         self.normalize_tensor_target = normalize_tensor_target
+        self.normalize_scalar_targets = normalize_scalar_targets
         self.reuse = reuse
         self.compute_dataset_statistics = compute_dataset_statistics
         self.loader_kwargs = dict(loader_kwargs or {})
@@ -344,12 +346,14 @@ class TensorDataModule:
     def _cache_path(self, fname: str) -> Path:
         """Processed-graph cache: `processed/<stem>_<hash>.pkl` under the
         root, the hash over this package's tag, the file name and the
-        dataset options (the JAX package's cache in the same root has
-        another hash and is never read)."""
+        dataset options the graphs are read with (the JAX package's cache
+        in the same root has another hash and is never read)."""
         cfg = self.cfg
         key = hashlib.md5(
-            f"{_CACHE_TAG}|{fname}|{cfg.r_cut}|{cfg.tensor_target_name}|{cfg.tensor_target_formula}|"
-            f"{cfg.atom_selector}|{cfg.atom_feats_columns}|{cfg.global_feats_columns}".encode()
+            f"{_CACHE_TAG}|{fname}|{cfg.r_cut}|{cfg.tensor_target_name}|{cfg.tensor_target_format}|"
+            f"{cfg.tensor_target_formula}|{cfg.atom_selector}|{cfg.scalar_target_names}|"
+            f"{cfg.log_scalar_targets}|{cfg.tensor_target_scale}|{cfg.tensor_target_weight}|"
+            f"{cfg.atom_feats_columns}|{cfg.global_feats_columns}".encode()
         ).hexdigest()[:12]
         return self.root / "processed" / f"{Path(fname).stem}_{key}.pkl"
 
@@ -383,6 +387,13 @@ class TensorDataModule:
             for split in self.graphs:
                 for g in self.graphs[split]:
                     g.y[name] = np.asarray(tn.forward(g.y[name]))
+        for name, do in zip(self.cfg.scalar_target_names, self.normalize_scalar_targets or ()):
+            if not do:
+                continue
+            sn = self.statistics.scalar_normalizers[name]
+            for split in self.graphs:
+                for g in self.graphs[split]:
+                    g.y[name] = np.asarray(sn.forward(np.atleast_2d(g.y[name])))
         # feature normalization with the train-set statistics
         for name, do in (
             ("atom_feats", self.normalize_atom_features),

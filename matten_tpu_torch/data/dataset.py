@@ -8,11 +8,12 @@ table written by `pandas.DataFrame.to_json`, either in its default layout
 and target columns — a rank-k Cartesian tensor per crystal (e.g.
 `elastic_tensor_full`, 3x3x3x3) or per selected atom (e.g. `nmr_tensor`,
 [num_selected, 3, 3] + an `atom_selector` boolean column), plus optional
-feature columns. Targets are read in the irreps format; the JAX package's
-scalar targets, Cartesian target format, target scale and target weights
-are not ported. `read_table` gives the rows in pandas'
-row order and reads every number as `pandas.read_json` does by default, so
-a file gives the same arrays here as in the JAX package.
+scalar target columns (optionally log-transformed), feature columns and a
+column whose values pick each crystal's target weight. The tensor target is
+read as irreps or as the flat Cartesian components, times a scale.
+`read_table` gives the rows in pandas' row order and reads every number as
+`pandas.read_json` does by default, so a file gives the same arrays here as
+in the JAX package.
 
 Per-atom targets are scattered into dense per-node arrays with the selector
 beside them; rows whose conversion fails are recorded and skipped.
@@ -42,8 +43,15 @@ __all__ = ["TensorDatasetConfig", "load_tensor_dataset", "DatasetStatistics", "r
 class TensorDatasetConfig:
     r_cut: float = 5.0
     tensor_target_name: Optional[str] = "elastic_tensor_full"
+    tensor_target_format: str = "irreps"  # "irreps" | "cartesian" (flat components)
     tensor_target_formula: str = "ijkl=jikl=klij"
+    tensor_target_scale: float = 1.0
     atom_selector: Optional[str] = None  # column name of per-atom selector
+    scalar_target_names: Tuple[str, ...] = ()
+    log_scalar_targets: Tuple[bool, ...] = ()
+    # {column: {value: weight}}: each crystal's loss weight, picked by its
+    # value in the column, into x["target_weight"]
+    tensor_target_weight: Optional[Dict[str, Dict[Any, float]]] = None
     # precomputed feature columns: each atom-feature column holds an
     # [N_atom, f] (or [N_atom]) array per row, each global column one
     # scalar/vector per crystal; concatenated feature-wise into
@@ -120,12 +128,17 @@ def read_table(filename) -> List[Dict[str, Any]]:
     return [{c: col.get(k, float("nan")) for c, col in table.items()} for k in keys]
 
 
-def _convert_target(cmap, t) -> np.ndarray:
-    """Cartesian tensor(s) -> irreps vectors; the same numpy float64
-    product as the JAX package's `from_cartesian`."""
+def _convert_target(cfg: TensorDatasetConfig, cmap, t) -> np.ndarray:
+    """Cartesian tensor(s) -> irreps vectors (the same numpy float64
+    product as the JAX package's `from_cartesian`), or flat Cartesian
+    components, one row per tensor."""
     t = np.asarray(t, dtype=np.float64)
     flat = t.reshape(t.shape[: t.ndim - cmap.rank] + (3**cmap.rank,))
-    return np.atleast_2d(flat @ cmap.basis.T)
+    if cfg.tensor_target_format == "irreps":
+        return np.atleast_2d(flat @ cmap.basis.T)
+    if cfg.tensor_target_format == "cartesian":
+        return flat.reshape(-1, 3**cmap.rank)
+    raise ValueError(f"unsupported tensor_target_format {cfg.tensor_target_format!r}")
 
 
 def load_tensor_dataset(
@@ -154,7 +167,8 @@ def load_tensor_dataset(
     graphs: List[CrystalGraph] = []
     failed: List[int] = []
     cmap = cartesian_tensor_map(cfg.tensor_target_formula)
-    tdim = cmap.irreps.dim
+    tdim = cmap.irreps.dim if cfg.tensor_target_format == "irreps" else 3**cmap.rank
+    log_scalars = cfg.log_scalar_targets or (False,) * len(cfg.scalar_target_names)
     for i, row in enumerate(rows):
         try:
             struct: Structure = row["structure"]
@@ -165,7 +179,7 @@ def load_tensor_dataset(
                 if dummy_targets:
                     raw = np.zeros((n, tdim)) if cfg.per_atom else np.zeros((1, tdim))
                 else:
-                    raw = _convert_target(cmap, row[cfg.tensor_target_name])
+                    raw = _convert_target(cfg, cmap, row[cfg.tensor_target_name]) * cfg.tensor_target_scale
                 if cfg.per_atom:
                     sel = (
                         np.asarray(row[cfg.atom_selector], dtype=bool)
@@ -183,6 +197,12 @@ def load_tensor_dataset(
                     y["atom_selector"] = sel
                 else:
                     y[cfg.tensor_target_name] = raw.reshape(1, tdim)
+            for name, do_log in zip(cfg.scalar_target_names, log_scalars):
+                v = np.atleast_2d(np.asarray(row[name], dtype=np.float64))
+                y[name] = np.log(v) if do_log else v
+            if cfg.tensor_target_weight and not dummy_targets:
+                ((col, table),) = cfg.tensor_target_weight.items()
+                x["target_weight"] = np.asarray([[table[row[col]]]])
             if cfg.atom_feats_columns:
                 af = np.concatenate(
                     [np.asarray(row[c], dtype=np.float64).reshape(n, -1) for c in cfg.atom_feats_columns],
@@ -211,12 +231,14 @@ def load_tensor_dataset(
 @dataclass
 class DatasetStatistics:
     """Training-set statistics that travel with the checkpoint: the target
-    normalizer and the dataset -> model hand-off (allowed species, average
+    normalizers and the dataset -> model hand-off (allowed species, average
     number of neighbours)."""
 
     allowed_species: Tuple[int, ...] = ()
     average_num_neighbors: float = 1.0
     target_normalizer: Optional[MeanNormNormalize] = None
+    # per scalar target: its standardizer
+    scalar_normalizers: Dict[str, ScalarNormalize] = field(default_factory=dict)
     # per-column standardizers of precomputed atom/global features
     feature_normalizers: Dict[str, ScalarNormalize] = field(default_factory=dict)
 
@@ -227,13 +249,14 @@ class DatasetStatistics:
         cfg: TensorDatasetConfig,
         normalize_tensor_target: bool = False,
     ) -> "DatasetStatistics":
-        """The statistics of a training set. The target normalizer is
-        computed whether or not `normalize_tensor_target` applies it (the
-        metrics read it either way)."""
+        """The statistics of a training set. The target normalizer (of
+        irreps targets only) and the scalar normalizers are computed whether
+        or not the data module applies them (the metrics read them either
+        way)."""
         zs = sorted({int(z) for g in graphs for z in g.atomic_numbers})
         avg_nn = float(np.mean(np.concatenate([g.num_neigh for g in graphs])))
         tnorm = None
-        if cfg.tensor_target_name:
+        if cfg.tensor_target_name and cfg.tensor_target_format == "irreps":
             if cfg.per_atom:
                 data = np.concatenate(
                     [g.y[cfg.tensor_target_name][g.y["atom_selector"]] for g in graphs]
@@ -242,6 +265,12 @@ class DatasetStatistics:
                 data = np.concatenate([g.y[cfg.tensor_target_name] for g in graphs])
             tnorm = MeanNormNormalize(irreps=cfg.target_irreps)
             tnorm.compute_statistics(data)
+        scalar_norms: Dict[str, ScalarNormalize] = {}
+        for name in cfg.scalar_target_names:
+            vals = np.concatenate([np.atleast_2d(g.y[name]) for g in graphs])
+            sn = ScalarNormalize(num_features=vals.shape[-1])
+            sn.compute_statistics(vals)
+            scalar_norms[name] = sn
         feat_norms: Dict[str, ScalarNormalize] = {}
         for name in ("atom_feats", "global_feats"):
             if graphs and name in graphs[0].x:
@@ -253,6 +282,7 @@ class DatasetStatistics:
             allowed_species=tuple(zs),
             average_num_neighbors=avg_nn,
             target_normalizer=tnorm,
+            scalar_normalizers=scalar_norms,
             feature_normalizers=feat_norms,
         )
 
@@ -265,6 +295,9 @@ class DatasetStatistics:
         if self.target_normalizer is not None and self.target_normalizer.initialized:
             out["target_mean"] = self.target_normalizer.mean
             out["target_norm"] = self.target_normalizer.norm
+        for k, sn in self.scalar_normalizers.items():
+            out[f"scalar_{k}_mean"] = sn.mean
+            out[f"scalar_{k}_std"] = sn.std
         for k, fn in self.feature_normalizers.items():
             out[f"feat_{k}_mean"] = fn.mean
             out[f"feat_{k}_std"] = fn.std
@@ -281,20 +314,20 @@ class DatasetStatistics:
                 mean=np.asarray(arrays["target_mean"]),
                 norm=np.asarray(arrays["target_norm"]),
             )
-        feat_norms: Dict[str, ScalarNormalize] = {}
+        norms: Dict[str, Dict[str, ScalarNormalize]] = {"scalar_": {}, "feat_": {}}
         for k in arrays:
-            if k.startswith("scalar_"):
-                raise NotImplementedError(f"statistics of scalar targets ({k}) are not ported")
-            if k.startswith("feat_") and k.endswith("_mean"):
-                name = k[len("feat_") : -len("_mean")]
-                mean = np.asarray(arrays[k])
-                std = np.asarray(arrays[f"feat_{name}_std"])
-                feat_norms[name] = ScalarNormalize(num_features=mean.shape[-1], mean=mean, std=std)
+            for prefix, found in norms.items():
+                if k.startswith(prefix) and k.endswith("_mean"):
+                    name = k[len(prefix) : -len("_mean")]
+                    mean = np.asarray(arrays[k])
+                    std = np.asarray(arrays[f"{prefix}{name}_std"])
+                    found[name] = ScalarNormalize(num_features=mean.shape[-1], mean=mean, std=std)
         return cls(
             allowed_species=tuple(int(z) for z in np.asarray(arrays["allowed_species"])),
             average_num_neighbors=float(arrays["average_num_neighbors"]),
             target_normalizer=tnorm,
-            feature_normalizers=feat_norms,
+            scalar_normalizers=norms["scalar_"],
+            feature_normalizers=norms["feat_"],
         )
 
     def save(self, path) -> None:

@@ -6,7 +6,8 @@ Counterpart of `matten_tpu/models/tfn.py`, both model families:
   -> num_layers x PointConvWithActivation -> PointConv
   -> NodewiseLinear head
   -> graph-level `ScalarTensorModel`: NodewiseReduce pooling, then an
-     equivariant Linear head into the irreps of `output_formula`;
+     equivariant Linear head into the irreps of `output_formula`, and with
+     `scalar_target_names` one 0e Linear head per scalar target beside it;
      per-atom `AtomicTensorModel`: the NodewiseLinear head maps straight
      into those irreps (one row per node, no pooling).
 
@@ -16,7 +17,7 @@ model is then moved to `device`, the card unless the caller passes another.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -42,20 +43,12 @@ def _resolve_avg_num_neighbors(hparams, dataset_hparams) -> Optional[float]:
 
 
 def _check_supported(hparams: Dict[str, Any]) -> None:
-    """Reject settings whose modules the port does not have yet."""
-    unsupported = {
-        "use_atom_feats": hparams.get("use_atom_feats", False),
-        "use_global_feats": hparams.get("use_global_feats", False),
-        "graph_parallel_axis": hparams.get("graph_parallel_axis", None),
-        "scalar_target_names": tuple(hparams.get("scalar_target_names", ()) or ()),
-    }
-    for k, v in unsupported.items():
-        if v:
-            raise NotImplementedError(f"hparam {k}={v!r} is not ported yet")
-    if hparams.get("nonlinearity_type", "gate") != "gate":
-        raise NotImplementedError("only the gate nonlinearity is ported")
-    if hparams.get("radial_basis_type", "bessel") != "bessel":
-        raise NotImplementedError("only the bessel radial basis is ported")
+    """Reject graph parallelism, which the port does not have yet."""
+    if hparams.get("graph_parallel_axis", None):
+        raise NotImplementedError(
+            f"hparam graph_parallel_axis={hparams['graph_parallel_axis']!r}: graph "
+            "parallelism is not ported yet (ROADMAP item 6)"
+        )
 
 
 def create_tfn_backbone(
@@ -74,6 +67,10 @@ def create_tfn_backbone(
         allowed_species=dataset_hparams["allowed_species"],
         embedding_dim=hparams.get("species_embedding_dim", 16),
         generator=generator,
+        use_atom_feats=hparams.get("use_atom_feats", False),
+        atom_feats_dim=dataset_hparams.get("atom_feats_size") or 0,
+        use_global_feats=hparams.get("use_global_feats", False),
+        global_feats_dim=dataset_hparams.get("global_feats_size") or 0,
     )
     layers.append(m)
     m = SphericalHarmonicEdgeAttrs(
@@ -87,6 +84,7 @@ def create_tfn_backbone(
         num_basis=hparams.get("num_radial_basis", 8),
         start=hparams.get("radial_basis_start", 0.0),
         end=hparams.get("radial_basis_end", 5.0),
+        basis=hparams.get("radial_basis_type", "bessel"),
     )
     layers.append(m)
 
@@ -102,6 +100,7 @@ def create_tfn_backbone(
             m.irreps_out,
             conv_irreps,
             generator,
+            activation_type=hparams.get("nonlinearity_type", "gate"),
             normalization=hparams.get("normalization", None),
             **fc,
         )
@@ -126,7 +125,9 @@ def _target_irreps(formula: str) -> Irreps:
 class ScalarTensorModel(torch.nn.Module):
     """Graph-level scalar/tensor prediction: backbone + equivariant Linear
     head into the target irreps ([num_graphs, dim]), optional Cartesian
-    readout."""
+    readout. With `scalar_target_names`, one 0e Linear head `w_{name}` per
+    scalar target reads the same pooled features and the model returns
+    {tensor_target_name: tensor, name: [num_graphs, 1], ...}."""
 
     def __init__(
         self,
@@ -135,20 +136,32 @@ class ScalarTensorModel(torch.nn.Module):
         generator: torch.Generator,
         output_formula: str = "ijkl=jikl=klij",
         output_format: str = "irreps",
+        tensor_target_name: str = "elastic_tensor_full",
+        scalar_target_names: Sequence[str] = (),
     ):
         super().__init__()
         self.backbone = backbone
         self.output_formula = output_formula
         self.output_format = output_format
+        self.tensor_target_name = tensor_target_name
+        self.scalar_target_names = tuple(scalar_target_names)
         self.plan = LinearPlan(Irreps(hidden_irreps), _target_irreps(output_formula))
         self.w_out = normal_parameter(self.plan.weight_numel, generator)
+        self.scalar_plan = LinearPlan(Irreps(hidden_irreps), Irreps("0e"))
+        for name in self.scalar_target_names:
+            self.register_parameter(f"w_{name}", normal_parameter(self.scalar_plan.weight_numel, generator))
 
-    def forward(self, data: Dict[str, torch.Tensor]) -> torch.Tensor:
-        data = self.backbone(data)
-        out = self.plan.apply(data[OUT_FIELD], self.w_out)
+    def forward(self, data: Dict[str, torch.Tensor]) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        x = self.backbone(data)[OUT_FIELD]
+        out = self.plan.apply(x, self.w_out)
         if self.output_format == "cartesian" and self.output_formula != "scalar":
             out = cartesian_tensor_map(self.output_formula).to_cartesian(out)
-        return out
+        if not self.scalar_target_names:
+            return out
+        preds = {self.tensor_target_name: out}
+        for name in self.scalar_target_names:
+            preds[name] = self.scalar_plan.apply(x, getattr(self, f"w_{name}"))
+        return preds
 
 
 class AtomicTensorModel(torch.nn.Module):
@@ -193,6 +206,8 @@ def create_scalar_tensor_model(
         generator,
         output_formula=hparams.get("output_formula", "ijkl=jikl=klij").lower(),
         output_format=hparams.get("output_format", "irreps"),
+        tensor_target_name=hparams.get("tensor_target_name", "elastic_tensor_full"),
+        scalar_target_names=tuple(hparams.get("scalar_target_names", ()) or ()),
     )
     return model.to(device)
 

@@ -21,8 +21,8 @@ from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.kernels.fused_conv import edge_plan, fused_uvu_conv
 from matten_tpu_torch.nn.common import check_required, merge_irreps, normal_parameter
-from matten_tpu_torch.nn.gate import ActivationInfo, Gate
-from matten_tpu_torch.nn.norm import IrrepsBatchNorm
+from matten_tpu_torch.nn.gate import ActivationInfo
+from matten_tpu_torch.nn.norm import IrrepsBatchNorm, IrrepsInstanceNorm
 from matten_tpu_torch.nn.radial import ScalarMLP
 from matten_tpu_torch.ops.tensor_product import (
     TensorProductPlan,
@@ -144,7 +144,8 @@ class PointConv(torch.nn.Module):
 
 
 class PointConvWithActivation(torch.nn.Module):
-    """conv -> gate activation -> (batch | none) normalization -> node mask."""
+    """conv -> gate or norm activation -> (batch | instance | none)
+    normalization -> node mask."""
 
     def __init__(
         self,
@@ -154,16 +155,18 @@ class PointConvWithActivation(torch.nn.Module):
         fc_num_hidden_layers: int = 1,
         fc_hidden_size: int = 8,
         avg_num_neighbors: Optional[float] = None,
+        activation_type: str = "gate",
         normalization: Optional[str] = None,
     ):
         super().__init__()
-        if normalization not in (None, "none", "batch"):
+        if normalization not in (None, "none", "batch", "instance"):
             raise ValueError(f"unsupported normalization {normalization!r}")
         self.irreps_in = dict(irreps_in)
         info = ActivationInfo(
             Irreps(self.irreps_in[K.NODE_FEATURES]),
             Irreps(self.irreps_in[K.EDGE_ATTRS]),
             Irreps(conv_layer_irreps),
+            activation_type=activation_type,
         )
         self.irreps_out = merge_irreps(self.irreps_in, {K.NODE_FEATURES: info.irreps_out})
         self.conv = PointConv(
@@ -174,14 +177,22 @@ class PointConvWithActivation(torch.nn.Module):
             fc_hidden_size=fc_hidden_size,
             avg_num_neighbors=avg_num_neighbors,
         )
-        self.gate = Gate(info)
-        self.norm = IrrepsBatchNorm(info.irreps_out) if normalization == "batch" else None
+        self.activation = info.make()
+        if normalization == "batch":
+            self.norm = IrrepsBatchNorm(info.irreps_out)
+        elif normalization == "instance":
+            self.norm = IrrepsInstanceNorm(info.irreps_out)
+        else:
+            self.norm = None
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = self.conv(data)
-        x = self.gate(data[K.NODE_FEATURES])
+        x = self.activation(data[K.NODE_FEATURES])
         mask = data.get(K.NODE_MASK)
-        if self.norm is not None:
+        if isinstance(self.norm, IrrepsInstanceNorm):
+            num_graphs = data[K.CELL].reshape(-1, 3, 3).shape[0]
+            x = self.norm(x, data[K.BATCH], num_graphs, mask=mask)
+        elif self.norm is not None:
             x = self.norm(x, mask=mask)
         if mask is not None:
             x = x * mask[:, None].to(x.dtype)

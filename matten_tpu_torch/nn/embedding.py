@@ -14,7 +14,7 @@ from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps
 from matten_tpu_torch.nn.edge_geometry import with_edge_vectors
-from matten_tpu_torch.nn.radial import bessel_basis
+from matten_tpu_torch.nn.radial import bessel_basis, gaussian_basis, gaussian_centers
 
 
 def atomic_number_map(allowed_species: Sequence[int]) -> np.ndarray:
@@ -30,7 +30,10 @@ def atomic_number_map(allowed_species: Sequence[int]) -> np.ndarray:
 class SpeciesEmbedding(torch.nn.Module):
     """Atomic number -> one-hot node_attrs [N, S] and node_features =
     Linear(node_attrs) [N, D] (with bias). Padded nodes get an all-zero
-    one-hot through the node mask."""
+    one-hot through the node mask. With `use_atom_feats` the batch's
+    per-node `atom_feats` [N, A] are concatenated to the features, with
+    `use_global_feats` its per-crystal `global_feats` [G, F], gathered per
+    node by `batch` and zeroed on padded nodes: features [N, D + A + F]."""
 
     def __init__(
         self,
@@ -38,16 +41,26 @@ class SpeciesEmbedding(torch.nn.Module):
         allowed_species: Sequence[int],
         embedding_dim: int,
         generator: torch.Generator,
+        use_atom_feats: bool = False,
+        atom_feats_dim: int = 0,
+        use_global_feats: bool = False,
+        global_feats_dim: int = 0,
     ):
         super().__init__()
         self.allowed_species = tuple(int(z) for z in allowed_species)
         self.num_species = len(self.allowed_species)
+        self.use_atom_feats, self.use_global_feats = bool(use_atom_feats), bool(use_global_feats)
+        feats_dim = (
+            embedding_dim
+            + (atom_feats_dim if self.use_atom_feats else 0)
+            + (global_feats_dim if self.use_global_feats else 0)
+        )
         self.irreps_in = dict(irreps_in)
         self.irreps_out = merge_irreps(
             self.irreps_in,
             {
                 K.NODE_ATTRS: Irreps(f"{self.num_species}x0e"),
-                K.NODE_FEATURES: Irreps(f"{embedding_dim}x0e"),
+                K.NODE_FEATURES: Irreps(f"{feats_dim}x0e"),
             },
         )
         self.linear = torch.nn.Linear(self.num_species, embedding_dim)
@@ -75,31 +88,60 @@ class SpeciesEmbedding(torch.nn.Module):
         idx = idx.clamp(0, self.num_species - 1)
         dtype = data[K.POSITIONS].dtype
         attrs = torch.nn.functional.one_hot(idx, self.num_species).to(dtype)
-        if K.NODE_MASK in data:
-            attrs = attrs * data[K.NODE_MASK][:, None].to(dtype)
+        mask = data.get(K.NODE_MASK)
+        if mask is not None:
+            attrs = attrs * mask[:, None].to(dtype)
+        feats = [self.linear(attrs)]
+        if self.use_atom_feats:
+            feats.append(data[K.ATOM_FEATS].to(dtype))
+        if self.use_global_feats:
+            per_node = data[K.GLOBAL_FEATS][data[K.BATCH].long()].to(dtype)
+            if mask is not None:
+                per_node = per_node * mask[:, None].to(dtype)
+            feats.append(per_node)
         data[K.NODE_ATTRS] = attrs
-        data[K.NODE_FEATURES] = self.linear(attrs)
+        data[K.NODE_FEATURES] = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
         return data
 
 
 class EdgeLengthEmbedding(torch.nn.Module):
-    """Edge length -> bessel radial basis [E, num_basis], scaled by
-    sqrt(num_basis); zero-length padding edges get all-zero embeddings."""
+    """Edge length -> radial basis [E, num_basis] ("bessel" or "gaussian"),
+    scaled by sqrt(num_basis) and zeroed on padding edges by the edge mask
+    (the bessel window already zeroes their zero length; the gaussian has
+    no window)."""
 
     def __init__(
-        self, irreps_in: Mapping, num_basis: int = 8, start: float = 0.0, end: float = 5.0
+        self,
+        irreps_in: Mapping,
+        num_basis: int = 8,
+        start: float = 0.0,
+        end: float = 5.0,
+        basis: str = "bessel",
     ):
         super().__init__()
+        if basis not in ("bessel", "gaussian"):
+            raise ValueError(f"unsupported basis {basis!r}")
         self.num_basis, self.start, self.end = int(num_basis), float(start), float(end)
+        self.basis = basis
         self.irreps_in = dict(irreps_in)
         self.irreps_out = merge_irreps(
             self.irreps_in, {K.EDGE_EMBEDDING: Irreps(f"{self.num_basis}x0e")}
         )
+        if basis == "gaussian":
+            centers, self.step = gaussian_centers(self.num_basis, self.start, self.end)
+            # float32 centers, as the JAX package computes them (x64 off)
+            self.register_buffer(
+                "centers", torch.as_tensor(centers, dtype=torch.float32), persistent=False
+            )
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = dict(data)
         with_edge_vectors(data)
-        emb = bessel_basis(data[K.EDGE_LENGTH], self.num_basis, self.start, self.end)
+        length = data[K.EDGE_LENGTH]
+        if self.basis == "gaussian":
+            emb = gaussian_basis(length, self.centers, self.step)
+        else:
+            emb = bessel_basis(length, self.num_basis, self.start, self.end)
         emb = emb * float(np.sqrt(self.num_basis))
         if K.EDGE_MASK in data:
             emb = emb * data[K.EDGE_MASK][:, None].to(emb.dtype)

@@ -1,7 +1,7 @@
 """Node-wise linear map, masked per-graph pooling and node selection.
 
 Counterpart of `matten_tpu/nn/nodewise.py` (NodewiseLinear, NodewiseReduce
-with sum / mean, NodewiseSelect).
+with sum / mean / min / max, NodewiseSelect).
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import torch
 from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps, normal_parameter
-from matten_tpu_torch.ops.scatter import scatter_mean, scatter_sum
+from matten_tpu_torch.ops.scatter import scatter_max, scatter_mean, scatter_min, scatter_sum
 from matten_tpu_torch.ops.tensor_product import LinearPlan
 
 
@@ -43,8 +43,10 @@ class NodewiseLinear(torch.nn.Module):
 
 
 class NodewiseReduce(torch.nn.Module):
-    """Masked segment sum / mean of a node field into per-graph features;
-    padded nodes are excluded through the node mask."""
+    """Masked segment sum / mean / min / max of a node field into per-graph
+    features; padded nodes are excluded through the node mask. min / max
+    give padded rows the +/-inf sentinel before the segment reduction, and
+    a graph with no real node (an all-padding graph) gets 0."""
 
     def __init__(
         self,
@@ -54,7 +56,7 @@ class NodewiseReduce(torch.nn.Module):
         reduce: str = "sum",
     ):
         super().__init__()
-        if reduce not in ("sum", "mean"):
+        if reduce not in ("sum", "mean", "min", "max"):
             raise ValueError(f"unsupported reduce {reduce!r}")
         self.field = field
         self.reduce = reduce
@@ -69,9 +71,16 @@ class NodewiseReduce(torch.nn.Module):
         mask = data.get(K.NODE_MASK)
         if self.reduce == "mean":
             out = scatter_mean(x, data[K.BATCH], num_graphs, weights=mask)
-        else:
+        elif self.reduce == "sum":
             w = x.new_ones(x.shape[0]) if mask is None else mask.to(x.dtype)
             out = scatter_sum(x * w[:, None], data[K.BATCH], num_graphs)
+        else:
+            if mask is not None:
+                sentinel = float("inf") if self.reduce == "min" else float("-inf")
+                x = torch.where(mask.bool()[:, None], x, x.new_tensor(sentinel))
+            red = scatter_min if self.reduce == "min" else scatter_max
+            out = red(x, data[K.BATCH], num_graphs)
+            out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
         data[self.out_field] = out
         return data
 

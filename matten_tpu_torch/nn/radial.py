@@ -1,4 +1,4 @@
-"""Bessel radial basis and the variance-preserving scalar MLP.
+"""Bessel and gaussian radial bases and the variance-preserving scalar MLP.
 
 Counterpart of `matten_tpu/nn/radial.py`: weights ~ N(0, 1), forward scaled
 by 1/sqrt(fan_in), hidden activations rescaled to unit second moment under
@@ -8,12 +8,12 @@ N(0, 1) input ("normalize2mom", by the same 128-node Gauss-Hermite rule).
 from __future__ import annotations
 
 import functools
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["bessel_basis", "normalize2mom", "ScalarMLP"]
+__all__ = ["bessel_basis", "gaussian_centers", "gaussian_basis", "normalize2mom", "ScalarMLP"]
 
 
 # the activations the model uses (radial MLP: silu; gate: silu / tanh on
@@ -61,6 +61,22 @@ def bessel_basis(
     out = float(np.sqrt(2.0 / c)) * torch.sin(n * np.pi * safe / c) / safe
     window = ((xs > 0) & (xs < c)).to(x.dtype)
     return out * window
+
+
+def gaussian_centers(num_basis: int, start: float = 0.0, end: float = 5.0) -> Tuple[np.ndarray, float]:
+    """(centers, step) of the gaussian basis: `num_basis` centers evenly
+    inside (start, end), the ends excluded (e3nn's cutoff=True layout), and
+    the distance between them."""
+    centers = np.linspace(start, end, num_basis + 2)[1:-1]
+    step = float(centers[1] - centers[0]) if num_basis > 1 else float(end - start)
+    return centers, step
+
+
+def gaussian_basis(x: torch.Tensor, centers: torch.Tensor, step: float) -> torch.Tensor:
+    """exp(-((x - c_n) / step)^2) * 1.12. No window: zero-length padding
+    edges get nonzero values, which the caller's edge mask zeroes."""
+    diff = (x[..., None] - centers.to(x.dtype)) / step
+    return torch.exp(-diff**2) * 1.12
 
 
 class ScalarMLP(torch.nn.Module):

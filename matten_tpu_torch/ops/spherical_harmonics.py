@@ -38,8 +38,12 @@ def _sh_constants(lmax: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def _recursion_table(l: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """c_l * w3j(l-1, 1, l) on `device`, copied there once (a copy per call
-    would sync the host with the card in every forward)."""
-    return torch.as_tensor(wigner_3j(l - 1, 1, l) * _sh_constants(l)[l], dtype=dtype, device=device)
+    would sync the host with the card in every forward). Made outside
+    inference mode even when the first call is in it: a later forward that
+    needs position gradients saves the table for its backward, which an
+    inference tensor refuses."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(wigner_3j(l - 1, 1, l) * _sh_constants(l)[l], dtype=dtype, device=device)
 
 
 def _degrees(lmax_or_irreps: Union[int, Irreps, str, Sequence[int]]) -> list:

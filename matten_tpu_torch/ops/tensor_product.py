@@ -90,7 +90,9 @@ class TensorProductPlan:
 
     # ------------------------------------------------------------------
     def _cgs(self, device: torch.device, dtype: torch.dtype) -> List[torch.Tensor]:
-        """Per-instruction CG tables, scaled by the path weight."""
+        """Per-instruction CG tables, scaled by the path weight; made outside
+        inference mode (a cached inference tensor cannot be saved for the
+        backward of a later train step)."""
         key = (device, dtype)
         if key not in self._cg_cache:
             tabs = []
@@ -98,9 +100,8 @@ class TensorProductPlan:
                 l1 = self.irreps_in1[ins.i_in1].ir.l
                 l2 = self.irreps_in2[ins.i_in2].ir.l
                 l3 = self.irreps_out[ins.i_out].ir.l
-                tabs.append(
-                    torch.as_tensor(wigner_3j(l1, l2, l3) * pw, dtype=dtype, device=device)
-                )
+                with torch.inference_mode(False):
+                    tabs.append(torch.as_tensor(wigner_3j(l1, l2, l3) * pw, dtype=dtype, device=device))
             self._cg_cache[key] = tabs
         return self._cg_cache[key]
 

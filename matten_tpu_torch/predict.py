@@ -71,19 +71,26 @@ def model_from_sidecar(
     hparams: Dict[str, Any], statistics_arrays: Dict[str, np.ndarray], device
 ) -> Tuple[Model, TensorDatasetConfig, DatasetStatistics]:
     """(model with fresh weights on `device`, dataset config, statistics) as
-    a checkpoint's sidecars describe them; `cfg.per_atom` picks the family."""
+    a checkpoint's sidecars describe them; `cfg.per_atom` picks the family.
+    The graph-level model gets the scalar heads of the data section's
+    `scalar_target_names`, as the train script built it."""
     data_hp = hparams["data"]
-    if data_hp.get("tensor_target_format", "irreps") != "irreps" or data_hp.get("scalar_target_names"):
-        raise NotImplementedError("only irreps tensor targets are ported, without scalar targets")
     cfg = TensorDatasetConfig(
         r_cut=data_hp.get("r_cut", 5.0),
         tensor_target_name=data_hp.get("tensor_target_name", "elastic_tensor_full"),
+        tensor_target_format=data_hp.get("tensor_target_format", "irreps"),
         tensor_target_formula=data_hp.get("tensor_target_formula", "ijkl=jikl=klij"),
         atom_selector=data_hp.get("atom_selector"),
     )
     statistics = DatasetStatistics.from_arrays(statistics_arrays, cfg)
-    create = create_atomic_tensor_model if cfg.per_atom else create_scalar_tensor_model
-    return create(hparams["model"], hparams["dataset_hparams"], device=device), cfg, statistics
+    model_hp = dict(hparams["model"])
+    if cfg.per_atom:
+        model = create_atomic_tensor_model(model_hp, hparams["dataset_hparams"], device=device)
+    else:
+        model_hp.update(tensor_target_name=cfg.tensor_target_name,
+                        scalar_target_names=list(data_hp.get("scalar_target_names") or []))
+        model = create_scalar_tensor_model(model_hp, hparams["dataset_hparams"], device=device)
+    return model, cfg, statistics
 
 
 def load_pretrained(
@@ -140,7 +147,14 @@ def predict(
         r_cut, device = cfg.r_cut, next(model.parameters()).device
     if model.output_format != "irreps":
         raise ValueError("predict() reads irreps outputs; build the model with output_format='irreps'")
-    species = model.backbone.layers[0].allowed_species
+    embedding = model.backbone.layers[0]
+    if embedding.use_atom_feats or embedding.use_global_feats:
+        raise ValueError(
+            "predict() builds graphs from structures alone, and this model reads atom or global "
+            "feature columns (use_atom_feats / use_global_feats); run it on collated batches "
+            "that carry them (the JAX predict() fails on such a model too)"
+        )
+    species = embedding.allowed_species
     check_species(structures, species)
     graphs, failed = load_tensor_dataset(
         None, TensorDatasetConfig(r_cut=r_cut, tensor_target_name=None), structures=structures
@@ -155,7 +169,10 @@ def predict(
         for i in range(0, len(graphs), batch_size):
             chunk = graphs[i : i + batch_size]
             data, _ = collate_graphs(chunk, pad_spec_for(chunk), species_map=species_map)
-            out = model(batch_to_device(data, device)).double().cpu().numpy()
+            out = model(batch_to_device(data, device))
+            if isinstance(out, dict):  # scalar heads beside the tensor: the tensor is served
+                out = out[model.tensor_target_name]
+            out = out.double().cpu().numpy()
             if per_atom:
                 # the real nodes' rows, graph after graph; padded rows dropped
                 counts = np.cumsum([g.num_nodes for g in chunk])

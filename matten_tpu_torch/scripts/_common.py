@@ -54,19 +54,36 @@ def run(
     dataset_hparams = dm.get_to_model_info()
     logger.info("dataset hand-off: %s", dataset_hparams)
 
-    hparams = {k: v for k, v in config["model"].items() if k != "task_weights"}
-    model = create_model(hparams, dataset_hparams, device=device, seed=seed)
+    # the graph-level script trains the scalar targets the data section
+    # names beside the tensor, each with a 0e head, a weighted loss term and
+    # its MAE (the per-atom script has no scalar heads, as in JAX)
     name = config["data"].get("tensor_target_name", default_target)
-    weight = float((config["model"].get("task_weights") or {}).get(name, 1.0))
-    task = CanonicalRegressionTask(
+    scalar_names = [] if per_atom else list(config["data"].get("scalar_target_names") or [])
+    norm_scalars = list(config["data"].get("normalize_scalar_targets") or [])
+    task_weights = config["model"].get("task_weights") or {}
+    hparams = {k: v for k, v in config["model"].items() if k != "task_weights"}
+    if not per_atom:
+        hparams.update(tensor_target_name=name, scalar_target_names=scalar_names)
+    model = create_model(hparams, dataset_hparams, device=device, seed=seed)
+    weight = float(task_weights.get(name, 1.0))
+    tasks = [CanonicalRegressionTask(
         name=name,
         per_atom=per_atom,
         loss_weight=weight,
         metric_weight=weight,
         normalizer=dm.statistics.target_normalizer if dm.normalize_tensor_target else None,
-    )
+    )]
+    for i, scalar in enumerate(scalar_names):
+        weight = float(task_weights.get(scalar, 1.0))
+        normalized = i < len(norm_scalars) and bool(norm_scalars[i])
+        tasks.append(CanonicalRegressionTask(
+            name=scalar,
+            loss_weight=weight,
+            metric_weight=weight,
+            normalizer=dm.statistics.scalar_normalizers[scalar] if normalized else None,
+        ))
     tcfg = build_trainer_config(config)
-    trainer = Trainer(model, [task], tcfg, device=device)
+    trainer = Trainer(model, tasks, tcfg, device=device)
 
     if tcfg.checkpoint_dir:
         save_sidecar(

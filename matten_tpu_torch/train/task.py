@@ -8,11 +8,11 @@ arguments belong to its sharded steps and have no counterpart here).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
-from matten_tpu_torch.data.transform import MeanNormNormalize
+from matten_tpu_torch.data.transform import MeanNormNormalize, ScalarNormalize
 
 __all__ = [
     "Task",
@@ -29,8 +29,9 @@ class Task:
     loss_weight: float = 1.0
     metric_weight: float = 1.0
     per_atom: bool = False  # per-node target masked by atom_selector
-    normalizer: Optional[MeanNormNormalize] = None  # inverse before metrics
-    # (normalizer state, dtype, device) -> its norm and mean on the device
+    # inverse before metrics: the tensor target's or a scalar target's
+    normalizer: Optional[Union[MeanNormNormalize, ScalarNormalize]] = None
+    # (normalizer state, dtype, device) -> its factor and mean on the device
     _on_device: Optional[Tuple[Any, Tuple[torch.Tensor, torch.Tensor]]] = field(
         default=None, init=False, repr=False, compare=False)
 
@@ -38,18 +39,20 @@ class Task:
         """Map loss-space values to metric space (denormalization)."""
         n = self.normalizer
         if n is not None and n.initialized:
-            norm, mean = self._on(x.dtype, x.device)
-            return x * norm + mean
+            factor, mean = self._on(x.dtype, x.device)
+            return x * factor + mean
         return x
 
     def _on(self, dtype: torch.dtype, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The normalizer's norm * scale and mean on `device`, copied there
+        """The normalizer's inverse as x * factor + mean: its factor (norm *
+        scale, or a scalar target's std) and mean on `device`, copied there
         once per normalizer state (a copy per step would sync the host with
         the card)."""
         n = self.normalizer
-        key = (n.norm.tobytes(), n.mean.tobytes(), n.scale, dtype, device)
+        factor = n.std if isinstance(n, ScalarNormalize) else n.norm * n.scale
+        key = (factor.tobytes(), n.mean.tobytes(), dtype, device)
         if self._on_device is None or self._on_device[0] != key:
-            self._on_device = (key, (torch.as_tensor(n.norm * n.scale, dtype=dtype, device=device),
+            self._on_device = (key, (torch.as_tensor(factor, dtype=dtype, device=device),
                                      torch.as_tensor(n.mean, dtype=dtype, device=device)))
         return self._on_device[1]
 

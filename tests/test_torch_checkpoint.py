@@ -4,18 +4,23 @@ against the JAX package on the CPU.
 - `load_tensor_dataset` reads files that pandas writes (its default orient
   "columns" and orient "records"), an elasticity set of 12 rows with atom
   and global feature columns and a NaN feature in one row, and an NMR set
-  with one bad row, without pandas: graphs, targets, features, selectors
-  and failed rows exactly equal to the JAX package's.
-- `DatasetStatistics.to_arrays` (target and feature normalizers) within
-  1e-12 of the JAX package's, and the save / load round trip.
+  with one bad row, the elasticity rows with a `k_voigt` column (logged)
+  and a string column picking target weights, the tensor scaled, and the
+  Cartesian target format, without pandas: graphs, targets, features,
+  weights, selectors and failed rows exactly equal to the JAX package's.
+- `DatasetStatistics.to_arrays` (target, scalar-target and feature
+  normalizers) within 1e-12 of the JAX package's, and the save / load
+  round trip.
 - `CheckpointManager`: best-k pruning, `last`, the loop state, a strict
   reload of a `Trainer` and `load_pretrained`'s choice of the best epoch.
 - A model trained with the JAX package, saved by its `CheckpointManager`,
   restored with orbax and converted with `convert_checkpoint`, served by
-  the port's `predict(structures, directory)`: both families, with a target
+  the port's `predict(structures, directory)`: both families and a
+  multi-task model (a `k_voigt` head beside the tensor), with a target
   normalizer, within rtol=atol=1e-4 of the JAX `predict(structures,
   jax_directory)` (float32 with another summation order), and equal to the
-  port's in-memory `predict` of the same weights.
+  port's in-memory `predict` of the same weights. A model that reads
+  feature columns is refused where the JAX `predict` fails.
 """
 
 import json
@@ -33,6 +38,7 @@ from matten_tpu.data.graph import collate_graphs as jax_collate
 from matten_tpu.data.graph import pad_spec_for as jax_pad_spec
 from matten_tpu.data.structure import Structure as JaxStructure
 from matten_tpu.data.transform import MeanNormNormalize as JaxNormalize
+from matten_tpu.data.transform import ScalarNormalize as JaxScalarNormalize
 from matten_tpu.models import create_atomic_tensor_model as jax_create_atomic
 from matten_tpu.models import create_scalar_tensor_model as jax_create_scalar
 from matten_tpu.nn.embedding import atomic_number_map as jax_species_map
@@ -48,6 +54,7 @@ from matten_tpu_torch.convert import convert_checkpoint
 from matten_tpu_torch.data import dataset as pdataset
 from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
 from matten_tpu_torch.data.structure import Structure
+from matten_tpu_torch.data.transform import ScalarNormalize
 from matten_tpu_torch.models import create_scalar_tensor_model
 from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.predict import batch_to_device, load_pretrained, model_from_sidecar, predict
@@ -87,19 +94,23 @@ def _symmetric_elastic(rng):
 
 
 def _rows(kind, n, seed):
-    """Dataset rows as pymatgen-style dicts and nested lists."""
+    """Dataset rows as pymatgen-style dicts and nested lists; the
+    "variants" rows add a positive scalar target and a string column."""
     rng = np.random.default_rng(seed)
     rows = []
     for i in range(n):
         s = _structure(rng)
         row = {"structure": s.to_dict()}
-        if kind == "elasticity":
+        if kind != "nmr":
             row["elastic_tensor_full"] = _symmetric_elastic(rng).tolist()
             feats = rng.normal(size=(len(s), 2))
             if i == 5:  # one bad row: a NaN atom feature
                 feats[0, 1] = np.nan
             row["site_feats"] = feats.tolist()
             row["density"] = float(rng.uniform(1.0, 5.0))
+            if kind == "variants":
+                row["k_voigt"] = [float(rng.uniform(20.0, 200.0))]
+                row["source"] = ["dft", "exp", "fit"][i % 3]
         else:
             sel = np.asarray(s.atomic_numbers) == 14
             t = rng.normal(size=(int(sel.sum()), 3, 3))
@@ -112,19 +123,25 @@ def _rows(kind, n, seed):
 
 def _cfgs(kind):
     kw = dict(r_cut=5.0)
-    if kind == "elasticity":
+    if kind != "nmr":
         kw.update(atom_feats_columns=("site_feats",), global_feats_columns=("density",))
-    else:
+    if kind == "cartesian":
+        kw.update(tensor_target_format="cartesian")
+    elif kind == "variants":
+        kw.update(scalar_target_names=("k_voigt",), log_scalar_targets=(True,), tensor_target_scale=0.1,
+                  tensor_target_weight={"source": {"dft": 1.0, "exp": 2.0, "fit": 0.5}})
+    elif kind == "nmr":
         kw.update(tensor_target_name="nmr_tensor", tensor_target_formula="ij=ji",
                   atom_selector="atom_selector")
     return jdataset.TensorDatasetConfig(**kw), pdataset.TensorDatasetConfig(**kw)
 
 
-@pytest.fixture(scope="module", params=["elasticity", "nmr"])
+@pytest.fixture(scope="module", params=["elasticity", "nmr", "variants", "cartesian"])
 def dataset_files(request, tmp_path_factory):
     kind = request.param
     d = tmp_path_factory.mktemp(kind)
-    df = pd.DataFrame(_rows(kind, 12 if kind == "elasticity" else 5, seed=len(kind)))
+    seed = len("elasticity") if kind == "cartesian" else len(kind)  # the elasticity rows
+    df = pd.DataFrame(_rows(kind, 5 if kind == "nmr" else 12, seed=seed))
     df.to_json(d / "columns.json")
     df.to_json(d / "records.json", orient="records")
     return kind, d
@@ -140,20 +157,25 @@ def test_dataset_reader_matches_jax_on_pandas_files(dataset_files, layout):
     with pytest.warns(UserWarning, match=f"structure {bad}"):
         pg, pf = pdataset.load_tensor_dataset(d / layout, pcfg)
     assert pf == jf == [bad]
-    assert len(pg) == len(jg) == (11 if kind == "elasticity" else 4)
+    assert len(pg) == len(jg) == (4 if kind == "nmr" else 11)
     for j, p in zip(jg, pg):
         for name in ("pos", "edge_index", "edge_cell_shift", "cell", "num_neigh", "atomic_numbers"):
             np.testing.assert_array_equal(getattr(p, name), getattr(j, name), err_msg=name)
         assert sorted(p.y) == sorted(j.y) and sorted(p.x) == sorted(j.x)
-        assert sorted(p.x) == ([] if kind == "nmr" else ["atom_feats", "global_feats"])
+        assert sorted(p.x) == {"nmr": [], "variants": ["atom_feats", "global_feats", "target_weight"]}.get(
+            kind, ["atom_feats", "global_feats"])
         for k in j.y:
             assert p.y[k].dtype == j.y[k].dtype, k
             np.testing.assert_array_equal(p.y[k], j.y[k], err_msg=k)
         for k in j.x:
             assert p.x[k].dtype == j.x[k].dtype, k
             np.testing.assert_array_equal(p.x[k], j.x[k], err_msg=k)
-    if kind == "elasticity":
+    if kind != "nmr":
         assert pg[0].x["atom_feats"].shape == (pg[0].num_nodes, 2) and pg[0].x["global_feats"].shape == (1, 1)
+        assert pg[0].y["elastic_tensor_full"].shape == (1, 81 if kind == "cartesian" else 21)
+    if kind == "variants":
+        assert [g.x["target_weight"][0, 0] for g in pg[:3]] == [1.0, 2.0, 0.5]
+        assert pg[0].y["k_voigt"].shape == (1, 1)
     if kind == "nmr":
         sel = pg[0].y["atom_selector"]
         assert sel.dtype == bool and not pg[0].y["nmr_tensor"][~sel].any()
@@ -183,9 +205,11 @@ def test_statistics_match_jax_and_round_trip(dataset_files, tmp_path):
     ja = jdataset.DatasetStatistics.compute(jg, jcfg, normalize_tensor_target=True).to_arrays()
     stats = pdataset.DatasetStatistics.compute(pg, pcfg, normalize_tensor_target=True)
     pa = stats.to_arrays()
-    assert sorted(pa) == sorted(ja) and "target_mean" in pa
+    # Cartesian targets have no normalizer, in both packages
+    assert sorted(pa) == sorted(ja) and ("target_mean" in pa) == (kind != "cartesian")
     feats = {"feat_atom_feats_mean", "feat_atom_feats_std", "feat_global_feats_mean", "feat_global_feats_std"}
-    assert feats <= set(pa) if kind == "elasticity" else not feats & set(pa)
+    assert feats <= set(pa) if kind != "nmr" else not feats & set(pa)
+    assert ({"scalar_k_voigt_mean", "scalar_k_voigt_std"} <= set(pa)) == (kind == "variants")
     for k in ja:
         np.testing.assert_allclose(pa[k], ja[k], rtol=1e-12, atol=1e-12, err_msg=k)
     stats.save(tmp_path / "stats.npz")
@@ -193,23 +217,33 @@ def test_statistics_match_jax_and_round_trip(dataset_files, tmp_path):
     assert back.allowed_species == stats.allowed_species == SPECIES
     for k, v in back.to_arrays().items():
         np.testing.assert_array_equal(v, pa[k], err_msg=k)
-    np.testing.assert_array_equal(back.target_normalizer.norm, stats.target_normalizer.norm)
+    if kind != "cartesian":
+        np.testing.assert_array_equal(back.target_normalizer.norm, stats.target_normalizer.norm)
     assert sorted(back.feature_normalizers) == sorted(stats.feature_normalizers)
+    assert sorted(back.scalar_normalizers) == sorted(stats.scalar_normalizers)
 
 
 def test_sidecar_refuses_unported_target_options():
-    """Scalar targets and the Cartesian target format are not ported: a
-    checkpoint that needs them is refused, not served without them."""
+    """The target options are ported: a sidecar naming scalar targets
+    builds the model with their heads (the sidecar's `model` section, as
+    the JAX script writes it, does not name them), the Cartesian format is
+    read into the dataset config, and scalar normalizers round-trip. What a
+    sidecar may still not ask for is graph parallelism."""
     hp = {"model": TINY, "dataset_hparams": TINY_DS}
-    arrays = pdataset.DatasetStatistics(allowed_species=SPECIES).to_arrays()
-    for data in (dict(ELASTIC_DATA, tensor_target_format="cartesian"),
-                 dict(ELASTIC_DATA, scalar_target_names=["k_voigt"])):
-        with pytest.raises(NotImplementedError, match="not ported|only irreps"):
-            model_from_sidecar(dict(hp, data=data), arrays, "cpu")
-    with pytest.raises(NotImplementedError, match="scalar targets"):
-        pdataset.DatasetStatistics.from_arrays(
-            dict(arrays, scalar_k_voigt_mean=np.zeros(1), scalar_k_voigt_std=np.ones(1)),
-            pdataset.TensorDatasetConfig())
+    sn = ScalarNormalize(num_features=1, mean=np.asarray([3.5]), std=np.asarray([0.25]))
+    arrays = pdataset.DatasetStatistics(allowed_species=SPECIES, scalar_normalizers={"k_voigt": sn}).to_arrays()
+    assert sorted(arrays) == ["allowed_species", "average_num_neighbors", "scalar_k_voigt_mean",
+                              "scalar_k_voigt_std"]
+    model, cfg, stats = model_from_sidecar(
+        dict(hp, data=dict(ELASTIC_DATA, tensor_target_format="cartesian", scalar_target_names=["k_voigt"])),
+        arrays, "cpu")
+    assert cfg.tensor_target_format == "cartesian" and model.scalar_target_names == ("k_voigt",)
+    assert "w_k_voigt" in model.state_dict() and "w_out" in model.state_dict()
+    np.testing.assert_array_equal(stats.scalar_normalizers["k_voigt"].std, sn.std)
+    np.testing.assert_array_equal(stats.scalar_normalizers["k_voigt"].mean, sn.mean)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+        model_from_sidecar(dict(hp, model=dict(TINY, graph_parallel_axis="graph"), data=ELASTIC_DATA),
+                           arrays, "cpu")
 
 
 # ---------------------------------------------------------------- checkpoints
@@ -328,6 +362,16 @@ FAMILIES = {
                    average_num_neighbors="auto"),
         data=NMR_DATA, formula="ij=ji", create=jax_create_atomic, per_atom=True,
     ),
+    # tests/test_scripts.py's multi-task setup: a k_voigt head beside the
+    # tensor, its target standardized; both predict()s serve the tensor
+    "multitask": dict(
+        model=dict(TINY, num_layers=2, species_embedding_dim=8, invariant_layers=2, invariant_neurons=8,
+                   conv_layer_irreps="4x0o+4x0e+2x1o+2x1e+1x2o+1x2e",
+                   conv_to_output_hidden_irreps_out="4x0e+2x2e+4e", output_formula="ijkl=jikl=klij",
+                   task_weights={"elastic_tensor_full": 1.0, "k_voigt": 0.5}),
+        data=dict(ELASTIC_DATA, scalar_target_names=["k_voigt"], normalize_scalar_targets=[True]),
+        formula="ijkl=jikl=klij", create=jax_create_scalar, per_atom=False,
+    ),
 }
 
 
@@ -351,6 +395,7 @@ def served(request, tmp_path_factory):
     root = tmp_path_factory.mktemp(request.param)
     rng = np.random.default_rng(11)
     target = fam["data"]["tensor_target_name"]
+    scalars = fam["data"].get("scalar_target_names", [])
     dim = jax_cartesian_map(fam["formula"]).irreps.dim
     graphs = []
     for _ in range(2):
@@ -361,18 +406,25 @@ def served(request, tmp_path_factory):
             g.y["atom_selector"] = np.asarray(s.atomic_numbers) == 14
         else:
             g.y[target] = rng.normal(size=(1, dim))
+        for name in scalars:
+            g.y[name] = rng.normal(size=(1, 1))
         graphs.append(g)
     batch = jax_collate(graphs, jax_pad_spec(graphs), species_map=jax_species_map(SPECIES))
     ds_hp = dict(allowed_species=list(SPECIES), average_num_neighbors=18.5,
                  global_feats_size=None, atom_feats_size=None)
-    trainer = JaxTrainer(fam["create"](fam["model"], ds_hp),
-                         [JaxTask(name=target, per_atom=fam["per_atom"])], JaxConfig(lr=0.01))
+    # the model as the JAX script builds it: scalar heads from the data section
+    heads = dict(tensor_target_name=target, scalar_target_names=scalars) if scalars else {}
+    trainer = JaxTrainer(fam["create"](dict(fam["model"], **heads), ds_hp),
+                         [JaxTask(name=n, per_atom=fam["per_atom"]) for n in [target] + scalars],
+                         JaxConfig(lr=0.01))
     state = trainer.init_state(batch)
     state = state.replace(params=_fill(state.params, 1), batch_stats=_fill(state.batch_stats, 2))
     normalizer = JaxNormalize(jax_cartesian_map(fam["formula"]).irreps, mean=rng.normal(size=dim),
                               norm=rng.uniform(0.5, 2.0, dim))
-    stats = jdataset.DatasetStatistics(allowed_species=SPECIES, average_num_neighbors=18.5,
-                                       target_normalizer=normalizer)
+    stats = jdataset.DatasetStatistics(
+        allowed_species=SPECIES, average_num_neighbors=18.5, target_normalizer=normalizer,
+        scalar_normalizers={n: JaxScalarNormalize(1, mean=rng.normal(size=1), std=rng.uniform(0.5, 2.0, 1))
+                            for n in scalars})
     jax_dir = root / "jax"
     jax_save_sidecar(jax_dir, {"model": fam["model"], "data": fam["data"], "dataset_hparams": ds_hp,
                                "normalize_tensor_target": True}, stats.to_arrays())
@@ -419,3 +471,36 @@ def test_disk_predict_refuses_unsupported_species_and_overrides(served):
         predict(bad, served["port_dir"], device="cpu")
     with pytest.raises(ValueError, match="its own"):
         predict(served["structures"], served["port_dir"], r_cut=4.0, device="cpu")
+
+
+def test_predict_refuses_a_feature_model_where_the_jax_predict_fails(tmp_path):
+    """`predict(structures, directory)` builds graphs from structures alone,
+    so a model that reads atom or global feature columns cannot be served
+    that way: the JAX `predict` fails on such a directory for want of the
+    features, and the port's refuses it with a message."""
+    rng = np.random.default_rng(13)
+    model_hp = dict(TINY, use_atom_feats=True, use_global_feats=True)
+    ds_hp = dict(TINY_DS, atom_feats_size=2, global_feats_size=1)
+    graphs = [JaxGraph.from_structure(_structure(rng, k=3), r_cut=5.0,
+                                      x={"atom_feats": rng.normal(size=(3, 2)), "global_feats": rng.normal(size=(1, 1))},
+                                      y={"elastic_tensor_full": rng.normal(size=(1, 21))}) for _ in range(2)]
+    batch = jax_collate(graphs, jax_pad_spec(graphs), species_map=jax_species_map(SPECIES))
+    trainer = JaxTrainer(jax_create_scalar(model_hp, ds_hp), [JaxTask(name="elastic_tensor_full")],
+                         JaxConfig(lr=0.01))
+    state = trainer.init_state(batch)
+    jax_dir = tmp_path / "jax"
+    jax_save_sidecar(jax_dir, {"model": model_hp, "data": dict(ELASTIC_DATA, atom_featurizer="site_feats",
+                                                               global_featurizer="density"),
+                               "dataset_hparams": ds_hp, "normalize_tensor_target": False},
+                     jdataset.DatasetStatistics(allowed_species=SPECIES).to_arrays())
+    JaxCheckpointManager(jax_dir).save(0, state, {"val/score": 1.0})
+    structures = [_structure(rng, k=3).to_dict()]
+    with pytest.raises(KeyError, match="atom_feats"):
+        jax_predict(structures, jax_dir)
+
+    restored = ocp.PyTreeCheckpointer().restore((jax_dir / "epoch_0").absolute())
+    hparams, arrays = jax_load_sidecar(jax_dir)
+    port_dir = convert_checkpoint({"params": restored["params"], "batch_stats": restored["batch_stats"]},
+                                  hparams, arrays, tmp_path / "port")
+    with pytest.raises(ValueError, match="feature columns"):
+        predict(structures, port_dir, device="cpu")

@@ -9,9 +9,12 @@
   dataset of one-atom graphs, no precomputed edge vectors); the pad ladders
   are equal.
 - `TensorDataModule.setup` on files pandas writes (an elasticity set with a
-  feature column and an NMR set with an atom selector, targets normalized)
-  gives the JAX module's graphs and failed rows exactly, its statistics
-  within 1e-12, its dataset hand-off and its loaders' batches.
+  feature column, an NMR set with an atom selector, targets normalized; the
+  elasticity set with a logged and standardized scalar target, the tensor
+  scaled, weights from a string column and both feature kinds; and with
+  Cartesian targets) gives the JAX module's graphs and failed rows
+  exactly, its statistics within 1e-12, its dataset hand-off and its
+  loaders' batches.
 - The graph cache round-trips, and a cache the JAX package wrote in the
   same root is not read.
 """
@@ -149,9 +152,13 @@ def _write(path, kind, n, seed):
         s = JaxStructure(np.eye(3) * (3.8 + rng.uniform(0, 1.0)) + rng.normal(size=(3, 3)) * 0.1,
                          rng.uniform(0, 1, size=(k, 3)), z)
         row = {"structure": s.to_dict()}
-        if kind == "elasticity":
+        if kind in ("elasticity", "variants"):
             row["elastic_tensor_full"] = (_symmetric_elastic(rng) * 50.0 + 10.0).tolist()
             row["density"] = float(rng.uniform(1.0, 5.0))
+            if kind == "variants":
+                row["k_voigt"] = float(rng.uniform(20.0, 200.0))
+                row["site_feats"] = rng.normal(size=k).tolist()
+                row["source"] = ["dft", "exp"][i % 2]
         else:
             sel = z == 14
             t = rng.normal(size=(int(sel.sum()), 3, 3)) * 20.0 + 300.0
@@ -166,16 +173,27 @@ DATA = {
     "elasticity": dict(tensor_target_name="elastic_tensor_full", global_featurizer="density",
                        normalize_global_features=True),
     "nmr": dict(tensor_target_name="nmr_tensor", tensor_target_formula="ij=ji", atom_selector="atom_selector"),
+    # the target options: a logged, standardized scalar target, the tensor
+    # scaled, weights picked by a string column, both feature kinds
+    "variants": dict(tensor_target_name="elastic_tensor_full", scalar_target_names=["k_voigt"],
+                     log_scalar_targets=[True], normalize_scalar_targets=[True], tensor_target_scale=0.1,
+                     tensor_target_weight={"source": {"dft": 1.0, "exp": 2.5}},
+                     atom_featurizer="site_feats", global_featurizer="density",
+                     normalize_atom_features=True, normalize_global_features=True),
+    # the Cartesian format: 81 flat components, which have no normalizer
+    "cartesian": dict(tensor_target_name="elastic_tensor_full", tensor_target_format="cartesian",
+                      normalize_tensor_target=False),
 }
 
 
 def _data_config(tmp_path, kind, reuse=False):
+    file_kind = "elasticity" if kind == "cartesian" else kind
     for split, (n, seed) in {"train": (10, 1), "val": (6, 2), "test": (5, 3)}.items():
-        if not (tmp_path / f"{kind}_{split}.json").exists():
-            _write(tmp_path / f"{kind}_{split}.json", kind, n, seed)
-    return dict(DATA[kind], root=str(tmp_path), r_cut=4.0, reuse=reuse, normalize_tensor_target=True,
-                trainset_filename=f"{kind}_train.json", valset_filename=f"{kind}_val.json",
-                testset_filename=f"{kind}_test.json",
+        if not (tmp_path / f"{file_kind}_{split}.json").exists():
+            _write(tmp_path / f"{file_kind}_{split}.json", file_kind, n, seed)
+    return dict({"normalize_tensor_target": True, **DATA[kind]}, root=str(tmp_path), r_cut=4.0, reuse=reuse,
+                trainset_filename=f"{file_kind}_train.json", valset_filename=f"{file_kind}_val.json",
+                testset_filename=f"{file_kind}_test.json",
                 loader_kwargs=dict(batch_size=4, num_buckets=2, node_chunk=None))
 
 
@@ -241,10 +259,24 @@ def test_graph_cache_round_trips_and_skips_the_jax_cache(tmp_path, monkeypatch):
 
 
 def test_data_module_refuses_what_is_not_ported(tmp_path):
+    """The target options are taken (their parity is `test_data_module_matches_jax`'s
+    "variants" and "cartesian" cases); what still raises: the sharded
+    layouts (`num_shards`, `set_sharding`) and the TPU's chunk-aligned
+    layout (an integer `node_chunk`), and a normalizer of Cartesian targets,
+    which the JAX module's statistics lack too."""
     cfg = _data_config(tmp_path, "elasticity")
-    for extra in (dict(tensor_target_format="cartesian"), dict(scalar_target_names=["k_voigt"]),
-                  dict(tensor_target_scale=2.0), dict(num_shards=2)):
-        with pytest.raises(NotImplementedError):
-            TensorDataModule(**cfg, **extra)
+    for extra in (dict(tensor_target_format="cartesian", normalize_tensor_target=False),
+                  dict(scalar_target_names=["density"], log_scalar_targets=[True],
+                       normalize_scalar_targets=[True]),
+                  dict(tensor_target_scale=2.0), dict(tensor_target_weight={"density": {}})):
+        TensorDataModule(**dict(cfg, **extra))
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+        TensorDataModule(**cfg, num_shards=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         TensorDataModule(**cfg).set_sharding(num_shards=2)
+    with pytest.raises(ValueError, match="tensor_target_format: irreps"):
+        TensorDataModule(**dict(cfg, tensor_target_format="cartesian"))
+    dm = TensorDataModule(**dict(cfg, loader_kwargs=dict(batch_size=4, node_chunk=128)))
+    dm.setup()
+    with pytest.raises(ValueError, match="node_chunk"):
+        dm.train_dataloader()

@@ -157,3 +157,25 @@ def test_model_trains_on_batches_without_vectors():
                       [CanonicalRegressionTask(name=TARGET)], TrainerConfig(lr=0.01), device="cpu")
     losses = [float(trainer.train_step(*batch_to_device(data, "cpu", targets))[0]) for _ in range(3)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+def test_position_gradients_after_an_inference_forward():
+    """The SH recursion tables and the TP plans' CG tables are cached per
+    device; a serving forward under `torch.inference_mode()` that fills the
+    caches first must not leave inference tensors there, which a later
+    forward with position gradients would have to save for its backward."""
+    from matten_tpu_torch.ops import spherical_harmonics as sh_module
+
+    sh_module._recursion_table.cache_clear()
+    model = create_scalar_tensor_model(dict(GRAD_HPARAMS, irreps_edge_sh="0e+1o+2e+3o"), DS, device="cpu")
+    graphs = [CrystalGraph.from_structure(Structure(*s), r_cut=5.0) for s in _structures(seed=5)]
+    data, _ = BatchLoader(graphs, batch_size=3, species_map=atomic_number_map(SPECIES),
+                          precompute_edge_vectors=False).__iter__().__next__()
+    with torch.inference_mode():
+        served = model.eval()(batch_to_device(data, "cpu"))
+    d = batch_to_device(data, "cpu")
+    d[K.POSITIONS].requires_grad_(True)
+    out = model(d)
+    (grad,) = torch.autograd.grad(out[d[K.GRAPH_MASK]].square().sum(), d[K.POSITIONS])
+    assert torch.isfinite(grad).all() and float(grad.abs().max()) > 0
+    np.testing.assert_allclose(out.detach().numpy(), served.numpy(), rtol=1e-6, atol=1e-6)

@@ -384,6 +384,64 @@ def test_model_forward_through_kernel(dev):
                                    atol=1e-4, err_msg=n)
 
 
+def test_variant_model_through_kernels(dev):
+    """The model with every option the port took in late (instance norm,
+    norm activation, gaussian basis, max pooling, atom and global features,
+    a scalar head), 2 conv layers deep, at the production SH and conv
+    irreps: forward and parameter gradients of the weighted two-task loss
+    through the kernels against `force_plain()`, 3 launches of each counter,
+    on a batch with an all-padding graph; everything finite."""
+    from matten_tpu_torch.data.graph import CrystalGraph, PadSpec, collate_graphs
+    from matten_tpu_torch.data.structure import Structure
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.predict import batch_to_device
+
+    hp = dict(PRODUCTION, num_layers=2, normalization="instance", nonlinearity_type="norm",
+              radial_basis_type="gaussian", reduce="max", use_atom_feats=True, use_global_feats=True,
+              tensor_target_name="elastic_tensor_full", scalar_target_names=["k_voigt"])
+    ds = dict(allowed_species=list(SPECIES_5), atom_feats_size=2, global_feats_size=1)
+    model = create_scalar_tensor_model(hp, ds, device=dev).eval()
+    rng = np.random.default_rng(5)
+    graphs = []
+    for _ in range(3):
+        s = Structure(lattice=np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1,
+                      frac_coords=rng.uniform(0, 1, size=(5, 3)), atomic_numbers=rng.choice(SPECIES_5, size=5))
+        graphs.append(CrystalGraph.from_structure(
+            s, r_cut=5.0, x={"atom_feats": rng.normal(size=(5, 2)), "global_feats": rng.normal(size=(1, 1))}))
+    n_edges = sum(g.edge_index.shape[1] for g in graphs)
+    data, _ = collate_graphs(graphs, PadSpec(24, n_edges + 256, 4), species_map=atomic_number_map(SPECIES_5))
+    data = batch_to_device(data, dev)
+    real = data[K.GRAPH_MASK]
+    counters = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches")
+    before = [getattr(fused_conv, c) for c in counters]
+    with torch.inference_mode():
+        out = model(data)
+        with fused_conv.force_plain():
+            ref = model(data)
+    assert [getattr(fused_conv, c) for c in counters] == [before[0] + 3, before[1] + 3, before[2], before[3]]
+    for k in ("elastic_tensor_full", "k_voigt"):
+        assert torch.isfinite(out[k]).all()
+        np.testing.assert_allclose(out[k][real].cpu().numpy(), ref[k][real].cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        o = model(data)
+        (o["elastic_tensor_full"][real].square().sum() + 0.5 * o["k_voigt"][real].square().sum()).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    before = [getattr(fused_conv, c) for c in counters]
+    got = grads()
+    assert [getattr(fused_conv, c) for c in counters] == [b + 3 for b in before]
+    with fused_conv.force_plain():
+        ref = grads()
+    for n, r in ref.items():
+        assert torch.isfinite(got[n]).all(), n
+        scale = float(r.abs().max().clamp_min(1e-12))
+        np.testing.assert_allclose((got[n] / scale).cpu().numpy(), (r / scale).cpu().numpy(),
+                                   atol=1e-4, err_msg=n)
+
+
 def test_kernels_match_plain_and_are_bitwise_deterministic_at_nmr_plans(dev):
     """K1 (item pass and partial-row sum) and the merged backward with its
     dx sum at the 4 plans of the NMR model (SH rows 9 wide, padded to 16;

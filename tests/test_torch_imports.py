@@ -8,7 +8,11 @@ because this test process has imported jax already (tests/conftest.py): one
 in the repo, one with `matten_tpu_torch/` copied alone into an empty
 directory. Each serves a model from a checkpoint directory it writes, and
 takes a train step of each model family; in the copy alone, the materials
-train script's `main` also trains a model from a data file on the CPU.
+train script's `main` also trains a model from a data file on the CPU, once
+plain and once with every model and data option (instance norm, norm
+activation, gaussian basis, max pooling, atom and global features, a logged
+and standardized scalar target beside the tensor, target scale and
+weights), whose directory `load_pretrained` then rebuilds.
 """
 
 import ast
@@ -126,6 +130,23 @@ metrics = main(config, device="cpu")
 assert np.isfinite(metrics["score"]), metrics
 """
 
+VARIANTS = MAIN.replace(
+    'rows.append({"structure": s.to_dict(), "elastic_tensor_full": t.tolist()})',
+    'rows.append({"structure": s.to_dict(), "elastic_tensor_full": t.tolist(), "k_voigt": float(rng.uniform(1, 9)),'
+    ' "site_feat": rng.normal(size=3).tolist(), "density": float(rng.uniform(1, 5)),'
+    ' "source": ["dft", "experiment"][len(rows) % 2]})',
+).replace("metrics = main(config, device=\"cpu\")", """\
+model.update(normalization="instance", nonlinearity_type="norm", radial_basis_type="gaussian", reduce="max",
+             use_atom_feats=True, use_global_feats=True, task_weights={"elastic_tensor_full": 1.0, "k_voigt": 0.5})
+config["data"].update(atom_featurizer="site_feat", global_featurizer="density", scalar_target_names=["k_voigt"],
+                      log_scalar_targets=[True], normalize_scalar_targets=[True], tensor_target_scale=0.1,
+                      tensor_target_weight={"source": {"dft": 1.0, "experiment": 2.0}})
+metrics = main(config, device="cpu")
+assert np.isfinite(metrics["mae/k_voigt"]), metrics
+from matten_tpu_torch.predict import load_pretrained
+restored, _, stats, _ = load_pretrained("ckpt", device="cpu")
+assert restored.scalar_target_names == ("k_voigt",) and "k_voigt" in stats.scalar_normalizers""")
+
 
 def _run(cwd: Path, code: str = RUN):
     # one BLAS thread: the suite runs in several workers at once
@@ -167,3 +188,18 @@ def test_train_script_runs_copied_alone(tmp_path):
     )
     _run(tmp_path, MAIN)
     assert (tmp_path / "ckpt" / "hparams.json").is_file() and (tmp_path / "ckpt" / "last").is_dir()
+
+
+def test_variant_options_run_copied_alone(tmp_path):
+    """The materials train script with every model and data option the
+    port took in after its first slices, and `load_pretrained` of the
+    directory it wrote, with `matten_tpu_torch/` alone in an empty
+    directory: none of JAX, pandas, pyyaml, sklearn or `matten_tpu` is
+    loaded."""
+    assert "k_voigt" in VARIANTS and 'normalization="instance"' in VARIANTS
+    shutil.copytree(
+        ROOT / "matten_tpu_torch", tmp_path / "matten_tpu_torch",
+        ignore=shutil.ignore_patterns("_build", "__pycache__"),
+    )
+    _run(tmp_path, VARIANTS)
+    assert (tmp_path / "ckpt" / "hparams.json").is_file()

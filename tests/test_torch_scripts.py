@@ -11,7 +11,9 @@ against the JAX package's on the CPU.
   pandas-written set; their `hparams.json` and `dataset_statistics.npz`
   equal those the JAX scripts write for the same config and data (1e-12),
   and `predict(structures, directory)` serves what they wrote. A rerun with
-  `restore: true` adds one epoch; the command line runs as a module.
+  `restore: true` adds one epoch; the command line runs as a module. The
+  multi-task materials script (a `k_voigt` head, the target options) writes
+  the JAX script's sidecars and history keys.
 """
 
 import importlib.util
@@ -34,6 +36,7 @@ from matten_tpu.train.config import build_trainer_config as jax_build_trainer_co
 from matten_tpu_torch.data.structure import Structure
 from matten_tpu_torch.predict import predict
 from matten_tpu_torch.scripts import train_atomic_tensor, train_materials_tensor
+from matten_tpu_torch.train import Trainer
 from matten_tpu_torch.train.config import build_mesh_spec, build_trainer_config
 from matten_tpu_torch.utils.config_yaml import load_config, loads
 
@@ -282,3 +285,59 @@ def test_command_line_runs_the_script(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "test metrics (best checkpoint)" in proc.stderr
     assert (tmp_path / "ckpt" / "last").is_dir()
+
+
+def test_multitask_script_matches_jax(tmp_path, monkeypatch):
+    """The materials script with tests/test_scripts.py's multi-task setup
+    (a `k_voigt` head beside the tensor, weighted 0.5) and the dataset's
+    target options (the scalar logged and standardized, the tensor scaled,
+    weights picked by a string column): the sidecars equal the JAX
+    script's, both fits record the same history keys and return the same
+    test metric keys, the score aggregates the MAEs by the task weights, and
+    `predict(structures, directory)` serves the tensor."""
+    rng = np.random.default_rng(3)
+    rows = []
+    for i in range(6):
+        s = JaxStructure(np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1, rng.uniform(0, 1, (3, 3)),
+                         [14] + list(rng.choice([8, 14], 2)))
+        t = _symmetric_elastic(rng) * 20.0
+        rows.append({"structure": s.to_dict(), "elastic_tensor_full": t.tolist(),
+                     "k_voigt": [float(abs(np.einsum("iijj", t)) / 9 + 1.0)], "source": ["dft", "exp"][i % 2]})
+    pd.DataFrame(rows).to_json(tmp_path / "tiny.json")
+
+    def config(ckpt):
+        c = _config(tmp_path, "materials", ckpt)
+        c["data"].update(scalar_target_names=["k_voigt"], log_scalar_targets=[True],
+                         normalize_scalar_targets=[True], tensor_target_scale=0.1,
+                         tensor_target_weight={"source": {"dft": 1.0, "exp": 2.0}})
+        c["model"] = dict(c["model"], task_weights={"elastic_tensor_full": 1.0, "k_voigt": 0.5})
+        return c
+
+    made = {}
+    for name, cls in (("port", Trainer), ("jax", JaxTrainer)):
+        fit = cls.fit
+
+        def recording(self, *args, _fit=fit, _name=name, **kwargs):
+            made[_name] = self
+            return _fit(self, *args, **kwargs)
+
+        monkeypatch.setattr(cls, "fit", recording)
+    metrics = train_materials_tensor.main(config("port"), device="cpu")
+    monkeypatch.chdir(tmp_path)  # the JAX script's logger writes matten_tpu.log to the working directory
+    ref = _jax_script("materials").main(config("jax"))
+
+    port, jax_dir = tmp_path / "port", tmp_path / "jax"
+    assert json.loads((port / "hparams.json").read_text()) == json.loads((jax_dir / "hparams.json").read_text())
+    ours, want = dict(np.load(port / "dataset_statistics.npz")), dict(np.load(jax_dir / "dataset_statistics.npz"))
+    assert sorted(ours) == sorted(want) and "scalar_k_voigt_std" in ours
+    for k in want:
+        np.testing.assert_allclose(ours[k], want[k], rtol=1e-12, atol=1e-12, err_msg=k)
+    assert [sorted(h) for h in made["port"].history] == [sorted(h) for h in made["jax"].history]
+    assert {"val/mae/elastic_tensor_full", "val/mae/k_voigt"} <= set(made["port"].history[-1])
+    assert sorted(metrics) == sorted(ref)
+    assert all(np.isfinite(v) for v in metrics.values())
+    np.testing.assert_allclose(metrics["score"],
+                               metrics["mae/elastic_tensor_full"] + 0.5 * metrics["mae/k_voigt"], rtol=1e-6)
+    structures = [Structure(np.eye(3) * 4.0, rng.uniform(0, 1, (3, 3)), [14, 8, 8])]
+    (result,) = predict(structures, port, device="cpu")
+    assert result.shape == (3, 3, 3, 3) and np.isfinite(result).all()
