@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's serving paths, train steps and train scripts once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's serving paths, train steps, train scripts and parallel ranks once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -111,9 +111,42 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      on it), and the directory's model (`load_pretrained`) on the test
      batches equals the in-memory best model within 1e-6; the evaluation
      and the gradients per pad shape against `force_plain()`; epoch times,
-     train edges/s and the setup time.
+     train edges/s and the setup time;
+ 20. data parallel 2 x 1, the tenth main path: 2 ranks started as processes
+     (`parallel.launch`) that share the card under the gloo backend, each
+     taking its block of the port loader's stacked flagship batch (2 x 16
+     crystals) through `Trainer(mesh=...).train_step` (SGD, lr 0.01) at
+     production width without batch norm (data parallelism normalizes each
+     shard by its own statistics, so only then is it the 1-rank step), and a
+     ragged batch, one crystal over the 2 ranks: the loss and metric sum
+     within 1e-5 relative of the 1-rank step on the whole batch, every
+     gradient within MODEL_TOL of its largest entry, the parameters after
+     the step within 2e-5, both ranks bitwise equal; exact launches per
+     step and rank; each rank's K1 and backward (with their segment sums)
+     against their plain versions at its own edge plans (KERNEL_TOL); their
+     times per layer beside their bounds at the rank's shapes and the step
+     time (both ranks at once on one card: checks of the path, not scaling);
+ 21. graph parallel 1 x 2, the eleventh: the same for the modes edge, node
+     and node_ring on the flagship batch with the production model (batch
+     norm summed over the graph axis in the node modes), and node on the
+     NMR batch with its per-atom loss; launches 4 per step of each counter,
+     8 under node_ring (a plan per ring group);
+ 22. the materials script on a mesh, the twelfth: `train_materials_tensor.main`
+     with materials_tensor_production.yaml and `trainer.mesh: {data: 1,
+     graph: 2, mode: node}` on 2 ranks, phase 16's data, 2 epochs: exact
+     launches per rank, test metrics equal on both ranks, the directory
+     rank 0 alone wrote served by `predict` equal (1e-6) to rank 0's
+     in-memory best weights in the one-device model its sidecars describe;
+     on each rank, the kernels against `force_plain()` at the fit's own
+     blocks: the best model's evaluation of each split (FIT_EVAL_TOL, K1
+     once per conv layer and batch), one step's gradients summed over the
+     ranks on the first block of each pad shape (MODEL_TOL), and K1 and the
+     backward at each such block's plans (KERNEL_TOL).
 The line before the last is the kernels JSON (its times are phase 9's; its
-launches count every main path's run: phases 6, 8, 12-14 and 16-19); the last line is
+max |d| the worst of the script's direct comparisons of a kernel with its
+plain version, phases 20-22's included; its
+launches count every main path's run: phases 6, 8, 12-14, 16-19 and, summed
+over both ranks, 20-22); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
 left visible.
@@ -360,11 +393,14 @@ def bound_by(per_layer):
 
 
 def step_grads(trainer, data, targets):
-    """One train-mode forward and backward: (loss, parameter gradients)."""
+    """One train-mode forward and backward: (loss, parameter gradients);
+    with a mesh, the gradients summed over the ranks as a step sums them."""
     trainer.model.train()
     trainer.model.zero_grad(set_to_none=True)
     loss = trainer._compute_loss(trainer._preds(data), data, targets)
     loss.backward()
+    if trainer.mesh is not None:
+        trainer._reduce_across_ranks()
     return float(loss.detach()), {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
 
 
@@ -896,10 +932,11 @@ def fit_expected(convs, epochs, n_train, n_val, n_test, batch):
 
 def twin(trainer, torch):
     """A trainer of its own over a deep copy of `trainer`'s model, on its
-    device, without checkpoints."""
+    device and mesh, without checkpoints."""
     from matten_tpu_torch.train import Trainer, TrainerConfig
 
-    return Trainer(copy.deepcopy(trainer.model), trainer.tasks, TrainerConfig(), device=trainer.device)
+    return Trainer(copy.deepcopy(trainer.model), trainer.tasks, TrainerConfig(), device=trainer.device,
+                   mesh=trainer.mesh)
 
 
 def fit_against_plain(label, trainer, convs, fused_conv, torch):
@@ -908,11 +945,20 @@ def fit_against_plain(label, trainer, convs, fused_conv, torch):
     copy under `force_plain()` (K1 launched once per conv layer and batch in
     the first, no kernel in the second), and one train step's gradients on
     the first train batch of each pad shape. Returns (worst eval metric error, its
-    name; worst gradient error, its parameter; the pad shapes)."""
+    name; worst gradient error, its parameter; the pad shapes; the first
+    batch of each, on the device).
+
+    With a mesh every rank runs it at once, on its blocks: the metrics are
+    the whole batches', K1 runs once per conv layer and batch (Sg times
+    under node_ring), and the gradients are compared after their sum over
+    the ranks (the step's gradients)."""
     from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.parallel import shard_batch
     from matten_tpu_torch.predict import batch_to_device
 
     dm = trainer.datamodule
+    mesh = trainer.mesh
+    groups = mesh.n_graph if mesh is not None and mesh.mode == "node_ring" else 1
     plain = twin(trainer, torch)
     eval_err = []
     for split in ("train", "val", "test"):
@@ -924,7 +970,7 @@ def fit_against_plain(label, trainer, convs, fused_conv, torch):
             p = plain._run_eval(batches)
         after = counts(fused_conv)
         # K1 ran once per conv layer and batch in the first pass, no kernel in the second
-        if mid["fwd"] - before["fwd"] != convs * len(batches) or after != mid:
+        if mid["fwd"] - before["fwd"] != convs * groups * len(batches) or after != mid:
             raise AssertionError(f"{label}: {split} evaluation launches {before} -> {mid} -> {after}")
         eval_err += [(abs(k[m] - p[m]) / max(abs(p[m]), 1e-30), f"{split}/{m}") for m in p]
     eval_err.sort(reverse=True)
@@ -934,12 +980,18 @@ def fit_against_plain(label, trainer, convs, fused_conv, torch):
 
     firsts = {}
     for data, targets in dm.train_dataloader():
-        firsts.setdefault((len(data[K.NODE_MASK]), len(data[K.EDGE_MASK])), (data, targets))
+        # (nodes, edges) of a sub-batch, or of a rank's block of one
+        firsts.setdefault((data[K.NODE_MASK].shape[-1], data[K.EDGE_MASK].shape[-1]), (data, targets))
     kernel = twin(trainer, torch)
-    grad_err = []
+    grad_err, on_device = [], []
     for data, targets in firsts.values():
         plain.model.load_state_dict(kernel.model.state_dict())
-        data, targets = batch_to_device(data, trainer.device, targets)
+        if mesh is None:
+            data, targets = batch_to_device(data, trainer.device, targets)
+        else:
+            data, targets = shard_batch(mesh, data, targets, trainer.device,
+                                        [t.name for t in trainer.tasks if t.per_atom])
+        on_device.append(data)
         _, grads_k = step_grads(kernel, data, targets)
         with fused_conv.force_plain():
             _, grads_p = step_grads(plain, data, targets)
@@ -948,7 +1000,7 @@ def fit_against_plain(label, trainer, convs, fused_conv, torch):
     if not grad_err[0][0] <= MODEL_TOL:
         raise AssertionError(f"{label}: train-step gradients disagree with the plain path at the fit "
                              f"batches: {grad_err[:3]}")
-    return eval_err[0], grad_err[0], sorted(firsts)
+    return eval_err[0], grad_err[0], sorted(firsts), on_device
 
 
 def copy_modes(trainer, torch):
@@ -1001,7 +1053,7 @@ def fit_phase(label, script, config, rows, n_train, n_val, n_test, epochs, fused
     if not {"hparams.json", "dataset_statistics.npz", "index.json", "last", "loop_state.json"} <= files:
         raise AssertionError(f"{label}: checkpoint directory holds {sorted(files)}")
 
-    (e_err, e_name), (g_err, g_name), shapes = fit_against_plain(label, trainer, convs, fused_conv, torch)
+    (e_err, e_name), (g_err, g_name), shapes, _ = fit_against_plain(label, trainer, convs, fused_conv, torch)
     epoch_modes = copy_modes(trainer, torch)
 
     # the host's share of an epoch: the train loader alone (shuffle and collation)
@@ -1315,7 +1367,7 @@ def variants_fit_phase(fused_conv, torch, card):
         if not all(np.isfinite(values + list(metrics.values()))) or f"mae/{SCALAR}" not in metrics:
             raise AssertionError(f"{label}: history or test metrics not finite or incomplete: {history} {metrics}")
         weights = [g.x["target_weight"][0, 0] for g in trainer.datamodule.graphs["train"]]
-        (e_err, e_name), (g_err, g_name), shapes = fit_against_plain(label, trainer, convs, fused_conv, torch)
+        (e_err, e_name), (g_err, g_name), shapes, _ = fit_against_plain(label, trainer, convs, fused_conv, torch)
 
         # the directory: predict from structures refuses the feature model;
         # its model on the test batches equals the in-memory best model
@@ -1353,6 +1405,346 @@ def variants_fit_phase(fused_conv, torch, card):
           f"evaluation worst {e_name} {e_err:.3e} (tol {FIT_EVAL_TOL}), gradients on the first batch of each of "
           f"the {len(shapes)} pad shapes {shapes} worst {g_name} {g_err:.3e} (tol {MODEL_TOL})", flush=True)
     return {k: launched[k] + served[k] for k in COUNTERS}
+
+
+
+# phases 20-22: data and graph parallelism, 2 ranks on the one card (gloo)
+MESH_EPOCHS = 2
+MESH_TIMEOUT_S = 600
+MESH_REPS = 5  # timed train steps, and timed kernel calls per layer, on each rank
+# torch threads of each rank: the host's cores are shared by this process
+# and both ranks
+MESH_THREADS = 2
+
+
+def shard_edge_groups(data, mode, n_graph, torch):
+    """The conv kernels' edge groups on a rank's block: (src, dst, n_in,
+    n_out, rows) with src as the kernels index it: every edge with nodes
+    replicated (edge) or src into the gathered nodes (node); per ring
+    group g, src - g * c (node_ring)."""
+    from matten_tpu_torch.data import keys as K
+
+    src, dst = (t.contiguous() for t in data[K.EDGE_INDEX])
+    n = data[K.POSITIONS].shape[0]
+    e = src.shape[0]
+    if mode == "edge":
+        return [(src, dst, n, n, slice(0, e))]
+    if mode == "node":
+        return [(src, dst, n_graph * n, n, slice(0, e))]
+    cap2 = e // n_graph
+    return [((src[g * cap2:(g + 1) * cap2] - g * n).contiguous(), dst[g * cap2:(g + 1) * cap2].contiguous(),
+             n, n, slice(g * cap2, (g + 1) * cap2)) for g in range(n_graph)]
+
+
+def shard_kernels(model, hp, data, mode, n_graph, torch):
+    """K1 (with its partial-row sum) and the merged backward (with the dx
+    sum) against their plain versions at a rank's own plans: every conv
+    layer's uvu plan on every edge group of the rank's block, seeded random
+    x, w and g, the block's SH; and each kernel's wrapper time per layer
+    (median of MESH_REPS calls by CUDA events, both ranks at once on the
+    card) and bound. Returns (max |d| per kind, worst relative error,
+    per-layer ms, per-layer bounds)."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
+
+    dev = data[K.POSITIONS].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    emask = data[K.EDGE_MASK][:, None].float()
+    sh_all = (spherical_harmonics(hp["irreps_edge_sh"], data[K.EDGE_VECTORS]) * emask).contiguous()
+    max_abs = {k: 0.0 for k in COUNTERS}
+    worst, ms, bounds = 0.0, {"fwd": [], "bwd": []}, {k: [] for k in COUNTERS}
+    for conv in conv_layers(model):
+        plan = conv.uvu_plan
+        layer_ms, layer_bound = {"fwd": 0.0, "bwd": 0.0}, {k: [0.0, "bytes"] for k in COUNTERS}
+        for src, dst, n_in, n_out, rows in shard_edge_groups(data, mode, n_graph, torch):
+            sh = sh_all[rows].contiguous()
+            x = torch.randn(n_in, plan.irreps_in1.dim, generator=gen, device=dev)
+            w = (torch.randn(sh.shape[0], plan.weight_numel, generator=gen, device=dev) * emask[rows]).contiguous()
+            g = torch.randn(n_out, plan.irreps_out.dim, generator=gen, device=dev)
+            edges = fused_conv.edge_plan(src, dst, n_in, n_out, with_src_order=True)
+            with torch.no_grad():
+                out = fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_out, edges)
+                ref = fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_out)
+                dx, dw = fused_conv.uvu_conv_bwd(plan, x, g, sh, w, src, dst, n_in, edges)
+                dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_in)
+                for kinds, a, b in ((("fwd", "fwd_sum"), out, ref), (("bwd",), dw, dw_ref),
+                                    (("dx_sum",), dx, dx_ref)):
+                    worst = max(worst, rel_err(a, b))
+                    for kind in kinds:
+                        max_abs[kind] = max(max_abs[kind], float((a - b).abs().max()))
+                layer_ms["fwd"] += float(np.median([cuda_ms(
+                    lambda: fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_out, edges), torch)
+                    for _ in range(MESH_REPS)]))
+                layer_ms["bwd"] += float(np.median([cuda_ms(
+                    lambda: fused_conv.uvu_conv_bwd(plan, x, g, sh, w, src, dst, n_in, edges), torch)
+                    for _ in range(MESH_REPS)]))
+            for kind, (nbytes, flops) in kernel_work(plan, n_in, n_out, src.shape[0], edges.n_items).items():
+                t, by = bound_ms(nbytes, flops)
+                layer_bound[kind] = [layer_bound[kind][0] + t, by]
+        for kind in ms:
+            ms[kind].append(layer_ms[kind])
+        for kind in bounds:
+            bounds[kind].append(tuple(layer_bound[kind]))
+    return max_abs, worst, ms, bounds
+
+
+def mesh_rank(rank, world_size, job):
+    """A rank of phases 20-21: for each case, its mesh, the model from the
+    seed, one counted SGD `Trainer.train_step` on its block of the stacked
+    batch (the main path), its gradients and parameters, the kernels against
+    their plain versions at its own plans, then MESH_REPS timed steps."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
+    from matten_tpu_torch.parallel import make_mesh, shard_batch
+    from matten_tpu_torch.parallel.collectives import stages_through_host
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for case in job:
+        mesh = make_mesh(case["n_data"], case["n_graph"], case["mode"])
+        create = create_atomic_tensor_model if case["per_atom"] else create_scalar_tensor_model
+        model = create(case["hparams"], case["ds"], device=dev, seed=SEED)
+        task = CanonicalRegressionTask(name=case["target"], per_atom=case["per_atom"])
+        trainer = Trainer(model, [task], TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev,
+                          mesh=mesh)
+        data, targets = shard_batch(mesh, *case["batch"], dev, [task.name] if task.per_atom else [])
+        reset_counts(fused_conv)
+        loss, metrics = trainer.train_step(data, targets)
+        torch.cuda.synchronize()
+        launched = counts(fused_conv)
+        res = {
+            "loss": float(loss), "metric": float(metrics[task.name][0]), "launched": launched,
+            "grads": {n: p.grad.cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
+            "params": {n: p.detach().cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
+            "staged": stages_through_host(data["pos"], mesh.graph),
+        }
+        (res["max_abs"], res["kernel_rel"], res["kernel_ms"], res["bounds"]) = shard_kernels(
+            trainer.model, case["hparams"], data, case["mode"], case["n_graph"], torch)
+        times = []
+        for _ in range(MESH_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(data, targets)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["step_ms"] = float(np.median(times))
+        out[case["name"]] = res
+    return out
+
+
+def script_rank(rank, world_size, job):
+    """A rank of phase 22: the materials script's `main` on a data 1 x graph
+    2 node mesh, counted; then, on both ranks at once, the kernels against
+    their plain versions at the fit's own blocks (`fit_against_plain`, and
+    `shard_kernels` on the first block of each pad shape); rank 0 then
+    serves the directory it wrote with `predict` against its in-memory best
+    model."""
+    import torch
+
+    from matten_tpu_torch.data.structure import Structure
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.predict import model_from_sidecar, predict
+    from matten_tpu_torch.scripts import train_materials_tensor
+    from matten_tpu_torch.train import load_sidecar
+
+    metrics, trainer, setup_s, launched = run_script(train_materials_tensor, job["config"], fused_conv, torch)
+    res = {"metrics": metrics, "launched": launched, "setup_s": setup_s,
+           "history": [{k: h[k] for k in ("epoch", "epoch_time", "train/edges_per_s", "val/score")}
+                       for h in trainer.history],
+           "served": {k: 0 for k in COUNTERS}}
+    model_hp = job["config"]["model"]
+    res["eval_err"], res["grad_err"], res["shapes"], blocks = fit_against_plain(
+        "22 mesh fit", trainer, model_hp["num_layers"] + 1, fused_conv, torch)
+    res["max_abs"], res["kernel_rel"] = {k: 0.0 for k in COUNTERS}, 0.0
+    for data in blocks:
+        max_abs, worst, _, _ = shard_kernels(trainer.model, model_hp, data, trainer.mesh.mode,
+                                             trainer.mesh.n_graph, torch)
+        res["kernel_rel"] = max(res["kernel_rel"], worst)
+        res["max_abs"] = {k: max(res["max_abs"][k], max_abs[k]) for k in COUNTERS}
+    if rank == 0:
+        ckpt = Path(job["config"]["trainer"]["checkpoint_dir"])
+        structures = [Structure.from_dict(r["structure"]) for r in job["rows"]] + [si_structure()]
+        reset_counts(fused_conv)
+        disk = predict(structures, ckpt)
+        torch.cuda.synchronize()
+        res["served"] = counts(fused_conv)
+        # rank 0's in-memory best model is graph-parallel: its weights in
+        # the one-device model the sidecars describe
+        single, _, _ = model_from_sidecar(*load_sidecar(ckpt), trainer.device)
+        single.load_state_dict(trainer.model.state_dict())
+        mem = predict(structures, single.eval(), trainer.tasks[0].normalizer)
+        if not all(r is not None and r.shape == (3, 3, 3, 3) and np.isfinite(r).all() for r in disk):
+            raise AssertionError("phase 22: predict from the directory gave no finite [3,3,3,3] tensor")
+        res["predict_err"] = max_rel(disk, mem)
+        res["files"] = sorted(p.name for p in ckpt.iterdir())
+    return res
+
+
+def parallel_phases(dev, card, torch, structures, target_rows):
+    """Phases 20-22 on 2 ranks that share the card (gloo, named): data
+    parallel 2 x 1 and the graph modes at 1 x 2 against the 1-rank step,
+    then the materials script on a node mesh. Returns their launches,
+    summed over the ranks, and the kernels' worst max |d| there."""
+    from matten_tpu_torch.data.datamodule import BatchLoader
+    from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.parallel.launch import run_ranks, start_ranks
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+    from matten_tpu_torch.train.config import MeshSpec
+    from matten_tpu_torch.utils.config_yaml import load_config
+
+    smap = atomic_number_map(SPECIES_5)
+    graphs = graphs_of(structures, target_rows)
+    nmr_structures, nmr_rows = draw_structures(seed=2, n_graphs=16, per_atom=True)
+    nmr_graphs = graphs_of(nmr_structures, nmr_rows, NMR_TARGET, SI)
+    nmr_stats = DatasetStatistics.compute(nmr_graphs, TensorDatasetConfig(**NMR_DATA), normalize_tensor_target=True)
+    nmr_ds = dict(allowed_species=list(SPECIES_5), average_num_neighbors=nmr_stats.average_num_neighbors)
+    # data parallelism takes each shard's batch-norm statistics, so its
+    # parity with one rank holds without batch norm, as in the JAX tests;
+    # the graph modes keep the whole graph's statistics
+    no_bn = dict(HPARAMS, normalization=None)
+    cases = []
+    for name, n_data, n_graph, mode, hp, ds, gs, per_atom in (
+            ("20 dp 2x1", 2, 1, "edge", no_bn, DATASET_HPARAMS, graphs, False),
+            ("20 dp ragged 2x1", 2, 1, "edge", no_bn, DATASET_HPARAMS, graphs[:1], False),
+            ("21 edge 1x2", 1, 2, "edge", HPARAMS, DATASET_HPARAMS, graphs, False),
+            ("21 node 1x2", 1, 2, "node", HPARAMS, DATASET_HPARAMS, graphs, False),
+            ("21 node_ring 1x2", 1, 2, "node_ring", HPARAMS, DATASET_HPARAMS, graphs, False),
+            ("21 node 1x2 NMR", 1, 2, "node", NMR_HPARAMS, nmr_ds, nmr_graphs, True)):
+        loader = BatchLoader(gs, batch_size=max(len(gs), n_data), species_map=smap, num_buckets=1,
+                             **MeshSpec(n_data, n_graph, mode).loader_kwargs())
+        parallel = dict(hp, graph_parallel_axis="graph", graph_parallel_mode=mode) if n_graph > 1 else hp
+        cases.append(dict(name=name, n_data=n_data, n_graph=n_graph, mode=mode, hparams=parallel, ds=ds,
+                          per_atom=per_atom, target=NMR_TARGET if per_atom else TARGET,
+                          batch=next(iter(loader)), single=(hp, gs)))
+    env = {"PYTHONPATH": str(Path(__file__).resolve().parent)}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train, val = fit_rows(4, FIT_TRAIN), fit_rows(5, FIT_VAL)
+        write_records(tmp / "train.json", train)
+        write_records(tmp / "val.json", val)
+        config = load_config(CONFIGS / "materials_tensor_production.yaml")
+        config["data"].update(root=str(tmp), trainset_filename="train.json", valset_filename="val.json",
+                              testset_filename="val.json")
+        config["trainer"].update(max_epochs=MESH_EPOCHS, checkpoint_dir=str(tmp / "mesh_ckpt"),
+                                 devices=2, mesh={"data": 1, "graph": 2, "mode": "node"})
+        config["restore"] = False
+        jobs = [{k: v for k, v in c.items() if k != "single"} for c in cases]
+        t0 = time.perf_counter()
+        with start_ranks("chip_smoke:mesh_rank", 2, jobs, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS, env=env) as ranks:
+            # the 1-rank steps on the whole batches meanwhile
+            refs = {}
+            for c in cases:
+                hp, gs = c["single"]
+                create = create_atomic_tensor_model if c["per_atom"] else create_scalar_tensor_model
+                trainer = Trainer(create(hp, c["ds"], device=dev, seed=SEED),
+                                  [CanonicalRegressionTask(name=c["target"], per_atom=c["per_atom"])],
+                                  TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev)
+                data, targets = next(iter(BatchLoader(gs, batch_size=len(gs), species_map=smap, num_buckets=1)))
+                loss, metrics = trainer.train_step(*batch_to_device(data, dev, targets))
+                refs[c["name"]] = (float(loss), float(metrics[c["target"]][0]),
+                                   {n: p.grad.cpu().numpy() for n, p in trainer.model.named_parameters()},
+                                   {n: p.detach().cpu().numpy() for n, p in trainer.model.named_parameters()})
+            steps = ranks.join()
+        steps_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        script = run_ranks("chip_smoke:script_rank", 2, {"config": config, "rows": val[:16]},
+                           timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS, env=env)
+        script_s = time.perf_counter() - t0
+
+    launched = {k: 0 for k in COUNTERS}
+    max_abs = {k: 0.0 for k in COUNTERS}
+    for c in cases:
+        name, convs = c["name"], c["hparams"]["num_layers"] + 1
+        r0, r1 = steps[0][name], steps[1][name]
+        loss, metric, grads, params = refs[name]
+        groups = c["n_graph"] if c["mode"] == "node_ring" else 1
+        for r in (r0, r1):
+            if r["launched"] != {k: convs * groups for k in COUNTERS}:
+                raise AssertionError(f"{name}: launches in one train step {r['launched']}, expected "
+                                     f"{convs * groups} of each kernel")
+            if not r["kernel_rel"] <= KERNEL_TOL:
+                raise AssertionError(f"{name}: a kernel disagrees with its plain version at a rank's plans: "
+                                     f"{r['kernel_rel']}")
+            for k in COUNTERS:
+                launched[k] += r["launched"][k]
+                max_abs[k] = max(max_abs[k], r["max_abs"][k])
+        for n in r0["params"]:
+            if not (np.array_equal(r0["params"][n], r1["params"][n]) and np.array_equal(r0["grads"][n], r1["grads"][n])):
+                raise AssertionError(f"{name}: the ranks' {n} differ")
+        loss_rel = abs(r0["loss"] - loss) / abs(loss)
+        metric_rel = abs(r0["metric"] - metric) / abs(metric)
+        grad_err = max((rel_err(torch.as_tensor(r0["grads"][n]), torch.as_tensor(g)), n) for n, g in grads.items())
+        # parameters after the step (max |d|, and that relative to the step, lr x gradient)
+        param_err = max((float(np.abs(r0["params"][n] - p).max()),
+                         float(np.abs(r0["params"][n] - p).max()) / max(0.01 * float(np.abs(grads[n]).max()), 1e-30),
+                         n) for n, p in params.items())
+        if not (loss_rel <= 1e-5 and metric_rel <= 1e-5 and grad_err[0] <= MODEL_TOL and param_err[0] <= 2e-5):
+            raise AssertionError(f"{name}: the 2-rank step disagrees with the 1-rank step: loss {loss_rel}, "
+                                 f"metric {metric_rel}, gradient {grad_err}, parameters {param_err}")
+        staged = "; the ring shift staged through the host" if c["mode"] == "node_ring" and r0["staged"] else ""
+        print(f"[{name}] {card}: 2 ranks on the card (gloo{staged}), {c['n_data']} x {c['n_graph']} {c['mode']}, block "
+              f"{tuple(c['batch'][0]['pos'].shape)} of pos: against the 1-rank SGD step on the whole batch, "
+              f"loss {r0['loss']:.8f} vs {loss:.8f} ({loss_rel:.2e}, tol 1e-5), metric sum {metric_rel:.2e} "
+              f"(tol 1e-5), gradients worst {grad_err[1]} {grad_err[0]:.3e} (tol {MODEL_TOL}), parameters "
+              f"after the step worst {param_err[2]} max|d| {param_err[0]:.3e}, {param_err[1]:.3e} of its step "
+              f"(tol 2e-5), ranks bitwise equal; launches per step and "
+              f"rank {r0['launched']}; the kernels at each rank's plans vs plain worst {max(r0['kernel_rel'], r1['kernel_rel']):.3e} "
+              f"(tol {KERNEL_TOL}); ms per layer L0-L3 (rank 0, both ranks at once): K1 with its sum "
+              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["fwd"]) + ", the backward (merged kernel, dx sum) "
+              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["bwd"]) + "; bound K1 "
+              + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["fwd"]) + ", backward "
+              + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["bwd"])
+              + f"; train step median ms rank 0 {r0['step_ms']:.2f}, rank 1 {r1['step_ms']:.2f} "
+              f"(checks of the path: two ranks share one card); world {steps_s:.1f} s", flush=True)
+
+    # 22. the materials script on a node mesh
+    r0, r1 = script
+    expect = fit_expected(HPARAMS["num_layers"] + 1, MESH_EPOCHS, FIT_TRAIN, FIT_VAL, FIT_VAL, 32)
+    for r in (r0, r1):
+        if r["launched"] != expect:
+            raise AssertionError(f"22: a rank's launches {r['launched']}, expected {expect}")
+        if not r["kernel_rel"] <= KERNEL_TOL:
+            raise AssertionError(f"22: a kernel disagrees with its plain version at a rank's fit blocks: "
+                                 f"{r['kernel_rel']}")
+        for k in COUNTERS:
+            launched[k] += r["launched"][k] + r["served"][k]
+            max_abs[k] = max(max_abs[k], r["max_abs"][k])
+    if r0["metrics"] != r1["metrics"] or not all(np.isfinite(list(r0["metrics"].values()))):
+        raise AssertionError(f"22: test metrics {r0['metrics']} and {r1['metrics']}")
+    if not r0["predict_err"] <= 1e-6:
+        raise AssertionError(f"22: predict from the directory disagrees with rank 0's model: {r0['predict_err']}")
+    if not {"hparams.json", "dataset_statistics.npz", "index.json", "last", "loop_state.json"} <= set(r0["files"]):
+        raise AssertionError(f"22: the directory holds {r0['files']}")
+    print(f"[22 mesh fit] {card}: train_materials_tensor.main with trainer.mesh {{data: 1, graph: 2, mode: "
+          f"node}} on 2 ranks sharing the card (gloo), {FIT_TRAIN} train / {FIT_VAL} val crystals, batch 32, "
+          f"{MESH_EPOCHS} epochs: launches per rank {r0['launched']} (expected {expect}); epoch times (s) rank 0 "
+          + ", ".join(f"{h['epoch_time']:.4f}" for h in r0["history"]) + ", train edges/s "
+          + ", ".join(f"{h['train/edges_per_s']:.1f}" for h in r0["history"])
+          + f"; setup to fit {r0['setup_s']:.2f} / {r1['setup_s']:.2f} s; test metrics equal on both ranks "
+          f"{json.dumps(r0['metrics'])}; the directory rank 0 wrote {r0['files']}; predict of 17 structures "
+          f"from it against rank 0's in-memory best model {r0['predict_err']:.3e} (tol 1e-6), launches "
+          f"{r0['served']}; against the plain versions at the fit's blocks, on each rank: evaluation of "
+          f"the best model over train, val and test worst {r0['eval_err'][1]} "
+          f"{max(r0['eval_err'][0], r1['eval_err'][0]):.3e} relative (tol {FIT_EVAL_TOL}), one train "
+          f"step's gradients (summed over the ranks) on the first batch of each of the {len(r0['shapes'])} "
+          f"block pad shapes (nodes, edges) {r0['shapes']} worst {r0['grad_err'][1]} "
+          f"{max(r0['grad_err'][0], r1['grad_err'][0]):.3e} (tol {MODEL_TOL}), the kernels at those blocks' "
+          f"plans worst {max(r0['kernel_rel'], r1['kernel_rel']):.3e} (tol {KERNEL_TOL}), max|d| "
+          + json.dumps({k: max(r0["max_abs"][k], r1["max_abs"][k]) for k in COUNTERS})
+          + f"; world {script_s:.1f} s", flush=True)
+    return launched, max_abs
+
 
 
 def main() -> int:
@@ -1688,6 +2080,9 @@ def main() -> int:
         dev, card, torch, check_forward, check_backward, model, structures, target_rows, sh, src, dst)
     variants_fit = variants_fit_phase(fused_conv, torch, card)
 
+    # 20-22. data and graph parallelism: 2 ranks on the card
+    mesh_launched, mesh_max_abs = parallel_phases(dev, card, torch, structures, target_rows)
+
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
@@ -1711,7 +2106,8 @@ def main() -> int:
                "dx_sum": sum(library_ms["dx_sum"])}
     kernels = []
     for kind in COUNTERS:
-        launched = served[kind] + trained[kind] + nmr[kind] + fitted[kind] + variants[kind] + variants_fit[kind]
+        launched = (served[kind] + trained[kind] + nmr[kind] + fitted[kind] + variants[kind] + variants_fit[kind]
+                    + mesh_launched[kind])
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
         kernels.append({
@@ -1720,7 +2116,7 @@ def main() -> int:
             "source": sources[kind],
             "replaces": replaces[kind],
             "launches": launched,
-            "max_abs_err": max_abs[kind],
+            "max_abs_err": max(max_abs[kind], mesh_max_abs[kind]),
             "ms": sum(k for k, _ in layer_ms[kind]),
             "plain_ms": sum(p for _, p in layer_ms[kind]),
             "bound_ms": sum(b for b, _ in bounds[kind]),

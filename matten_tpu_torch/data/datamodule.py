@@ -11,23 +11,39 @@ That is the port's layout. The JAX loader's default (`node_chunk="auto"`)
 aligns the edges of batches above 128 padded nodes to the node chunks of
 its Pallas accumulator, a TPU layout with other pad shapes; the CUDA
 kernels walk dst-sorted edges and need no alignment, so `node_chunk` here
-is absent, None or "auto", all meaning no chunking. The sharded layouts of
-the JAX loader (data parallelism and graph partitioning) are not ported
-yet.
+is absent, None or "auto", all meaning no chunking.
+
+The sharded layouts are the JAX loader's too: `num_shards` S stacks S
+independently padded sub-batches [S, ...] (data parallelism);
+`num_edge_shards` Sg splits each sub-batch's dst-sorted edges into Sg
+contiguous slices [S, Sg, ...] (graph mode "edge"), with `node_shard` its
+nodes into Sg contiguous chunks of c and each edge into its dst owner's
+shard, src global and dst local (mode "node"), and with `ring` each
+shard's edges into Sg equal slots by their src owner (mode "node_ring").
+One index rule differs from the JAX layout, and only in the node layouts'
+padding slots: the JAX loader fills them with index 0, so dst drops back
+to 0 after the last real edge of a shard (and, in the ring layout, src - g
+* c is negative), which its gathers wrap and the CUDA kernels' edge plans
+refuse (dst non-decreasing in [0, c), src in range). Here a padding slot
+holds dst = c - 1 and a src in its slot owner's chunk (so * c + c - 1,
+the shard's own in the node layout), with the JAX layout's edge mask
+(False), cell shift (1e6) and zero edge vector, so it stays inert.
 """
 
 from __future__ import annotations
 
 import hashlib
 import logging
+import os
 import pickle
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 
+from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig, load_tensor_dataset
-from matten_tpu_torch.data.graph import CrystalGraph, PadSpec, collate_graphs
+from matten_tpu_torch.data.graph import CrystalGraph, PadSpec, attach_edge_vectors, collate_graphs
 from matten_tpu_torch.nn.embedding import atomic_number_map
 
 logger = logging.getLogger(__name__)
@@ -54,12 +70,26 @@ class BatchLoader:
         node_multiple: int = 32,
         edge_multiple: int = 512,
         drop_last: bool = False,
+        num_shards: int = 1,
+        num_edge_shards: int = 1,
+        node_shard: bool = False,
+        ring: bool = False,
         node_chunk: Union[str, None] = None,
         num_buckets: int = 4,
         batch_by_size: bool = False,
         precompute_edge_vectors: bool = True,
     ):
-        """num_buckets > 1 builds a small ladder of pad shapes sized from the
+        """num_shards > 1 yields stacked per-shard batches [S, ...] for data
+        parallelism (each shard an independently padded sub-batch of the
+        graphs s, s + S, ... whose edge_index refers only to its own node
+        block; a shard without graphs reuses the first graph with its masks
+        zeroed). num_edge_shards > 1 splits each sub-batch along the mesh's
+        graph axis [S, Sg, ...]: its dst-sorted edges into contiguous
+        slices, or with node_shard its nodes and their edges, with ring
+        grouped by source owner (module docstring). A stacked batch shares
+        one pad shape, the smallest level that fits every shard.
+
+        num_buckets > 1 builds a small ladder of pad shapes sized from the
         batch-sum distribution (quantile levels, capped by the worst case);
         each batch is padded to the smallest level that fits.
 
@@ -75,8 +105,17 @@ class BatchLoader:
             raise ValueError(
                 f"node_chunk={node_chunk!r} selects the JAX package's chunk-aligned "
                 "TPU layout; this loader takes None or 'auto' (no chunking); the JAX "
-                "loader's other layouts are ROADMAP item 6"
+                "loader's other layouts are its sharded ones (num_shards, num_edge_shards, "
+                "node_shard, ring)"
             )
+        if batch_size % num_shards != 0:
+            raise ValueError(f"batch_size {batch_size} not divisible by {num_shards}")
+        self.num_shards = num_shards
+        self.num_edge_shards = num_edge_shards
+        self.node_shard = node_shard
+        self.ring = ring
+        # ring slot capacity ladder: (padded edges, Sg) -> running max
+        self._ring_cap2: Dict[Tuple[int, int], int] = {}
         self.graphs = graphs
         self.batch_size = batch_size
         self.species_map = species_map
@@ -121,18 +160,19 @@ class BatchLoader:
                     pk.add(key)
         self._per_node_keys = frozenset(pk)
 
-        # worst-case bucket: the k largest graphs in one batch
+        # worst-case bucket: the k largest graphs in one (sub-)batch
+        per_shard = batch_size // num_shards
         sizes = np.sort(np.array([g.num_nodes for g in graphs]))[::-1]
         esizes = np.sort(np.array([g.num_edges for g in graphs]))[::-1]
-        k = min(batch_size, len(graphs))
+        k = min(per_shard, len(graphs))
         n_max = int(sizes[:k].sum())
         e_max = int(esizes[:k].sum())
         self.pad = self._make_pad(n_max, e_max)
 
-        # bucket ladder: the batch sums of 128 simulated epochs of the same
-        # pipeline (shuffle [-> window sort] -> carve batches), drawn from a
-        # fixed generator so every epoch sees the same ladder; the worst
-        # case is the last level
+        # bucket ladder: the (largest sub-)batch sums of 128 simulated epochs
+        # of the same pipeline (shuffle [-> window sort] -> carve batches ->
+        # strided shard split), drawn from a fixed generator so every epoch
+        # sees the same ladder; the worst case is the last level
         self.pads = [self.pad]
         if num_buckets > 1 and 1 < k < len(graphs):
             arr_n = np.array([g.num_nodes for g in graphs])
@@ -146,7 +186,9 @@ class BatchLoader:
                     order = self._size_order(order, arr_e)
                 for r, j in enumerate(range(0, len(order), batch_size)):
                     b = order[j : j + batch_size]
-                    bn, be = int(arr_n[b].sum()), int(arr_e[b].sum())
+                    lists = [b[s::num_shards] for s in range(num_shards) if len(b[s::num_shards])]
+                    bn = max(int(arr_n[sub].sum()) for sub in lists)
+                    be = max(int(arr_e[sub].sum()) for sub in lists)
                     samp_n.append(bn)
                     samp_e.append(be)
                     rank_n[r] = max(rank_n.get(r, 0), bn)
@@ -186,12 +228,13 @@ class BatchLoader:
                     self.pads.append(p)
 
     def _make_pad(self, n: int, e: int) -> PadSpec:
-        """Pad spec for raw totals (n nodes, e edges): at least one padding
-        node, both rounded up to their multiples, a graph slot per graph."""
+        """Pad spec for raw totals (n nodes, e edges) of a (sub-)batch: at
+        least one padding node, both rounded up to their multiples, a graph
+        slot per graph of a shard."""
         return PadSpec(
             self._round(n + 1, self.node_multiple),
             self._round(max(e, 1), self.edge_multiple),
-            self.batch_size,
+            self.batch_size // self.num_shards,
         )
 
     def _size_order(self, idx: np.ndarray, sizes: np.ndarray) -> np.ndarray:
@@ -206,10 +249,10 @@ class BatchLoader:
         ]
         return np.concatenate(parts) if parts else idx
 
-    def _pick_pad(self, graphs: List[CrystalGraph]) -> PadSpec:
-        """The smallest ladder level that fits the batch."""
-        n = sum(g.num_nodes for g in graphs)
-        e = sum(g.num_edges for g in graphs)
+    def _pick_pad(self, shard_lists: List[List[CrystalGraph]]) -> PadSpec:
+        """The smallest ladder level that fits every shard of the batch."""
+        n = max(sum(g.num_nodes for g in gs) for gs in shard_lists)
+        e = max(sum(g.num_edges for g in gs) for gs in shard_lists)
         for p in self.pads:
             if p.num_nodes > n and p.num_edges >= e:
                 return p
@@ -228,6 +271,145 @@ class BatchLoader:
         n = len(self.graphs)
         return n // self.batch_size if self.drop_last else int(np.ceil(n / self.batch_size))
 
+    NODE_FIELDS = (K.POSITIONS, K.ATOMIC_NUMBERS, K.SPECIES_INDEX, K.NUM_NEIGH, K.BATCH, K.NODE_MASK)
+
+    def _ring_order(self, graphs: List[CrystalGraph]) -> List[CrystalGraph]:
+        """Size-balanced graph order for the ring layout: largest first,
+        each graph to the least loaded of the Sg node shards (by node
+        count), emitted in shard order, so graphs mostly stay inside one
+        node chunk and their edges in the diagonal ring slots."""
+        sg = self.num_edge_shards
+        if len(graphs) <= 1 or sg <= 1:
+            return graphs
+        order = sorted(range(len(graphs)), key=lambda i: -graphs[i].num_nodes)
+        bins: List[List[CrystalGraph]] = [[] for _ in range(sg)]
+        loads = np.zeros(sg, dtype=np.int64)
+        for i in order:
+            b = int(np.argmin(loads))
+            bins[b].append(graphs[i])
+            loads[b] += graphs[i].num_nodes
+        return [g for b in bins for g in b]
+
+    def _shard_nodes_and_edges(self, data: Dict, targets: Dict) -> Batch:
+        """Node-sharded layout [Sg, ...]: nodes in Sg contiguous chunks of c,
+        each edge with the shard that owns its destination (src global, dst
+        local), padding slots inert at dst = c - 1 (module docstring); with
+        `ring`, each shard's edges in Sg slots of one capacity by their
+        source owner (group-major). The slot capacity is the most edges of
+        any (dst owner, src owner) pair, rounded up to max(64,
+        edge_multiple / Sg) and never lowered for a padded edge count, so
+        the shapes settle after the first epoch."""
+        sg = self.num_edge_shards
+        n = data[K.POSITIONS].shape[0]
+        if n % sg:
+            raise ValueError(f"padded nodes {n} not divisible by {sg} node shards")
+        c = n // sg
+        data = dict(data)
+        data.pop(K.EDGE_VECTORS, None)  # the unsharded layout's
+        src, dst = data[K.EDGE_INDEX]
+        real = data[K.EDGE_MASK]
+        owner = dst // c
+        if self.ring:
+            src_owner = src // c
+            e_pad = data[K.EDGE_INDEX].shape[1]
+            cnt = np.zeros((sg, sg), dtype=np.int64)
+            np.add.at(cnt, (owner[real], src_owner[real]), 1)
+            q = max(64, self.edge_multiple // sg)
+            need = int(np.ceil(max(int(cnt.max()), 1) / q)) * q
+            cap2 = max(need, self._ring_cap2.get((e_pad, sg), 0))
+            self._ring_cap2[(e_pad, sg)] = cap2
+            slots = [(so, so * cap2, cap2) for so in range(sg)]
+        else:
+            slots = [(None, 0, 2 * (data[K.EDGE_INDEX].shape[1] // sg))]
+        cap = sum(size for _, _, size in slots)
+        ei = np.empty((sg, 2, cap), dtype=np.int32)
+        shift = np.full((sg, cap, 3), 1e6, dtype=data[K.EDGE_CELL_SHIFT].dtype)
+        mask = np.zeros((sg, cap), dtype=bool)
+        for s in range(sg):
+            for so, o, size in slots:
+                # padding: dst = c - 1, src in the slot owner's chunk
+                ei[s, 0, o:o + size] = (s if so is None else so) * c + c - 1
+                ei[s, 1, o:o + size] = c - 1
+                sel = real & (owner == s)
+                if so is not None:
+                    sel &= src_owner == so
+                k = int(sel.sum())
+                if k > size:
+                    raise ValueError(f"edge shard ({s}, {so}) overflows its {size} slots with {k} edges")
+                ei[s, 0, o:o + k] = src[sel]
+                ei[s, 1, o:o + k] = dst[sel] - s * c
+                shift[s, o:o + k] = data[K.EDGE_CELL_SHIFT][sel]
+                mask[s, o:o + k] = True
+        data[K.EDGE_INDEX] = ei
+        data[K.EDGE_CELL_SHIFT] = shift
+        data[K.EDGE_MASK] = mask
+        # per-node feature columns too: the JAX layout leaves them whole,
+        # and its sharded step then fails on a model that reads them
+        for key in self.NODE_FIELDS + tuple(sorted(self._per_node_keys & set(data))):
+            if key in data:
+                data[key] = data[key].reshape((sg, c) + data[key].shape[1:])
+        # per-node targets shard with their nodes
+        targets = {key: v.reshape((sg, c) + v.shape[1:]) if v.shape[0] == n else v
+                   for key, v in targets.items()}
+        return data, targets
+
+    def _shard_edges(self, data: Dict) -> Dict:
+        """Edge-sharded layout: the dst-sorted edges in Sg contiguous slices
+        [Sg, ...], nodes replicated."""
+        sg = self.num_edge_shards
+        e = data[K.EDGE_INDEX].shape[1]
+        if e % sg:
+            raise ValueError(f"padded edges {e} not divisible by {sg} edge shards")
+        data = dict(data)
+        data.pop(K.EDGE_VECTORS, None)  # the unsharded layout's
+        data[K.EDGE_INDEX] = np.ascontiguousarray(
+            np.transpose(data[K.EDGE_INDEX].reshape(2, sg, e // sg), (1, 0, 2)))
+        data[K.EDGE_CELL_SHIFT] = data[K.EDGE_CELL_SHIFT].reshape(sg, e // sg, 3)
+        data[K.EDGE_MASK] = data[K.EDGE_MASK].reshape(sg, e // sg)
+        return data
+
+    def _collate(self, graphs: List[CrystalGraph], pad: PadSpec) -> Batch:
+        return collate_graphs(
+            graphs,
+            pad,
+            species_map=self.species_map,
+            per_node_keys=self._per_node_keys,
+            precompute_edge_vectors=self.precompute_edge_vectors,
+        )
+
+    def _sharded(self, graphs: List[CrystalGraph]) -> Batch:
+        """A stacked batch: graphs s, s + S, ... in shard s (strided, so
+        a size-sorted batch spreads over the shards), each shard collated at
+        one pad and split along the graph axis."""
+        raw_lists = [graphs[s::self.num_shards] for s in range(self.num_shards)]
+        shard_lists = [gs or graphs[:1] for gs in raw_lists]
+        if self.node_shard and self.ring:
+            shard_lists = [self._ring_order(gs) for gs in shard_lists]
+        pad = self._pick_pad(shard_lists)
+        shards = []
+        for gs in shard_lists:
+            d, t = self._collate(gs, pad)
+            if self.num_edge_shards > 1:
+                if self.node_shard:
+                    d, t = self._shard_nodes_and_edges(d, t)
+                else:
+                    d = self._shard_edges(d)
+                if self.precompute_edge_vectors:
+                    # the vectors of the sharded edges
+                    attach_edge_vectors(d, dst_local=self.node_shard)
+            shards.append((d, t))
+        data = {k: np.stack([d[k] for d, _ in shards]) for k in shards[0][0]}
+        targets = {k: np.stack([t[k] for _, t in shards]) for k in shards[0][1]}
+        # a shard without graphs reuses graphs[:1] with its masks zeroed (and
+        # its vectors, which were computed before), so it adds nothing
+        for s, gs in enumerate(raw_lists):
+            if not gs:
+                for key in (K.NODE_MASK, K.EDGE_MASK, K.GRAPH_MASK):
+                    data[key][s] = False
+                if K.EDGE_VECTORS in data:
+                    data[K.EDGE_VECTORS][s] = 0.0
+        return data, targets
+
     def __iter__(self) -> Iterator[Batch]:
         idx = np.arange(len(self.graphs))
         if self.shuffle:
@@ -240,13 +422,10 @@ class BatchLoader:
                 self._rng.shuffle(order)
         for i in order:
             graphs = [self.graphs[j] for j in idx[i * self.batch_size : (i + 1) * self.batch_size]]
-            yield collate_graphs(
-                graphs,
-                self._pick_pad(graphs),
-                species_map=self.species_map,
-                per_node_keys=self._per_node_keys,
-                precompute_edge_vectors=self.precompute_edge_vectors,
-            )
+            if self.num_shards == 1 and self.num_edge_shards == 1:
+                yield self._collate(graphs, self._pick_pad([graphs]))
+            else:
+                yield self._sharded(graphs)
 
 
 class TensorDataModule:
@@ -256,8 +435,9 @@ class TensorDataModule:
     or flat Cartesian components, scaled, optionally normalized (irreps
     only), with per-crystal weights; scalar targets, optionally logged and
     standardized; atom and global feature columns, optionally standardized.
-    The sharded layouts (`num_shards` other than 1) raise
-    `NotImplementedError`."""
+    `num_shards`, or `set_sharding` (what the scripts call from
+    `trainer.devices` / `trainer.mesh`), gives every loader the sharded
+    layout of a mesh."""
 
     # loader_kwargs keys forwarded verbatim to BatchLoader
     _LOADER_PASSTHROUGH = (
@@ -298,11 +478,7 @@ class TensorDataModule:
         seed: int = 0,
         num_shards: int = 1,
     ):
-        if num_shards != 1:
-            raise NotImplementedError(
-                f"num_shards={num_shards}: the sharded batch layouts are not ported "
-                "yet (ROADMAP item 6)"
-            )
+        self._shard_kwargs: Dict[str, Any] = dict(num_shards=num_shards)
 
         def _cols(spec):
             if spec is None:
@@ -369,9 +545,12 @@ class TensorDataModule:
                 continue
             self.graphs[split], self.failed[split] = load_tensor_dataset(self.root / fname, self.cfg)
             try:
+                # written aside and renamed: the ranks of a run may read it
                 cache.parent.mkdir(parents=True, exist_ok=True)
-                with open(cache, "wb") as f:
+                tmp = cache.with_name(f"{cache.name}.{os.getpid()}.tmp")
+                with open(tmp, "wb") as f:
                     pickle.dump((self.graphs[split], self.failed[split]), f)
+                os.replace(tmp, cache)
             except OSError as e:  # read-only dataset roots: skip caching
                 logger.debug("graph cache not written (%s)", e)
             logger.info(
@@ -420,8 +599,18 @@ class TensorDataModule:
             "atom_feats_size": _size("atom_feats"),
         }
 
-    def set_sharding(self, *args, **kwargs) -> None:
-        raise NotImplementedError("the sharded batch layouts are not ported yet (ROADMAP item 6)")
+    def set_sharding(
+        self,
+        num_shards: int = 1,
+        num_edge_shards: int = 1,
+        node_shard: bool = False,
+        ring: bool = False,
+    ) -> None:
+        """The batch layout of a (data, graph) mesh for every loader
+        (`MeshSpec.loader_kwargs`)."""
+        self._shard_kwargs = dict(
+            num_shards=num_shards, num_edge_shards=num_edge_shards, node_shard=node_shard, ring=ring
+        )
 
     def _loader(self, split: str, shuffle: bool) -> BatchLoader:
         extra = {k: self.loader_kwargs[k] for k in self._LOADER_PASSTHROUGH if k in self.loader_kwargs}
@@ -431,6 +620,7 @@ class TensorDataModule:
             species_map=self.species_map,
             shuffle=shuffle,
             seed=self.seed,
+            **self._shard_kwargs,
             **extra,
         )
 

@@ -46,7 +46,7 @@ import torch
 
 from matten_tpu_torch.ops.scatter import scatter_sum
 from matten_tpu_torch.ops.tensor_product import TensorProductPlan
-from matten_tpu_torch.ops.wigner import wigner_3j
+from matten_tpu_torch.ops.clebsch_gordan import wigner_3j
 
 __all__ = [
     "fused_uvu_conv",

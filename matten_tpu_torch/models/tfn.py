@@ -13,6 +13,13 @@ Counterpart of `matten_tpu/models/tfn.py`, both model families:
 
 Parameters are drawn from a seeded `torch.Generator` on the CPU and the
 model is then moved to `device`, the card unless the caller passes another.
+
+The hparams `graph_parallel_axis` ("graph") and `graph_parallel_mode`
+("edge", "node" or "node_ring") build the graph-parallel model: the same
+parameters, with the convs, and under the node modes the edge geometry, the
+batch norm and the pooling, taking their part of a graph split over the
+mesh's graph axis (`nn/conv.py`, `parallel/`). Such a model runs only on
+a rank's block of a sharded batch.
 """
 
 from __future__ import annotations
@@ -42,15 +49,6 @@ def _resolve_avg_num_neighbors(hparams, dataset_hparams) -> Optional[float]:
     return v
 
 
-def _check_supported(hparams: Dict[str, Any]) -> None:
-    """Reject graph parallelism, which the port does not have yet."""
-    if hparams.get("graph_parallel_axis", None):
-        raise NotImplementedError(
-            f"hparam graph_parallel_axis={hparams['graph_parallel_axis']!r}: graph "
-            "parallelism is not ported yet (ROADMAP item 6)"
-        )
-
-
 def create_tfn_backbone(
     hparams: Dict[str, Any],
     dataset_hparams: Dict[str, Any],
@@ -58,9 +56,14 @@ def create_tfn_backbone(
     pooling: Optional[str],
     generator: torch.Generator,
 ) -> Sequential:
-    _check_supported(hparams)
     irreps = {K.POSITIONS: Irreps("1o")}
     layers = []
+
+    graph_axis = hparams.get("graph_parallel_axis", None)
+    graph_shard_mode = hparams.get("graph_parallel_mode", "edge")
+    # the node modes split the nodes too: positions gathered, statistics
+    # and pooled sums summed over the axis
+    node_axis = graph_axis if graph_shard_mode in ("node", "node_ring") else None
 
     m = SpeciesEmbedding(
         irreps,
@@ -77,6 +80,7 @@ def create_tfn_backbone(
         m.irreps_out,
         Irreps(hparams["irreps_edge_sh"]),
         require_position_gradients=hparams.get("require_position_gradients", False),
+        gather_axis=node_axis,
     )
     layers.append(m)
     m = EdgeLengthEmbedding(
@@ -85,6 +89,7 @@ def create_tfn_backbone(
         start=hparams.get("radial_basis_start", 0.0),
         end=hparams.get("radial_basis_end", 5.0),
         basis=hparams.get("radial_basis_type", "bessel"),
+        gather_axis=node_axis,
     )
     layers.append(m)
 
@@ -94,6 +99,8 @@ def create_tfn_backbone(
         fc_num_hidden_layers=hparams.get("invariant_layers", 2),
         fc_hidden_size=hparams.get("invariant_neurons", 32),
         avg_num_neighbors=avg_num_neighbors,
+        graph_axis=graph_axis,
+        graph_shard_mode=graph_shard_mode,
     )
     for _ in range(hparams.get("num_layers", 3)):
         m = PointConvWithActivation(
@@ -111,7 +118,8 @@ def create_tfn_backbone(
     layers.append(m)
     if pooling is not None:
         layers.append(
-            NodewiseReduce(m.irreps_out, field=OUT_FIELD, out_field=OUT_FIELD, reduce=pooling)
+            NodewiseReduce(m.irreps_out, field=OUT_FIELD, out_field=OUT_FIELD, reduce=pooling,
+                           axis=node_axis)
         )
     return Sequential(layers)
 

@@ -5,7 +5,7 @@ Counterpart of `matten_tpu/nn/embedding.py`.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -13,7 +13,7 @@ import torch
 from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps
-from matten_tpu_torch.nn.edge_geometry import with_edge_vectors
+from matten_tpu_torch.nn.edge_geometry import gather_positions, with_edge_vectors
 from matten_tpu_torch.nn.radial import bessel_basis, gaussian_basis, gaussian_centers
 
 
@@ -108,7 +108,7 @@ class EdgeLengthEmbedding(torch.nn.Module):
     """Edge length -> radial basis [E, num_basis] ("bessel" or "gaussian"),
     scaled by sqrt(num_basis) and zeroed on padding edges by the edge mask
     (the bessel window already zeroes their zero length; the gaussian has
-    no window)."""
+    no window). `gather_axis`: as `SphericalHarmonicEdgeAttrs`'."""
 
     def __init__(
         self,
@@ -117,8 +117,10 @@ class EdgeLengthEmbedding(torch.nn.Module):
         start: float = 0.0,
         end: float = 5.0,
         basis: str = "bessel",
+        gather_axis: Optional[str] = None,
     ):
         super().__init__()
+        self.gather_axis = gather_axis
         if basis not in ("bessel", "gaussian"):
             raise ValueError(f"unsupported basis {basis!r}")
         self.num_basis, self.start, self.end = int(num_basis), float(start), float(end)
@@ -136,6 +138,7 @@ class EdgeLengthEmbedding(torch.nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = dict(data)
+        gather_positions(data, self.gather_axis)
         with_edge_vectors(data)
         length = data[K.EDGE_LENGTH]
         if self.basis == "gaussian":

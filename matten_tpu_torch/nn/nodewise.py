@@ -13,8 +13,10 @@ import torch
 from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps, normal_parameter
-from matten_tpu_torch.ops.scatter import scatter_max, scatter_mean, scatter_min, scatter_sum
+from matten_tpu_torch.ops.scatter import scatter_max, scatter_min, scatter_sum
 from matten_tpu_torch.ops.tensor_product import LinearPlan
+from matten_tpu_torch.parallel.collectives import pmax, pmin, psum
+from matten_tpu_torch.parallel.sharding import bound_axis
 
 
 class NodewiseLinear(torch.nn.Module):
@@ -46,7 +48,10 @@ class NodewiseReduce(torch.nn.Module):
     """Masked segment sum / mean / min / max of a node field into per-graph
     features; padded nodes are excluded through the node mask. min / max
     give padded rows the +/-inf sentinel before the segment reduction, and
-    a graph with no real node (an all-padding graph) gets 0."""
+    a graph with no real node (an all-padding graph) gets 0. With `axis`,
+    the graph axis of a node-sharded model, a graph's nodes may lie on
+    several ranks: the per-graph sums and counts are summed over the axis
+    (sum, mean), the per-graph extremes reduced by pmin / pmax (min, max)."""
 
     def __init__(
         self,
@@ -54,12 +59,14 @@ class NodewiseReduce(torch.nn.Module):
         field: str = K.NODE_FEATURES,
         out_field: Optional[str] = None,
         reduce: str = "sum",
+        axis: Optional[str] = None,
     ):
         super().__init__()
         if reduce not in ("sum", "mean", "min", "max"):
             raise ValueError(f"unsupported reduce {reduce!r}")
         self.field = field
         self.reduce = reduce
+        self.axis = axis
         self.out_field = out_field if out_field is not None else f"{reduce}_{field}"
         self.irreps_in = dict(irreps_in)
         self.irreps_out = merge_irreps(self.irreps_in, {self.out_field: self.irreps_in[field]})
@@ -69,17 +76,18 @@ class NodewiseReduce(torch.nn.Module):
         x = data[self.field]
         num_graphs = data[K.CELL].reshape(-1, 3, 3).shape[0]
         mask = data.get(K.NODE_MASK)
-        if self.reduce == "mean":
-            out = scatter_mean(x, data[K.BATCH], num_graphs, weights=mask)
-        elif self.reduce == "sum":
+        axis = None if self.axis is None else bound_axis(data, self.axis)
+        if self.reduce in ("sum", "mean"):
             w = x.new_ones(x.shape[0]) if mask is None else mask.to(x.dtype)
-            out = scatter_sum(x * w[:, None], data[K.BATCH], num_graphs)
+            out = psum(scatter_sum(x * w[:, None], data[K.BATCH], num_graphs), axis)
+            if self.reduce == "mean":
+                out = out / psum(scatter_sum(w, data[K.BATCH], num_graphs), axis).clamp_min(1.0)[:, None]
         else:
             if mask is not None:
                 sentinel = float("inf") if self.reduce == "min" else float("-inf")
                 x = torch.where(mask.bool()[:, None], x, x.new_tensor(sentinel))
-            red = scatter_min if self.reduce == "min" else scatter_max
-            out = red(x, data[K.BATCH], num_graphs)
+            red, across = (scatter_min, pmin) if self.reduce == "min" else (scatter_max, pmax)
+            out = across(red(x, data[K.BATCH], num_graphs), axis)
             out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
         data[self.out_field] = out
         return data

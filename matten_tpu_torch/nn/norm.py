@@ -7,19 +7,24 @@ second-moment ("component") normalization for every channel, running
 statistics with momentum, affine weight (+ bias for scalars). Statistics
 exclude padded nodes through the node mask. In `eval()` mode the running
 statistics are used; in `train()` mode batch statistics are used and the
-running ones updated. `IrrepsInstanceNorm`: the same per channel, with
+running ones updated. With `axis`, the graph axis of a node-sharded
+model, the sums behind the batch statistics (and their node count) are
+summed over the axis first, so every rank of a graph normalizes with the
+statistics of all its nodes. `IrrepsInstanceNorm`: the same per channel, with
 each graph's statistics over its real nodes, in both modes, and no running
 statistics.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
 from matten_tpu_torch.ops.irreps import Irreps
+from matten_tpu_torch.parallel.collectives import psum
+from matten_tpu_torch.parallel.sharding import bound_axis
 
 __all__ = ["IrrepsBatchNorm", "IrrepsInstanceNorm"]
 
@@ -44,9 +49,10 @@ class IrrepsBatchNorm(torch.nn.Module):
     EPS = 1e-5
     MOMENTUM = 0.1
 
-    def __init__(self, irreps: Irreps):
+    def __init__(self, irreps: Irreps, axis: Optional[str] = None):
         super().__init__()
         self.irreps = Irreps(irreps)
+        self.axis = axis
         num_scalars = sum(mul for mul, ir in self.irreps if ir.l == 0)
         num_features = self.irreps.num_irreps
         comp2feat, scal_comp, dims = _channel_maps(self.irreps)
@@ -61,18 +67,21 @@ class IrrepsBatchNorm(torch.nn.Module):
         self.weight = torch.nn.Parameter(torch.ones(num_features))
         self.bias = torch.nn.Parameter(torch.zeros(num_scalars))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                data: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
+        """`data`, the batch dict, carries the mesh of a node-sharded model."""
         m = x.new_ones(x.shape[0]) if mask is None else mask.to(x.dtype)
-        count = m.sum().clamp_min(1.0)
         if self.training:
-            fmean = (x[:, self.scal_comp] * m[:, None]).sum(0) / count
+            axis = None if self.axis is None else bound_axis(data or {}, self.axis)
+            count = psum(m.sum(), axis).clamp_min(1.0)
+            fmean = psum((x[:, self.scal_comp] * m[:, None]).sum(0), axis) / count
         else:
             fmean = self.running_mean.to(x.dtype)
         mean_comp = x.new_zeros(x.shape[-1]).index_copy(0, self.scal_comp, fmean)
         xc = x - mean_comp
 
         if self.training:
-            sq = ((xc * xc) * m[:, None]).sum(0)
+            sq = psum(((xc * xc) * m[:, None]).sum(0), axis)
             fnorm = x.new_zeros(self.running_var.shape[0]).index_add(0, self.comp2feat, sq)
             fnorm = fnorm * self.inv_dim.to(x.dtype) / count
         else:

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from matten_tpu_torch.ops.irreps import Irrep, Irreps
-from matten_tpu_torch.ops.wigner import wigner_3j
+from matten_tpu_torch.ops.clebsch_gordan import wigner_3j
 
 __all__ = ["CartesianTensorMap", "cartesian_tensor_map"]
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from matten_tpu_torch.ops.irreps import Irreps
-from matten_tpu_torch.ops.wigner import wigner_3j
+from matten_tpu_torch.ops.clebsch_gordan import wigner_3j
 
 __all__ = ["spherical_harmonics"]
 

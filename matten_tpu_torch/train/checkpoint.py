@@ -45,11 +45,17 @@ def load_sidecar(directory):
 
 
 class CheckpointManager:
-    """Best-k (min val/score) + last checkpoints in `directory`."""
+    """Best-k (min val/score) + last checkpoints in `directory`.
 
-    def __init__(self, directory, save_top_k: int = 3):
+    `writer=False` keeps the best-k bookkeeping of `save` and writes
+    nothing: the other ranks of a multi-process fit, whose primary rank
+    writes the directory and all of which read it back."""
+
+    def __init__(self, directory, save_top_k: int = 3, writer: bool = True):
         self.directory = Path(directory).absolute()
-        self.directory.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.save_top_k = save_top_k
         self._scores: Dict[int, float] = {}
         if self._index_path().exists():
@@ -71,14 +77,17 @@ class CheckpointManager:
 
     def save(self, epoch: int, state: Dict[str, Any], metrics: Dict[str, float]):
         """Save an epoch's state, then keep only the best `save_top_k`."""
-        self._write(self._epoch_dir(epoch), state)
+        if self.writer:
+            self._write(self._epoch_dir(epoch), state)
         self._scores[epoch] = float(metrics.get("val/score", float("inf")))
         if len(self._scores) > self.save_top_k:
             worst = max(self._scores, key=self._scores.get)
             self._scores.pop(worst)
-            shutil.rmtree(self._epoch_dir(worst), ignore_errors=True)
-        with open(self._index_path(), "w") as f:
-            json.dump(self._scores, f)
+            if self.writer:
+                shutil.rmtree(self._epoch_dir(worst), ignore_errors=True)
+        if self.writer:
+            with open(self._index_path(), "w") as f:
+                json.dump(self._scores, f)
 
     def save_last(self, state: Dict[str, Any], loop_state: Optional[Dict[str, Any]] = None):
         """Save the rolling `last` checkpoint (+ training-loop state): a
@@ -86,6 +95,8 @@ class CheckpointManager:
         early-stopping positions intact. Both writes are atomic: the state
         goes to `last_tmp` and is renamed, the loop state to a temporary
         file that replaces the old one."""
+        if not self.writer:
+            return
         tmp = self.directory / "last_tmp"
         self._write(tmp, state)
         path = self.directory / "last"

@@ -10,18 +10,19 @@ callbacks give `save_top_k` and the early-stopping patience.
 batches into one dispatch on the TPU, a dispatch knob with no counterpart
 here.
 
-The multi-device surface (`trainer.devices > 1`, `trainer.mesh`) is not
-ported yet: `build_mesh_spec` refuses it, so a multi-device config never
-trains on one card without a word.
+`trainer.devices` / `trainer.mesh` give the `MeshSpec` of a data and graph
+parallel run (`build_mesh_spec`); the scripts run it as one process per
+rank (`torchrun --nproc-per-node N`).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 from matten_tpu_torch.train.trainer import TrainerConfig
 
-__all__ = ["build_trainer_config", "build_mesh_spec"]
+__all__ = ["build_trainer_config", "build_mesh_spec", "MeshSpec"]
 
 # class_path basename (case-insensitive) -> trainer optimizer kind
 _OPTIMIZERS = {"adam": "adam", "adamw": "adamw", "sgd": "sgd"}
@@ -87,14 +88,61 @@ def build_trainer_config(config: Dict[str, Any]) -> TrainerConfig:
     )
 
 
-def build_mesh_spec(config: Dict[str, Any]) -> None:
-    """None for one device. `trainer.devices > 1` or a `trainer.mesh`
-    section raise `NotImplementedError`: data and graph parallelism are not
-    ported yet (ROADMAP item 6)."""
+@dataclass
+class MeshSpec:
+    """Parsed trainer.devices / trainer.mesh section."""
+
+    n_data: int = 1
+    n_graph: int = 1
+    mode: str = "edge"  # edge | node | node_ring
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_data * self.n_graph
+
+    @property
+    def is_multichip(self) -> bool:
+        return self.n_devices > 1
+
+    def make_mesh(self):
+        """This rank's mesh (`parallel.make_mesh`): every rank calls it."""
+        from matten_tpu_torch.parallel.sharding import make_mesh
+
+        return make_mesh(n_data=self.n_data, n_graph=self.n_graph, mode=self.mode)
+
+    def loader_kwargs(self) -> Dict[str, Any]:
+        """BatchLoader sharding knobs for this mesh layout."""
+        return dict(
+            num_shards=self.n_data,
+            num_edge_shards=self.n_graph,
+            node_shard=self.mode in ("node", "node_ring"),
+            ring=self.mode == "node_ring",
+        )
+
+
+def build_mesh_spec(config: Dict[str, Any]) -> Optional[MeshSpec]:
+    """trainer.devices / trainer.mesh -> MeshSpec (None = single device).
+
+    `devices: N` alone is flat data parallelism; `mesh: {data, graph,
+    mode}` adds the graph-partition axis. A `devices` that differs from the
+    mesh's data * graph, or an unknown mode, raises."""
     tr = config.get("trainer", {}) or {}
-    if tr.get("mesh"):
-        raise NotImplementedError("trainer.mesh: graph and data parallelism are not ported yet (ROADMAP item 6)")
+    mesh = tr.get("mesh")
+    if mesh:
+        spec = MeshSpec(
+            n_data=int(mesh.get("data", 1)),
+            n_graph=int(mesh.get("graph", 1)),
+            mode=str(mesh.get("mode", "edge")),
+        )
+        if spec.mode not in ("edge", "node", "node_ring"):
+            raise ValueError(f"trainer.mesh.mode {spec.mode!r} not in edge|node|node_ring")
+        devices = tr.get("devices")
+        if devices is not None and int(devices) != spec.n_devices:
+            raise ValueError(
+                f"trainer.devices={devices} inconsistent with mesh data*graph={spec.n_devices}"
+            )
+        return spec if spec.is_multichip else None
     devices = int(tr.get("devices", 1) or 1)
     if devices > 1:
-        raise NotImplementedError(f"trainer.devices={devices}: data parallelism is not ported yet (ROADMAP item 6)")
+        return MeshSpec(n_data=devices)
     return None

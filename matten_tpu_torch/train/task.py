@@ -18,7 +18,6 @@ __all__ = [
     "Task",
     "CanonicalRegressionTask",
     "masked_mse_sums",
-    "masked_mse",
     "masked_abs_err_sum",
 ]
 
@@ -73,21 +72,6 @@ def masked_mse_sums(
         m = m * sample_weight.to(pred.dtype)
     se = ((pred - target) ** 2).sum(-1) * m
     return se.sum(), m.sum() * pred.shape[-1]
-
-
-def masked_mse(
-    pred: torch.Tensor,
-    target: torch.Tensor,
-    mask: torch.Tensor,
-    sample_weight: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Mean squared error over rows where mask is True.
-
-    pred/target: [R, D]; mask: [R] bool; sample_weight: [R] or None. Mean
-    over real rows x D elements (torch `mse_loss` over the unmasked subset).
-    """
-    num, den = masked_mse_sums(pred, target, mask, sample_weight)
-    return num / den.clamp_min(1.0)
 
 
 def masked_abs_err_sum(

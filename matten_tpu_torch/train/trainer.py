@@ -23,6 +23,20 @@ copies on a side stream, one batch ahead of the step that uses them; the
 step losses and the evaluation sums stay on the device and are read back
 once per epoch and once per evaluation. The only other host sync of a step
 is the forward's edge check (`kernels.fused_conv.edge_plan`).
+
+With `mesh` (`parallel.make_mesh`), the trainer is one rank of a data and
+graph parallel run, the counterpart of the JAX trainer's `shard_map`
+steps: every rank builds the same model from the same seed, takes its
+block of each stacked batch (`parallel.sharding.local_block`), and the
+step equals the single-device step on the whole batch. The loss is the
+exact global masked mean (each task's sum and count summed over the data
+axis, and over the graph axis for per-atom tasks under the node modes);
+after the backward, whose collectives are exact transposes, the gradients
+are summed over every rank and divided by the world size; the batch-norm
+running statistics are averaged over the data axis; the metric sums are
+summed as the loss's. So every rank holds the same parameters, losses and
+metrics and takes the same plateau and early-stopping decisions; only the
+primary rank writes checkpoints and logs, and every rank reads them back.
 """
 
 from __future__ import annotations
@@ -32,11 +46,15 @@ import time
 from dataclasses import asdict, dataclass, field as dc_field
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.parallel.collectives import psum
+from matten_tpu_torch.parallel.sharding import MESH, NODE_MODES, Mesh, local_block
 from matten_tpu_torch.train.checkpoint import CheckpointManager
-from matten_tpu_torch.train.task import Task, masked_abs_err_sum, masked_mse
+from matten_tpu_torch.train.task import Task, masked_abs_err_sum, masked_mse_sums
 
 logger = logging.getLogger(__name__)
 
@@ -105,14 +123,30 @@ def make_optimizer(params, config: TrainerConfig) -> torch.optim.Optimizer:
     return kind[config.optimizer](params, lr=config.lr, weight_decay=config.weight_decay)
 
 
+def _check_graph_mode(model: torch.nn.Module, mesh: Mesh) -> None:
+    """The mesh's graph shard mode is the one the model's convs were built
+    for (`graph_parallel_mode`), and a mesh that splits graphs has a
+    graph-parallel model."""
+    modes = {m.graph_shard_mode for m in model.modules() if getattr(m, "graph_axis", None) is not None}
+    if (modes or mesh.n_graph > 1) and modes != {mesh.mode}:
+        raise ValueError(
+            f"the mesh splits graphs over {mesh.n_graph} rank(s) in mode {mesh.mode!r}, but the model's "
+            f"convs are built for {sorted(modes) or 'one device (no graph_parallel_axis)'}"
+        )
+
+
 class Trainer:
-    """One model, its tasks and its optimizer on one device.
+    """One model, its tasks and its optimizer on one device, or on one rank
+    of a mesh.
 
     `device` defaults to the card (`cuda`); the model is moved there. Batches
-    passed to the steps must already be on it (`predict.batch_to_device`);
-    `fit`, `test` and `_run_eval` take numpy batches from loaders and copy
-    them. `metrics_logger`, an object with `.log(record, step=)`, gets each
-    epoch's history record."""
+    passed to the steps must already be on it (`predict.batch_to_device`;
+    with a mesh, this rank's block: `parallel.shard_batch`); `fit`, `test`
+    and `_run_eval` take numpy batches from loaders and copy them.
+    `metrics_logger`, an object with `.log(record, step=)`, gets each
+    epoch's history record. `mesh` makes it one rank of a parallel run
+    (module docstring); the mesh's mode must be the model's
+    `graph_parallel_mode`."""
 
     def __init__(
         self,
@@ -121,12 +155,19 @@ class Trainer:
         config: TrainerConfig,
         device: Union[str, torch.device, None] = None,
         metrics_logger=None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = torch.device("cuda") if device is None else torch.device(device)
         self.model = model.to(self.device)
         self.tasks = tasks
         self.config = config
         self.metrics_logger = metrics_logger
+        self.mesh = mesh
+        if mesh is not None:
+            _check_graph_mode(model, mesh)
+        self.primary = mesh is None or mesh.rank == 0
+        # the running statistics, averaged over the data axis after a step
+        self._statistics = [b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))]
         self.optimizer = make_optimizer(self.model.parameters(), config)
         self.scheduler = (
             ReduceLROnPlateau(factor=config.lr_factor, patience=config.lr_patience)
@@ -135,7 +176,7 @@ class Trainer:
         )
         self.history: List[Dict[str, float]] = []
         self._ckpt_manager = (
-            CheckpointManager(config.checkpoint_dir, save_top_k=config.save_top_k)
+            CheckpointManager(config.checkpoint_dir, save_top_k=config.save_top_k, writer=self.primary)
             if config.checkpoint_dir is not None
             else None
         )
@@ -151,17 +192,29 @@ class Trainer:
             return mask
         return data[K.GRAPH_MASK]
 
+    def _global(self, task: Task, x: torch.Tensor) -> torch.Tensor:
+        """A task's sum over this rank's rows summed over the ranks that
+        hold its other rows: the data axis, and the graph axis for per-atom
+        rows under the node modes (identity without a mesh)."""
+        if self.mesh is None:
+            return x
+        x = psum(x, self.mesh.data)
+        if task.per_atom and self.mesh.mode in NODE_MODES:
+            x = psum(x, self.mesh.graph)
+        return x
+
     def _compute_loss(self, preds: Dict, data: Dict, targets: Dict) -> torch.Tensor:
-        """Weighted multi-task masked MSE."""
+        """Weighted multi-task masked MSE; with a mesh the exact mean over
+        the whole batch's rows, the same on every rank."""
         loss = 0.0
         for task in self.tasks:
             mask = self._task_mask(task, data, targets)
             sw = None
             if not task.per_atom and "target_weight" in data:
                 sw = data["target_weight"][:, 0]
-            loss = loss + task.loss_weight * masked_mse(
-                preds[task.name], targets[task.name], mask, sw
-            )
+            num, den = masked_mse_sums(preds[task.name], targets[task.name], mask, sw)
+            term = self._global(task, num) / self._global(task, den).clamp_min(1.0)
+            loss = loss + task.loss_weight * term
         return loss
 
     @torch.no_grad()
@@ -171,8 +224,26 @@ class Trainer:
             mask = self._task_mask(task, data, targets)
             p = task.transform_for_metric(preds[task.name].detach())
             t = task.transform_for_metric(targets[task.name])
-            out[task.name] = masked_abs_err_sum(p, t, mask)
+            s, c = masked_abs_err_sum(p, t, mask)
+            out[task.name] = (self._global(task, s), self._global(task, c))
         return out
+
+    @torch.no_grad()
+    def _reduce_across_ranks(self) -> None:
+        """After a backward with a mesh: each gradient summed over every
+        rank and divided by the world size (the single-device gradient, see
+        `parallel/collectives.py`), the running statistics averaged over
+        the data axis; one all_reduce each."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        for tensors, group, n in ((grads, None, self.mesh.size),
+                                  (self._statistics, self.mesh.data.group, self.mesh.n_data)):
+            if n == 1 or not tensors:
+                continue
+            flat = torch.cat([t.reshape(-1) for t in tensors])
+            dist.all_reduce(flat, group=group)
+            flat /= n
+            for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+                t.copy_(v.view_as(t))
 
     def _preds(self, data: Dict) -> Dict[str, torch.Tensor]:
         out = self.model(data)
@@ -189,6 +260,8 @@ class Trainer:
         preds = self._preds(data)
         loss = self._compute_loss(preds, data, targets)
         loss.backward()
+        if self.mesh is not None:
+            self._reduce_across_ranks()
         self.optimizer.step()
         return loss.detach(), self._metric_sums(preds, data, targets)
 
@@ -226,19 +299,31 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _device_batches(self, loader: Iterable) -> Iterator[Tuple[Tuple[Dict, Dict], TensorBatch]]:
-        """(numpy batch, the batch on the device) for each batch of `loader`.
+        """(numpy batch, the batch on the device) for each batch of `loader`;
+        with a mesh, this rank's block of it on the device, with the mesh.
 
         On the card each batch is pinned and copied with non-blocking copies
         on a side stream while the step before it runs; the compute stream
         waits for the copy, and the copied tensors are marked as used by it
         (`record_stream`) so their memory is not handed out again under a
         running step."""
+        if self.mesh is not None:
+            per_atom = [t.name for t in self.tasks if t.per_atom]
+            for batch, (data, targets) in self._copies(
+                    loader, lambda b: local_block(self.mesh, b, per_atom)):
+                yield batch, (dict(data, **{MESH: self.mesh}), targets)
+            return
+        yield from self._copies(loader, lambda b: b)
+
+    def _copies(self, loader: Iterable, block) -> Iterator[Tuple[Tuple[Dict, Dict], TensorBatch]]:
+        """(numpy batch, `block` of it on the device) for each batch."""
         if self.device.type != "cuda":
             # predict imports the train package: import it here, not at the top
             from matten_tpu_torch.predict import batch_to_device
 
             for batch in loader:
-                yield batch, batch_to_device(batch[0], self.device, batch[1])
+                data, targets = block(batch)
+                yield batch, batch_to_device(data, self.device, targets)
             return
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -247,9 +332,9 @@ class Trainer:
         def copy(batch):
             with torch.cuda.stream(stream):
                 return tuple(
-                    {k: torch.as_tensor(v).pin_memory().to(self.device, non_blocking=True)
+                    {k: torch.as_tensor(np.ascontiguousarray(v)).pin_memory().to(self.device, non_blocking=True)
                      for k, v in part.items()}
-                    for part in batch
+                    for part in block(batch)
                 )
 
         it = iter(loader)
@@ -402,9 +487,9 @@ class Trainer:
             }
             rec.update({f"val/{k}": v for k, v in val_metrics.items() if k.startswith("mae")})
             self.history.append(rec)
-            if self.metrics_logger is not None:
+            if self.metrics_logger is not None and self.primary:
                 self.metrics_logger.log(rec, step=epoch)
-            if epoch % cfg.log_every_epochs == 0:
+            if epoch % cfg.log_every_epochs == 0 and self.primary:
                 logger.info(
                     "epoch %d: train loss %.5f | val score %.5f | %.2fs",
                     epoch, rec["train/loss"], score, epoch_time,
@@ -422,4 +507,7 @@ class Trainer:
             if stop:
                 logger.info("early stopping at epoch %d (best %.5f @ %d)", epoch, best_score, best_epoch)
                 break
+        if self.mesh is not None and self.mesh.size > 1:
+            # the other ranks read what the primary rank wrote
+            dist.barrier()
         return self.history

@@ -227,8 +227,11 @@ def test_sidecar_refuses_unported_target_options():
     """The target options are ported: a sidecar naming scalar targets
     builds the model with their heads (the sidecar's `model` section, as
     the JAX script writes it, does not name them), the Cartesian format is
-    read into the dataset config, and scalar normalizers round-trip. What a
-    sidecar may still not ask for is graph parallelism."""
+    read into the dataset config, and scalar normalizers round-trip. A
+    sidecar that names graph parallelism builds the graph-parallel model
+    (the one-device model's parameters); its forward outside a process
+    group fails with a message, where the JAX `apply` fails on an unbound
+    axis name."""
     hp = {"model": TINY, "dataset_hparams": TINY_DS}
     sn = ScalarNormalize(num_features=1, mean=np.asarray([3.5]), std=np.asarray([0.25]))
     arrays = pdataset.DatasetStatistics(allowed_species=SPECIES, scalar_normalizers={"k_voigt": sn}).to_arrays()
@@ -241,9 +244,19 @@ def test_sidecar_refuses_unported_target_options():
     assert "w_k_voigt" in model.state_dict() and "w_out" in model.state_dict()
     np.testing.assert_array_equal(stats.scalar_normalizers["k_voigt"].std, sn.std)
     np.testing.assert_array_equal(stats.scalar_normalizers["k_voigt"].mean, sn.mean)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        model_from_sidecar(dict(hp, model=dict(TINY, graph_parallel_axis="graph"), data=ELASTIC_DATA),
-                           arrays, "cpu")
+    parallel_hp = dict(TINY, graph_parallel_axis="graph", graph_parallel_mode="node")
+    model, _, _ = model_from_sidecar(dict(hp, model=parallel_hp, data=ELASTIC_DATA), arrays, "cpu")
+    plain, _, _ = model_from_sidecar(dict(hp, data=ELASTIC_DATA), arrays, "cpu")
+    assert {k: v.shape for k, v in model.state_dict().items()} == {
+        k: v.shape for k, v in plain.state_dict().items()}
+    data, _ = _tiny_batch()
+    with pytest.raises(ValueError, match="unbound axis name 'graph'"):
+        model(data)
+    jax_model = jax_create_scalar(parallel_hp, TINY_DS)
+    numpy_data = {k: v.numpy() for k, v in data.items()}
+    variables = jax_model.init(jax.random.PRNGKey(0), numpy_data)
+    with pytest.raises(NameError, match="unbound axis name: graph"):
+        jax_model.apply(variables, numpy_data, use_running_average=True)
 
 
 # ---------------------------------------------------------------- checkpoints

@@ -9,6 +9,9 @@ held to the reference module's.
 """
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +27,7 @@ from matten_tpu_torch.data import graph as pgraph
 from matten_tpu_torch.data import neighborlist as pneighborlist
 from matten_tpu_torch.data import structure as pstructure
 from matten_tpu_torch.data import transform as ptransform
+from matten_tpu_torch.ops import clebsch_gordan as pcg
 from matten_tpu_torch.ops import elasticity as pelasticity
 from matten_tpu_torch.ops import irreps as pirreps
 from matten_tpu_torch.ops import wigner as pwigner
@@ -56,6 +60,54 @@ def test_wigner_3j_matches():
                 np.testing.assert_array_equal(pwigner.wigner_3j(l1, l2, l3), jwigner.wigner_3j(l1, l2, l3))
                 n += 1
     assert n == 15
+
+
+def test_wigner_3j_without_svd_matches():
+    """The port's fallback for an SVD that does not converge (the null
+    space from the Gram matrix's `eigh`) gives the reference's blocks."""
+    n = 0
+    for l1 in range(3):
+        for l2 in range(3):
+            for l3 in range(abs(l1 - l2), min(l1 + l2, 2) + 1):
+                np.testing.assert_allclose(pcg._wigner_3j_by_eigh(l1, l2, l3), jwigner.wigner_3j(l1, l2, l3),
+                                           rtol=0, atol=1e-14)
+                n += 1
+    assert n == 15
+
+
+ONE_BLAS_THREAD = """
+import numpy as np
+from matten_tpu_torch.data.structure import Structure
+from matten_tpu_torch.models import create_scalar_tensor_model
+from matten_tpu_torch.ops import wigner
+from matten_tpu_torch.ops.clebsch_gordan import wigner_3j
+from matten_tpu_torch.predict import predict
+from matten_tpu_torch.utils.config_yaml import load_config
+hp = dict(load_config("scripts/configs/materials_tensor_production.yaml")["model"], average_num_neighbors=30.0)
+model = create_scalar_tensor_model(hp, dict(allowed_species=[14]), device="cpu")
+si = Structure(lattice=np.array([[0, 2.73, 2.73], [2.73, 0, 2.73], [2.73, 2.73, 0]]),
+               frac_coords=[[0, 0, 0], [0.25, 0.25, 0.25]], atomic_numbers=[14, 14])
+out = predict(si, model)
+assert out.shape == (3, 3, 3, 3) and np.isfinite(out).all()
+r = wigner.random_rotation(np.random.default_rng(0))
+for ls in ((2, 4, 4), (4, 4, 8)):
+    c = wigner_3j(*ls)
+    d = [wigner.irrep_rotation(l, 1, r) for l in ls]
+    assert abs(np.linalg.norm(c) - 1) < 1e-12
+    assert np.abs(np.einsum("ai,bj,ck,ijk->abc", *d, c) - c).max() < 1e-10
+"""
+
+
+def test_production_model_runs_at_one_blas_thread():
+    """`torchrun` sets OMP_NUM_THREADS=1 when it starts several ranks, and
+    an OpenBLAS without OPENBLAS_NUM_THREADS follows it; some builds' SVD
+    then fails for an l = 4 triple in `ops.wigner.wigner_3j`. The
+    production model (SH lmax 4) still builds and predicts there, and the
+    CG blocks of such triples are invariant under a rotation."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", ONE_BLAS_THREAD], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
 
 
 ROOT = Path(__file__).resolve().parent.parent

@@ -111,6 +111,130 @@ def test_batch_loader_matches_jax(case):
         _assert_batches_equal(list(pl), list(jl))
 
 
+SHARDED = {
+    "dp2": dict(num_shards=2),
+    "dp4_by_size": dict(num_shards=4, batch_by_size=True),
+    "edge2x2": dict(num_shards=2, num_edge_shards=2),
+    "edge1x4": dict(num_shards=1, num_edge_shards=4),
+    "node2x2": dict(num_shards=2, num_edge_shards=2, node_shard=True),
+    "node1x4_nmr": dict(num_shards=1, num_edge_shards=4, node_shard=True, nmr=True),
+    "node4x2_no_edge_vectors": dict(num_shards=4, num_edge_shards=2, node_shard=True,
+                                    precompute_edge_vectors=False),
+    "ring2x2": dict(num_shards=2, num_edge_shards=2, node_shard=True, ring=True),
+    "ring1x4": dict(num_shards=1, num_edge_shards=4, node_shard=True, ring=True),
+}
+
+
+def _pad_slots(data, kw):
+    """The node layouts' padding slots: [S, Sg, E] of edges no real edge
+    fills, and the (src, dst) the port writes there."""
+    ei, (s_, sg, cap) = data["edge_index"], data["edge_mask"].shape
+    c = data["pos"].shape[2]
+    filled = np.zeros((s_, sg, cap), dtype=bool)
+    want_src = np.empty((s_, sg, cap), dtype=np.int64)
+    for s in range(s_):
+        for g in range(sg):
+            groups = sg if kw.get("ring") else 1
+            cap2 = cap // groups
+            for so in range(groups):
+                rows = slice(so * cap2, (so + 1) * cap2)
+                owner = so if kw.get("ring") else g
+                want_src[s, g, rows] = owner * c + c - 1
+                # real edges first in each slot group: dst non-decreasing, in the owner's chunk
+                src, dst = ei[s, g, 0, rows], ei[s, g, 1, rows]
+                assert (np.diff(dst) >= 0).all() and dst.min() >= 0 and dst.max() < c
+                if kw.get("ring"):
+                    assert ((src >= so * c) & (src < (so + 1) * c)).all()
+                else:
+                    assert ((src >= 0) & (src < sg * c)).all()
+    return want_src, c
+
+
+@pytest.mark.parametrize("case", list(SHARDED), ids=list(SHARDED))
+def test_sharded_batch_loader_matches_jax(case):
+    """The stacked layouts, every field equal to the JAX loader's except the
+    index slots the port rewrites: the node layouts' padding slots, which
+    hold dst = c - 1 and a src in the slot owner's chunk (the JAX layout's
+    0 breaks the kernels' sorted-dst contract), checked inert: edge mask
+    False, cell shift 1e6, edge vector 0."""
+    kw = dict(SHARDED[case])
+    nmr = kw.pop("nmr", False)
+    # 19 = 2 x 8 + 3: the last batch of 4 shards leaves one shard without graphs
+    graphs = _jax_graphs(seed=len(case), n=19, nmr=nmr)
+    jl = JaxLoader(graphs, batch_size=8, species_map=SMAP, seed=3, shuffle=True, node_chunk=None, **kw)
+    pl = BatchLoader(_port(graphs), batch_size=8, species_map=SMAP, seed=3, shuffle=True, **kw)
+    assert _pads(pl) == _pads(jl)
+    node = kw.get("node_shard", False)
+    for epoch in (0, 1):
+        jl.set_epoch(epoch)
+        pl.set_epoch(epoch)
+        ours, ref = list(pl), list(jl)
+        assert len(ours) == len(ref) == 3
+        for (d, t), (jd, jt) in zip(ours, ref):
+            assert d["pos"].shape[0] == kw["num_shards"]
+            if node:
+                want_src, c = _pad_slots(d, kw)
+                pad = d["edge_index"] != jd["edge_index"]
+                assert pad[:, :, 1].any()
+                # what differs is the padding the port rewrote, and it is inert
+                assert not (pad.any(axis=2) & d["edge_mask"]).any()
+                src_pad, dst_pad = pad[:, :, 0], pad[:, :, 1]
+                np.testing.assert_array_equal(d["edge_index"][:, :, 0][src_pad], want_src[src_pad])
+                assert (d["edge_index"][:, :, 1][dst_pad] == c - 1).all()
+                assert (jd["edge_index"][pad] == 0).all()
+                pads = ~jd["edge_mask"] & (jd["edge_cell_shift"] == 1e6).all(-1)
+                assert (pad.any(axis=2) <= pads).all()
+                d = dict(d, edge_index=jd["edge_index"])
+            _assert_batches_equal([(d, t)], [(jd, jt)])
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["node", "ring"])
+def test_node_layouts_shard_atom_features(ring):
+    """A per-atom feature column is sharded with its nodes, [S, Sg, c, F]
+    (the JAX layout leaves it [S, N, F], which its sharded step cannot
+    read); per-graph columns stay whole."""
+    rng = np.random.default_rng(5)
+    graphs = _port(_jax_graphs(seed=6, n=8))
+    for g in graphs:
+        g.x["atom_feats"] = rng.normal(size=(g.num_nodes, 2))
+        g.x["global_feats"] = rng.normal(size=(1, 3))
+    plain = next(iter(BatchLoader(graphs, batch_size=8, species_map=SMAP, num_buckets=1)))[0]
+    data = next(iter(BatchLoader(graphs, batch_size=8, species_map=SMAP, num_buckets=1, num_edge_shards=2,
+                                 node_shard=True, ring=ring)))[0]
+    n = plain["atom_feats"].shape[0]
+    assert data["atom_feats"].shape == (1, 2, n // 2, 2) and data["global_feats"].shape == (1,) + plain[
+        "global_feats"].shape
+    if not ring:  # the ring layout orders the graphs by size first
+        np.testing.assert_array_equal(data["atom_feats"].reshape(n, 2), plain["atom_feats"])
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["node", "ring"])
+def test_sharded_edge_vectors_equal_in_graph_vectors(ring):
+    """`attach_edge_vectors(dst_local=True)` on the node layouts equals the
+    model's in-graph vectors from the gathered positions (`POS_FULL`, src
+    global, dst local), shard by shard."""
+    import torch
+
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.nn.edge_geometry import with_edge_vectors
+
+    graphs = _port(_jax_graphs(seed=4, n=8))
+    kw = dict(num_edge_shards=2, node_shard=True, ring=ring)
+    with_vec = next(iter(BatchLoader(graphs, batch_size=8, species_map=SMAP, **kw)))[0]
+    without = next(iter(BatchLoader(graphs, batch_size=8, species_map=SMAP, precompute_edge_vectors=False,
+                                    **kw)))[0]
+    assert K.EDGE_VECTORS not in without
+    pos_full = torch.as_tensor(without["pos"][0]).reshape(-1, 3)
+    for g in range(2):
+        sharded = (K.POSITIONS, K.BATCH, K.EDGE_INDEX, K.EDGE_MASK, K.EDGE_CELL_SHIFT)
+        shard = {k: torch.as_tensor(without[k][0, g] if k in sharded else without[k][0])
+                 for k in sharded + (K.CELL,)}
+        shard[K.POS_FULL] = pos_full
+        with_edge_vectors(shard)
+        np.testing.assert_allclose(shard[K.EDGE_VECTORS].numpy(), with_vec[K.EDGE_VECTORS][0, g], atol=1e-5)
+        assert not with_vec[K.EDGE_VECTORS][0, g][~with_vec[K.EDGE_MASK][0, g]].any()
+
+
 def test_node_chunk_takes_only_no_chunking():
     graphs = _port(_jax_graphs(seed=1, n=6))
     for chunk in (None, "auto"):
@@ -260,20 +384,25 @@ def test_graph_cache_round_trips_and_skips_the_jax_cache(tmp_path, monkeypatch):
 
 def test_data_module_refuses_what_is_not_ported(tmp_path):
     """The target options are taken (their parity is `test_data_module_matches_jax`'s
-    "variants" and "cartesian" cases); what still raises: the sharded
-    layouts (`num_shards`, `set_sharding`) and the TPU's chunk-aligned
-    layout (an integer `node_chunk`), and a normalizer of Cartesian targets,
-    which the JAX module's statistics lack too."""
+    "variants" and "cartesian" cases), and the sharded layouts: `num_shards`
+    and `set_sharding` give every loader a stacked layout, the JAX
+    module's. What still raises: the TPU's chunk-aligned layout (an integer
+    `node_chunk`), and a normalizer of Cartesian targets, which the JAX
+    module's statistics lack too."""
     cfg = _data_config(tmp_path, "elasticity")
     for extra in (dict(tensor_target_format="cartesian", normalize_tensor_target=False),
                   dict(scalar_target_names=["density"], log_scalar_targets=[True],
                        normalize_scalar_targets=[True]),
                   dict(tensor_target_scale=2.0), dict(tensor_target_weight={"density": {}})):
         TensorDataModule(**dict(cfg, **extra))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        TensorDataModule(**cfg, num_shards=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TensorDataModule(**cfg).set_sharding(num_shards=2)
+    dm = TensorDataModule(**cfg, num_shards=2)
+    dm.setup()
+    assert dm.train_dataloader().num_shards == 2
+    assert next(iter(dm.val_dataloader()))[0]["pos"].shape[0] == 2
+    dm.set_sharding(num_shards=1, num_edge_shards=2, node_shard=True, ring=True)
+    loader = dm.test_dataloader()
+    assert (loader.num_shards, loader.num_edge_shards, loader.node_shard, loader.ring) == (1, 2, True, True)
+    assert next(iter(loader))[0]["pos"].shape[:2] == (1, 2)
     with pytest.raises(ValueError, match="tensor_target_format: irreps"):
         TensorDataModule(**dict(cfg, tensor_target_format="cartesian"))
     dm = TensorDataModule(**dict(cfg, loader_kwargs=dict(batch_size=4, node_chunk=128)))

@@ -598,3 +598,53 @@ def test_fit_launch_counts_and_host_syncs(dev):
     assert len(syncs) == steps + val + 2 * 2, syncs
     assert [h["epoch"] for h in history] == [0, 1]
     assert all(np.isfinite(h[k]) for h in history for k in ("train/loss", "val/loss", "val/score"))
+
+
+def _sharded_layout(ring):
+    """A node-sharded layout (1 x 2) of 12 crystals, as the port's loader
+    writes it: each shard's c nodes, its edges with src global (node) or
+    grouped by source chunk (ring), padding slots at dst = c - 1."""
+    from matten_tpu_torch.data.datamodule import BatchLoader
+    from matten_tpu_torch.data.graph import CrystalGraph
+    from matten_tpu_torch.data.structure import Structure
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+
+    rng = np.random.default_rng(21)
+    graphs = []
+    for _ in range(12):
+        k = int(rng.integers(4, 13))
+        graphs.append(CrystalGraph.from_structure(Structure(
+            np.eye(3) * (3.5 + rng.uniform(0, 1.5)) + rng.normal(size=(3, 3)) * 0.1, rng.uniform(0, 1, (k, 3)),
+            rng.choice(SPECIES_5, size=k)), r_cut=5.0))
+    data, _ = next(iter(BatchLoader(graphs, 12, atomic_number_map(SPECIES_5), num_edge_shards=2,
+                                    node_shard=True, ring=ring)))
+    return data[K.EDGE_INDEX][0], data[K.EDGE_MASK][0], data[K.POSITIONS].shape[2]
+
+
+@pytest.mark.parametrize("ring", [False, True], ids=["node", "ring"])
+def test_kernels_at_the_node_sharded_plans(dev, ring):
+    """K1 and the backward at the production plans on a rank's edges of the
+    node layouts: node (n_in = 2c gathered rows, n_out = c) and one ring
+    group (rank 1's group of its own chunk, src - c, n_in = n_out = c), padding
+    slots at c - 1 included; against plain, and two runs bitwise equal."""
+    ei, mask, c = _sharded_layout(ring)
+    src, dst = ei[1, 0].astype(np.int64), ei[1, 1]
+    if ring:
+        cap2 = src.shape[0] // 2
+        src, dst, mask = src[cap2:] - c, dst[cap2:], mask[1, cap2:]  # rank 1's group of its own chunk
+        n_in = c
+    else:
+        mask = mask[1]
+        n_in = 2 * c
+    assert (dst[~mask] == c - 1).all() and (~mask).any()
+    for i, plan in enumerate(_production_plans(dev)):
+        t = _inputs_on_graph(dev, 40 + i, plan, n_in, src, dst)
+        g = torch.randn(c, plan.irreps_out.dim, generator=torch.Generator(device=dev).manual_seed(i), device=dev)
+        edges = fused_conv.edge_plan(t["src"], t["dst"], n_in, c, with_src_order=True)
+        args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"])
+        out, out2 = (fused_conv.fused_uvu_conv(*args, c, edges) for _ in range(2))
+        assert torch.equal(out, out2)
+        _assert_rel(out, fused_conv.uvu_conv_reference(*args, c))
+        dx, dw = _check_backward(plan, t, g, n_in)
+        dx2, dw2 = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in, edges)
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)

@@ -3,7 +3,7 @@
 The GPU machine has no jax, flax, optax, orbax, pandas, pyyaml or sklearn,
 and the port stands alone: neither its sources nor chip_smoke.py may import
 any of them or anything of `matten_tpu` (it keeps its own copies of the
-numpy modules it shares with it). The runtime checks run in subprocesses
+numpy modules it shares with it; `parallel/` included). The runtime checks run in subprocesses
 because this test process has imported jax already (tests/conftest.py): one
 in the repo, one with `matten_tpu_torch/` copied alone into an empty
 directory. Each serves a model from a checkpoint directory it writes, and
@@ -157,6 +157,31 @@ def _run(cwd: Path, code: str = RUN):
     )
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+PARALLEL = """
+import sys
+from matten_tpu_torch.parallel.launch import run_ranks
+hp = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o+2e", num_layers=1, invariant_layers=1,
+          invariant_neurons=4, average_num_neighbors=20.0, conv_layer_irreps="2x0o+2x0e+1x1o+1x1e",
+          normalization="batch", conv_to_output_hidden_irreps_out="2x0e+2e+4e")
+results = run_ranks("test_torch_parallel_ranks:shard_step_on_cpu", 2, {"hparams": hp}, timeout_s=240)
+assert results[0] == results[1] and results[0][0] > 0, results
+assert results[0][1] == [], results
+"""
+
+
+def test_parallel_step_runs_copied_alone(tmp_path):
+    """A 2-rank node-mode train step on the CPU (gloo, `parallel.launch`)
+    with `matten_tpu_torch/` and the torch-only rank bodies alone in an
+    empty directory: neither the launching process nor a rank loads JAX,
+    pandas, pyyaml, sklearn or `matten_tpu`."""
+    shutil.copytree(
+        ROOT / "matten_tpu_torch", tmp_path / "matten_tpu_torch",
+        ignore=shutil.ignore_patterns("_build", "__pycache__"),
+    )
+    shutil.copy(ROOT / "tests" / "test_torch_parallel_ranks.py", tmp_path)
+    _run(tmp_path, PARALLEL)
 
 
 def test_port_forward_leaves_jax_unloaded():

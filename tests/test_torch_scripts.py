@@ -5,8 +5,12 @@ against the JAX package's on the CPU.
   `scripts/configs/` and on strings that exercise YAML 1.1's number rules
   (`0.` is a float, `1e-5` a string) and its nulls and booleans; input
   outside the subset raises.
-- `build_trainer_config` equals the JAX function field by field; a
-  multi-device config raises.
+- `build_trainer_config` and `build_mesh_spec` equal the JAX functions
+  field by field; a world size other than the mesh's is refused.
+- Both scripts' `main` under `trainer.mesh` (data 1 x graph 2, each mode)
+  on 2 gloo ranks of the CPU give the test metrics of the one-device run
+  of the same config (1e-5), and the directory the primary rank wrote has
+  the one-device run's sidecars and serves `predict`.
 - Both scripts' `main(config, device="cpu")` train and test on a tiny
   pandas-written set; their `hparams.json` and `dataset_statistics.npz`
   equal those the JAX scripts write for the same config and data (1e-12),
@@ -20,6 +24,7 @@ import importlib.util
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 from pathlib import Path
@@ -32,8 +37,10 @@ import yaml
 
 from matten_tpu.data.structure import Structure as JaxStructure
 from matten_tpu.train import Trainer as JaxTrainer
+from matten_tpu.train.config import build_mesh_spec as jax_build_mesh_spec
 from matten_tpu.train.config import build_trainer_config as jax_build_trainer_config
 from matten_tpu_torch.data.structure import Structure
+from matten_tpu_torch.parallel.launch import run_ranks
 from matten_tpu_torch.predict import predict
 from matten_tpu_torch.scripts import train_atomic_tensor, train_materials_tensor
 from matten_tpu_torch.train import Trainer
@@ -140,15 +147,37 @@ def test_build_trainer_config_refuses_unknown_classes():
         build_trainer_config(dict(base, lr_scheduler={"class_path": "torch.optim.lr_scheduler.StepLR"}))
 
 
+MESH_CASES = [{}, {"devices": 1}, {"devices": 4}, {"mesh": {"data": 2, "graph": 2, "mode": "node"}},
+              {"mesh": {"data": 1, "graph": 2}}, {"mesh": {"graph": 4, "mode": "node_ring"}, "devices": 4},
+              {"mesh": {"data": 1, "graph": 1}}, {"devices": None}]
+
+
+@pytest.mark.parametrize("trainer", MESH_CASES)
+def test_build_mesh_spec_matches_jax(trainer):
+    ours, ref = build_mesh_spec({"trainer": trainer}), jax_build_mesh_spec({"trainer": trainer})
+    assert (ours is None) == (ref is None)
+    if ref is not None:
+        assert vars(ours) == vars(ref)
+        assert (ours.n_devices, ours.is_multichip) == (ref.n_devices, ref.is_multichip)
+        assert ours.loader_kwargs() == ref.loader_kwargs()
+    for bad, match in (({"devices": 8, "mesh": {"data": 2, "graph": 2}}, "inconsistent"),
+                       ({"mesh": {"data": 2, "graph": 2, "mode": "ring"}}, "mode")):
+        for fn in (build_mesh_spec, jax_build_mesh_spec):
+            with pytest.raises(ValueError, match=match):
+                fn({"trainer": bad})
+
+
 def test_multi_device_configs_raise():
+    """A multi-device config is a `MeshSpec`; its script refuses a world of
+    another size (here one process without a process group)."""
     assert build_mesh_spec({"trainer": {}}) is None
     assert build_mesh_spec({"trainer": {"devices": 1}}) is None
-    for tr in ({"devices": 4}, {"mesh": {"data": 2, "graph": 2, "mode": "node"}}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_mesh_spec({"trainer": tr})
+    assert vars(build_mesh_spec({"trainer": {"devices": 4}})) == dict(n_data=4, n_graph=1, mode="edge")
+    spec = build_mesh_spec({"trainer": {"mesh": {"data": 2, "graph": 2, "mode": "node"}}})
+    assert spec.loader_kwargs() == dict(num_shards=2, num_edge_shards=2, node_shard=True, ring=False)
     config = dict(load_config(ROOT / "scripts" / "configs" / "materials_tensor.yaml"))
     config["trainer"] = dict(config["trainer"], devices=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match=r"ask for 2 ranks .* the world has 1 process"):
         train_materials_tensor.main(config, device="cpu")
 
 
@@ -287,6 +316,36 @@ def test_command_line_runs_the_script(tmp_path):
     assert (tmp_path / "ckpt" / "last").is_dir()
 
 
+def test_torchrun_launches_the_script_on_a_mesh(tmp_path):
+    """The documented launch of a mesh run, `torchrun --nproc-per-node 2 -m
+    matten_tpu_torch.scripts.train_materials_tensor config.yaml` (here with
+    `--device cpu`, so gloo): the ranks join from torchrun's environment
+    (and its OMP_NUM_THREADS=1), train on a data 1 x graph 2 node mesh, and
+    the primary rank's directory serves a one-device model. The world runs
+    in a session of its own, killed whole if it outlives its time limit."""
+    _write_tiny_dataset(tmp_path / "tiny.json", "materials")
+    config = _config(tmp_path, "materials", "ckpt")
+    config["trainer"].update(max_epochs=1, devices=2, mesh={"data": 1, "graph": 2, "mode": "node"})
+    (tmp_path / "config.yaml").write_text(yaml.safe_dump(config, default_flow_style=False))
+    env = {k: v for k, v in os.environ.items() if k not in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2", "-m",
+         "matten_tpu_torch.scripts.train_materials_tensor", str(tmp_path / "config.yaml"), "--device", "cpu"],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert "mesh: data=1 graph=2 mode=node" in err and "test metrics (best checkpoint)" in err
+    structures = [Structure(np.eye(3) * 4.0, np.random.default_rng(3).uniform(0, 1, (3, 3)), [14, 8, 8])]
+    out = predict(structures, tmp_path / "ckpt", device="cpu")[0]
+    assert out.shape == (3, 3, 3, 3) and np.isfinite(out).all()
+
+
 def test_multitask_script_matches_jax(tmp_path, monkeypatch):
     """The materials script with tests/test_scripts.py's multi-task setup
     (a `k_voigt` head beside the tensor, weighted 0.5) and the dataset's
@@ -341,3 +400,52 @@ def test_multitask_script_matches_jax(tmp_path, monkeypatch):
     structures = [Structure(np.eye(3) * 4.0, rng.uniform(0, 1, (3, 3)), [14, 8, 8])]
     (result,) = predict(structures, port, device="cpu")
     assert result.shape == (3, 3, 3, 3) and np.isfinite(result).all()
+
+
+MESH_MODES = ("edge", "node", "node_ring")
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """Each family's script on a data 1 x graph 2 mesh in each mode (one
+    2-rank world runs all six), and on one device: {(kind, mode): (test
+    metrics of each rank, directory), kind: (metrics, directory)}."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    jobs, out = [], {}
+    for kind in FAMILIES:
+        _write_tiny_dataset(tmp / "tiny.json", kind)
+        (tmp / kind).mkdir()
+        (tmp / "tiny.json").rename(tmp / kind / "tiny.json")
+        config = _config(tmp / kind, kind, "single")
+        out[kind] = ({"materials": train_materials_tensor, "atomic": train_atomic_tensor}[kind].main(
+            config, device="cpu"), tmp / kind / "single")
+        for mode in MESH_MODES:
+            config = _config(tmp / kind, kind, f"mesh_{mode}")
+            config["trainer"]["mesh"] = {"data": 1, "graph": 2, "mode": mode}
+            jobs.append((kind, mode, config))
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT / "tests"), str(ROOT)]), "OMP_NUM_THREADS": "1",
+           "OPENBLAS_NUM_THREADS": "1"}
+    ranks = run_ranks("test_torch_parallel_ranks:run_scripts", 2, jobs, timeout_s=240, env=env)
+    for kind, mode, config in jobs:
+        out[kind, mode] = ([r[kind, mode] for r in ranks], Path(config["trainer"]["checkpoint_dir"]))
+    return out
+
+
+@pytest.mark.parametrize("mode", MESH_MODES)
+@pytest.mark.parametrize("kind", list(FAMILIES))
+def test_script_on_a_mesh_matches_one_device(mesh_runs, kind, mode):
+    (rank0, rank1), directory = mesh_runs[kind, mode]
+    single, single_dir = mesh_runs[kind]
+    assert rank0 == rank1
+    assert sorted(rank0) == sorted(single)
+    for k, v in single.items():
+        np.testing.assert_allclose(rank0[k], v, rtol=1e-5, err_msg=k)
+    # the sidecars of a one-device model: the config's model section,
+    # without the graph_parallel_* hparams the run added
+    assert json.loads((directory / "hparams.json").read_text()) == json.loads(
+        (single_dir / "hparams.json").read_text())
+    assert sorted(p.name for p in directory.iterdir()) == sorted(p.name for p in single_dir.iterdir())
+    rng = np.random.default_rng(3)
+    structures = [Structure(np.eye(3) * 4.0, rng.uniform(0, 1, (k, 3)), [14] + [8] * (k - 1)) for k in (2, 3)]
+    for a, b in zip(predict(structures, directory, device="cpu"), predict(structures, single_dir, device="cpu")):
+        assert a.shape == b.shape and np.isfinite(a).all()
