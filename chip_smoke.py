@@ -125,7 +125,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      step and rank; each rank's K1 and backward (with their segment sums)
      against their plain versions at its own edge plans (KERNEL_TOL); their
      times per layer beside their bounds at the rank's shapes and the step
-     time (both ranks at once on one card: checks of the path, not scaling);
+     time (both ranks at once on one card: checks of the path, not
+     scaling); in the graph modes of phase 21 on the flagship batch also
+     their plain versions' times and the conv kernels' device time per step
+     (the profiler on each rank);
  21. graph parallel 1 x 2, the eleventh: the same for the modes edge, node
      and node_ring on the flagship batch with the production model (batch
      norm summed over the graph axis in the node modes), and node on the
@@ -142,11 +145,30 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      once per conv layer and batch), one step's gradients summed over the
      ranks on the first block of each pad shape (MODEL_TOL), and K1 and the
      backward at each such block's plans (KERNEL_TOL).
+ 23. bf16 storage, the thirteenth: with `set_kernel_in_dtype("bfloat16")`
+     K1 and the merged backward read sh and w stored as bf16: both (with
+     their segment sums) against their plain versions at the same rounding
+     (KERNEL_TOL, two runs bitwise equal) at the 4 flagship and the 4 NMR
+     plans and at N = 2600; the flagship forward and one step's gradients
+     against the kernels at float32 storage (bf16 noise, max|d| /
+     max(max|ref|, 1) <= 3e-2, the JAX package's bf16-storage test); the
+     forward and a train step counted, exactly 4 launches of each bf16
+     counter; per-layer times against the plain versions at bf16, beside
+     bounds with sh and w at 2 bytes; the forward, the train step and the
+     conv kernels' device time per step (the profiler) at bf16 against
+     float32 in the same call. Every bf16 setting is reset on the way out;
+ 24. DEBUG and timing: the production model built at DEBUG log level (a
+     `DetectAnomaly` after every backbone layer) with the INFO model's
+     weights gives its output bitwise; a NaN put into one node feature
+     after the first layer raises FloatingPointError naming the field and
+     the layer; one `StepTimer` step reports edges/s; `profile_trace`
+     writes a Chrome trace.
 The line before the last is the kernels JSON (its times are phase 9's; its
 max |d| the worst of the script's direct comparisons of a kernel with its
 plain version, phases 20-22's included; its
 launches count every main path's run: phases 6, 8, 12-14, 16-19 and, summed
-over both ranks, 20-22); the last line is
+over both ranks, 20-22; the two bf16-storage entries' times, bounds, max
+|d| and launches are phase 23's); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
 left visible.
@@ -169,6 +191,7 @@ collated with `pad_spec_for` + `collate_graphs`.
 """
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -350,10 +373,12 @@ def conv_layers(model):
     return out
 
 
-def kernel_work(plan, n_in, n_out, n_edges, n_items):
+def kernel_work(plan, n_in, n_out, n_edges, n_items, in_bytes=4):
     """(bytes, float32 operations) each kernel's function needs at one
-    layer: every input read once and every output written once; operations
-    as the kernels' arithmetic counts them (2 per multiply-add, 1 per add).
+    layer: every input read once and every output written once, sh and w
+    at their storage width `in_bytes` (4: float32, 2: bf16), everything
+    else float32; operations as the kernels' arithmetic counts them (2 per
+    multiply-add, 1 per add).
     "fwd" is K1's function, x, sh, w, src, dst -> out (its partial rows are
     a cost of the implementation, not work of the function); "bwd" the
     whole merged backward, g, sh, w, x, src, dst -> dx, dw; "fwd_sum" the
@@ -368,10 +393,10 @@ def kernel_work(plan, n_in, n_out, n_edges, n_items):
     w_terms = int(((tab.out_meta[:, 3] & 0xFFFF) / (tab.out_meta[:, 3] >> 16)).sum())  # sum over weights of d1
     edge_idx = 2 * 4 * n_edges  # src, dst int32
     return {
-        "fwd": (4 * (n_in * d1 + n_edges * (d2 + dw) + n_out * dout) + edge_idx,
+        "fwd": (4 * (n_in * d1 + n_out * dout) + in_bytes * n_edges * (d2 + dw) + edge_idx,
                 n_edges * 2 * (sh_terms + x_terms + dout) + n_out * dout),
-        "bwd": (4 * (n_out * dout + n_edges * (d2 + dw) + n_in * d1 + n_in * d1 + n_edges * dw)
-                + edge_idx,
+        "bwd": (4 * (n_out * dout + n_in * d1 + n_in * d1 + n_edges * dw)
+                + in_bytes * n_edges * (d2 + dw) + edge_idx,
                 n_edges * 2 * (sh_terms + x_terms + 2 * w_terms)),
         "fwd_sum": (4 * (n_items * dout + n_out + 1 + n_out * dout), n_items * dout),
         "dx_sum": (4 * (n_edges * d1 + n_edges + n_in + 1 + n_in * d1), n_edges * d1),
@@ -422,14 +447,17 @@ def rel_err(out, ref):
 # "dx_sum" are the two roles of the one segment sum kernel
 COUNTERS = {"fwd": "launches", "fwd_sum": "fwd_sum_launches", "bwd": "bwd_launches",
             "dx_sum": "dx_sum_launches"}
+# the bf16-storage instances of K1's item pass and the merged backward
+# (phase 23); their segment sums count in COUNTERS
+BF16_COUNTERS = {"fwd_bf16": "bf16_launches", "bwd_bf16": "bf16_bwd_launches"}
 
 
-def counts(fused_conv):
-    return {k: getattr(fused_conv, c) for k, c in COUNTERS.items()}
+def counts(fused_conv, counters=COUNTERS):
+    return {k: getattr(fused_conv, c) for k, c in counters.items()}
 
 
 def reset_counts(fused_conv):
-    for c in COUNTERS.values():
+    for c in (*COUNTERS.values(), *BF16_COUNTERS.values()):
         setattr(fused_conv, c, 0)
 
 
@@ -1412,6 +1440,7 @@ def variants_fit_phase(fused_conv, torch, card):
 MESH_EPOCHS = 2
 MESH_TIMEOUT_S = 600
 MESH_REPS = 5  # timed train steps, and timed kernel calls per layer, on each rank
+MESH_PROFILED_STEPS = 2  # profiled train steps per rank (the graph modes on the flagship batch)
 # torch threads of each rank: the host's cores are shared by this process
 # and both ranks
 MESH_THREADS = 2
@@ -1436,14 +1465,16 @@ def shard_edge_groups(data, mode, n_graph, torch):
              n, n, slice(g * cap2, (g + 1) * cap2)) for g in range(n_graph)]
 
 
-def shard_kernels(model, hp, data, mode, n_graph, torch):
+def shard_kernels(model, hp, data, mode, n_graph, torch, timed=True, time_plain=False):
     """K1 (with its partial-row sum) and the merged backward (with the dx
     sum) against their plain versions at a rank's own plans: every conv
     layer's uvu plan on every edge group of the rank's block, seeded random
-    x, w and g, the block's SH; and each kernel's wrapper time per layer
-    (median of MESH_REPS calls by CUDA events, both ranks at once on the
-    card) and bound. Returns (max |d| per kind, worst relative error,
-    per-layer ms, per-layer bounds)."""
+    x, w and g, the block's SH; and, `timed`, each kernel's wrapper time per
+    layer (median of MESH_REPS calls by CUDA events, both ranks at once on
+    the card) and bound, with `time_plain` also its plain version's (one
+    call by CUDA events, after the check's). Returns (max |d| per kind,
+    worst relative error, per-layer ms, per-layer plain ms, per-layer
+    bounds)."""
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
@@ -1453,10 +1484,15 @@ def shard_kernels(model, hp, data, mode, n_graph, torch):
     emask = data[K.EDGE_MASK][:, None].float()
     sh_all = (spherical_harmonics(hp["irreps_edge_sh"], data[K.EDGE_VECTORS]) * emask).contiguous()
     max_abs = {k: 0.0 for k in COUNTERS}
-    worst, ms, bounds = 0.0, {"fwd": [], "bwd": []}, {k: [] for k in COUNTERS}
+    worst, ms, plain_ms, bounds = 0.0, {"fwd": [], "bwd": []}, {"fwd": [], "bwd": []}, {k: [] for k in COUNTERS}
+
+    def median_ms(fn):
+        return float(np.median([cuda_ms(fn, torch) for _ in range(MESH_REPS)]))
+
     for conv in conv_layers(model):
         plan = conv.uvu_plan
-        layer_ms, layer_bound = {"fwd": 0.0, "bwd": 0.0}, {k: [0.0, "bytes"] for k in COUNTERS}
+        layer_ms, layer_plain = {"fwd": 0.0, "bwd": 0.0}, {"fwd": 0.0, "bwd": 0.0}
+        layer_bound = {k: [0.0, "bytes"] for k in COUNTERS}
         for src, dst, n_in, n_out, rows in shard_edge_groups(data, mode, n_graph, torch):
             sh = sh_all[rows].contiguous()
             x = torch.randn(n_in, plan.irreps_in1.dim, generator=gen, device=dev)
@@ -1473,20 +1509,25 @@ def shard_kernels(model, hp, data, mode, n_graph, torch):
                     worst = max(worst, rel_err(a, b))
                     for kind in kinds:
                         max_abs[kind] = max(max_abs[kind], float((a - b).abs().max()))
-                layer_ms["fwd"] += float(np.median([cuda_ms(
-                    lambda: fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_out, edges), torch)
-                    for _ in range(MESH_REPS)]))
-                layer_ms["bwd"] += float(np.median([cuda_ms(
-                    lambda: fused_conv.uvu_conv_bwd(plan, x, g, sh, w, src, dst, n_in, edges), torch)
-                    for _ in range(MESH_REPS)]))
+                if timed:
+                    layer_ms["fwd"] += median_ms(
+                        lambda: fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_out, edges))
+                    layer_ms["bwd"] += median_ms(
+                        lambda: fused_conv.uvu_conv_bwd(plan, x, g, sh, w, src, dst, n_in, edges))
+                if time_plain:
+                    layer_plain["fwd"] += cuda_ms(
+                        lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_out), torch)
+                    layer_plain["bwd"] += cuda_ms(
+                        lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_in), torch)
             for kind, (nbytes, flops) in kernel_work(plan, n_in, n_out, src.shape[0], edges.n_items).items():
                 t, by = bound_ms(nbytes, flops)
                 layer_bound[kind] = [layer_bound[kind][0] + t, by]
         for kind in ms:
             ms[kind].append(layer_ms[kind])
+            plain_ms[kind].append(layer_plain[kind])
         for kind in bounds:
             bounds[kind].append(tuple(layer_bound[kind]))
-    return max_abs, worst, ms, bounds
+    return max_abs, worst, ms, plain_ms, bounds
 
 
 def mesh_rank(rank, world_size, job):
@@ -1524,8 +1565,11 @@ def mesh_rank(rank, world_size, job):
             "params": {n: p.detach().cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
             "staged": stages_through_host(data["pos"], mesh.graph),
         }
-        (res["max_abs"], res["kernel_rel"], res["kernel_ms"], res["bounds"]) = shard_kernels(
-            trainer.model, case["hparams"], data, case["mode"], case["n_graph"], torch)
+        # the graph modes on the flagship batch (PERF.md's rows of a rank's
+        # block) also time the plain versions and profile the step
+        measured = case["n_graph"] > 1 and not case["per_atom"]
+        (res["max_abs"], res["kernel_rel"], res["kernel_ms"], res["plain_ms"], res["bounds"]) = shard_kernels(
+            trainer.model, case["hparams"], data, case["mode"], case["n_graph"], torch, time_plain=measured)
         times = []
         for _ in range(MESH_REPS):
             torch.cuda.synchronize()
@@ -1534,6 +1578,13 @@ def mesh_rank(rank, world_size, job):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         res["step_ms"] = float(np.median(times))
+        # the conv kernels' device time per step (both ranks profile at once)
+        res["device_ms"] = None
+        if measured:
+            with tempfile.TemporaryDirectory() as tmp:
+                _, st = traced(lambda: trainer.train_step(data, targets), MESH_PROFILED_STEPS, Path(tmp), "step",
+                               torch)
+            res["device_ms"] = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k)) for k in KERNEL_NAMES}
         out[case["name"]] = res
     return out
 
@@ -1563,8 +1614,8 @@ def script_rank(rank, world_size, job):
         "22 mesh fit", trainer, model_hp["num_layers"] + 1, fused_conv, torch)
     res["max_abs"], res["kernel_rel"] = {k: 0.0 for k in COUNTERS}, 0.0
     for data in blocks:
-        max_abs, worst, _, _ = shard_kernels(trainer.model, model_hp, data, trainer.mesh.mode,
-                                             trainer.mesh.n_graph, torch)
+        max_abs, worst, _, _, _ = shard_kernels(trainer.model, model_hp, data, trainer.mesh.mode,
+                                                trainer.mesh.n_graph, torch, timed=False)
         res["kernel_rel"] = max(res["kernel_rel"], worst)
         res["max_abs"] = {k: max(res["max_abs"][k], max_abs[k]) for k in COUNTERS}
     if rank == 0:
@@ -1702,7 +1753,13 @@ def parallel_phases(dev, card, torch, structures, target_rows):
               f"rank {r0['launched']}; the kernels at each rank's plans vs plain worst {max(r0['kernel_rel'], r1['kernel_rel']):.3e} "
               f"(tol {KERNEL_TOL}); ms per layer L0-L3 (rank 0, both ranks at once): K1 with its sum "
               + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["fwd"]) + ", the backward (merged kernel, dx sum) "
-              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["bwd"]) + "; bound K1 "
+              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["bwd"])
+              + ("" if r0["device_ms"] is None else "; plain K1 "
+                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["fwd"]) + ", plain backward "
+                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["bwd"]) + "; conv kernels' device ms per "
+                 f"step (profiler, {MESH_PROFILED_STEPS} steps, rank 0): "
+                 + ", ".join(f"{k} {t:.4f}" for k, t in r0["device_ms"].items()))
+              + "; bound K1 "
               + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["fwd"]) + ", backward "
               + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["bwd"])
               + f"; train step median ms rank 0 {r0['step_ms']:.2f}, rank 1 {r1['step_ms']:.2f} "
@@ -1747,6 +1804,261 @@ def parallel_phases(dev, card, torch, structures, target_rows):
 
 
 
+# phase 23: bf16 storage of the conv kernels' edge inputs sh and w
+BF16_NOISE_TOL = 3e-2  # the JAX package's bf16-storage test: |d| / max(max|ref|, 1)
+
+
+@contextlib.contextmanager
+def kernel_in_dtype(name):
+    """`fused_tp.set_kernel_in_dtype(name)` for the block, restored after."""
+    from matten_tpu_torch.kernels import fused_tp
+
+    prev = fused_tp.get_kernel_in_dtype()
+    fused_tp.set_kernel_in_dtype(name)
+    try:
+        yield
+    finally:
+        fused_tp.set_kernel_in_dtype(prev)
+
+
+def noise(out, ref):
+    """max|d| / max(max|ref|, 1): the JAX bf16-storage test's measure."""
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1.0)
+
+
+def bf16_phase(dev, card, torch, check_forward, check_backward, layer_inputs, sh, src, dst, edges,
+               model, trainer, data, targets, nmr_trainer, nmr_batch, f32_layer_ms):
+    """Phase 23: K1 and the merged backward reading sh and w stored as
+    bf16 (`set_kernel_in_dtype("bfloat16")`): parity with their plain
+    versions at the same rounding (KERNEL_TOL, bitwise twice) at the 4
+    flagship and the 4 NMR plans and at N = BIG_N; the flagship forward and
+    one train step at bf16 against the kernels at float32 (bf16 noise, held
+    to BF16_NOISE_TOL of scale); the forward and a train step counted (4
+    launches of each bf16 counter); per-layer times against the plain
+    versions at bf16, beside their bounds with sh and w at 2 bytes; the
+    forward and the train step, and the conv kernels' device time per step
+    (the profiler), at bf16 against float32 in the same call. Returns
+    (launch counts of the counted runs, per-layer ms, per-layer bounds)."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
+
+    n_nodes, n_edges = data[K.POSITIONS].shape[0], sh.shape[0]
+    # the NMR batch's 4 plans on its own edges
+    nmr_data = nmr_batch[0]
+    n_src, n_dst = (nmr_data[K.EDGE_INDEX][i].contiguous() for i in (0, 1))
+    nmr_n = nmr_data[K.POSITIONS].shape[0]
+    nmr_sh = (spherical_harmonics(NMR_HPARAMS["irreps_edge_sh"], nmr_data[K.EDGE_VECTORS])
+              * nmr_data[K.EDGE_MASK][:, None].float()).contiguous()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    parity = []
+    with kernel_in_dtype("bfloat16"):
+        for i, (plan, x, w, g) in enumerate(layer_inputs):
+            parity.append(f"L{i}: " + check_forward(plan, x, w, sh, src, dst, n_nodes)[1] + "; "
+                          + check_backward(plan, x, w, g, sh, src, dst, n_nodes))
+        for i, conv in enumerate(conv_layers(nmr_trainer.model)):
+            plan = conv.uvu_plan
+            x = torch.randn(nmr_n, plan.irreps_in1.dim, generator=gen, device=dev)
+            w = torch.randn(n_src.shape[0], plan.weight_numel, generator=gen, device=dev)
+            g = torch.randn(nmr_n, plan.irreps_out.dim, generator=gen, device=dev)
+            parity.append(f"NMR L{i}: " + check_forward(plan, x, w, nmr_sh, n_src, n_dst, nmr_n)[1] + "; "
+                          + check_backward(plan, x, w, g, nmr_sh, n_src, n_dst, nmr_n))
+        plan = layer_inputs[-1][0]
+        big_e = BIG_N * BIG_DEGREE
+        big = dict(
+            x=torch.randn(BIG_N, plan.irreps_in1.dim, generator=gen, device=dev),
+            w=torch.randn(big_e, plan.weight_numel, generator=gen, device=dev),
+            g=torch.randn(BIG_N, plan.irreps_out.dim, generator=gen, device=dev),
+            sh=torch.randn(big_e, plan.irreps_in2.dim, generator=gen, device=dev),
+            src=torch.randint(0, BIG_N, (big_e,), generator=gen, device=dev, dtype=torch.int32),
+            dst=torch.sort(torch.randint(0, BIG_N, (big_e,), generator=gen, device=dev,
+                                         dtype=torch.int32))[0],
+        )
+        parity.append(f"N={BIG_N} E={big_e} L3 plan: " + check_forward(
+            plan, big["x"], big["w"], big["sh"], big["src"], big["dst"], BIG_N)[1] + "; " + check_backward(
+            plan, big["x"], big["w"], big["g"], big["sh"], big["src"], big["dst"], BIG_N))
+    del big
+    torch.cuda.empty_cache()
+    print(f"[23a bf16 kernel parity] sh and w stored as bf16, against the plain versions at the same "
+          f"rounding, max|d|/max|ref| (tol {KERNEL_TOL}), two runs bitwise equal: " + " | ".join(parity),
+          flush=True)
+
+    # the flagship forward and one step's gradients at bf16 against the kernels at float32
+    def fwd():
+        with torch.inference_mode():
+            return model(data)
+
+    real = data[K.GRAPH_MASK]
+    out32 = fwd()
+    with kernel_in_dtype("bfloat16"):
+        reset_counts(fused_conv)
+        out16 = fwd()
+        torch.cuda.synchronize()
+        fwd_counts = {**counts(fused_conv), **counts(fused_conv, BF16_COUNTERS)}
+    fwd_noise = noise(out16[real], out32[real])
+    tr32, tr16 = twin(trainer, torch), twin(trainer, torch)
+    loss32, grads32 = step_grads(tr32, data, targets)
+    with kernel_in_dtype("bfloat16"):
+        loss16, grads16 = step_grads(tr16, data, targets)
+    grad_noise = sorted(((noise(grads16[n], r), n) for n, r in grads32.items()), reverse=True)
+    tr16.model.load_state_dict(tr32.model.state_dict())
+    # the train step at bf16, counted
+    with kernel_in_dtype("bfloat16"):
+        reset_counts(fused_conv)
+        loss, _ = tr16.train_step(data, targets)
+        torch.cuda.synchronize()
+        step_counts = {**counts(fused_conv), **counts(fused_conv, BF16_COUNTERS)}
+    n_conv = len(layer_inputs)
+    want_fwd = {"fwd": 0, "bwd": 0, "fwd_sum": n_conv, "dx_sum": 0, "fwd_bf16": n_conv, "bwd_bf16": 0}
+    want_step = {"fwd": 0, "bwd": 0, "fwd_sum": n_conv, "dx_sum": n_conv, "fwd_bf16": n_conv, "bwd_bf16": n_conv}
+    print(f"[23b bf16 model] forward max|d|/max(max|ref|, 1) bf16 vs float32 storage {fwd_noise:.3e}; "
+          f"train-step loss {loss16:.6f} vs {loss32:.6f}, gradients worst: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in grad_noise[:3])
+          + f" (bf16 noise, tol {BF16_NOISE_TOL}); launches per forward {fwd_counts}, per train step "
+          f"{step_counts}; loss {float(loss):.6f}", flush=True)
+    if fwd_counts != want_fwd or step_counts != want_step:
+        raise AssertionError(f"bf16 launches per forward {fwd_counts} / step {step_counts}, expected "
+                             f"{want_fwd} / {want_step}")
+    if not (fwd_noise <= BF16_NOISE_TOL and grad_noise[0][0] <= BF16_NOISE_TOL and math.isfinite(float(loss))):
+        raise AssertionError(f"bf16 storage moves the model beyond its noise: forward {fwd_noise}, "
+                             f"gradients {grad_noise[0]}")
+
+    # timings: per layer the bf16 kernels (sh and w cast once, as the
+    # wrappers pass them) against the plain versions at bf16; the forward
+    # and the train step at bf16 vs float32; the conv kernels' device time
+    # per step at bf16 vs float32 (the wrapper times are host-bound)
+    layer_ms = {"fwd_bf16": [], "bwd_bf16": []}
+    bounds = {"fwd_bf16": [], "bwd_bf16": []}
+    with kernel_in_dtype("bfloat16"):
+        for plan, x, w, g in layer_inputs:
+            sh16, w16 = sh.bfloat16(), w.bfloat16()
+            with torch.no_grad():
+                layer_ms["fwd_bf16"].append(interleaved(
+                    lambda: fused_conv._launch(plan, x, sh16, w16, src, dst, n_nodes, edges),
+                    lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
+                layer_ms["bwd_bf16"].append(interleaved(
+                    lambda: fused_conv._launch_bwd_edges(plan, x, g, sh16, w16, src, dst),
+                    lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes),
+                    torch))
+            work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items, in_bytes=2)
+            for kind in bounds:
+                bounds[kind].append(bound_ms(*work[kind.replace("_bf16", "")]))
+
+    def fwd16():
+        with kernel_in_dtype("bfloat16"):
+            return fwd()
+
+    def step16():
+        with kernel_in_dtype("bfloat16"):
+            tr16.train_step(data, targets)
+
+    fwd_t = interleaved(fwd16, fwd, torch)
+    step_t = interleaved(step16, lambda: tr32.train_step(data, targets), torch)
+    # device time per train step of the conv kernels, float32 then bf16 storage
+    dev_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn in (("float32", lambda: tr32.train_step(data, targets)), ("bf16", step16)):
+            _, st_ = traced(fn, PROFILED_FORWARDS, Path(tmp), f"{label}_step", torch)
+            dev_ms[label] = {k: (sum(t for n, t in st_["by_kernel"].items() if is_kind(n, k)),
+                                 st_["per_layer"][k] if k == "fwd" else st_["per_layer"][k][::-1])
+                             for k in ("fwd", "bwd")}
+            dev_ms[label]["busy"] = st_["busy_ms"]
+            instance = [n for n in st_["by_kernel"] if is_kind(n, "fwd") or is_kind(n, "bwd")]
+            if any(("bfloat16" in n) != (label == "bf16") for n in instance):
+                raise AssertionError(f"the {label} step ran the kernel instances {instance}")
+    per_layer = "; ".join(
+        f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f} (float32 kernel, phase 9: {k9:.4f})"
+                               for (k, p), (k9, _) in zip(layer_ms[kind], f32_layer_ms[kind.replace("_bf16", "")]))
+        for kind in layer_ms)
+    bound_txt = "; ".join(
+        f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
+    print(f"[23c bf16 timings] {card}: flagship batch, median ms, sh and w stored as bf16: forward "
+          f"{fwd_t[0]:.4f} vs {fwd_t[1]:.4f} float32; train step {step_t[0]:.4f} vs {step_t[1]:.4f} float32; "
+          f"per layer L0 / L1 / L2 / L3, the bf16 kernel vs the plain version at bf16 (fwd: K1 with its "
+          f"partial-row sum; bwd: the merged kernel): {per_layer}; bound ms per layer at 2-byte sh and w: "
+          f"{bound_txt}; device ms per train step (profiler, {PROFILED_FORWARDS} steps), bf16 vs float32: "
+          + "; ".join(f"{k} {dev_ms['bf16'][k][0]:.4f} vs {dev_ms['float32'][k][0]:.4f} (per layer "
+                      + " / ".join(f"{a:.4f} vs {b:.4f}" for a, b in zip(dev_ms["bf16"][k][1], dev_ms["float32"][k][1]))
+                      + ")" for k in ("fwd", "bwd"))
+          + f"; device busy {dev_ms['bf16']['busy']:.4f} vs {dev_ms['float32']['busy']:.4f}", flush=True)
+    return {"fwd_bf16": fwd_counts["fwd_bf16"] + step_counts["fwd_bf16"],
+            "bwd_bf16": step_counts["bwd_bf16"]}, layer_ms, bounds
+
+
+def debug_phase(dev, card, torch, model, data):
+    """Phase 24: the production model built at DEBUG log level (a
+    `DetectAnomaly` after every backbone layer) with the INFO model's
+    weights, its output bitwise equal to the INFO model's; a NaN put into
+    one node feature after the first layer raises FloatingPointError naming
+    the field and the layer; one `StepTimer` step reports edges/s and
+    `profile_trace` writes a trace."""
+    import re
+
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.utils.anomaly import DetectAnomaly
+    from matten_tpu_torch.utils.logging import get_log_level, set_logger
+    from matten_tpu_torch.utils.timing import StepTimer, profile_trace
+
+    prev = get_log_level()
+    set_logger("DEBUG", filename=None)
+    try:
+        debug = create_scalar_tensor_model(HPARAMS, DATASET_HPARAMS, device=dev, seed=SEED).eval()
+    finally:
+        set_logger(prev, filename=None)
+    n_checks = sum(isinstance(m, DetectAnomaly) for m in debug.backbone.layers)
+    # the INFO backbone's layer i is the DEBUG backbone's layer 2 i
+    debug.load_state_dict({re.sub(r"^backbone\.layers\.(\d+)\.", lambda m: f"backbone.layers.{2 * int(m[1])}.", k): v
+                           for k, v in model.state_dict().items()})
+    # the mean pooling's index_add_ adds with atomics on the card unless
+    # deterministic algorithms are asked for (the conv kernels always are)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with torch.inference_mode():
+            out_info, out_debug = model(data), debug(data)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not torch.equal(out_info, out_debug):
+        raise AssertionError("the DEBUG-built model's output differs from the INFO model's")
+
+    def poison(_module, _inputs, out):
+        out[K.NODE_FEATURES][0, 0] = float("nan")
+        return out
+
+    hook = debug.backbone.layers[0].register_forward_hook(poison)
+    try:
+        with torch.inference_mode():
+            debug(data)
+    except FloatingPointError as e:
+        raised = str(e)
+    else:
+        raise AssertionError("a NaN in the node features did not raise at DEBUG level")
+    finally:
+        hook.remove()
+    if "'node_features'" not in raised or "species_embedding" not in raised:
+        raise AssertionError(f"the DEBUG check names another field or layer: {raised}")
+
+    timer = StepTimer()
+    n_edges = int(data[K.EDGE_MASK].sum())
+    with torch.inference_mode():
+        # the step ends when the card behind the batch has finished
+        with timer.step(data[K.POSITIONS], num_edges=n_edges):
+            out = model(data)
+        with tempfile.TemporaryDirectory() as logdir:
+            with profile_trace(logdir):
+                model(data)
+                torch.cuda.synchronize()
+            trace = Path(logdir, "trace.json").read_text()
+    json.loads(trace)
+    kernels_traced = "fused_uvu_conv_fwd" in trace
+    if not (timer.edges_per_s > 0 and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"StepTimer: {timer.edges_per_s} edges/s")
+    print(f"[24 DEBUG and timing] {card}: DEBUG model ({n_checks} anomaly checks) bitwise equal to the "
+          f"INFO model; NaN after layer 0 raised: {raised}; StepTimer one forward "
+          f"{timer.seconds * 1e3:.3f} ms, {timer.edges_per_s:.4g} real edges/s; profile_trace wrote "
+          f"{len(trace)} bytes of Chrome trace, K1 in it: {kernels_traced}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
@@ -1767,7 +2079,7 @@ def main() -> int:
 
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import _build
-    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.kernels import fused_conv, fused_tp
     from matten_tpu_torch.models import create_scalar_tensor_model
     from matten_tpu_torch.ops.scatter import scatter_sum
     from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
@@ -1815,8 +2127,14 @@ def main() -> int:
     #    the last plan, then a skewed graph
     gen = torch.Generator(device=dev).manual_seed(SEED)
     layer_inputs, parity = [], []
-    max_abs = {k: 0.0 for k in COUNTERS}
+    max_abs = {k: 0.0 for k in (*COUNTERS, *BF16_COUNTERS)}
     edges = fused_conv.edge_plan(src, dst, n_nodes, n_nodes, with_src_order=True)
+    # at bf16 storage (phase 23) the direct launches take sh and w cast as
+    # the wrappers cast them, and their differences count for the bf16 kernels
+    st = fused_conv._stored
+
+    def bf16_kind(kind):
+        return kind + "_bf16" if fused_tp.get_kernel_in_dtype() == "bfloat16" else kind
 
     def check_forward(plan, x, w, sh_, src_, dst_, n_out, n_in=None):
         n_in = n_out if n_in is None else n_in
@@ -1825,14 +2143,14 @@ def main() -> int:
             out = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out, plan_e)
             out2 = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out, plan_e)
             ref = fused_conv.uvu_conv_reference(plan, x, sh_, w, src_, dst_, n_out)
-            partial = fused_conv._launch_items(plan, x, sh_, w, src_, plan_e)
+            partial = fused_conv._launch_items(plan, x, st(sh_), st(w), src_, plan_e)
             summed = fused_conv._launch_fwd_sum(partial, plan_e)
             item_node = torch.repeat_interleave(
                 torch.arange(n_out, device=dev), (plan_e.item_ptr[1:] - plan_e.item_ptr[:-1]).long())
             sum_ref = torch.zeros_like(summed).index_add_(0, item_node, partial)
         torch.cuda.synchronize()
         rel, rel_sum = rel_err(out, ref), rel_err(summed, sum_ref)
-        max_abs["fwd"] = max(max_abs["fwd"], float((out - ref).abs().max()))
+        max_abs[bf16_kind("fwd")] = max(max_abs[bf16_kind("fwd")], float((out - ref).abs().max()))
         max_abs["fwd_sum"] = max(max_abs["fwd_sum"], float((summed - sum_ref).abs().max()))
         if not (rel <= KERNEL_TOL and rel_sum <= KERNEL_TOL):
             raise AssertionError(f"K1 or its partial-row sum disagrees with its plain version at "
@@ -1893,16 +2211,16 @@ def main() -> int:
     # 4. backward kernel parity: the 4 plans, then N = 2600 with the last plan
     def check_backward(plan, x, w, g, sh_, src_, dst_, n_in):
         with torch.no_grad():
-            dxe, dw = fused_conv._launch_bwd_edges(plan, x, g, sh_, w, src_, dst_)
+            dxe, dw = fused_conv._launch_bwd_edges(plan, x, g, st(sh_), st(w), src_, dst_)
             dx = fused_conv._launch_dx_sum(dxe, fused_conv.src_order(src_, n_in), n_in)
             dx2, dw2 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
             dx3, dw3 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
-            dxe_ref = fused_conv.uvu_conv_dxe_reference(plan, g, sh_, w, dst_)
+            dxe_ref = fused_conv.uvu_conv_dxe_reference(plan, g, st(sh_).float(), st(w).float(), dst_)
             dx_sum = torch.zeros_like(dx).index_add_(0, src_.long(), dxe)
             dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(plan, x, g, sh_, w, src_, dst_, n_in)
         torch.cuda.synchronize()
         errs = []
-        for kind, name, out, ref in (("bwd", "dw", dw, dw_ref), ("bwd", "dxe", dxe, dxe_ref),
+        for kind, name, out, ref in ((bf16_kind("bwd"), "dw", dw, dw_ref), (bf16_kind("bwd"), "dxe", dxe, dxe_ref),
                                      ("dx_sum", "dx sum", dx, dx_sum),
                                      (None, "dx", dx2, dx_ref), (None, "dw", dw2, dw_ref)):
             rel = rel_err(out, ref)
@@ -2083,6 +2401,14 @@ def main() -> int:
     # 20-22. data and graph parallelism: 2 ranks on the card
     mesh_launched, mesh_max_abs = parallel_phases(dev, card, torch, structures, target_rows)
 
+    # 23. bf16 storage of sh and w: parity, noise, counted runs, timings
+    bf16_launched, bf16_ms, bf16_bounds = bf16_phase(
+        dev, card, torch, check_forward, check_backward, layer_inputs, sh, src, dst, edges, model, trainer,
+        data, targets, nmr_trainer, nmr_batch, layer_ms)
+
+    # 24. the DEBUG-level model, the step timer and the profiler trace
+    debug_phase(dev, card, torch, model, data)
+
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
@@ -2101,7 +2427,9 @@ def main() -> int:
     names = {"fwd": "fused_uvu_conv_fwd (K1; ms with its partial-row sum)",
              "fwd_sum": "segment_sum (K1's partial rows into dst)",
              "bwd": "fused_uvu_conv_bwd (K2; K3 transposed, K4)",
-             "dx_sum": "segment_sum (K2 and K3 dx into src)"}
+             "dx_sum": "segment_sum (K2 and K3 dx into src)",
+             "fwd_bf16": "fused_uvu_conv_fwd, bf16 sh and w (K1; ms with its partial-row sum)",
+             "bwd_bf16": "fused_uvu_conv_bwd, bf16 sh and w (K2)"}
     library = {"fwd": None, "fwd_sum": sum(library_ms["fwd_sum"]), "bwd": None,
                "dx_sum": sum(library_ms["dx_sum"])}
     kernels = []
@@ -2122,6 +2450,22 @@ def main() -> int:
             "bound_ms": sum(b for b, _ in bounds[kind]),
             "bound_by": bound_by(bounds[kind]),
             "library_ms": library[kind],
+        })
+    for kind in BF16_COUNTERS:
+        base = kind.replace("_bf16", "")
+        kernels.append({
+            "name": names[kind],
+            "route": "cuda",
+            "source": sources[base],
+            "replaces": "matten_tpu/kernels/fused_conv.py:1012" if base == "fwd"
+                        else "matten_tpu/kernels/fused_conv.py:1118",
+            "launches": bf16_launched[kind],
+            "max_abs_err": max_abs[kind],
+            "ms": sum(k for k, _ in bf16_ms[kind]),
+            "plain_ms": sum(p for _, p in bf16_ms[kind]),
+            "bound_ms": sum(b for b, _ in bf16_bounds[kind]),
+            "bound_by": bound_by(bf16_bounds[kind]),
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,7 @@ def build(_build):
         if proc.returncode != 0:
             raise SystemExit(f"conv_bwd_phases: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.fused_uvu_conv_bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        lib.fused_uvu_conv_bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         libs[name] = lib
     return libs
 
@@ -103,7 +103,7 @@ def main() -> int:
         for name, lib in libs.items():
             def launch():
                 rc = lib.fused_uvu_conv_bwd(
-                    *(t.data_ptr() for t in ptrs), e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0],
+                    *(t.data_ptr() for t in ptrs), e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0], 4,
                     fc.BWD_TILE_EDGES, fc.BWD_WARPS, torch.cuda.current_stream(dev).cuda_stream)
                 if rc != 0:
                     raise SystemExit(f"conv_bwd_phases: {name} launch failed (cudaError {rc})")

@@ -44,6 +44,11 @@
 // * float32 on the CUDA cores: the contractions are d1, d3 <= 9 deep with a
 //   different CG product per edge, far below wgmma's 64-row tiles, and TF32
 //   would break the 1e-5 parity the checks hold.
+// * Storage of sh and w: float or bf16 (a template over T; the JAX kernels'
+//   `set_kernel_in_dtype`). At bf16 the w rows are staged at 2 bytes
+//   (cp_async_rows copies the unaligned ends one element at a time) and
+//   widened where a lane reads them, sh is widened as it is staged; x, the
+//   arithmetic and the partial rows stay float32. The bound's w read halves.
 //
 // What bounds it on an H100: the function's inputs read once and its output
 // written once are about 75 MB at layer 3 (w [E, dw] dominates: 21504 x 842
@@ -61,10 +66,11 @@
 #define FWD_WARPS 24
 #define FWD_THREADS (32 * FWD_WARPS)
 
+template <typename T>
 struct FwdArgs {
   const float* x;          // [n_in, d1]
-  const float* sh;         // [E, d2]
-  const float* w;          // [E, dw]
+  const T* sh;             // [E, d2]
+  const T* w;              // [E, dw]
   const int* src;          // [E]
   const int* row_ptr;      // [n_out + 1] offsets of each destination's edges
   const int* item_ptr;     // [n_out + 1] offsets of each destination's items
@@ -84,9 +90,9 @@ struct FwdArgs {
 // One lane's channel of one path over edges j0, j0 + ne, ... < nj of the
 // item: acc[m3] = sum_j w[j, w_off + u] * sum_{m1} t_j[m1 * D3 + m3] x_j[m1];
 // then the sum over the warp's edge groups (lanes lane ^ nu, ^ 2 nu, ...).
-template <int D1, int D3>
+template <int D1, int D3, typename T>
 static __device__ __forceinline__ void item_path(
-    const float* tp, int ts_stride, const float* xp, int xs_stride, const float* wp, int dw,
+    const float* tp, int ts_stride, const float* xp, int xs_stride, const T* wp, int dw,
     int j0, int ne, int nj, int nu, float pw, float* orow) {
   float acc[D3];
 #pragma unroll
@@ -96,7 +102,7 @@ static __device__ __forceinline__ void item_path(
     float xv[D1];
 #pragma unroll
     for (int m1 = 0; m1 < D1; ++m1) xv[m1] = xp[j * xs_stride + m1];
-    const float wv = wp[j * dw];
+    const float wv = to_f32(wp[j * dw]);
 #pragma unroll
     for (int m3 = 0; m3 < D3; ++m3) {
       float y = 0.f;
@@ -115,26 +121,27 @@ static __device__ __forceinline__ void item_path(
   }
 }
 
-template <int D1>
+template <int D1, typename T>
 static __device__ __forceinline__ void item_path_d3(
-    int d3, const float* tp, int ts_stride, const float* xp, int xs_stride, const float* wp,
+    int d3, const float* tp, int ts_stride, const float* xp, int xs_stride, const T* wp,
     int dw, int j0, int ne, int nj, int nu, float pw, float* orow) {
   switch (d3) {  // the same for the whole warp
-    case 1: item_path<D1, 1>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
-    case 3: item_path<D1, 3>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
-    case 5: item_path<D1, 5>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
-    case 7: item_path<D1, 7>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
-    default: item_path<D1, 9>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 1: item_path<D1, 1, T>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 3: item_path<D1, 3, T>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 5: item_path<D1, 5, T>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    case 7: item_path<D1, 7, T>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
+    default: item_path<D1, 9, T>(tp, ts_stride, xp, xs_stride, wp, dw, j0, ne, nj, nu, pw, orow); break;
   }
 }
 
-__global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(const FwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
+template <typename T>
+__global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(const FwdArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int ts_stride = a.n_t | 1;
   const int xs_stride = a.d1 | 1;
-  const int ws_len = (FWD_TE * a.dw + 3 + 3) / 4 * 4;  // the rows, their pad, 16-byte multiple
-  float* ws = smem;                                    // [FWD_TE][dw] from ws + w_pad
-  float* shs = ws + ws_len;                            // [FWD_TE][shp], 16-byte aligned
+  T* ws = reinterpret_cast<T*>(smem);  // [FWD_TE][dw] from ws + w_pad
+  // [FWD_TE][shp], 16-byte aligned
+  float* shs = reinterpret_cast<float*>(ws + staged_len<T>((size_t)FWD_TE * a.dw));
   float* ts = shs + FWD_TE * a.shp;                    // [FWD_TE][ts_stride]
   float* xs = ts + FWD_TE * ts_stride;                 // [FWD_TE][xs_stride]
 
@@ -152,7 +159,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(cons
 
   // 2. start copying the w rows (contiguous in w) and the x[src] rows; stage
   //    the padded sh rows and contract them with the CG blocks
-  const int w_pad = cp_async_rows<FWD_THREADS>(ws, a.w + (size_t)e0 * a.dw, nj * a.dw);
+  const int w_pad = cp_async_rows<FWD_THREADS, T>(ws, a.w + (size_t)e0 * a.dw, nj * a.dw);
   for (int idx = threadIdx.x; idx < nj * a.d1; idx += FWD_THREADS) {
     const int j = idx / a.d1;
     const int c = idx - j * a.d1;
@@ -183,11 +190,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(cons
     const float pw = __ldg(a.path_pw + tk.x);
     const float* tp = ts + pm.y;
     const float* xp = xs + gm.x + u * gm.y;
-    const float* wp = ws + w_pad + pm.z + u;
+    const T* wp = ws + w_pad + pm.z + u;
     float* orow = on && dj == 0 ? prow + pm.x + u * pm.w : nullptr;
     const int j0 = on ? dj : nj;
 #define ITEM_PATH(D1) \
-  item_path_d3<D1>(pm.w, tp, ts_stride, xp, xs_stride, wp, a.dw, j0, ne, nj, nu, pw, orow)
+  item_path_d3<D1, T>(pm.w, tp, ts_stride, xp, xs_stride, wp, a.dw, j0, ne, nj, nu, pw, orow)
     switch (gm.y) {  // d1 of the path's input irrep, the same for the whole warp
       case 1: ITEM_PATH(1); break;
       case 3: ITEM_PATH(3); break;
@@ -199,37 +206,33 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(cons
   }
 }
 
-extern "C" {
-
-// Shared memory (bytes) one block needs; the wrapper names it when a launch
-// fails (about 204 KB at the production layer 3, of the 227 KB a block may
-// have). `shp` is the padded sh row (TileTables.sh_src).
-size_t fused_uvu_conv_fwd_smem(int d1, int shp, int dw, int dout, int n_t) {
-  return sizeof(float) * ((size_t)(FWD_TE * dw + 6) / 4 * 4 + (size_t)FWD_TE * shp +
-                          (size_t)FWD_TE * (n_t | 1) + (size_t)FWD_TE * (d1 | 1));
+// Shared memory (bytes) one block needs at `in_bytes` (4: float, 2: bf16)
+// of sh and w storage: about 204 KB at the production layer 3 in float, of
+// the 227 KB a block may have. `shp` is the padded sh row
+// (TileTables.sh_src).
+static size_t fwd_smem(int d1, int shp, int dw, int n_t, int in_bytes) {
+  const size_t w_bytes = in_bytes == 2
+      ? sizeof(__nv_bfloat16) * staged_len<__nv_bfloat16>((size_t)FWD_TE * dw)
+      : sizeof(float) * staged_len<float>((size_t)FWD_TE * dw);
+  return w_bytes + sizeof(float) * ((size_t)FWD_TE * shp + (size_t)FWD_TE * (n_t | 1) +
+                                    (size_t)FWD_TE * (d1 | 1));
 }
 
-// Launches one block per item on `stream`; allocates nothing. `tile_edges`
-// and `warps` are the constants the wrapper built its task table for; they
-// must match this build's. Returns the cudaError_t of the launch (0 on
-// success).
-int fused_uvu_conv_fwd(const float* x, const float* sh, const float* w, const int* src,
-                       const int* row_ptr, const int* item_ptr, const void* t_meta,
-                       const float* cg_t, const int* t_sh, const int* sh_src,
-                       const void* groups, const void* paths, const float* path_pw,
-                       const void* tasks, const int* warp_ptr, float* partial, int n_items,
-                       int n_out, int d1, int d2, int shp, int dw, int dout, int n_t,
-                       int tile_edges, int warps, void* stream) {
-  if (tile_edges != FWD_TE || warps != FWD_WARPS || shp % 4) return (int)cudaErrorInvalidValue;
-  if (n_items == 0) return 0;
-  const size_t smem = fused_uvu_conv_fwd_smem(d1, shp, dw, dout, n_t);
+template <typename T>
+static int launch_fwd(const float* x, const void* sh, const void* w, const int* src,
+                      const int* row_ptr, const int* item_ptr, const void* t_meta,
+                      const float* cg_t, const int* t_sh, const int* sh_src, const void* groups,
+                      const void* paths, const float* path_pw, const void* tasks,
+                      const int* warp_ptr, float* partial, int n_items, int n_out, int d1,
+                      int d2, int shp, int dw, int dout, int n_t, size_t smem,
+                      cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      fused_uvu_conv_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_uvu_conv_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  FwdArgs a;
+  FwdArgs<T> a;
   a.x = x;
-  a.sh = sh;
-  a.w = w;
+  a.sh = static_cast<const T*>(sh);
+  a.w = static_cast<const T*>(w);
   a.src = src;
   a.row_ptr = row_ptr;
   a.item_ptr = item_ptr;
@@ -250,8 +253,40 @@ int fused_uvu_conv_fwd(const float* x, const float* sh, const float* w, const in
   a.dw = dw;
   a.dout = dout;
   a.n_t = n_t;
-  fused_uvu_conv_fwd_kernel<<<n_items, FWD_THREADS, smem, (cudaStream_t)stream>>>(a);
+  fused_uvu_conv_fwd_kernel<T><<<n_items, FWD_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// fwd_smem, which the wrapper names when a launch fails.
+size_t fused_uvu_conv_fwd_smem(int d1, int shp, int dw, int dout, int n_t, int in_bytes) {
+  (void)dout;
+  return fwd_smem(d1, shp, dw, n_t, in_bytes);
+}
+
+// Launches one block per item on `stream`; allocates nothing. sh and w are
+// float (`in_bytes` 4) or bf16 (`in_bytes` 2). `tile_edges` and `warps` are
+// the constants the wrapper built its task table for; they must match this
+// build's. Returns the cudaError_t of the launch (0 on success).
+int fused_uvu_conv_fwd(const float* x, const void* sh, const void* w, const int* src,
+                       const int* row_ptr, const int* item_ptr, const void* t_meta,
+                       const float* cg_t, const int* t_sh, const int* sh_src,
+                       const void* groups, const void* paths, const float* path_pw,
+                       const void* tasks, const int* warp_ptr, float* partial, int n_items,
+                       int n_out, int d1, int d2, int shp, int dw, int dout, int n_t,
+                       int in_bytes, int tile_edges, int warps, void* stream) {
+  if (tile_edges != FWD_TE || warps != FWD_WARPS || shp % 4 || (in_bytes != 4 && in_bytes != 2))
+    return (int)cudaErrorInvalidValue;
+  if (n_items == 0) return 0;
+  const size_t smem = fwd_smem(d1, shp, dw, n_t, in_bytes);
+  return in_bytes == 2
+      ? launch_fwd<__nv_bfloat16>(x, sh, w, src, row_ptr, item_ptr, t_meta, cg_t, t_sh, sh_src,
+                                  groups, paths, path_pw, tasks, warp_ptr, partial, n_items,
+                                  n_out, d1, d2, shp, dw, dout, n_t, smem, (cudaStream_t)stream)
+      : launch_fwd<float>(x, sh, w, src, row_ptr, item_ptr, t_meta, cg_t, t_sh, sh_src, groups,
+                          paths, path_pw, tasks, warp_ptr, partial, n_items, n_out, d1, d2,
+                          shp, dw, dout, n_t, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -67,6 +67,10 @@
 // * float32 on the CUDA cores: the contractions are d1, d3 <= 9 deep with a
 //   different CG product per edge, far below wgmma's 64-row tiles, and TF32
 //   would break the 1e-5 parity the checks hold.
+// * Storage of sh and w: float or bf16 (a template over T; the JAX kernels'
+//   `set_kernel_in_dtype`). At bf16 the tile's w rows are staged at 2 bytes
+//   and widened where a lane reads them, sh is widened as it is staged; x,
+//   g, the arithmetic, dw and the dxe rows stay float32.
 //
 // What bounds it on an H100: the function's inputs read once and its outputs
 // (dx, dw) written once are about 153 MB at the production layer 3 (w and dw,
@@ -85,11 +89,12 @@
 #define BWD_THREADS (32 * BWD_WARPS)
 #define BWD_GSLOTS 2                 // destinations per tile with a staged g row
 
+template <typename T>
 struct BwdArgs {
   const float* x;          // [n_in, d1]
   const float* g;          // [n_out, dout]
-  const float* sh;         // [E, d2]
-  const float* w;          // [E, dw]
+  const T* sh;             // [E, d2]
+  const T* w;              // [E, dw]
   const int* src;          // [E]
   const int* dst;          // [E], non-decreasing
   const int4* t_meta;      // [n_t]: cg offset, sh offset, d2_i, 0
@@ -126,10 +131,10 @@ static __device__ __forceinline__ void path_y(const float* tp, const float* gp, 
 // One lane's (channel, edge) pair over every path of the channel's irrep.
 // xrow, wrow, dwrow and drow point at the channel's entries of the edge
 // (dwrow, drow null when that gradient is not wanted); grow at g[dst].
-template <int D1>
+template <int D1, typename T>
 static __device__ __forceinline__ void channel_edge(
     const int4* __restrict__ paths, const float* __restrict__ path_pw, const float* trow,
-    const float* grow, const float* xrow, const float* wrow, float* dwrow, float* drow,
+    const float* grow, const float* xrow, const T* wrow, float* dwrow, float* drow,
     int u, int q_begin, int q_end) {
   float xv[D1], dxv[D1];
 #pragma unroll
@@ -163,7 +168,7 @@ static __device__ __forceinline__ void channel_edge(
       dwrow[pm.z] = pw * s;
     }
     if (drow) {
-      const float wv = pw * wrow[pm.z];
+      const float wv = pw * to_f32(wrow[pm.z]);
 #pragma unroll
       for (int m1 = 0; m1 < D1; ++m1) dxv[m1] = fmaf(wv, y[m1], dxv[m1]);
     }
@@ -174,11 +179,13 @@ static __device__ __forceinline__ void channel_edge(
   }
 }
 
-__global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(const BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(const BwdArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int ts_stride = a.n_t | 1;
-  float* ws = smem;  // [BWD_TE][dw] from ws + w_pad, if stage_w
-  float* shs = ws + (a.stage_w ? (BWD_TE * a.dw + 6) / 4 * 4 : 0);  // [BWD_TE][shp], 16-byte aligned
+  T* ws = reinterpret_cast<T*>(smem);  // [BWD_TE][dw] from ws + w_pad, if stage_w
+  // [BWD_TE][shp], 16-byte aligned
+  float* shs = reinterpret_cast<float*>(ws + (a.stage_w ? staged_len<T>((size_t)BWD_TE * a.dw) : 0));
   float* ts = shs + BWD_TE * a.shp;                   // [BWD_TE][ts_stride]
   float* gs = ts + BWD_TE * ts_stride;                // [BWD_GSLOTS][dout]
   int* src_s = reinterpret_cast<int*>(gs + BWD_GSLOTS * a.dout);  // [BWD_TE]
@@ -193,7 +200,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
 
   // 1. start copying the tile's w rows (contiguous, nj * dw floats); load
   //    the edge ends and the padded sh rows
-  const int w_pad = a.stage_w ? cp_async_rows<BWD_THREADS>(ws, a.w + (size_t)tile0 * a.dw, nj * a.dw) : 0;
+  const int w_pad = a.stage_w ? cp_async_rows<BWD_THREADS, T>(ws, a.w + (size_t)tile0 * a.dw, nj * a.dw) : 0;
   if (tid < BWD_TE) {
     src_s[tid] = tid < nj ? a.src[tile0 + tid] : 0;
     dst_s[tid] = tid < nj ? a.dst[tile0 + tid] : -1;
@@ -242,11 +249,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
     const float* grow = sl >= 0 ? gs + sl * a.dout : a.g + (size_t)dst_s[j] * a.dout;
     const float* trow = ts + j * ts_stride;
     const float* xrow = a.x + (size_t)src_s[j] * a.d1 + xb;
-    const float* wrow = (a.stage_w ? ws + w_pad + j * a.dw : a.w + (size_t)e * a.dw) + u;
+    const T* wrow = (a.stage_w ? ws + w_pad + j * a.dw : a.w + (size_t)e * a.dw) + u;
     float* dwrow = a.dw_out ? a.dw_out + (size_t)e * a.dw + u : nullptr;
     float* drow = a.dxe ? a.dxe + (size_t)e * a.d1 + xb : nullptr;
 #define CHANNEL_EDGE(D1)                                                                  \
-  channel_edge<D1>(a.paths, a.path_pw, trow, grow, xrow, wrow, dwrow, drow, u, gm.z, gm.w)
+  channel_edge<D1, T>(a.paths, a.path_pw, trow, grow, xrow, wrow, dwrow, drow, u, gm.z, gm.w)
     switch (gm.y) {  // d1 of the irrep, the same for the whole warp
       case 1: CHANNEL_EDGE(1); break;
       case 3: CHANNEL_EDGE(3); break;
@@ -258,48 +265,35 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
   }
 }
 
-extern "C" {
-
 // Shared memory (bytes) one block of the merged kernel needs without the
-// staged w rows; the wrapper names it when a launch fails.
-// `shp` is the padded sh row (BackwardTables.sh_src).
-size_t fused_uvu_conv_bwd_smem(int d1, int shp, int dw, int dout, int n_t) {
+// staged w rows. `shp` is the padded sh row (TileTables.sh_src).
+static size_t bwd_smem_base(int shp, int dout, int n_t) {
   return sizeof(float) * ((size_t)BWD_TE * (n_t | 1) + (size_t)BWD_GSLOTS * dout +
                           (size_t)BWD_TE * shp) +
          sizeof(int) * (3 * BWD_TE + BWD_GSLOTS + 1);
 }
 
-// Launches on `stream`, allocates nothing and returns the cudaError_t of
-// the launch (0 on success). `tile_edges` and `warps` are the constants the
-// wrapper built its task table for; they must match this build's. The
-// tile's w rows are staged in shared memory when dx is wanted and they fit
-// beside the rest (they do at every production layer: 217 KB at layer 3).
-int fused_uvu_conv_bwd(const float* x, const float* g, const float* sh, const float* w,
-                       const int* src, const int* dst, const void* t_meta,
-                       const float* cg_t, const int* t_sh, const int* sh_src,
-                       const void* groups, const void* paths, const float* path_pw,
-                       const void* tasks, const int* warp_ptr, float* dw_out, float* dxe,
-                       int n_edges, int d1, int d2, int shp, int dw, int dout, int n_t,
-                       int tile_edges, int warps, void* stream) {
-  if (tile_edges != BWD_TE || warps != BWD_WARPS || shp % 4) return (int)cudaErrorInvalidValue;
-  if (n_edges == 0) return 0;
-  int device = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+// The staged w rows at `in_bytes` (4: float, 2: bf16) of storage.
+static size_t bwd_w_bytes(int dw, int in_bytes) {
+  return in_bytes == 2 ? sizeof(__nv_bfloat16) * staged_len<__nv_bfloat16>((size_t)BWD_TE * dw)
+                       : sizeof(float) * staged_len<float>((size_t)BWD_TE * dw);
+}
+
+template <typename T>
+static int launch_bwd(const float* x, const float* g, const void* sh, const void* w,
+                      const int* src, const int* dst, const void* t_meta, const float* cg_t,
+                      const int* t_sh, const int* sh_src, const void* groups, const void* paths,
+                      const float* path_pw, const void* tasks, const int* warp_ptr,
+                      float* dw_out, float* dxe, int n_edges, int d1, int d2, int shp, int dw,
+                      int dout, int n_t, int stage_w, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_uvu_conv_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  size_t smem = fused_uvu_conv_bwd_smem(d1, shp, dw, dout, n_t);
-  const size_t w_bytes = sizeof(float) * (((size_t)BWD_TE * dw + 6) / 4 * 4);
-  const int stage_w = dxe != nullptr && smem + w_bytes <= (size_t)optin;
-  if (stage_w) smem += w_bytes;
-  err = cudaFuncSetAttribute(
-      fused_uvu_conv_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  BwdArgs a;
+  BwdArgs<T> a;
   a.x = x;
   a.g = g;
-  a.sh = sh;
-  a.w = w;
+  a.sh = static_cast<const T*>(sh);
+  a.w = static_cast<const T*>(w);
   a.src = src;
   a.dst = dst;
   a.t_meta = (const int4*)t_meta;
@@ -321,9 +315,52 @@ int fused_uvu_conv_bwd(const float* x, const float* g, const float* sh, const fl
   a.dout = dout;
   a.n_t = n_t;
   a.stage_w = stage_w;
-  fused_uvu_conv_bwd_kernel<<<(n_edges + BWD_TE - 1) / BWD_TE, BWD_THREADS, smem,
-                              (cudaStream_t)stream>>>(a);
+  fused_uvu_conv_bwd_kernel<T><<<(n_edges + BWD_TE - 1) / BWD_TE, BWD_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// Shared memory (bytes) one block of the merged kernel needs with the w
+// rows staged at `in_bytes` of storage (217 KB at the production layer 3 in
+// float); the wrapper names it when a launch fails.
+size_t fused_uvu_conv_bwd_smem(int d1, int shp, int dw, int dout, int n_t, int in_bytes) {
+  (void)d1;
+  return bwd_smem_base(shp, dout, n_t) + bwd_w_bytes(dw, in_bytes);
+}
+
+// Launches on `stream`, allocates nothing and returns the cudaError_t of
+// the launch (0 on success). sh and w are float (`in_bytes` 4) or bf16
+// (`in_bytes` 2). `tile_edges` and `warps` are the constants the wrapper
+// built its task table for; they must match this build's. The tile's w rows
+// are staged in shared memory when dx is wanted and they fit beside the rest
+// (they do at every production layer).
+int fused_uvu_conv_bwd(const float* x, const float* g, const void* sh, const void* w,
+                       const int* src, const int* dst, const void* t_meta,
+                       const float* cg_t, const int* t_sh, const int* sh_src,
+                       const void* groups, const void* paths, const float* path_pw,
+                       const void* tasks, const int* warp_ptr, float* dw_out, float* dxe,
+                       int n_edges, int d1, int d2, int shp, int dw, int dout, int n_t,
+                       int in_bytes, int tile_edges, int warps, void* stream) {
+  if (tile_edges != BWD_TE || warps != BWD_WARPS || shp % 4 || (in_bytes != 4 && in_bytes != 2))
+    return (int)cudaErrorInvalidValue;
+  if (n_edges == 0) return 0;
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = bwd_smem_base(shp, dout, n_t);
+  const size_t w_bytes = bwd_w_bytes(dw, in_bytes);
+  const int stage_w = dxe != nullptr && smem + w_bytes <= (size_t)optin;
+  if (stage_w) smem += w_bytes;
+  return in_bytes == 2
+      ? launch_bwd<__nv_bfloat16>(x, g, sh, w, src, dst, t_meta, cg_t, t_sh, sh_src, groups,
+                                  paths, path_pw, tasks, warp_ptr, dw_out, dxe, n_edges, d1, d2,
+                                  shp, dw, dout, n_t, stage_w, smem, (cudaStream_t)stream)
+      : launch_bwd<float>(x, g, sh, w, src, dst, t_meta, cg_t, t_sh, sh_src, groups, paths,
+                          path_pw, tasks, warp_ptr, dw_out, dxe, n_edges, d1, d2, shp, dw, dout,
+                          n_t, stage_w, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -8,21 +8,37 @@
 //
 // over the (m1, m3) entries i of the CG blocks C = wigner_3j(l1, l2, l3)
 // that the plan's paths share.
-
+//
+// sh and w are stored as float or as __nv_bfloat16 (the storage dtype the
+// wrapper's `set_kernel_in_dtype` selects, the JAX kernels' kernel-input
+// dtype): both kernels are templates over that type, the w rows are staged
+// at their storage width and every value is widened to float where it is
+// read, so all arithmetic and every output stay float32.
 #pragma once
 
 #include <stdint.h>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define CONV_MAX_D 9  // irreps up to l = 4: d1, d2_i, d3 <= 9
+
+static __device__ __forceinline__ float to_f32(float v) { return v; }
+static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A read-only global load widened to float (a bf16 is the upper half of
+// the float it rounds).
+static __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+static __device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p))) << 16);
+}
 
 static __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
 
-static __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+static __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
@@ -31,35 +47,55 @@ static __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Start copying n contiguous floats from global `src` to shared memory at
-// dst + pad, pad = the float offset of src within its 16-byte line, so that
-// both sides share their 16-byte alignment and the bulk moves 16 bytes per
-// cp.async; dst is 16-byte aligned and has room for n + 3 floats. Returns
-// pad. Every thread of the block calls it; cp_async_wait_all then
-// __syncthreads before the copy is read.
-template <int THREADS>
-static __device__ __forceinline__ int cp_async_rows(float* dst, const float* src, int n) {
-  const int pad = static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
-  const int head = min((4 - pad) & 3, n);
-  float* d = dst + pad;
-  const int nv = (n - head) / 4;
-  for (int i = threadIdx.x; i < head; i += THREADS) cp_async4(d + i, src + i);
-  for (int v = threadIdx.x; v < nv; v += THREADS) cp_async16(d + head + 4 * v, src + head + 4 * v);
-  for (int i = head + 4 * nv + threadIdx.x; i < n; i += THREADS) cp_async4(d + i, src + i);
+// One element outside the 16-byte copies: a float by a 4-byte cp.async; a
+// bf16 by a plain load and store, since cp.async has no 2-byte size and a
+// bf16 row at e0 * dw * 2 bytes is often not 4-byte aligned (the
+// __syncthreads after cp_async_wait_all publishes both kinds alike).
+static __device__ __forceinline__ void copy_one(float* dst, const float* src) { cp_async4(dst, src); }
+static __device__ __forceinline__ void copy_one(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *dst = *src;
+}
+
+// Elements of T a block needs for a run of n staged by cp_async_rows: the
+// run, its pad of up to V - 1 and a round-up to a 16-byte multiple.
+template <typename T>
+static __host__ __device__ __forceinline__ size_t staged_len(size_t n) {
+  constexpr size_t V = 16 / sizeof(T);
+  return (n + 2 * (V - 1)) / V * V;
+}
+
+// Start copying n contiguous elements of T (float or bf16) from global
+// `src` to shared memory at dst + pad, pad = the element offset of src
+// within its 16-byte line, so that both sides share their 16-byte
+// alignment and the bulk moves 16 bytes (V = 16 / sizeof(T) elements) per
+// cp.async; dst is 16-byte aligned and has room for staged_len<T>(n)
+// elements. Returns pad. Every thread of the block calls it;
+// cp_async_wait_all then __syncthreads before the copy is read.
+template <int THREADS, typename T>
+static __device__ __forceinline__ int cp_async_rows(T* dst, const T* src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  const int pad = static_cast<int>((reinterpret_cast<uintptr_t>(src) / sizeof(T)) & (V - 1));
+  const int head = min((V - pad) & (V - 1), n);
+  T* d = dst + pad;
+  const int nv = (n - head) / V;
+  for (int i = threadIdx.x; i < head; i += THREADS) copy_one(d + i, src + i);
+  for (int v = threadIdx.x; v < nv; v += THREADS) cp_async16(d + head + V * v, src + head + V * v);
+  for (int i = head + V * nv + threadIdx.x; i < n; i += THREADS) copy_one(d + i, src + i);
   return pad;
 }
 
-// The sh rows of edges e0 .. e0 + nj - 1 into shs [nj][shp], each sh irrep
-// padded to a multiple of 4 floats with zeros (sh_src: the sh component of
-// each padded slot, or -1), so that contract_te reads them 16 bytes at a time.
-template <int THREADS>
+// The sh rows of edges e0 .. e0 + nj - 1 into shs [nj][shp] as floats (sh
+// stored as float or bf16), each sh irrep padded to a multiple of 4 floats
+// with zeros (sh_src: the sh component of each padded slot, or -1), so that
+// contract_te reads them 16 bytes at a time.
+template <int THREADS, typename T>
 static __device__ __forceinline__ void stage_sh_rows(
-    float* shs, const float* __restrict__ sh, const int* __restrict__ sh_src,
+    float* shs, const T* __restrict__ sh, const int* __restrict__ sh_src,
     int e0, int nj, int d2, int shp) {
   for (int idx = threadIdx.x; idx < nj * shp; idx += THREADS) {
     const int j = idx / shp;
     const int c = __ldg(sh_src + idx - j * shp);
-    shs[idx] = c >= 0 ? __ldg(sh + (size_t)(e0 + j) * d2 + c) : 0.f;
+    shs[idx] = c >= 0 ? ldg_f32(sh + (size_t)(e0 + j) * d2 + c) : 0.f;
   }
 }
 

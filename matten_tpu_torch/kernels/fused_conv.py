@@ -22,12 +22,23 @@ takes beyond 2048 nodes, the transposed `_build_call` (K3) for dx and
 
 On CUDA tensors each wrapper launches its hand-written kernels
 (`csrc/fused_conv.cu`, `csrc/fused_conv_bwd.cu`, `csrc/segment_sum.cu`,
-built by `_build.py`) or raises; on CPU tensors it runs the kernels' plain
-version (`uvu_conv_reference`, `uvu_conv_bwd_reference`). The gradient with
+built by `_build.py`) or raises; on CPU tensors, or with the "xla" tier
+(`fused_tp.set_tp_impl`, `force_plain`), it runs the kernels' plain version
+(`uvu_conv_reference`, `uvu_conv_bwd_reference`). The gradient with
 respect to sh comes from autograd of the plain forward, and only when sh
-requires it, as in the JAX backward. The edges' checks and layout (`EdgePlan`:
-the dst CSR, K1's items, the src order) are built once per batch with one
-host sync, so the launches themselves never wait on the card. The TPU
+requires it, as in the JAX backward.
+
+With `fused_tp.set_kernel_in_dtype("bfloat16")` the kernels read sh and w
+stored as bfloat16 (rounded to nearest even inside the autograd Function,
+as the JAX v2 kernels cast them inside their custom_vjp), and the plain
+versions apply the same rounding before their float32 arithmetic. x, the
+cotangent, the arithmetic and every output stay float32: dw comes back in
+w's float32 (the gradient at the rounded inputs, not rounded itself), and
+dsh from autograd of the plain forward on the unrounded sh and w.
+
+The edges' checks and layout (`EdgePlan`: the dst CSR, K1's items, the src
+order) are built once per batch with one host sync, so the launches
+themselves never wait on the card. The TPU
 machinery of the JAX kernels (transposed [D, E] layout, one-hot-matmul
 gathers and scatters, node-chunk owner maps, VMEM budgets, m-major rows)
 has no counterpart here: edges arrive sorted by destination, both passes
@@ -44,6 +55,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from matten_tpu_torch.kernels import fused_tp
 from matten_tpu_torch.ops.scatter import scatter_sum
 from matten_tpu_torch.ops.tensor_product import TensorProductPlan
 from matten_tpu_torch.ops.clebsch_gordan import wigner_3j
@@ -61,13 +73,16 @@ __all__ = [
 ]
 
 # kernel launches in this process: K1's item pass (`launches`), the segment
-# sum in its two roles (K1's partial rows, dx), the merged backward; each
-# is added to right where its kernel launches and nothing else touches them
+# sum in its two roles (K1's partial rows, dx), the merged backward, and the
+# bf16-storage instances of K1's item pass and the merged backward; each is
+# added to right where its kernel launches and nothing else touches them
 # except a caller resetting them
 launches = 0
 fwd_sum_launches = 0
 bwd_launches = 0
 dx_sum_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 # the kernels' launch shapes (csrc/fused_conv.cu: FWD_TE, FWD_WARPS;
 # csrc/fused_conv_bwd.cu: BWD_TE, BWD_WARPS); their task tables are built
@@ -80,19 +95,28 @@ BWD_WARPS = 24
 # (csrc/fused_conv_common.cuh: CONV_MAX_D)
 CONV_MAX_D = 9
 
-_force_plain = False
-
-
 @contextlib.contextmanager
 def force_plain():
-    """Test hook: run the conv through its plain version on CUDA tensors too,
-    so a caller can compare the kernel path with the plain path."""
-    global _force_plain
-    prev, _force_plain = _force_plain, True
+    """Run the conv through its plain version on CUDA tensors too (the
+    "xla" tier for the block), so a caller can compare the kernel path with
+    the plain path."""
+    prev = fused_tp.get_tp_impl()
+    fused_tp.set_tp_impl("xla")
     try:
         yield
     finally:
-        _force_plain = prev
+        fused_tp.set_tp_impl(prev)
+
+
+def _stored(t: torch.Tensor) -> torch.Tensor:
+    """sh or w in the kernels' storage dtype (`fused_tp.get_kernel_in_dtype`;
+    bf16 rounds to nearest even)."""
+    return t.to(torch.bfloat16 if fused_tp.get_kernel_in_dtype() == "bfloat16" else torch.float32)
+
+
+def _conv_sum(plan, x, sh, w, src, dst, n_out: int) -> torch.Tensor:
+    msg = plan.apply(x[src.long()], sh, w)
+    return scatter_sum(msg, dst, n_out)
 
 
 def uvu_conv_reference(
@@ -105,9 +129,9 @@ def uvu_conv_reference(
     n_out: int,
 ) -> torch.Tensor:
     """Plain version: materialize the [E, dout] messages, then segment-sum
-    (counterpart of `_reference` in the JAX kernel module)."""
-    msg = plan.apply(x[src.long()], sh, w)
-    return scatter_sum(msg, dst, n_out)
+    (counterpart of `_reference` in the JAX kernel module), with sh and w
+    first rounded to the storage dtype, as the kernels read them."""
+    return _conv_sum(plan, x, _stored(sh).float(), _stored(w).float(), src, dst, n_out)
 
 
 def uvu_conv_dxe_reference(
@@ -167,7 +191,10 @@ def uvu_conv_bwd_reference(
     dst: torch.Tensor,
     n_in: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the merged backward: (dx [n_in, d1], dw [E, dw])."""
+    """Plain version of the merged backward: (dx [n_in, d1], dw [E, dw]),
+    with sh and w first rounded to the storage dtype, as the kernels read
+    them."""
+    sh, w = _stored(sh).float(), _stored(w).float()
     return (
         uvu_conv_dx_reference(plan, g, sh, w, src, dst, n_in),
         uvu_conv_dw_reference(plan, x, g, sh, src, dst),
@@ -444,10 +471,13 @@ def _check(fn: str, expect: Dict[str, Tuple[torch.Tensor, torch.dtype, Tuple[int
             raise ValueError(f"{fn}: {name} is not contiguous")
 
 
-def _edge_checks(plan, sh, src, dst):
+def _edge_checks(plan, sh, w, src, dst):
+    """sh and w: float32, or both bfloat16 (the kernels' storage instances)."""
     e = sh.shape[0] if sh.dim() == 2 else -1
+    store = torch.bfloat16 if sh.dtype == torch.bfloat16 else torch.float32
     return {
-        "sh": (sh, torch.float32, (e, plan.irreps_in2.dim)),
+        "sh": (sh, store, (e, plan.irreps_in2.dim)),
+        "w": (w, store, (e, plan.weight_numel)),
         "src": (src, torch.int32, (e,)),
         "dst": (dst, torch.int32, (e,)),
     }
@@ -466,11 +496,11 @@ def _row_ptr(sorted_idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.searchsorted(sorted_idx, nodes, out_int32=True)
 
 
-def _launch_failed(lib, kind: str, rc: int, plan) -> RuntimeError:
+def _launch_failed(lib, kind: str, rc: int, plan, in_bytes: int) -> RuntimeError:
     d1, dw, dout = plan.irreps_in1.dim, plan.weight_numel, plan.irreps_out.dim
     n_t = kernel_tables(plan).t_meta.shape[0]
     shp = len(tile_tables(plan).sh_src)  # both kernels stage padded sh rows
-    smem = getattr(lib, f"fused_uvu_conv_{kind}_smem")(d1, shp, dw, dout, n_t)
+    smem = getattr(lib, f"fused_uvu_conv_{kind}_smem")(d1, shp, dw, dout, n_t, in_bytes)
     return RuntimeError(
         f"fused_uvu_conv_{kind}: kernel launch failed (cudaError {rc}; the plan "
         f"needs {smem} B of shared memory per block)"
@@ -512,8 +542,8 @@ def _segment_sum(rows: torch.Tensor, ptr: torch.Tensor, perm: Optional[torch.Ten
 
 def _launch_items(plan, x, sh, w, src, edges: EdgePlan) -> torch.Tensor:
     """K1's item pass: the partial rows [items, dout], each item's messages
-    summed, for tensors that `_launch` checked."""
-    global launches
+    summed, for tensors that `_launch` checked (sh and w float32 or bf16)."""
+    global launches, bf16_launches
     from matten_tpu_torch.kernels._build import load_library
 
     dev = x.device
@@ -532,11 +562,14 @@ def _launch_items(plan, x, sh, w, src, edges: EdgePlan) -> torch.Tensor:
             tt.groups.data_ptr(), tt.paths.data_ptr(), tt.path_pw.data_ptr(),
             tt.fwd_tasks.data_ptr(), tt.fwd_warp_ptr.data_ptr(), partial.data_ptr(),
             edges.n_items, edges.n_out, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0],
-            FWD_ITEM_EDGES, FWD_WARPS, torch.cuda.current_stream(dev).cuda_stream,
+            sh.element_size(), FWD_ITEM_EDGES, FWD_WARPS, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise _launch_failed(lib, "fwd", rc, plan)
-    launches += 1
+        raise _launch_failed(lib, "fwd", rc, plan, sh.element_size())
+    if sh.dtype == torch.bfloat16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return partial
 
 
@@ -549,11 +582,9 @@ def _launch_fwd_sum(partial: torch.Tensor, edges: EdgePlan) -> torch.Tensor:
 def _launch(plan, x, sh, w, src, dst, n_out: int, edges: Optional[EdgePlan] = None) -> torch.Tensor:
     """K1: its item pass, then the segment sum of the partial rows into
     out [n_out, dout]. Without `edges` it builds (and checks) the plan."""
-    e = sh.shape[0] if sh.dim() == 2 else -1
     _check("fused_uvu_conv", {
         "x": (x, torch.float32, (x.shape[0], plan.irreps_in1.dim)),
-        **_edge_checks(plan, sh, src, dst),
-        "w": (w, torch.float32, (e, plan.weight_numel)),
+        **_edge_checks(plan, sh, w, src, dst),
     })
     if edges is None:
         edges = edge_plan(src, dst, x.shape[0], n_out)
@@ -563,17 +594,17 @@ def _launch(plan, x, sh, w, src, dst, n_out: int, edges: Optional[EdgePlan] = No
 
 
 def _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx: bool = True, want_dw: bool = True):
-    """The merged backward kernel: (dxe [E, d1] or None, dw [E, dw] or
-    None), for src and dst that an `edge_plan` checked."""
-    global bwd_launches
+    """The merged backward kernel: (dxe [E, d1] or None, dw [E, dw] float32
+    or None), for src and dst that an `edge_plan` checked (sh and w float32
+    or bf16)."""
+    global bwd_launches, bf16_bwd_launches
     from matten_tpu_torch.kernels._build import load_library
 
     e = sh.shape[0] if sh.dim() == 2 else -1
     _check("fused_uvu_conv_bwd", {
         "x": (x, torch.float32, (x.shape[0], plan.irreps_in1.dim)),
         "g": (g, torch.float32, (g.shape[0], plan.irreps_out.dim)),
-        **_edge_checks(plan, sh, src, dst),
-        "w": (w, torch.float32, (e, plan.weight_numel)),
+        **_edge_checks(plan, sh, w, src, dst),
     })
     dev = g.device
     d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
@@ -591,12 +622,15 @@ def _launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dx: bool = True, want_dw
             tt.sh_src.data_ptr(), tt.groups.data_ptr(), tt.paths.data_ptr(),
             tt.path_pw.data_ptr(), tt.tasks.data_ptr(), tt.warp_ptr.data_ptr(),
             dw_out.data_ptr() if want_dw else None, dxe.data_ptr() if want_dx else None,
-            e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0], BWD_TILE_EDGES, BWD_WARPS,
-            torch.cuda.current_stream(dev).cuda_stream,
+            e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0], sh.element_size(),
+            BWD_TILE_EDGES, BWD_WARPS, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise _launch_failed(lib, "bwd", rc, plan)
-    bwd_launches += 1
+        raise _launch_failed(lib, "bwd", rc, plan, sh.element_size())
+    if sh.dtype == torch.bfloat16:
+        bf16_bwd_launches += 1
+    else:
+        bwd_launches += 1
     return dxe, dw_out
 
 
@@ -625,31 +659,46 @@ def _launch_bwd(plan, x, g, sh, w, src, dst, n_in: int, edges: Optional[EdgePlan
 
 
 class _FusedUvuConv(torch.autograd.Function):
+    """K1 and its merged backward (`plain`: their plain versions), with sh
+    and w cast to the storage dtype here, so that dx and dw come back as the
+    float32 gradients at the rounded inputs and dsh at the unrounded ones."""
+
     @staticmethod
-    def forward(ctx, x, sh, w, src, dst, plan, n_out, edges):
-        ctx.save_for_backward(x, sh, w, src, dst)
-        ctx.plan, ctx.n_out, ctx.edges = plan, n_out, edges
-        return _launch(plan, x, sh, w, src, dst, n_out, edges)
+    def forward(ctx, x, sh, w, src, dst, plan, n_out, edges, plain):
+        sh_k, w_k = _stored(sh), _stored(w)
+        ctx.save_for_backward(x, sh, w, src, dst, sh_k, w_k)
+        ctx.plan, ctx.n_out, ctx.edges, ctx.plain = plan, n_out, edges, plain
+        if plain:
+            return _conv_sum(plan, x, sh_k.float(), w_k.float(), src, dst, n_out)
+        return _launch(plan, x, sh_k, w_k, src, dst, n_out, edges)
 
     @staticmethod
     def backward(ctx, g):
-        x, sh, w, src, dst = ctx.saved_tensors
+        x, sh, w, src, dst, sh_k, w_k = ctx.saved_tensors
         plan = ctx.plan
         g = g.contiguous()
-        dsh = None
+        dx = dsh = dw = None
         want_dx, want_sh, want_dw = ctx.needs_input_grad[:3]
-        dx, dw = _launch_bwd(plan, x, g, sh, w, src, dst, x.shape[0], ctx.edges, want_dx, want_dw)
+        if ctx.plain:
+            if want_dx:
+                dx = uvu_conv_dx_reference(plan, g, sh_k.float(), w_k.float(), src, dst, x.shape[0])
+            if want_dw:
+                dw = uvu_conv_dw_reference(plan, x, g, sh_k.float(), src, dst)
+        else:
+            dx, dw = _launch_bwd(plan, x, g, sh_k, w_k, src, dst, x.shape[0], ctx.edges,
+                                 want_dx, want_dw)
         if want_sh:
-            # dsh by autograd of the plain version, as the JAX backward does
+            # dsh by autograd of the plain version on the unrounded sh and
+            # w, as the JAX backward does
             with torch.enable_grad():
                 s = sh.detach().requires_grad_()
-                out = uvu_conv_reference(plan, x.detach(), s, w.detach(), src, dst, ctx.n_out)
+                out = _conv_sum(plan, x.detach(), s, w.detach(), src, dst, ctx.n_out)
                 (dsh,) = torch.autograd.grad(out, s, g)
-        return dx, dsh, dw, None, None, None, None, None
+        return dx, dsh, dw, None, None, None, None, None, None
 
 
 def _route(fn: str, tensors) -> bool:
-    """True: run the plain version (CPU tensors, or `force_plain()`);
+    """True: run the plain version (CPU tensors, or the "xla" tier);
     False: launch the kernel (CUDA tensors). Mixed devices raise."""
     if all(t.device.type == "cpu" for t in tensors):
         return True
@@ -657,7 +706,7 @@ def _route(fn: str, tensors) -> bool:
         raise ValueError(
             f"{fn}: inputs on mixed devices {sorted({str(t.device) for t in tensors})}"
         )
-    return _force_plain
+    return fused_tp.get_tp_impl() == "xla"
 
 
 def fused_uvu_conv(
@@ -675,15 +724,17 @@ def fused_uvu_conv(
     x [n_in, d1], sh [E, d2], w [E, dw] float32; src, dst [E] int32 with
     dst non-decreasing; returns [n_out, dout]. CPU tensors take the plain
     version; CUDA tensors launch K1 (or raise), and its gradient launches
-    the merged backward and the dx segment sum. `edges`, `edge_plan(src,
-    dst, n_in, n_out)` built once for the batch, spares the call its own
-    checks and their host sync (and, with its src order, the backward its
-    sort)."""
-    if _route("fused_uvu_conv", (x, sh, w, src, dst)):
+    the merged backward and the dx segment sum. sh and w are read in the
+    storage dtype of `fused_tp.get_kernel_in_dtype()`. `edges`,
+    `edge_plan(src, dst, n_in, n_out)` built once for the batch, spares the
+    call its own checks and their host sync (and, with its src order, the
+    backward its sort)."""
+    plain = _route("fused_uvu_conv", (x, sh, w, src, dst))
+    if plain and fused_tp.get_kernel_in_dtype() == "float32":
         return uvu_conv_reference(plan, x, sh, w, src, dst, n_out)
-    if edges is None:
+    if not plain and edges is None:
         edges = edge_plan(src, dst, x.shape[0], n_out)
-    return _FusedUvuConv.apply(x, sh, w, src, dst, plan, n_out, edges)
+    return _FusedUvuConv.apply(x, sh, w, src, dst, plan, n_out, edges, plain)
 
 
 def uvu_conv_bwd(
@@ -698,9 +749,10 @@ def uvu_conv_bwd(
     edges: Optional[EdgePlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gradients of `fused_uvu_conv` with respect to x and w for the output
-    cotangent g [n_out, dout]: (dx [n_in, d1], dw [E, dw]). CPU tensors
-    take the plain version; CUDA tensors launch the merged backward kernel
-    and the dx segment sum (or raise)."""
+    cotangent g [n_out, dout]: (dx [n_in, d1], dw [E, dw]), both float32.
+    CPU tensors take the plain version; CUDA tensors launch the merged
+    backward kernel and the dx segment sum (or raise). sh and w are read
+    in the storage dtype of `fused_tp.get_kernel_in_dtype()`."""
     if _route("uvu_conv_bwd", (x, g, sh, w, src, dst)):
         return uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_in)
-    return _launch_bwd(plan, x, g, sh, w, src, dst, n_in, edges)
+    return _launch_bwd(plan, x, g, _stored(sh), _stored(w), src, dst, n_in, edges)

@@ -14,6 +14,13 @@ Counterpart of `matten_tpu/models/tfn.py`, both model families:
 Parameters are drawn from a seeded `torch.Generator` on the CPU and the
 model is then moved to `device`, the card unless the caller passes another.
 
+At DEBUG log level (`utils.logging.set_logger("DEBUG")`) a
+`utils.anomaly.DetectAnomaly` follows every layer of the backbone, as in
+the JAX factory: a NaN or Inf raises after the layer that made it (one
+host sync per layer). The backbone's `layers.{i}` then match the flax
+`layers_{i}` of a DEBUG-built JAX model, so `convert.flax_to_state_dict`
+carries its variables.
+
 The hparams `graph_parallel_axis` ("graph") and `graph_parallel_mode`
 ("edge", "node" or "node_ring") build the graph-parallel model: the same
 parameters, with the convs, and under the node modes the edge geometry, the
@@ -38,6 +45,8 @@ from matten_tpu_torch.nn.nodewise import NodewiseLinear, NodewiseReduce
 from matten_tpu_torch.nn.sequential import Sequential
 from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
 from matten_tpu_torch.ops.tensor_product import LinearPlan
+from matten_tpu_torch.utils.anomaly import DetectAnomaly
+from matten_tpu_torch.utils.logging import get_log_level
 
 OUT_FIELD = "model_output"
 
@@ -121,6 +130,13 @@ def create_tfn_backbone(
             NodewiseReduce(m.irreps_out, field=OUT_FIELD, out_field=OUT_FIELD, reduce=pooling,
                            axis=node_axis)
         )
+    if get_log_level() == "DEBUG":
+        # a NaN/Inf check after every layer, labelled with the JAX module
+        # names; the indices then follow the DEBUG-built flax Sequential's
+        names = (["species_embedding", "spharm_edges", "radial_basis"]
+                 + [f"layer{i}_convnet" for i in range(hparams.get("num_layers", 3))]
+                 + ["conv_layer_last", "conv_to_output_hidden", "output_pooling"])
+        layers = [m for layer, name in zip(layers, names) for m in (layer, DetectAnomaly(name))]
     return Sequential(layers)
 
 

@@ -27,7 +27,7 @@ mesh's graph axis (`parallel/`), in one of three modes:
 from __future__ import annotations
 
 import functools
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -201,7 +201,9 @@ class PointConv(torch.nn.Module):
 
 class PointConvWithActivation(torch.nn.Module):
     """conv -> gate or norm activation -> (batch | instance | none)
-    normalization -> node mask. Under the node modes the batch norm's
+    normalization -> node mask. `activation_scalars` / `activation_gates`
+    ({parity "e"/"o": activation name}, or its items) pick the gate's
+    activations, as in the JAX module. Under the node modes the batch norm's
     statistics are summed over `graph_axis`; the instance norm's stay
     per rank, as in the JAX module."""
 
@@ -214,6 +216,8 @@ class PointConvWithActivation(torch.nn.Module):
         fc_hidden_size: int = 8,
         avg_num_neighbors: Optional[float] = None,
         activation_type: str = "gate",
+        activation_scalars: Optional[Union[Mapping[str, str], Tuple[Tuple[str, str], ...]]] = None,
+        activation_gates: Optional[Union[Mapping[str, str], Tuple[Tuple[str, str], ...]]] = None,
         normalization: Optional[str] = None,
         graph_axis: Optional[str] = None,
         graph_shard_mode: str = "edge",
@@ -227,6 +231,8 @@ class PointConvWithActivation(torch.nn.Module):
             Irreps(self.irreps_in[K.EDGE_ATTRS]),
             Irreps(conv_layer_irreps),
             activation_type=activation_type,
+            activation_scalars=dict(activation_scalars) if activation_scalars else None,
+            activation_gates=dict(activation_gates) if activation_gates else None,
         )
         self.irreps_out = merge_irreps(self.irreps_in, {K.NODE_FEATURES: info.irreps_out})
         self.conv = PointConv(

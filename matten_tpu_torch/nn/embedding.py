@@ -1,4 +1,5 @@
-"""Species and edge-length embeddings.
+"""Species and edge-length embeddings, and node attributes from edge
+attributes.
 
 Counterpart of `matten_tpu/nn/embedding.py`.
 """
@@ -14,7 +15,8 @@ from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.nn.common import merge_irreps
 from matten_tpu_torch.nn.edge_geometry import gather_positions, with_edge_vectors
-from matten_tpu_torch.nn.radial import bessel_basis, gaussian_basis, gaussian_centers
+from matten_tpu_torch.nn.radial import soft_one_hot_linspace
+from matten_tpu_torch.ops.scatter import scatter_mean, scatter_sum
 
 
 def atomic_number_map(allowed_species: Sequence[int]) -> np.ndarray:
@@ -104,6 +106,38 @@ class SpeciesEmbedding(torch.nn.Module):
         return data
 
 
+class NodeAttrsFromEdgeAttrs(torch.nn.Module):
+    """Node attributes as a segment reduction of edge attributes into the
+    destination nodes: "mean" weighted by the edge mask, or (any other
+    `reduce`) the sum of the masked rows."""
+
+    def __init__(
+        self,
+        irreps_in: Mapping,
+        field: str = K.EDGE_ATTRS,
+        out_field: str = K.NODE_ATTRS,
+        reduce: str = "mean",
+    ):
+        super().__init__()
+        self.field, self.out_field, self.reduce = field, out_field, reduce
+        self.irreps_in = dict(irreps_in)
+        self.irreps_out = merge_irreps(self.irreps_in, {out_field: self.irreps_in[field]})
+
+    def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        data = dict(data)
+        _, dst = data[K.EDGE_INDEX]
+        num_nodes = data[K.POSITIONS].shape[0]
+        x = data[self.field]
+        if self.reduce == "mean":
+            out = scatter_mean(x, dst, num_nodes, weights=data.get(K.EDGE_MASK))
+        else:
+            if K.EDGE_MASK in data:
+                x = x * data[K.EDGE_MASK][:, None].to(x.dtype)
+            out = scatter_sum(x, dst, num_nodes)
+        data[self.out_field] = out
+        return data
+
+
 class EdgeLengthEmbedding(torch.nn.Module):
     """Edge length -> radial basis [E, num_basis] ("bessel" or "gaussian"),
     scaled by sqrt(num_basis) and zeroed on padding edges by the edge mask
@@ -129,22 +163,13 @@ class EdgeLengthEmbedding(torch.nn.Module):
         self.irreps_out = merge_irreps(
             self.irreps_in, {K.EDGE_EMBEDDING: Irreps(f"{self.num_basis}x0e")}
         )
-        if basis == "gaussian":
-            centers, self.step = gaussian_centers(self.num_basis, self.start, self.end)
-            # float32 centers, as the JAX package computes them (x64 off)
-            self.register_buffer(
-                "centers", torch.as_tensor(centers, dtype=torch.float32), persistent=False
-            )
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = dict(data)
         gather_positions(data, self.gather_axis)
         with_edge_vectors(data)
-        length = data[K.EDGE_LENGTH]
-        if self.basis == "gaussian":
-            emb = gaussian_basis(length, self.centers, self.step)
-        else:
-            emb = bessel_basis(length, self.num_basis, self.start, self.end)
+        emb = soft_one_hot_linspace(data[K.EDGE_LENGTH], self.start, self.end, self.num_basis,
+                                    self.basis)
         emb = emb * float(np.sqrt(self.num_basis))
         if K.EDGE_MASK in data:
             emb = emb * data[K.EDGE_MASK][:, None].to(emb.dtype)

@@ -9,7 +9,7 @@ and gated irreps are producible; `Gate` applies
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +25,9 @@ class ActivationInfo:
     "gate": irreps_in = scalars + gates + gated (what the conv must
     output), irreps_out = scalars + gated (post-activation features);
     "norm": irreps_in = irreps_out = (scalars + gated).simplify(), no
-    gates."""
+    gates. `activation_scalars` / `activation_gates` name the activation
+    (`nn.radial`'s table) of the scalars / gates of each parity, {"e": ...,
+    "o": ...}."""
 
     # parity-safe activations by scalar parity (the JAX defaults)
     ACT_SCALARS = {"e": "silu", "o": "tanh"}
@@ -37,9 +39,13 @@ class ActivationInfo:
         tp_irreps_in2: Irreps,
         tp_irreps_out: Irreps,
         activation_type: str = "gate",
+        activation_scalars: Optional[Mapping[str, str]] = None,
+        activation_gates: Optional[Mapping[str, str]] = None,
     ):
         if activation_type not in ("gate", "norm"):
             raise ValueError(f"unsupported activation_type {activation_type!r}")
+        activation_scalars = dict(activation_scalars or self.ACT_SCALARS)
+        activation_gates = dict(activation_gates or self.ACT_GATES)
         self.activation_type = activation_type
         tp_irreps_out = Irreps(tp_irreps_out).sort()[0].simplify()
         self.irreps_scalars = Irreps(
@@ -86,12 +92,12 @@ class ActivationInfo:
             return table["e" if p == 1 else "o"]
 
         self.act_scalars: Tuple[Tuple[int, str], ...] = tuple(
-            (mul, _act_name(self.ACT_SCALARS, ir.p)) for mul, ir in self.irreps_scalars
+            (mul, _act_name(activation_scalars, ir.p)) for mul, ir in self.irreps_scalars
         )
         self.act_gates: Tuple[Tuple[int, str], ...] = tuple(
-            (mul, _act_name(self.ACT_GATES, ir.p)) for mul, ir in self.irreps_gates
+            (mul, _act_name(activation_gates, ir.p)) for mul, ir in self.irreps_gates
         )
-        self.act_scalar_even = self.ACT_SCALARS["e"]
+        self.act_scalar_even = _act_name(activation_scalars, 1)
 
     def make(self) -> torch.nn.Module:
         """The activation module of this plan."""

@@ -1,8 +1,10 @@
-"""Bessel and gaussian radial bases and the variance-preserving scalar MLP.
+"""Bessel and gaussian radial bases, the activations and the
+variance-preserving scalar MLP.
 
 Counterpart of `matten_tpu/nn/radial.py`: weights ~ N(0, 1), forward scaled
-by 1/sqrt(fan_in), hidden activations rescaled to unit second moment under
-N(0, 1) input ("normalize2mom", by the same 128-node Gauss-Hermite rule).
+by 1/sqrt(fan_in), activations rescaled to unit second moment under N(0, 1)
+input ("normalize2mom", by the same 128-node Gauss-Hermite rule), over the
+same table of activations (ssp, silu, sigmoid, tanh, abs, identity).
 """
 
 from __future__ import annotations
@@ -13,21 +15,45 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["bessel_basis", "gaussian_centers", "gaussian_basis", "normalize2mom", "ScalarMLP"]
+__all__ = [
+    "bessel_basis",
+    "gaussian_centers",
+    "gaussian_basis",
+    "soft_one_hot_linspace",
+    "normalize2mom",
+    "shifted_softplus",
+    "ScalarMLP",
+    "ACTIVATIONS",
+]
 
 
-# the activations the model uses (radial MLP: silu; gate: silu / tanh on
-# scalars, sigmoid / tanh on gates), in torch and in numpy for the moments
+def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.softplus(x) - float(np.log(2.0))
+
+
+# the activations by name, in torch and in numpy for the moments
 _ACTIVATIONS = {
+    "ssp": shifted_softplus,
     "silu": torch.nn.functional.silu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
+    "abs": torch.abs,
+    "identity": lambda x: x,
 }
 
 _NP_ACTIVATIONS = {
+    "ssp": lambda x: np.logaddexp(x, 0.0) - np.log(2.0),
     "silu": lambda x: x / (1.0 + np.exp(-x)),
     "sigmoid": lambda x: 1.0 / (1.0 + np.exp(-x)),
     "tanh": np.tanh,
+    "abs": np.abs,
+    "identity": lambda x: x,
+}
+
+ACTIVATIONS = {
+    # parity-safe activation names by scalar parity
+    1: {"ssp": "ssp", "silu": "silu", "sigmoid": "sigmoid"},  # even
+    -1: {"abs": "abs", "tanh": "tanh"},  # odd
 }
 
 
@@ -49,9 +75,11 @@ def normalize2mom(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 def bessel_basis(
-    x: torch.Tensor, num_basis: int, start: float = 0.0, end: float = 5.0
+    x: torch.Tensor, num_basis: int, start: float = 0.0, end: float = 5.0,
+    cutoff: bool = True,
 ) -> torch.Tensor:
-    """sqrt(2/c) * sin(n pi x / c) / x on (start, end), zero outside.
+    """sqrt(2/c) * sin(n pi x / c) / x on (start, end), zero outside (with
+    `cutoff`; without, no window).
 
     Zero-length (padding) edges map to zero, which keeps them inert."""
     c = end - start
@@ -59,17 +87,33 @@ def bessel_basis(
     n = torch.arange(1, num_basis + 1, dtype=x.dtype, device=x.device)
     safe = torch.where(xs > 1e-10, xs, torch.ones_like(xs))
     out = float(np.sqrt(2.0 / c)) * torch.sin(n * np.pi * safe / c) / safe
+    if not cutoff:
+        return out
     window = ((xs > 0) & (xs < c)).to(x.dtype)
     return out * window
 
 
-def gaussian_centers(num_basis: int, start: float = 0.0, end: float = 5.0) -> Tuple[np.ndarray, float]:
+def gaussian_centers(num_basis: int, start: float = 0.0, end: float = 5.0,
+                     cutoff: bool = True) -> Tuple[np.ndarray, float]:
     """(centers, step) of the gaussian basis: `num_basis` centers evenly
-    inside (start, end), the ends excluded (e3nn's cutoff=True layout), and
-    the distance between them."""
-    centers = np.linspace(start, end, num_basis + 2)[1:-1]
+    inside (start, end), the ends excluded with `cutoff` (e3nn's layout) and
+    included without, and the distance between them."""
+    if cutoff:
+        centers = np.linspace(start, end, num_basis + 2)[1:-1]
+    else:
+        centers = np.linspace(start, end, num_basis)
     step = float(centers[1] - centers[0]) if num_basis > 1 else float(end - start)
     return centers, step
+
+
+@functools.lru_cache(maxsize=None)
+def _centers_on(num_basis: int, start: float, end: float, cutoff: bool,
+                device: torch.device) -> Tuple[torch.Tensor, float]:
+    """The gaussian centers as float32 on `device` (as the JAX package
+    computes them, x64 off), copied there once: a copy per forward would
+    sync the host with the card."""
+    centers, step = gaussian_centers(num_basis, start, end, cutoff)
+    return torch.as_tensor(centers, dtype=torch.float32, device=device), step
 
 
 def gaussian_basis(x: torch.Tensor, centers: torch.Tensor, step: float) -> torch.Tensor:
@@ -77,6 +121,20 @@ def gaussian_basis(x: torch.Tensor, centers: torch.Tensor, step: float) -> torch
     edges get nonzero values, which the caller's edge mask zeroes."""
     diff = (x[..., None] - centers.to(x.dtype)) / step
     return torch.exp(-diff**2) * 1.12
+
+
+def soft_one_hot_linspace(
+    x: torch.Tensor, start: float, end: float, number: int,
+    basis: str = "bessel", cutoff: bool = True,
+) -> torch.Tensor:
+    """The radial basis [..., number] of x: "bessel" (`bessel_basis`) or
+    "gaussian" (`gaussian_basis` over `gaussian_centers`)."""
+    if basis == "bessel":
+        return bessel_basis(x, number, start, end, cutoff)
+    if basis == "gaussian":
+        centers, step = _centers_on(int(number), float(start), float(end), bool(cutoff), x.device)
+        return gaussian_basis(x, centers, step)
+    raise ValueError(f"unsupported basis {basis!r}")
 
 
 class ScalarMLP(torch.nn.Module):

@@ -13,7 +13,10 @@ import torch
 
 
 def validate_chain(modules: Sequence[torch.nn.Module]) -> None:
-    """Check irreps compatibility of consecutive dict-passing modules."""
+    """Check irreps compatibility of consecutive dict-passing modules.
+    Modules that declare no irreps (`DetectAnomaly`, which passes the dict
+    through unchanged) are left out."""
+    modules = [m for m in modules if hasattr(m, "irreps_in") and hasattr(m, "irreps_out")]
     for a, b in zip(modules[:-1], modules[1:]):
         out_d, in_d = a.irreps_out, b.irreps_in
         for key, ir in in_d.items():

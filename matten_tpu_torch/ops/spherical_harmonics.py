@@ -17,7 +17,11 @@ import torch
 from matten_tpu_torch.ops.irreps import Irreps
 from matten_tpu_torch.ops.clebsch_gordan import wigner_3j
 
-__all__ = ["spherical_harmonics"]
+__all__ = ["spherical_harmonics", "sh_irreps"]
+
+
+def sh_irreps(lmax: int) -> Irreps:
+    return Irreps.spherical_harmonics(lmax)
 
 
 @functools.lru_cache(maxsize=None)

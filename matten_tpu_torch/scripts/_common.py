@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from matten_tpu_torch.data.datamodule import TensorDataModule
+from matten_tpu_torch.kernels.fused_tp import configure_default_tiers
 from matten_tpu_torch.parallel.distributed import initialize_distributed, is_primary_host, world_size
 from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, save_sidecar
 from matten_tpu_torch.train.config import build_mesh_spec, build_trainer_config
@@ -78,6 +79,8 @@ def run(
     device = torch.device(device)
     seed = config.get("seed_everything", 35)
     np.random.seed(seed)
+    # kernel tier: MATTEN_TP_IMPL=pallas|xla (default: the CUDA kernels)
+    configure_default_tiers()
     mesh = None
     if spec is not None:
         initialize_distributed(backend=backend, device=device)

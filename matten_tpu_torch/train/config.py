@@ -6,9 +6,9 @@ class_path/init_args surface), and an unknown class raises instead of
 training with the defaults; the `ModelCheckpoint` and `EarlyStopping`
 callbacks give `save_top_k` and the early-stopping patience.
 
-`trainer.scan_steps` is accepted and not used: it groups same-shape
-batches into one dispatch on the TPU, a dispatch knob with no counterpart
-here.
+`trainer.scan_steps` is accepted and not used (a value above 1 is logged
+at INFO): on the TPU it groups same-shape batches into one dispatch, with
+no numerical effect; the port dispatches each step alone.
 
 `trainer.devices` / `trainer.mesh` give the `MeshSpec` of a data and graph
 parallel run (`build_mesh_spec`); the scripts run it as one process per
@@ -17,12 +17,15 @@ rank (`torchrun --nproc-per-node N`).
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 from matten_tpu_torch.train.trainer import TrainerConfig
 
 __all__ = ["build_trainer_config", "build_mesh_spec", "MeshSpec"]
+
+logger = logging.getLogger(__name__)
 
 # class_path basename (case-insensitive) -> trainer optimizer kind
 _OPTIMIZERS = {"adam": "adam", "adamw": "adamw", "sgd": "sgd"}
@@ -72,6 +75,10 @@ def build_trainer_config(config: Dict[str, Any]) -> TrainerConfig:
     cb = {c.get("class_path", ""): c.get("init_args", {}) for c in tr.get("callbacks", [])}
     early = next((v for k, v in cb.items() if "EarlyStopping" in k), {})
     ckpt = next((v for k, v in cb.items() if "ModelCheckpoint" in k), {})
+    scan_steps = int(tr.get("scan_steps", 1))
+    if scan_steps > 1:
+        logger.info("trainer.scan_steps=%d is not used: the port dispatches each train step alone",
+                    scan_steps)
     return TrainerConfig(
         max_epochs=tr.get("max_epochs", 10),
         lr=opt.get("lr", 0.01),

@@ -18,6 +18,7 @@ __all__ = [
     "Task",
     "CanonicalRegressionTask",
     "masked_mse_sums",
+    "masked_mse",
     "masked_abs_err_sum",
 ]
 
@@ -72,6 +73,19 @@ def masked_mse_sums(
         m = m * sample_weight.to(pred.dtype)
     se = ((pred - target) ** 2).sum(-1) * m
     return se.sum(), m.sum() * pred.shape[-1]
+
+
+def masked_mse(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor,
+    sample_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean squared error over rows where mask is True: the sums of
+    `masked_mse_sums` (the trainer's loss) divided, over real rows x D
+    elements (at least 1)."""
+    num, den = masked_mse_sums(pred, target, mask, sample_weight)
+    return num / den.clamp_min(1.0)
 
 
 def masked_abs_err_sum(

@@ -112,7 +112,8 @@ def test_production_model_runs_at_one_blas_thread():
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = ["ops/irreps.py", "ops/wigner.py", "ops/elasticity.py", "data/keys.py",
-          "data/structure.py", "data/neighborlist.py", "data/graph.py", "data/transform.py"]
+          "data/structure.py", "data/neighborlist.py", "data/graph.py", "data/transform.py",
+          "utils/wandb_utils.py"]
 # the port builds the neighbour-list library into its own build directory,
 # keyed by source and machine, without -march=native
 REBUILT = {"_CSRC", "_BUILD_ROOT", "_native_path", "_load_native"}

@@ -14,7 +14,10 @@ K1 and of the backward kernels bitwise equal (no atomics, fixed order); the
 model, 2 conv layers deep, 1e-4, its parameter gradients 1e-4 relative to
 each parameter's largest gradient; the per-atom model at the NMR
 configuration's width 1e-4; `predict` from a checkpoint directory equal to
-the in-memory `predict` of the same weights within 1e-6 relative.
+the in-memory `predict` of the same weights within 1e-6 relative; K1 and
+the merged backward at bf16 storage of sh and w against their plain
+versions at the same rounding with K1's tolerance (both read the same
+rounded inputs).
 """
 
 import numpy as np
@@ -221,6 +224,46 @@ def test_backward_kernels_are_bitwise_deterministic(dev):
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
+# bf16 storage of sh and w: dw = 76 (rows 152 bytes: 16-byte copies start
+# mid-row) and dw = 31 (rows 62 bytes: most rows start off 4-byte alignment,
+# so each run has a bf16 element copied alone at each end)
+@pytest.mark.parametrize("ir1,ir2", [(IR1, IR2), (Irreps("5x0e+3x1o+1x2e"), Irreps("0e+1o+2e"))],
+                         ids=["dw76", "dw31"])
+def test_bf16_storage_kernels_match_their_plain_versions(dev, ir1, ir2):
+    """At `set_kernel_in_dtype("bfloat16")` K1 and the merged backward read
+    sh and w in bf16 and are held to the plain versions at the same rounding
+    with the float32 tolerance (both sides read the same rounded inputs);
+    two runs bitwise equal; only the bf16 counters move; dw float32."""
+    from matten_tpu_torch.kernels import fused_tp
+
+    rng = np.random.default_rng(31)
+    plan = uvu_tp_plan(ir1, ir2, ir1)
+    n, e = 40, 777
+    t = _inputs_on_graph(dev, 32, plan, n, rng.integers(0, n, e), np.sort(rng.integers(0, n - 3, e)))
+    g = torch.as_tensor(rng.normal(size=(n, plan.irreps_out.dim)).astype(np.float32), device=dev)
+    args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], n)
+    bargs = (plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n)
+    f32 = (fused_conv.launches, fused_conv.bwd_launches)
+    before = (fused_conv.bf16_launches, fused_conv.bf16_bwd_launches)
+    fused_tp.set_kernel_in_dtype("bfloat16")
+    try:
+        out, out2 = fused_conv.fused_uvu_conv(*args), fused_conv.fused_uvu_conv(*args)
+        (dx, dw), (dx2, dw2) = fused_conv.uvu_conv_bwd(*bargs), fused_conv.uvu_conv_bwd(*bargs)
+        torch.cuda.synchronize()
+        ref = fused_conv.uvu_conv_reference(*args)
+        dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(*bargs)
+    finally:
+        fused_tp.set_kernel_in_dtype("float32")
+    assert (fused_conv.bf16_launches, fused_conv.bf16_bwd_launches) == (before[0] + 2, before[1] + 2)
+    assert (fused_conv.launches, fused_conv.bwd_launches) == f32
+    assert dw.dtype == torch.float32
+    _assert_rel(out, ref)
+    _assert_rel(dx, dx_ref)
+    _assert_rel(dw, dw_ref)
+    assert torch.equal(out, out2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert not torch.equal(out, fused_conv.uvu_conv_reference(*args))  # float32 storage
+
+
 def test_k1_matches_plain_and_is_bitwise_deterministic_at_production_plans(dev):
     """K1 (item pass and partial-row sum) at the 4 production plans on a
     flagship-sized random graph (N=320, E=21504) and at N=2600 with the
@@ -323,6 +366,47 @@ def test_backward_kernels_reject_bad_inputs(dev):
                                 t["dst"].flip(0).contiguous(), 24)
     with pytest.raises(ValueError, match="mixed devices"):
         fused_conv.uvu_conv_bwd(plan, t["x"], g.cpu(), t["sh"], t["w"], t["src"], t["dst"], 24)
+
+
+def test_debug_forward_on_the_card_raises_on_a_nan(dev):
+    """A model built at DEBUG log level checks every layer's output on the
+    card: finite inputs pass, a NaN put into one node feature after the
+    first layer raises naming the field and the layer."""
+    from matten_tpu_torch.data.graph import CrystalGraph, collate_graphs, pad_spec_for
+    from matten_tpu_torch.data.structure import Structure
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.utils import logging as plogging
+
+    species = (8, 14)
+    hp = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o+2e", num_layers=1, invariant_layers=1,
+              invariant_neurons=4, average_num_neighbors=20.0, conv_layer_irreps="2x0e+1x1o+1x2e",
+              normalization="batch", conv_to_output_hidden_irreps_out="2x0e+2e+4e")
+    prev = plogging.get_log_level()
+    plogging.set_logger("DEBUG", filename=None)
+    try:
+        model = create_scalar_tensor_model(hp, dict(allowed_species=list(species)), device=dev).eval()
+    finally:
+        plogging.set_logger(prev, filename=None)
+    rng = np.random.default_rng(5)
+    graphs = [CrystalGraph.from_structure(
+        Structure(lattice=np.eye(3) * 4.0 + rng.normal(size=(3, 3)) * 0.1,
+                  frac_coords=rng.uniform(0, 1, size=(4, 3)), atomic_numbers=rng.choice(species, size=4)),
+        r_cut=5.0) for _ in range(2)]
+    data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(species))
+    data = batch_to_device(data, dev)
+    with torch.inference_mode():
+        assert torch.isfinite(model(data)).all()
+
+    def poison(_module, _inputs, out):
+        out[K.NODE_FEATURES][0, 0] = float("nan")
+        return out
+
+    model.backbone.layers[0].register_forward_hook(poison)
+    with pytest.raises(FloatingPointError, match="field 'node_features' after species_embedding"):
+        with torch.inference_mode():
+            model(data)
 
 
 def test_model_forward_through_kernel(dev):

@@ -1,9 +1,10 @@
 """The torch port runs without JAX and without the JAX package.
 
-The GPU machine has no jax, flax, optax, orbax, pandas, pyyaml or sklearn,
-and the port stands alone: neither its sources nor chip_smoke.py may import
-any of them or anything of `matten_tpu` (it keeps its own copies of the
-numpy modules it shares with it; `parallel/` included). The runtime checks run in subprocesses
+The GPU machine has no jax, flax, optax, orbax, pandas, pyyaml, sklearn or
+wandb, and the port stands alone: neither its sources nor chip_smoke.py may
+import any of them or anything of `matten_tpu` (it keeps its own copies of
+the numpy modules it shares with it; `parallel/` included), except wandb,
+which only `utils/wandb_utils.py` imports, inside its functions. The runtime checks run in subprocesses
 because this test process has imported jax already (tests/conftest.py): one
 in the repo, one with `matten_tpu_torch/` copied alone into an empty
 directory. Each serves a model from a checkpoint directory it writes, and
@@ -38,6 +39,31 @@ def _imported(path: Path):
             yield from (f"{node.module}.{a.name}" for a in node.names)
 
 
+def _imported_at_top(path: Path):
+    """Modules imported outside every function and class body."""
+    tree = ast.parse(path.read_text())
+    inner = {id(n) for f in ast.walk(tree) if isinstance(f, (ast.FunctionDef, ast.ClassDef))
+             for n in ast.walk(f) if n is not f}
+    for node in ast.walk(tree):
+        if id(node) in inner:
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_wandb_is_imported_only_lazily(path):
+    """wandb is optional: no module imports it at import time, and only the
+    W&B utilities import it at all (inside `wandb_available` and the
+    logger)."""
+    top = {m for m in _imported_at_top(path) if m.split(".")[0] == "wandb"}
+    assert not top, f"{path.name} imports {sorted(top)} at import time"
+    if path.name != "wandb_utils.py":
+        assert not {m for m in _imported(path) if m.split(".")[0] == "wandb"}
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_nothing_of_jax(path):
     bad = sorted(
@@ -61,6 +87,14 @@ from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.predict import batch_to_device, predict
 from matten_tpu_torch.train import (CanonicalRegressionTask, CheckpointManager, Trainer,
                                     TrainerConfig, save_sidecar)
+from matten_tpu_torch.data.split import train_val_test_split_dataframe
+from matten_tpu_torch.kernels.fused_tp import configure_default_tiers
+from matten_tpu_torch.utils import DetectAnomaly, TimeMeter, check_finite
+from matten_tpu_torch.utils.timing import StepTimer
+from matten_tpu_torch.utils.wandb_utils import WandbLogger, wandb_available
+assert configure_default_tiers() == "pallas" and not wandb_available()
+parts = train_val_test_split_dataframe([{"id": i, "c": i % 2} for i in range(20)], stratify="c")
+assert sorted(r["id"] for p in parts for r in p) == list(range(20))
 hp = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o+2e", num_layers=1,
           invariant_layers=1, invariant_neurons=4, average_num_neighbors=30.0,
           conv_layer_irreps="2x0o+2x0e+1x1o+1x1e+1x2e", normalization="batch",
@@ -86,18 +120,27 @@ for name, hps, create, y, data_hp in (
                       TrainerConfig(), device="cpu")
     loss, _ = trainer.train_step(*batch_to_device(data, "cpu", targets))
     assert torch.isfinite(loss)
+    timer = StepTimer()
+    with timer.step(loss, num_edges=1):
+        DetectAnomaly("step")({"loss": loss.detach()})
+    check_finite({"loss": loss.detach()}, "step")
+    assert timer.edges_per_s > 0 and TimeMeter().update()[0] >= 0
     with tempfile.TemporaryDirectory() as d:
         save_sidecar(d, {"model": hps, "data": dict(data_hp, tensor_target_name=name),
                          "dataset_hparams": ds, "normalize_tensor_target": False},
                      DatasetStatistics(allowed_species=(14,)).to_arrays())
         CheckpointManager(d).save_last(trainer.state_dict())
         out = predict([si], d, device="cpu")[0]
+        lg = WandbLogger(project="p", save_dir=d)
+        lg.log({"loss": float(loss)}, step=0)
+        lg.finish()
     assert out.shape == ((2, 3, 3) if data_hp else (3, 3, 3, 3)) and np.isfinite(out).all()
 """
 
 LOADED = """
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "sklearn", "matten_tpu"))
+                ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "sklearn", "matten_tpu",
+                 "wandb"))
 print("LOADED", loaded)
 """
 
