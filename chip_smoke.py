@@ -125,10 +125,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      step and rank; each rank's K1 and backward (with their segment sums)
      against their plain versions at its own edge plans (KERNEL_TOL); their
      times per layer beside their bounds at the rank's shapes and the step
-     time (both ranks at once on one card: checks of the path, not
-     scaling); in the graph modes of phase 21 on the flagship batch also
-     their plain versions' times and the conv kernels' device time per step
-     (the profiler on each rank);
+     time by CUDA events beside the 1-rank step's (both ranks at once on
+     one card: checks of the path, not scaling); in the graph modes of
+     phase 21 on the flagship batch also their plain versions' times and
+     the conv kernels' device time per step (the profiler on each rank);
  21. graph parallel 1 x 2, the eleventh: the same for the modes edge, node
      and node_ring on the flagship batch with the production model (batch
      norm summed over the graph axis in the node modes), and node on the
@@ -184,6 +184,28 @@ and index_add_ of the same rows, with the L2 cache warm and flushed; and
 the same train-step profile of the NMR model and of the variants model
 (each conv kernel's device time per layer at its plans).
 
+    python3 chip_smoke.py --cards N
+
+(N >= 2; on a machine with N cards) keeps N cards visible and runs, in
+place of phases 3-24, data and graph parallelism with one rank per card
+under nccl (`parallel.launch` with backend "nccl": rank r on cuda:r,
+`LOCAL_RANK` r), the kernels built once before any rank starts: the step
+cases of `card_cases(N)` (data parallel N x 1 without batch norm, edge,
+node and node_ring at 1 x N, node at 2 x N/2 without batch norm, node on
+the NMR batch at 1 x N) held as phases 20-21 hold theirs against the
+1-rank step computed meanwhile on card 0, each rank's kernels against
+plain at its own plans, no rank staging through the host; each case's
+step time per rank (CUDA events) beside the 1-rank step's, the conv and
+NCCL kernels' device time per step on rank 0 (the profiler); then
+`torchrun --standalone --nproc-per-node N -m
+matten_tpu_torch.scripts.train_materials_tensor CONFIG` on the production
+yaml with `trainer.mesh: {data: 1, graph: N, mode: node}`, phase 16's
+data, 2 epochs, against the same config fitted on card 0 (every epoch's
+loss and val score and the test metrics within 1e-4 relative, the same
+directory, `predict` from both within 1e-5, no NCCL warning of a guessed
+device). It prints the N cards' nvidia-smi lines and ends with the same
+last line, with "count": N.
+
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
 r_cut 5.0, an `elastic_tensor_full` target of 21 values per crystal),
@@ -191,12 +213,14 @@ collated with `pad_spec_for` + `collate_graphs`.
 """
 
 import argparse
+import ast
 import contextlib
 import copy
 import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1436,11 +1460,14 @@ def variants_fit_phase(fused_conv, torch, card):
 
 
 
-# phases 20-22: data and graph parallelism, 2 ranks on the one card (gloo)
+# phases 20-22: data and graph parallelism, 2 ranks on the one card (gloo);
+# `--cards N`: the same on N cards, one rank per card (nccl)
 MESH_EPOCHS = 2
 MESH_TIMEOUT_S = 600
 MESH_REPS = 5  # timed train steps, and timed kernel calls per layer, on each rank
-MESH_PROFILED_STEPS = 2  # profiled train steps per rank (the graph modes on the flagship batch)
+MESH_PROFILED_STEPS = 2  # profiled train steps per rank (phase 21's flagship graph modes; every case of --cards)
+# what a rank's seconds per case were spent on (`mesh_rank`)
+MESH_PHASES = ("mesh and model", "counted step", "kernel checks", "timed steps", "profiled steps")
 # torch threads of each rank: the host's cores are shared by this process
 # and both ranks
 MESH_THREADS = 2
@@ -1531,10 +1558,15 @@ def shard_kernels(model, hp, data, mode, n_graph, torch, timed=True, time_plain=
 
 
 def mesh_rank(rank, world_size, job):
-    """A rank of phases 20-21: for each case, its mesh, the model from the
-    seed, one counted SGD `Trainer.train_step` on its block of the stacked
-    batch (the main path), its gradients and parameters, the kernels against
-    their plain versions at its own plans, then MESH_REPS timed steps."""
+    """A rank of phases 20-21 and of `--cards`: for each case, its mesh,
+    the model from the seed, one counted SGD `Trainer.train_step` on its
+    block of the stacked batch (the main path), its gradients and
+    parameters, the kernels against their plain versions at its own plans,
+    then MESH_REPS steps timed by CUDA events, and with the case's
+    `profile` the conv and NCCL kernels' device time per step on rank 0;
+    the seconds each of these took. The rank's
+    card is the launcher's: cuda:0 for ranks that share it under gloo,
+    card r under nccl."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1545,9 +1577,10 @@ def mesh_rank(rank, world_size, job):
     from matten_tpu_torch.parallel.collectives import stages_through_host
     from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device("cuda", torch.cuda.current_device())
     out = {}
     for case in job:
+        marks = [time.perf_counter()]
         mesh = make_mesh(case["n_data"], case["n_graph"], case["mode"])
         create = create_atomic_tensor_model if case["per_atom"] else create_scalar_tensor_model
         model = create(case["hparams"], case["ds"], device=dev, seed=SEED)
@@ -1555,36 +1588,42 @@ def mesh_rank(rank, world_size, job):
         trainer = Trainer(model, [task], TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev,
                           mesh=mesh)
         data, targets = shard_batch(mesh, *case["batch"], dev, [task.name] if task.per_atom else [])
+        marks.append(time.perf_counter())
         reset_counts(fused_conv)
         loss, metrics = trainer.train_step(data, targets)
         torch.cuda.synchronize()
         launched = counts(fused_conv)
+        marks.append(time.perf_counter())
         res = {
             "loss": float(loss), "metric": float(metrics[task.name][0]), "launched": launched,
             "grads": {n: p.grad.cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
             "params": {n: p.detach().cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
             "staged": stages_through_host(data["pos"], mesh.graph),
         }
-        # the graph modes on the flagship batch (PERF.md's rows of a rank's
-        # block) also time the plain versions and profile the step
-        measured = case["n_graph"] > 1 and not case["per_atom"]
+        # the profiled cases also time the plain versions (PERF.md's rows
+        # of a rank's block)
         (res["max_abs"], res["kernel_rel"], res["kernel_ms"], res["plain_ms"], res["bounds"]) = shard_kernels(
-            trainer.model, case["hparams"], data, case["mode"], case["n_graph"], torch, time_plain=measured)
-        times = []
-        for _ in range(MESH_REPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            trainer.train_step(data, targets)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        res["step_ms"] = float(np.median(times))
-        # the conv kernels' device time per step (both ranks profile at once)
-        res["device_ms"] = None
-        if measured:
+            trainer.model, case["hparams"], data, case["mode"], case["n_graph"], torch, time_plain=case["profile"])
+        marks.append(time.perf_counter())
+        res["step_ms"] = float(np.median(
+            [cuda_ms(lambda: trainer.train_step(data, targets), torch) for _ in range(MESH_REPS)]))
+        marks.append(time.perf_counter())
+        # device time per step of the conv kernels and of NCCL's, on rank 0
+        # (the others take the same steps unprofiled: they meet in their
+        # collectives)
+        res["device_ms"] = res["nccl_ms"] = None
+        if case["profile"] and rank == 0:
             with tempfile.TemporaryDirectory() as tmp:
                 _, st = traced(lambda: trainer.train_step(data, targets), MESH_PROFILED_STEPS, Path(tmp), "step",
                                torch)
             res["device_ms"] = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k)) for k in KERNEL_NAMES}
+            res["nccl_ms"] = sum(t for n, t in st["by_kernel"].items() if n.startswith("nccl"))
+        elif case["profile"]:
+            for _ in range(MESH_PROFILED_STEPS):
+                trainer.train_step(data, targets)
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        res["phase_s"] = np.diff(marks).tolist()  # MESH_PHASES
         out[case["name"]] = res
     return out
 
@@ -1637,21 +1676,43 @@ def script_rank(rank, world_size, job):
     return res
 
 
-def parallel_phases(dev, card, torch, structures, target_rows):
-    """Phases 20-22 on 2 ranks that share the card (gloo, named): data
-    parallel 2 x 1 and the graph modes at 1 x 2 against the 1-rank step,
-    then the materials script on a node mesh. Returns their launches,
-    summed over the ranks, and the kernels' worst max |d| there."""
+# (name, n_data, n_graph, mode, model) of phases 20-21's step cases; the
+# models are `mesh_cases`'
+GLOO_CASES = (
+    ("20 dp 2x1", 2, 1, "edge", "no_bn"),
+    ("20 dp ragged 2x1", 2, 1, "edge", "no_bn_ragged"),
+    ("21 edge 1x2", 1, 2, "edge", "production"),
+    ("21 node 1x2", 1, 2, "node", "production"),
+    ("21 node_ring 1x2", 1, 2, "node_ring", "production"),
+    ("21 node 1x2 NMR", 1, 2, "node", "nmr"),
+)
+
+
+def card_cases(n):
+    """`--cards n`'s step cases: data parallel n x 1, each graph mode at
+    1 x n, node at 2 x n/2 (n even and at least 4), node on the NMR batch."""
+    cases = [(f"dp {n}x1", n, 1, "edge", "no_bn")]
+    cases += [(f"{mode} 1x{n}", 1, n, mode, "production") for mode in ("edge", "node", "node_ring")]
+    if n >= 4 and n % 2 == 0:
+        cases.append((f"2x{n // 2} node", 2, n // 2, "node", "no_bn"))
+    return cases + [(f"NMR node 1x{n}", 1, n, "node", "nmr")]
+
+
+def mesh_cases(specs, structures, target_rows, profile_all):
+    """The step cases of `specs` as rank jobs: the model's hparams
+    (graph-parallel when the mesh splits graphs) and the port loader's
+    stacked batch for the mesh, and under "single" the 1-rank model and
+    graphs. Models: "production" (HPARAMS on the flagship batch),
+    "no_bn" (without batch norm: data parallelism normalizes each shard by
+    its own statistics, so only then is it the 1-rank step, as in the JAX
+    tests; the graph modes keep the whole graph's statistics),
+    "no_bn_ragged" (one crystal over the data axis) and "nmr" (the NMR
+    model on the NMR batch). A case is profiled in the graph modes on the
+    flagship batch, or always with `profile_all`."""
     from matten_tpu_torch.data.datamodule import BatchLoader
     from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
-    from matten_tpu_torch.kernels import fused_conv
-    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
     from matten_tpu_torch.nn.embedding import atomic_number_map
-    from matten_tpu_torch.parallel.launch import run_ranks, start_ranks
-    from matten_tpu_torch.predict import batch_to_device
-    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
     from matten_tpu_torch.train.config import MeshSpec
-    from matten_tpu_torch.utils.config_yaml import load_config
 
     smap = atomic_number_map(SPECIES_5)
     graphs = graphs_of(structures, target_rows)
@@ -1659,26 +1720,166 @@ def parallel_phases(dev, card, torch, structures, target_rows):
     nmr_graphs = graphs_of(nmr_structures, nmr_rows, NMR_TARGET, SI)
     nmr_stats = DatasetStatistics.compute(nmr_graphs, TensorDatasetConfig(**NMR_DATA), normalize_tensor_target=True)
     nmr_ds = dict(allowed_species=list(SPECIES_5), average_num_neighbors=nmr_stats.average_num_neighbors)
-    # data parallelism takes each shard's batch-norm statistics, so its
-    # parity with one rank holds without batch norm, as in the JAX tests;
-    # the graph modes keep the whole graph's statistics
     no_bn = dict(HPARAMS, normalization=None)
+    models = {"production": (HPARAMS, DATASET_HPARAMS, graphs, False),
+              "no_bn": (no_bn, DATASET_HPARAMS, graphs, False),
+              "no_bn_ragged": (no_bn, DATASET_HPARAMS, graphs[:1], False),
+              "nmr": (NMR_HPARAMS, nmr_ds, nmr_graphs, True)}
     cases = []
-    for name, n_data, n_graph, mode, hp, ds, gs, per_atom in (
-            ("20 dp 2x1", 2, 1, "edge", no_bn, DATASET_HPARAMS, graphs, False),
-            ("20 dp ragged 2x1", 2, 1, "edge", no_bn, DATASET_HPARAMS, graphs[:1], False),
-            ("21 edge 1x2", 1, 2, "edge", HPARAMS, DATASET_HPARAMS, graphs, False),
-            ("21 node 1x2", 1, 2, "node", HPARAMS, DATASET_HPARAMS, graphs, False),
-            ("21 node_ring 1x2", 1, 2, "node_ring", HPARAMS, DATASET_HPARAMS, graphs, False),
-            ("21 node 1x2 NMR", 1, 2, "node", NMR_HPARAMS, nmr_ds, nmr_graphs, True)):
+    for name, n_data, n_graph, mode, model in specs:
+        hp, ds, gs, per_atom = models[model]
         loader = BatchLoader(gs, batch_size=max(len(gs), n_data), species_map=smap, num_buckets=1,
                              **MeshSpec(n_data, n_graph, mode).loader_kwargs())
         parallel = dict(hp, graph_parallel_axis="graph", graph_parallel_mode=mode) if n_graph > 1 else hp
         cases.append(dict(name=name, n_data=n_data, n_graph=n_graph, mode=mode, hparams=parallel, ds=ds,
                           per_atom=per_atom, target=NMR_TARGET if per_atom else TARGET,
-                          batch=next(iter(loader)), single=(hp, gs)))
-    env = {"PYTHONPATH": str(Path(__file__).resolve().parent)}
+                          batch=next(iter(loader)), single=(hp, gs),
+                          profile=profile_all or (n_graph > 1 and not per_atom)))
+    return cases
 
+
+def mesh_steps(cases, world, backend, dev, torch):
+    """Every case on `world` ranks (`mesh_rank`, started with
+    `parallel.launch` under `backend`), and meanwhile the 1-rank SGD step
+    on each whole batch on `dev`; after the world has ended, that step's
+    time (median of MESH_REPS by CUDA events, the cases in turns). Returns (each rank's
+    results, the 1-rank (loss, metric, gradients, parameters) and step ms
+    per case, seconds of the world)."""
+    from matten_tpu_torch.data.datamodule import BatchLoader
+    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.parallel.launch import start_ranks
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+
+    smap = atomic_number_map(SPECIES_5)
+    env = {"PYTHONPATH": str(Path(__file__).resolve().parent)}
+    jobs = [{k: v for k, v in c.items() if k != "single"} for c in cases]
+    refs, singles = {}, {}
+    t0 = time.perf_counter()
+    with start_ranks("chip_smoke:mesh_rank", world, jobs, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS, env=env,
+                     backend=backend) as ranks:
+        for c in cases:
+            hp, gs = c["single"]
+            create = create_atomic_tensor_model if c["per_atom"] else create_scalar_tensor_model
+            trainer = Trainer(create(hp, c["ds"], device=dev, seed=SEED),
+                              [CanonicalRegressionTask(name=c["target"], per_atom=c["per_atom"])],
+                              TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev)
+            data, targets = next(iter(BatchLoader(gs, batch_size=len(gs), species_map=smap, num_buckets=1)))
+            batch = batch_to_device(data, dev, targets)
+            loss, metrics = trainer.train_step(*batch)
+            refs[c["name"]] = (float(loss), float(metrics[c["target"]][0]),
+                               {n: p.grad.cpu().numpy() for n, p in trainer.model.named_parameters()},
+                               {n: p.detach().cpu().numpy() for n, p in trainer.model.named_parameters()})
+            singles[c["name"]] = (trainer, batch)
+        steps = ranks.join()
+    world_s = time.perf_counter() - t0
+    # the cases in turns, after a warm-up step each
+    times = {name: [] for name in singles}
+    for r in range(MESH_REPS + 1):
+        for name, (trainer, batch) in singles.items():
+            t = cuda_ms(lambda: trainer.train_step(*batch), torch)
+            if r:
+                times[name].append(t)
+    return steps, refs, {name: float(np.median(t)) for name, t in times.items()}, world_s
+
+
+def check_mesh_steps(cases, steps, refs, one_ms, card, backend, world_s):
+    """Each case's ranks against the 1-rank step on the whole batch: the
+    loss and metric sum within 1e-5 relative, every gradient within
+    MODEL_TOL of its largest entry, the parameters after the step within
+    2e-5, all ranks bitwise equal; exact launches per step and rank (a
+    plan per ring group under node_ring); each rank's kernels within
+    KERNEL_TOL of their plain versions at its plans; under nccl no rank
+    stages its ring shift through the host. Prints a line per case;
+    returns the launches summed over the ranks, and the kernels' worst
+    max |d|."""
+    import torch
+
+    launched = {k: 0 for k in COUNTERS}
+    max_abs = {k: 0.0 for k in COUNTERS}
+    world = len(steps)
+    for c in cases:
+        name, convs = c["name"], c["hparams"]["num_layers"] + 1
+        rs = [s[name] for s in steps]
+        r0 = rs[0]
+        loss, metric, grads, params = refs[name]
+        groups = c["n_graph"] if c["mode"] == "node_ring" else 1
+        for r in rs:
+            if r["launched"] != {k: convs * groups for k in COUNTERS}:
+                raise AssertionError(f"{name}: launches in one train step {r['launched']}, expected "
+                                     f"{convs * groups} of each kernel")
+            if not r["kernel_rel"] <= KERNEL_TOL:
+                raise AssertionError(f"{name}: a kernel disagrees with its plain version at a rank's plans: "
+                                     f"{r['kernel_rel']}")
+            for k in COUNTERS:
+                launched[k] += r["launched"][k]
+                max_abs[k] = max(max_abs[k], r["max_abs"][k])
+        if backend == "nccl" and any(r["staged"] for r in rs):
+            raise AssertionError(f"{name}: a rank staged its ring shift through the host under nccl")
+        for i, r in enumerate(rs[1:], 1):
+            for n in r0["params"]:
+                if not (np.array_equal(r0["params"][n], r["params"][n])
+                        and np.array_equal(r0["grads"][n], r["grads"][n])):
+                    raise AssertionError(f"{name}: ranks 0 and {i} differ in {n}")
+        loss_rel = abs(r0["loss"] - loss) / abs(loss)
+        metric_rel = abs(r0["metric"] - metric) / abs(metric)
+        grad_err = max((rel_err(torch.as_tensor(r0["grads"][n]), torch.as_tensor(g)), n) for n, g in grads.items())
+        # parameters after the step (max |d|, and that relative to the step, lr x gradient)
+        param_err = max((float(np.abs(r0["params"][n] - p).max()),
+                         float(np.abs(r0["params"][n] - p).max()) / max(0.01 * float(np.abs(grads[n]).max()), 1e-30),
+                         n) for n, p in params.items())
+        if not (loss_rel <= 1e-5 and metric_rel <= 1e-5 and grad_err[0] <= MODEL_TOL and param_err[0] <= 2e-5):
+            raise AssertionError(f"{name}: the {world}-rank step disagrees with the 1-rank step: loss {loss_rel}, "
+                                 f"metric {metric_rel}, gradient {grad_err}, parameters {param_err}")
+        if backend == "gloo":
+            how = f"{world} ranks on the card (gloo" + (
+                "; the ring shift staged through the host)" if c["mode"] == "node_ring" and r0["staged"] else ")")
+            shared = "checks of the path: the ranks share one card"
+        else:
+            how = f"{world} ranks, a card each (nccl; no rank staged through the host)"
+            shared = "a card per rank"
+        print(f"[{name}] {card}: {how}, {c['n_data']} x {c['n_graph']} {c['mode']}, block "
+              f"{tuple(c['batch'][0]['pos'].shape)} of pos: against the 1-rank SGD step on the whole batch, "
+              f"loss {r0['loss']:.8f} vs {loss:.8f} ({loss_rel:.2e}, tol 1e-5), metric sum {metric_rel:.2e} "
+              f"(tol 1e-5), gradients worst {grad_err[1]} {grad_err[0]:.3e} (tol {MODEL_TOL}), parameters "
+              f"after the step worst {param_err[2]} max|d| {param_err[0]:.3e}, {param_err[1]:.3e} of its step "
+              f"(tol 2e-5), ranks bitwise equal; launches per step and "
+              f"rank {r0['launched']}; the kernels at each rank's plans vs plain worst "
+              f"{max(r['kernel_rel'] for r in rs):.3e} (tol {KERNEL_TOL}); ms per layer L0-L3 (rank 0, every "
+              f"rank at once): K1 with its sum "
+              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["fwd"]) + ", the backward (merged kernel, dx sum) "
+              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["bwd"])
+              + ("" if r0["device_ms"] is None else "; plain K1 "
+                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["fwd"]) + ", plain backward "
+                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["bwd"]) + "; device ms per step (profiler, "
+                 f"{MESH_PROFILED_STEPS} steps, rank 0): conv kernels "
+                 + ", ".join(f"{k} {t:.4f}" for k, t in r0["device_ms"].items())
+                 + f", NCCL kernels {r0['nccl_ms']:.4f}")
+              + "; bound K1 "
+              + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["fwd"]) + ", backward "
+              + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["bwd"])
+              + "; train step median ms (CUDA events) per rank "
+              + " / ".join(f"{r['step_ms']:.2f}" for r in rs)
+              + f", 1 rank on the whole batch {one_ms[name]:.2f} ({shared}); rank 0's seconds: "
+              + ", ".join(f"{k} {t:.1f}" for k, t in zip(MESH_PHASES, r0["phase_s"]))
+              + f"; world {world_s:.1f} s", flush=True)
+    return launched, max_abs
+
+
+def parallel_phases(dev, card, torch, structures, target_rows):
+    """Phases 20-22 on 2 ranks that share the card (gloo, named): data
+    parallel 2 x 1 and the graph modes at 1 x 2 against the 1-rank step,
+    then the materials script on a node mesh. Returns their launches,
+    summed over the ranks, and the kernels' worst max |d| there."""
+    from matten_tpu_torch.parallel.launch import run_ranks
+    from matten_tpu_torch.utils.config_yaml import load_config
+
+    cases = mesh_cases(GLOO_CASES, structures, target_rows, profile_all=False)
+    steps, refs, one_ms, steps_s = mesh_steps(cases, 2, "gloo", dev, torch)
+    launched, max_abs = check_mesh_steps(cases, steps, refs, one_ms, card, "gloo", steps_s)
+
+    env = {"PYTHONPATH": str(Path(__file__).resolve().parent)}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         train, val = fit_rows(4, FIT_TRAIN), fit_rows(5, FIT_VAL)
@@ -1690,80 +1891,10 @@ def parallel_phases(dev, card, torch, structures, target_rows):
         config["trainer"].update(max_epochs=MESH_EPOCHS, checkpoint_dir=str(tmp / "mesh_ckpt"),
                                  devices=2, mesh={"data": 1, "graph": 2, "mode": "node"})
         config["restore"] = False
-        jobs = [{k: v for k, v in c.items() if k != "single"} for c in cases]
-        t0 = time.perf_counter()
-        with start_ranks("chip_smoke:mesh_rank", 2, jobs, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS, env=env) as ranks:
-            # the 1-rank steps on the whole batches meanwhile
-            refs = {}
-            for c in cases:
-                hp, gs = c["single"]
-                create = create_atomic_tensor_model if c["per_atom"] else create_scalar_tensor_model
-                trainer = Trainer(create(hp, c["ds"], device=dev, seed=SEED),
-                                  [CanonicalRegressionTask(name=c["target"], per_atom=c["per_atom"])],
-                                  TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev)
-                data, targets = next(iter(BatchLoader(gs, batch_size=len(gs), species_map=smap, num_buckets=1)))
-                loss, metrics = trainer.train_step(*batch_to_device(data, dev, targets))
-                refs[c["name"]] = (float(loss), float(metrics[c["target"]][0]),
-                                   {n: p.grad.cpu().numpy() for n, p in trainer.model.named_parameters()},
-                                   {n: p.detach().cpu().numpy() for n, p in trainer.model.named_parameters()})
-            steps = ranks.join()
-        steps_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         script = run_ranks("chip_smoke:script_rank", 2, {"config": config, "rows": val[:16]},
                            timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS, env=env)
         script_s = time.perf_counter() - t0
-
-    launched = {k: 0 for k in COUNTERS}
-    max_abs = {k: 0.0 for k in COUNTERS}
-    for c in cases:
-        name, convs = c["name"], c["hparams"]["num_layers"] + 1
-        r0, r1 = steps[0][name], steps[1][name]
-        loss, metric, grads, params = refs[name]
-        groups = c["n_graph"] if c["mode"] == "node_ring" else 1
-        for r in (r0, r1):
-            if r["launched"] != {k: convs * groups for k in COUNTERS}:
-                raise AssertionError(f"{name}: launches in one train step {r['launched']}, expected "
-                                     f"{convs * groups} of each kernel")
-            if not r["kernel_rel"] <= KERNEL_TOL:
-                raise AssertionError(f"{name}: a kernel disagrees with its plain version at a rank's plans: "
-                                     f"{r['kernel_rel']}")
-            for k in COUNTERS:
-                launched[k] += r["launched"][k]
-                max_abs[k] = max(max_abs[k], r["max_abs"][k])
-        for n in r0["params"]:
-            if not (np.array_equal(r0["params"][n], r1["params"][n]) and np.array_equal(r0["grads"][n], r1["grads"][n])):
-                raise AssertionError(f"{name}: the ranks' {n} differ")
-        loss_rel = abs(r0["loss"] - loss) / abs(loss)
-        metric_rel = abs(r0["metric"] - metric) / abs(metric)
-        grad_err = max((rel_err(torch.as_tensor(r0["grads"][n]), torch.as_tensor(g)), n) for n, g in grads.items())
-        # parameters after the step (max |d|, and that relative to the step, lr x gradient)
-        param_err = max((float(np.abs(r0["params"][n] - p).max()),
-                         float(np.abs(r0["params"][n] - p).max()) / max(0.01 * float(np.abs(grads[n]).max()), 1e-30),
-                         n) for n, p in params.items())
-        if not (loss_rel <= 1e-5 and metric_rel <= 1e-5 and grad_err[0] <= MODEL_TOL and param_err[0] <= 2e-5):
-            raise AssertionError(f"{name}: the 2-rank step disagrees with the 1-rank step: loss {loss_rel}, "
-                                 f"metric {metric_rel}, gradient {grad_err}, parameters {param_err}")
-        staged = "; the ring shift staged through the host" if c["mode"] == "node_ring" and r0["staged"] else ""
-        print(f"[{name}] {card}: 2 ranks on the card (gloo{staged}), {c['n_data']} x {c['n_graph']} {c['mode']}, block "
-              f"{tuple(c['batch'][0]['pos'].shape)} of pos: against the 1-rank SGD step on the whole batch, "
-              f"loss {r0['loss']:.8f} vs {loss:.8f} ({loss_rel:.2e}, tol 1e-5), metric sum {metric_rel:.2e} "
-              f"(tol 1e-5), gradients worst {grad_err[1]} {grad_err[0]:.3e} (tol {MODEL_TOL}), parameters "
-              f"after the step worst {param_err[2]} max|d| {param_err[0]:.3e}, {param_err[1]:.3e} of its step "
-              f"(tol 2e-5), ranks bitwise equal; launches per step and "
-              f"rank {r0['launched']}; the kernels at each rank's plans vs plain worst {max(r0['kernel_rel'], r1['kernel_rel']):.3e} "
-              f"(tol {KERNEL_TOL}); ms per layer L0-L3 (rank 0, both ranks at once): K1 with its sum "
-              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["fwd"]) + ", the backward (merged kernel, dx sum) "
-              + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["bwd"])
-              + ("" if r0["device_ms"] is None else "; plain K1 "
-                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["fwd"]) + ", plain backward "
-                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["bwd"]) + "; conv kernels' device ms per "
-                 f"step (profiler, {MESH_PROFILED_STEPS} steps, rank 0): "
-                 + ", ".join(f"{k} {t:.4f}" for k, t in r0["device_ms"].items()))
-              + "; bound K1 "
-              + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["fwd"]) + ", backward "
-              + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["bwd"])
-              + f"; train step median ms rank 0 {r0['step_ms']:.2f}, rank 1 {r1['step_ms']:.2f} "
-              f"(checks of the path: two ranks share one card); world {steps_s:.1f} s", flush=True)
 
     # 22. the materials script on a node mesh
     r0, r1 = script
@@ -1802,6 +1933,172 @@ def parallel_phases(dev, card, torch, structures, target_rows):
           + f"; world {script_s:.1f} s", flush=True)
     return launched, max_abs
 
+
+
+def yaml_lines(mapping, indent=0):
+    """`mapping` as block YAML in the subset `utils/config_yaml.py` reads
+    (pyyaml is not on the card): strings double-quoted, floats in
+    positional notation (the subset reads `1e-05` as a string)."""
+    def scalar(v):
+        if v is None or isinstance(v, bool):
+            return {None: "null", True: "true", False: "false"}[v]
+        if isinstance(v, float):
+            return np.format_float_positional(v)
+        if isinstance(v, str):
+            return json.dumps(v)
+        return str(v)
+
+    pad, lines = " " * indent, []
+    for k, v in mapping.items():
+        if isinstance(v, dict) and v:
+            lines += [f"{pad}{k}:"] + yaml_lines(v, indent + 2)
+        elif isinstance(v, list) and v:
+            lines.append(f"{pad}{k}:")
+            for item in v:
+                if isinstance(item, dict):
+                    sub = yaml_lines(item, indent + 4)
+                    lines += [f"{pad}  - {sub[0].lstrip()}"] + sub[1:]
+                else:
+                    lines.append(f"{pad}  - {scalar(item)}")
+        else:
+            lines.append(f"{pad}{k}: {scalar(v)}")
+    return lines
+
+
+def write_config(path, config):
+    """A config file the train scripts read back as `config`."""
+    from matten_tpu_torch.utils.config_yaml import load_config
+
+    path.write_text("\n".join(yaml_lines(config)) + "\n")
+    if load_config(path) != config:
+        raise AssertionError(f"{path} does not read back as the config written")
+
+
+EPOCH_LOG = re.compile(r"epoch (\d+): train loss (\S+) \| val score (\S+) \| (\S+)s")
+TEST_LOG = re.compile(r"test metrics \(best checkpoint\): (\{.*\})")
+# what NCCL prints when a rank's device is not bound (device_id) before a
+# collective or a barrier
+UNBOUND_WARNINGS = ("Guessing device", "devices used by this process are currently unknown")
+
+
+def torchrun_fit(n, card, torch):
+    """`--cards n`'s fit: the materials script under torchrun, `torchrun
+    --standalone --nproc-per-node n -m
+    matten_tpu_torch.scripts.train_materials_tensor CONFIG`, with the
+    production yaml on a data 1 x graph n node mesh (which keeps the whole
+    graph's batch-norm statistics, so it computes what one card does),
+    phase 16's data, MESH_EPOCHS epochs; against the same config fitted on
+    card 0 in this process (`trainer.devices: 1`): each epoch's train loss
+    and val score as the script logs them (5 decimals, the one-card values
+    rounded alike) and the test metrics within 1e-4 relative, the same
+    files in both directories, `predict` from both within 1e-5; no NCCL
+    warning of an unbound device in the ranks' log."""
+    from matten_tpu_torch.data.structure import Structure
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.predict import predict
+    from matten_tpu_torch.scripts import train_materials_tensor
+    from matten_tpu_torch.utils.config_yaml import load_config
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        train, val = fit_rows(4, FIT_TRAIN), fit_rows(5, FIT_VAL)
+        write_records(tmp / "train.json", train)
+        write_records(tmp / "val.json", val)
+        base = load_config(CONFIGS / "materials_tensor_production.yaml")
+        base["data"].update(root=str(tmp), trainset_filename="train.json", valset_filename="val.json",
+                            testset_filename="val.json")
+        base["trainer"].update(max_epochs=MESH_EPOCHS)
+        base["restore"] = False
+        one, many = copy.deepcopy(base), copy.deepcopy(base)
+        one["trainer"].update(devices=1, checkpoint_dir=str(tmp / "one_card"))
+        many["trainer"].update(devices=n, mesh={"data": 1, "graph": n, "mode": "node"},
+                               checkpoint_dir=str(tmp / f"{n}_cards"))
+        write_config(tmp / "mesh.yaml", many)
+
+        t0 = time.perf_counter()
+        metrics1, trainer1, setup1, launched1 = run_script(train_materials_tensor, one, fused_conv, torch)
+        one_s = time.perf_counter() - t0
+        expect = fit_expected(HPARAMS["num_layers"] + 1, MESH_EPOCHS, FIT_TRAIN, FIT_VAL, FIT_VAL, 32)
+        if launched1 != expect:
+            raise AssertionError(f"the one-card fit's launches {launched1}, expected {expect}")
+
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", str(n), "-m",
+               "matten_tpu_torch.scripts.train_materials_tensor", str(tmp / "mesh.yaml")]
+        env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            log, _ = proc.communicate(timeout=MESH_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+        many_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun's fit on {n} cards exited with {proc.returncode}:\n{log[-6000:]}")
+        unbound = [w for w in UNBOUND_WARNINGS if w in log]
+        if unbound:
+            raise AssertionError(f"NCCL warned of an unbound device ({unbound}):\n{log[-6000:]}")
+        if f"mesh: data=1 graph={n} mode=node" not in log:
+            raise AssertionError(f"torchrun's fit did not run on the mesh:\n{log[-6000:]}")
+        epochs = [(int(e), float(loss), float(score), float(t)) for e, loss, score, t in EPOCH_LOG.findall(log)]
+        tests = TEST_LOG.findall(log)
+        if len(epochs) != MESH_EPOCHS or len(tests) != 1:
+            raise AssertionError(f"torchrun's log holds {len(epochs)} epoch lines and {len(tests)} test lines:\n"
+                                 f"{log[-6000:]}")
+        metrics = ast.literal_eval(tests[0])
+
+        def rel(a, b):
+            return abs(a - b) / max(abs(b), 1e-30)
+
+        errs = []
+        for (e, loss, score, _), h in zip(epochs, trainer1.history):
+            errs += [(rel(loss, float(f"{h['train/loss']:.5f}")), f"epoch {e} train loss"),
+                     (rel(score, float(f"{h['val/score']:.5f}")), f"epoch {e} val score")]
+        if sorted(metrics) != sorted(metrics1):
+            raise AssertionError(f"test metrics {sorted(metrics)} against one card's {sorted(metrics1)}")
+        errs += [(rel(metrics[k], metrics1[k]), f"test {k}") for k in metrics1]
+        worst = max(errs)
+        if not worst[0] <= 1e-4:
+            raise AssertionError(f"the {n}-card fit disagrees with the one-card fit: {sorted(errs, reverse=True)[:3]}")
+        dirs = (tmp / f"{n}_cards", tmp / "one_card")
+        files = [sorted(p.name for p in d.iterdir()) for d in dirs]
+        if files[0] != files[1] or not {"hparams.json", "dataset_statistics.npz", "index.json", "last",
+                                        "loop_state.json"} <= set(files[0]):
+            raise AssertionError(f"the directories hold {files[0]} and {files[1]}")
+        structures = [Structure.from_dict(r["structure"]) for r in val[:16]] + [si_structure()]
+        served = [predict(structures, d) for d in dirs]
+        if not all(r is not None and r.shape == (3, 3, 3, 3) and np.isfinite(r).all() for r in served[0]):
+            raise AssertionError("predict from the n-card directory gave no finite [3,3,3,3] tensor")
+        predict_err = max_rel(served[0], served[1])
+        if not predict_err <= 1e-5:
+            raise AssertionError(f"predict from the {n}-card directory against the one-card one: {predict_err}")
+    print(f"[fit {n} cards] {card}: torchrun --standalone --nproc-per-node {n} -m "
+          f"matten_tpu_torch.scripts.train_materials_tensor with materials_tensor_production.yaml, trainer.mesh "
+          f"{{data: 1, graph: {n}, mode: node}}, {FIT_TRAIN} train / {FIT_VAL} val crystals, batch 32, "
+          f"{MESH_EPOCHS} epochs (nccl): exit 0 in {many_s:.1f} s, no unbound-device warning; against the "
+          f"one-card fit on card 0 ({one_s:.1f} s, setup {setup1:.2f} s, launches {launched1}): epochs (train "
+          "loss, val score; logged to 5 decimals) "
+          + "; ".join(f"{e}: {loss:.5f} vs {h['train/loss']:.8f}, {score:.5f} vs {h['val/score']:.8f}"
+                      for (e, loss, score, _), h in zip(epochs, trainer1.history))
+          + f"; test metrics {json.dumps(metrics)} vs {json.dumps(metrics1)}; worst {worst[1]} {worst[0]:.3e} "
+          f"relative (tol 1e-4); epoch times (s) {n} cards "
+          + ", ".join(f"{t:.2f}" for *_, t in epochs) + ", one card "
+          + ", ".join(f"{h['epoch_time']:.2f}" for h in trainer1.history)
+          + f"; both directories {files[0]}; predict of {len(structures)} structures from them "
+          f"{predict_err:.3e} apart (tol 1e-5)", flush=True)
+
+
+def cards_phases(n, dev, card, torch):
+    """`--cards n`: the step cases of `card_cases(n)` on n ranks, a card
+    each under nccl, against the 1-rank step on card 0; then the materials
+    script under torchrun on n cards against one card."""
+    structures, target_rows = draw_structures()
+    cases = mesh_cases(card_cases(n), structures, target_rows, profile_all=True)
+    steps, refs, one_ms, world_s = mesh_steps(cases, n, "nccl", dev, torch)
+    check_mesh_steps(cases, steps, refs, one_ms, card, "nccl", world_s)
+    torchrun_fit(n, card, torch)
 
 
 # phase 23: bf16 storage of the conv kernels' edge inputs sh and w
@@ -2063,17 +2360,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="also profile the forward and the train step and write the traces to DIR")
+    ap.add_argument("--cards", type=int, default=1, metavar="N",
+                    help="N >= 2: run data and graph parallelism on N cards, a rank each under nccl, in "
+                         "place of the one-card phases")
     args = ap.parse_args()
+    n_cards = args.cards
+    if n_cards < 1 or (n_cards > 1 and args.profile is not None):
+        raise SystemExit("chip_smoke: --cards takes N >= 1, and --profile only with one card")
 
-    # the run drives one card, cuda:0: leave only the first visible one visible
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
-    os.environ["CUDA_VISIBLE_DEVICES"] = visible.split(",")[0]
+    # the run drives n_cards cards, cuda:0 ...: leave only the first visible ones visible
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", ",".join(str(i) for i in range(n_cards)))
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(visible.split(",")[:n_cards])
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
-    if torch.cuda.device_count() != 1:
-        raise SystemExit(f"chip_smoke: {torch.cuda.device_count()} devices visible, expected 1")
+    if torch.cuda.device_count() != n_cards:
+        raise SystemExit(f"chip_smoke: {torch.cuda.device_count()} devices visible, expected {n_cards}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2094,18 +2397,25 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    card = smi.splitlines()[0].strip()
-    print(card)
+    cards = [line.strip() for line in smi.splitlines()[:n_cards]]
+    card = cards[0] if n_cards == 1 else f"{n_cards} x {cards[0]}"
+    print("\n".join(cards))
     print(f"[1 env] card='{card}' torch={torch.__version__} cuda={torch.version.cuda} "
           f"python={sys.version.split()[0]}", flush=True)
 
-    # 2. build
+    # 2. build (once, before any rank starts)
     t0 = time.perf_counter()
     _build.load_library()
     build_s = time.perf_counter() - t0
     log = (_build.build_dir() / "build.log").read_text().splitlines()
     ptxas = " | ".join(l.split("info    : ")[-1] for l in log if "Used" in l)
     print(f"[2 build] nvcc sm_90a built+loaded in {build_s:.2f} s; ptxas: {ptxas}", flush=True)
+
+    if n_cards > 1:
+        cards_phases(n_cards, dev, card, torch)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        return 0
 
     # flagship batch, its targets and the production model
     structures, target_rows = draw_structures()  # the flagship batch

@@ -12,7 +12,15 @@ collective within it instead of hanging them.
 The backend is the caller's choice: `nccl` for ranks on CUDA devices and
 `gloo` for the CPU by default, and `gloo` on CUDA tensors when the caller
 names it (ranks that share one card: NCCL refuses two ranks on one
-device). It is never switched behind the caller's back.
+device). It is never switched behind the caller's back. A rank of an
+`nccl` group is bound to its card before it joins: the current device is
+set and the group gets it as `device_id`, `cuda:LOCAL_RANK` unless the
+caller names another, so a barrier or a point-to-point op never guesses
+the device from the global rank.
+
+`TIMEOUT_S` bounds the collectives of a step. A wait on one rank's host
+work (the data setup, a checkpoint write) is as long as that work, and
+goes through the mesh's host group instead (`Mesh.barrier`, `HOST_WAIT_S`).
 """
 
 from __future__ import annotations
@@ -35,10 +43,14 @@ __all__ = [
     "make_multihost_mesh",
     "world_size",
     "TIMEOUT_S",
+    "HOST_WAIT_S",
 ]
 
 # a collective waits this long for a missing rank before it raises
 TIMEOUT_S = 60.0
+# a wait on one rank's host work waits this long: a rank that dies ends the
+# world through its launcher (torchrun, `parallel.launch`), not through it
+HOST_WAIT_S = 24 * 3600.0
 
 
 def initialize_distributed(
@@ -54,7 +66,11 @@ def initialize_distributed(
     nor an `init_method` (e.g. "tcp://localhost:29500" or "file:///path")
     a world of one process stays single-process (False), and a larger one
     raises. `backend` defaults to "nccl" when `device` is a CUDA device
-    and to "gloo" otherwise. A group that is already up is kept."""
+    and to "gloo" otherwise. Under nccl the rank's card is `device`, or
+    `cuda:LOCAL_RANK` when `device` is None or names no index (torchrun's
+    ranks on one host); the current device is set to it and the group is
+    bound to it (`device_id`). A CUDA device under gloo is made current
+    too. A group that is already up is kept."""
     if dist.is_initialized():
         return True
     env = os.environ
@@ -71,16 +87,27 @@ def initialize_distributed(
                 f"world size {world_size} but no init_method and no MASTER_ADDR: launch the "
                 "ranks with torchrun, or pass init_method, world_size and rank"
             )
+    device = None if device is None else torch.device(device)
     if backend is None:
-        backend = "nccl" if device is not None and torch.device(device).type == "cuda" else "gloo"
+        backend = "nccl" if device is not None and device.type == "cuda" else "gloo"
+    bound = {}
+    if backend == "nccl":
+        if device is not None and device.type != "cuda":
+            raise ValueError(f"the nccl backend runs on CUDA devices, not {device}")
+        if device is None or device.index is None:
+            device = torch.device("cuda", int(env.get("LOCAL_RANK", 0)))
+        bound["device_id"] = device
+    if device is not None and device.type == "cuda":
+        torch.cuda.set_device(device)
     dist.init_process_group(
         backend,
         init_method=init_method,
         world_size=world_size,
         rank=rank,
         timeout=datetime.timedelta(seconds=TIMEOUT_S),
+        **bound,
     )
-    logger.info("process group: rank %d of %d, backend %s", rank, world_size, backend)
+    logger.info("process group: rank %d of %d, backend %s, device %s", rank, world_size, backend, device)
     return True
 
 

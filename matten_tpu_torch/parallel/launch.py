@@ -4,10 +4,13 @@
 
 A small counterpart of torchrun for tests and smoke runs on one host:
 every rank is a fresh interpreter (`python -m matten_tpu_torch.parallel.launch`,
-never a fork) that joins a gloo process group (CPU tensors, or CUDA
-tensors of ranks that share a card) with a file store in a temporary
+never a fork) that joins a process group with a file store in a temporary
 directory (no port to pick), calls `function(rank, world_size, arg)` and
-hands back what it returns, pickled. The whole world is joined
+hands back what it returns, pickled. The backend is gloo (CPU tensors, or
+CUDA tensors of ranks that share a card) unless the caller names nccl:
+then rank r runs on card r with `LOCAL_RANK=r`, as torchrun would start
+it, and a world larger than the visible cards, or nccl without CUDA, is
+refused; it never falls back to gloo. The whole world is joined
 with a time limit: a rank that fails or outlives it fails the call, with
 the ranks' stderr, and every rank still running is killed. Train scripts
 are launched with torchrun instead (`scripts/`).
@@ -35,20 +38,26 @@ class Ranks:
     the `with` block kills whatever still runs and removes the files."""
 
     def __init__(self, target: str, world_size: int, arg: Any, timeout_s: float, threads: int,
-                 env: Optional[Dict[str, str]]):
+                 env: Optional[Dict[str, str]], backend: str):
+        if backend == "nccl":
+            _check_cards(world_size)
         self.target, self.world_size, self.timeout_s = target, world_size, timeout_s
         self._tmp = tempfile.TemporaryDirectory(prefix="ranks-")
         self.dir = Path(self._tmp.name)
         with open(self.dir / "arg.pkl", "wb") as f:
             pickle.dump(arg, f)
-        child_env = {**os.environ, **(env or {})}
+        # OpenBLAS would start a thread per core in every rank, and ranks
+        # that spin-wait on one another's cores take a hundred times longer
+        child_env = {**os.environ, "OMP_NUM_THREADS": str(threads), "OPENBLAS_NUM_THREADS": str(threads),
+                     **(env or {})}
         self._deadline = time.monotonic() + timeout_s
         self._procs = []
         for rank in range(world_size):
             cmd = [sys.executable, "-m", "matten_tpu_torch.parallel.launch", target, str(rank),
-                   str(world_size), str(threads), str(self.dir)]
+                   str(world_size), str(threads), str(self.dir), backend]
+            rank_env = dict(child_env, LOCAL_RANK=str(rank)) if backend == "nccl" else child_env
             with open(self.dir / f"rank{rank}.err", "w") as err:
-                self._procs.append(subprocess.Popen(cmd, env=child_env, stdout=err, stderr=subprocess.STDOUT))
+                self._procs.append(subprocess.Popen(cmd, env=rank_env, stdout=err, stderr=subprocess.STDOUT))
 
     def join(self) -> List[Any]:
         failed, pending = None, list(range(self.world_size))
@@ -88,6 +97,19 @@ class Ranks:
         self._tmp.cleanup()
 
 
+def _check_cards(world_size: int) -> None:
+    """An nccl world takes one visible card per rank."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("the nccl backend needs CUDA, and torch.cuda.is_available() is false: "
+                           "start the ranks with backend='gloo' on the CPU")
+    cards = torch.cuda.device_count()
+    if world_size > cards:
+        raise ValueError(f"a world of {world_size} nccl ranks needs {world_size} cards, one per rank; "
+                         f"{cards} visible")
+
+
 def start_ranks(
     target: str,
     world_size: int,
@@ -95,14 +117,17 @@ def start_ranks(
     timeout_s: float = 300.0,
     threads: int = 1,
     env: Optional[Dict[str, str]] = None,
+    backend: str = "gloo",
 ) -> Ranks:
     """Start `target` ("module:function") on `world_size` ranks and return
     at once. `arg` is pickled to each rank; `env` is added to the ranks'
-    environment (e.g. a PYTHONPATH that finds the target's module, or
-    OPENBLAS_NUM_THREADS); each rank runs `threads` torch threads, since
-    ranks that each spin one per core starve one another; the ranks must
-    end within `timeout_s`."""
-    return Ranks(target, world_size, arg, timeout_s, threads, env)
+    environment (e.g. a PYTHONPATH that finds the target's module); each
+    rank runs `threads` torch threads and `threads` BLAS threads
+    (`OMP_NUM_THREADS`, `OPENBLAS_NUM_THREADS`, unless `env` names them),
+    since ranks that each spin one per core starve one another; the ranks
+    must end within `timeout_s`. `backend` "nccl" puts rank r on card r (module
+    docstring)."""
+    return Ranks(target, world_size, arg, timeout_s, threads, env, backend)
 
 
 def run_ranks(target: str, world_size: int, arg: Any = None, **kwargs) -> List[Any]:
@@ -111,7 +136,7 @@ def run_ranks(target: str, world_size: int, arg: Any = None, **kwargs) -> List[A
         return ranks.join()
 
 
-def _rank_main(target: str, rank: int, world_size: int, threads: int, tmp: Path) -> int:
+def _rank_main(target: str, rank: int, world_size: int, threads: int, tmp: Path, backend: str) -> int:
     import torch
     import torch.distributed as dist
 
@@ -121,8 +146,8 @@ def _rank_main(target: str, rank: int, world_size: int, threads: int, tmp: Path)
     try:
         with open(tmp / "arg.pkl", "rb") as f:
             arg = pickle.load(f)
-        initialize_distributed(backend="gloo", init_method=f"file://{tmp / 'store'}",
-                               world_size=world_size, rank=rank)
+        initialize_distributed(backend=backend, init_method=f"file://{tmp / 'store'}", world_size=world_size,
+                               rank=rank, device=torch.device("cuda", rank) if backend == "nccl" else None)
         module, fn = target.split(":")
         result = getattr(importlib.import_module(module), fn)(rank, world_size, arg)
         with open(tmp / f"rank{rank}.pkl", "wb") as f:
@@ -135,5 +160,5 @@ def _rank_main(target: str, rank: int, world_size: int, threads: int, tmp: Path)
 
 
 if __name__ == "__main__":
-    _target, _rank, _world, _threads, _tmp = sys.argv[1:6]
-    sys.exit(_rank_main(_target, int(_rank), int(_world), int(_threads), Path(_tmp)))
+    _target, _rank, _world, _threads, _tmp, _backend = sys.argv[1:7]
+    sys.exit(_rank_main(_target, int(_rank), int(_world), int(_threads), Path(_tmp), _backend))

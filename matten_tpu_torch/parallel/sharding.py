@@ -14,9 +14,11 @@ stacked batch and meets the others in the collectives of
     ...]; rank (s, g) takes block [s, g] of those fields.
 
 Ranks are laid out data-outermost, rank = s * n_graph + g, as the JAX mesh
-reshapes its devices. The mesh also names the graph shard mode, which
-decides the layout of a rank's block and must be the model's
-`graph_parallel_mode` (`Trainer` checks it). A model with
+reshapes its devices. Besides the axes' groups, a mesh of several ranks
+holds a gloo group over the world with a long timeout of its own, for
+waits on one rank's host work (`Mesh.barrier`). The mesh also names the
+graph shard mode, which decides the layout of a rank's block and must be
+the model's `graph_parallel_mode` (`Trainer` checks it). A model with
 `graph_parallel_axis` finds the mesh in the batch it is given
 (`shard_batch` puts it there under `MESH`) and raises on a batch without
 one, where the JAX module fails on an unbound axis name.
@@ -24,6 +26,7 @@ one, where the JAX module fails on an unbound axis name.
 
 from __future__ import annotations
 
+import datetime
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Mapping, Optional, Tuple, Union
 
@@ -32,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.parallel.distributed import HOST_WAIT_S
 
 __all__ = [
     "Axis",
@@ -78,7 +82,8 @@ class Axis:
 @dataclass(frozen=True)
 class Mesh:
     """This rank's place in an (n_data, n_graph) mesh, and how a graph is
-    split over the graph axis: `mode` "edge", "node" or "node_ring"."""
+    split over the graph axis: `mode` "edge", "node" or "node_ring";
+    `host`, the world's gloo group for `barrier` (None for one rank)."""
 
     n_data: int
     n_graph: int
@@ -86,10 +91,19 @@ class Mesh:
     data: Axis
     graph: Axis
     mode: str = "edge"
+    host: Any = None
 
     @property
     def size(self) -> int:
         return self.n_data * self.n_graph
+
+    def barrier(self) -> None:
+        """Wait for every rank, however long the slowest one's host work
+        takes (up to `HOST_WAIT_S`): the primary rank's data setup or
+        checkpoint write, which the collectives' `TIMEOUT_S` must not
+        bound. A gloo barrier, so no device stream is involved."""
+        if self.host is not None:
+            dist.barrier(group=self.host)
 
     def axis(self, name: str) -> Axis:
         if name not in ("data", "graph"):
@@ -102,9 +116,9 @@ def make_mesh(n_data: Optional[int] = None, n_graph: int = 1, mode: str = "edge"
     splitting graphs over its graph axis in `mode`.
 
     Every rank calls it, in the same order as its other collectives: it
-    creates the process group of each data column and graph row with
-    `torch.distributed.new_group`. The world size must be n_data * n_graph
-    (n_data defaults to world // n_graph)."""
+    creates the process group of each data column and graph row, and the
+    world's host group, with `torch.distributed.new_group`. The world size
+    must be n_data * n_graph (n_data defaults to world // n_graph)."""
     if mode not in GRAPH_MODES:
         raise ValueError(f"graph shard mode {mode!r} not in {GRAPH_MODES}")
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -131,11 +145,13 @@ def make_mesh(n_data: Optional[int] = None, n_graph: int = 1, mode: str = "edge"
         [range(si * n_graph, (si + 1) * n_graph) for si in range(n_data)])
     data_ranks, data_group = groups(
         [range(gi, n_data * n_graph, n_graph) for gi in range(n_graph)])
+    host = (dist.new_group(list(range(world)), timeout=datetime.timedelta(seconds=HOST_WAIT_S), backend="gloo")
+            if world > 1 else None)
     return Mesh(
         n_data, n_graph, rank,
         Axis("data", n_data, s, data_ranks, data_group),
         Axis("graph", n_graph, g, graph_ranks, graph_group),
-        mode,
+        mode, host,
     )
 
 

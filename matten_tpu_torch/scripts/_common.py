@@ -24,9 +24,9 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from matten_tpu_torch.data.datamodule import TensorDataModule
+from matten_tpu_torch.kernels import _build
 from matten_tpu_torch.kernels.fused_tp import configure_default_tiers
 from matten_tpu_torch.parallel.distributed import initialize_distributed, is_primary_host, world_size
 from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, save_sidecar
@@ -79,8 +79,11 @@ def run(
     device = torch.device(device)
     seed = config.get("seed_everything", 35)
     np.random.seed(seed)
-    # kernel tier: MATTEN_TP_IMPL=pallas|xla (default: the CUDA kernels)
-    configure_default_tiers()
+    # kernel tier: MATTEN_TP_IMPL=pallas|xla (default: the CUDA kernels),
+    # built here, before the group's first collective, so that a cold nvcc
+    # build does not count against its timeout
+    if configure_default_tiers() == "pallas" and device.type == "cuda":
+        _build.load_library()
     mesh = None
     if spec is not None:
         initialize_distributed(backend=backend, device=device)
@@ -99,7 +102,7 @@ def run(
         dm.setup()
     if mesh is not None:
         # the primary rank writes the graph cache, the others then read it
-        dist.barrier()
+        mesh.barrier()
         if mesh.rank != 0:
             dm.setup()
         dm.set_sharding(**spec.loader_kwargs())

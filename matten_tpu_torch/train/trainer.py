@@ -507,7 +507,7 @@ class Trainer:
             if stop:
                 logger.info("early stopping at epoch %d (best %.5f @ %d)", epoch, best_score, best_epoch)
                 break
-        if self.mesh is not None and self.mesh.size > 1:
+        if self.mesh is not None:
             # the other ranks read what the primary rank wrote
-            dist.barrier()
+            self.mesh.barrier()
         return self.history

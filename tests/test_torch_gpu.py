@@ -17,7 +17,9 @@ configuration's width 1e-4; `predict` from a checkpoint directory equal to
 the in-memory `predict` of the same weights within 1e-6 relative; K1 and
 the merged backward at bf16 storage of sh and w against their plain
 versions at the same rounding with K1's tolerance (both read the same
-rounded inputs).
+rounded inputs). The 2-rank nccl steps need two cards and skip with fewer,
+naming the count found; they import `chip_smoke` from the repository's
+root, from which pytest runs.
 """
 
 import numpy as np
@@ -732,3 +734,23 @@ def test_kernels_at_the_node_sharded_plans(dev, ring):
         dx, dw = _check_backward(plan, t, g, n_in)
         dx2, dw2 = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n_in, edges)
         assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("mode", ["edge", "node_ring"])
+def test_two_rank_nccl_step_matches_one_rank(mode):
+    """A data 1 x graph 2 step of the production model on the flagship
+    batch, one card per rank under nccl (`chip_smoke.mesh_rank` through
+    `parallel.launch`), against the 1-rank step on card 0, at chip_smoke's
+    tolerances (`check_mesh_steps`: loss and metric 1e-5, gradients 1e-4 of
+    their largest entry, parameters 2e-5, the ranks bitwise equal, exact
+    launches, each rank's kernels against plain, no host staging)."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
+    import chip_smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    structures, rows = chip_smoke.draw_structures()
+    cases = chip_smoke.mesh_cases([(f"{mode} 1x2", 1, 2, mode, "production")], structures, rows, profile_all=False)
+    steps, refs, one_ms, world_s = chip_smoke.mesh_steps(cases, 2, "nccl", torch.device("cuda", 0), torch)
+    chip_smoke.check_mesh_steps(cases, steps, refs, one_ms, torch.cuda.get_device_name(0), "nccl", world_s)

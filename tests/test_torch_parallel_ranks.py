@@ -136,6 +136,38 @@ def run_scripts(rank, world_size, jobs):
     return {(kind, mode): scripts[kind].main(config, device="cpu") for kind, mode, config in jobs}
 
 
+def script_after_slow_setup(rank, world_size, job):
+    """The materials script's `main` on this rank of a group rejoined with a
+    collective timeout of `job["timeout_s"]`, rank 0's data setup held
+    `job["hold_s"]` longer than that: the test metrics."""
+    import time
+
+    import torch.distributed as dist
+
+    from matten_tpu_torch.data.datamodule import TensorDataModule
+    from matten_tpu_torch.parallel import distributed
+    from matten_tpu_torch.scripts import train_materials_tensor
+
+    dist.destroy_process_group()
+    distributed.TIMEOUT_S = job["timeout_s"]
+    distributed.initialize_distributed(backend="gloo", init_method=f"file://{job['store']}",
+                                       world_size=world_size, rank=rank)
+    setup = TensorDataModule.setup
+
+    def held(self):
+        if rank == 0:
+            time.sleep(job["hold_s"])
+        return setup(self)
+
+    TensorDataModule.setup = held
+    return train_materials_tensor.main(job["config"], device="cpu")
+
+
+def thread_counts(rank, world_size, _):
+    """This rank's torch threads and the BLAS thread counts of its environment."""
+    return torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS"), os.environ.get("OPENBLAS_NUM_THREADS")
+
+
 def collectives_on_cpu(rank, world_size, _):
     """Each collective over a 2-rank graph axis on x_r = 10 r + [0 1 2 3]
     (all_gather: those as [2, 2]), pulled back with the cotangent
