@@ -162,13 +162,27 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      weights gives its output bitwise; a NaN put into one node feature
      after the first layer raises FloatingPointError naming the field and
      the layer; one `StepTimer` step reports edges/s; `profile_trace`
-     writes a Chrome trace.
+     writes a Chrome trace;
+ 25. plans past production, the fourteenth: the three WIDE_CONFIGS (SH up
+     to l=5; the conv multiplicities doubled; SH up to l=5 with 4o/4e/5o/5e
+     conv irreps), whose plans pass the 227 KiB a block may have or hold
+     irreps above l=4, at full depth on the flagship batch with seeded
+     weights: each layer's kernel tiers and bytes per block at float32 and
+     bf16 storage; K1 (item pass and sum) and the merged backward (with the
+     dx sum) at each layer's plan against their plain versions at both
+     storage widths (KERNEL_TOL, two runs bitwise equal); the forward
+     against `force_plain()` (MODEL_TOL) and 2 Adam steps, each step's
+     gradients against `force_plain()` (MODEL_TOL), with exact launches per
+     tier; per layer the kernels' ms per call against one plain call and
+     the bound, and their device ms per train step (the profiler).
 The line before the last is the kernels JSON (its times are phase 9's; its
 max |d| the worst of the script's direct comparisons of a kernel with its
 plain version, phases 20-22's included; its
 launches count every main path's run: phases 6, 8, 12-14, 16-19 and, summed
 over both ranks, 20-22; the two bf16-storage entries' times, bounds, max
-|d| and launches are phase 23's); the last line is
+|d| and launches are phase 23's; the last two entries, K1 and the merged
+backward at the plans past production, are phase 25's, with their
+launches per tier and their max |d| at bf16 storage beside); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
 left visible.
@@ -192,8 +206,9 @@ under nccl (`parallel.launch` with backend "nccl": rank r on cuda:r,
 `LOCAL_RANK` r), the kernels built once before any rank starts: the step
 cases of `card_cases(N)` (data parallel N x 1 without batch norm, edge,
 node and node_ring at 1 x N, node at 2 x N/2 without batch norm, node on
-the NMR batch at 1 x N) held as phases 20-21 hold theirs against the
-1-rank step computed meanwhile on card 0, each rank's kernels against
+the NMR batch at 1 x N, node at 1 x N with max pooling: pmax across the
+cards) held as phases 20-21 hold theirs against the 1-rank step computed
+meanwhile on card 0, each rank's kernels against
 plain at its own plans, no rank staging through the host; each case's
 step time per rank (CUDA events) beside the 1-rank step's, the conv and
 NCCL kernels' device time per step on rank 0 (the profiler); then
@@ -225,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -253,6 +269,17 @@ HPARAMS = dict(
     reduce="mean",
 )
 DATASET_HPARAMS = dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0)
+# phase 25: the production configuration past its shared-memory needs, as
+# users widen it: SH up to l=5 ("sh5"), the conv multiplicities doubled
+# ("x2"), and SH up to l=5 with 4o/4e/5o/5e conv irreps ("sh5conv5"); the
+# conv kernels run them at smaller tiers
+SH5 = "0e+1o+2e+3o+4e+5o"
+WIDE_CONFIGS = {
+    "sh5": dict(HPARAMS, irreps_edge_sh=SH5),
+    "x2": dict(HPARAMS, conv_layer_irreps="64x0o+64x0e+32x1o+32x1e+8x2o+8x2e+4x3o+4x3e+4x4e"),
+    "sh5conv5": dict(HPARAMS, irreps_edge_sh=SH5,
+                     conv_layer_irreps="32x0o+32x0e+16x1o+16x1e+4x2o+4x2e+2x3o+2x3e+2x4o+2x4e+2x5o+2x5e"),
+}
 # the per-atom NMR configuration: the `model` section of
 # scripts/configs/atomic_tensor.yaml; "auto" takes the batch's own average
 # number of neighbours, as the data module hands it to the model
@@ -483,6 +510,7 @@ def counts(fused_conv, counters=COUNTERS):
 def reset_counts(fused_conv):
     for c in (*COUNTERS.values(), *BF16_COUNTERS.values()):
         setattr(fused_conv, c, 0)
+    fused_conv.tier_launches.clear()
 
 
 PROFILED_FORWARDS = 5
@@ -686,7 +714,7 @@ def profile_sums(sum_inputs, out_dir, torch):
     for i, (k1, partial, edges, item_node, dxe, src_long) in enumerate(sum_inputs):
         acc_f = torch.zeros(edges.n_out, partial.shape[1], device=partial.device)
         acc_d = torch.zeros(edges.n_in, dxe.shape[1], device=dxe.device)
-        fns = {"K1": k1, "fwd_sum": lambda: fused_conv._launch_fwd_sum(partial, edges),
+        fns = {"K1": k1, "fwd_sum": lambda: fused_conv._launch_fwd_sum(partial, edges.item_ptr, edges.n_out),
                "index_add_ fwd": lambda: acc_f.index_add_(0, item_node, partial),
                "dx_sum": lambda: fused_conv._launch_dx_sum(dxe, edges.order, edges.n_in),
                "index_add_ dx": lambda: acc_d.index_add_(0, src_long, dxe)}
@@ -876,7 +904,7 @@ def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, e
                 functools.partial(fused_conv.fused_uvu_conv, plan, x, sh, w, src, dst, n_nodes, edges),
                 lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
             layer_ms["bwd"].append(interleaved(
-                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst),
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
                 lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes), torch))
         work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items)
         for kind in bounds:
@@ -1355,7 +1383,7 @@ def variant_phases(dev, card, torch, check_forward, check_backward, production, 
                 functools.partial(fused_conv.fused_uvu_conv, plan, x, sh, w, src, dst, n_nodes, edges),
                 lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
             layer_ms["bwd"].append(interleaved(
-                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst),
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
                 lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes), torch))
         work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items)
         for kind in bounds:
@@ -1690,12 +1718,13 @@ GLOO_CASES = (
 
 def card_cases(n):
     """`--cards n`'s step cases: data parallel n x 1, each graph mode at
-    1 x n, node at 2 x n/2 (n even and at least 4), node on the NMR batch."""
+    1 x n, node at 2 x n/2 (n even and at least 4), node on the NMR batch,
+    and node at 1 x n with max pooling (its pmax across the cards)."""
     cases = [(f"dp {n}x1", n, 1, "edge", "no_bn")]
     cases += [(f"{mode} 1x{n}", 1, n, mode, "production") for mode in ("edge", "node", "node_ring")]
     if n >= 4 and n % 2 == 0:
         cases.append((f"2x{n // 2} node", 2, n // 2, "node", "no_bn"))
-    return cases + [(f"NMR node 1x{n}", 1, n, "node", "nmr")]
+    return cases + [(f"NMR node 1x{n}", 1, n, "node", "nmr"), (f"max pooling node 1x{n}", 1, n, "node", "max_pool")]
 
 
 def mesh_cases(specs, structures, target_rows, profile_all):
@@ -1706,8 +1735,9 @@ def mesh_cases(specs, structures, target_rows, profile_all):
     "no_bn" (without batch norm: data parallelism normalizes each shard by
     its own statistics, so only then is it the 1-rank step, as in the JAX
     tests; the graph modes keep the whole graph's statistics),
-    "no_bn_ragged" (one crystal over the data axis) and "nmr" (the NMR
-    model on the NMR batch). A case is profiled in the graph modes on the
+    "no_bn_ragged" (one crystal over the data axis), "max_pool" (the
+    production model pooling by max) and "nmr" (the NMR model on the NMR
+    batch). A case is profiled in the graph modes on the
     flagship batch, or always with `profile_all`."""
     from matten_tpu_torch.data.datamodule import BatchLoader
     from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
@@ -1724,6 +1754,7 @@ def mesh_cases(specs, structures, target_rows, profile_all):
     models = {"production": (HPARAMS, DATASET_HPARAMS, graphs, False),
               "no_bn": (no_bn, DATASET_HPARAMS, graphs, False),
               "no_bn_ragged": (no_bn, DATASET_HPARAMS, graphs[:1], False),
+              "max_pool": (dict(HPARAMS, reduce="max"), DATASET_HPARAMS, graphs, False),
               "nmr": (NMR_HPARAMS, nmr_ds, nmr_graphs, True)}
     cases = []
     for name, n_data, n_graph, mode, model in specs:
@@ -2231,10 +2262,10 @@ def bf16_phase(dev, card, torch, check_forward, check_backward, layer_inputs, sh
             sh16, w16 = sh.bfloat16(), w.bfloat16()
             with torch.no_grad():
                 layer_ms["fwd_bf16"].append(interleaved(
-                    lambda: fused_conv._launch(plan, x, sh16, w16, src, dst, n_nodes, edges),
+                    lambda: fused_conv._launch(plan, x, sh16, w16, edges),
                     lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
                 layer_ms["bwd_bf16"].append(interleaved(
-                    lambda: fused_conv._launch_bwd_edges(plan, x, g, sh16, w16, src, dst),
+                    lambda: fused_conv._launch_bwd_edges(plan, x, g, sh16, w16, edges),
                     lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes),
                     torch))
             work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items, in_bytes=2)
@@ -2356,6 +2387,162 @@ def debug_phase(dev, card, torch, model, data):
           f"{len(trace)} bytes of Chrome trace, K1 in it: {kernels_traced}", flush=True)
 
 
+WIDE_STEPS = 2  # train steps of each phase-25 model, each held to the plain gradients
+WIDE_REPS = 10  # timed kernel calls per layer in phase 25 (the plain versions: one)
+
+
+def wide_phase(dev, card, torch, check_forward, check_backward, data, targets, src, dst):
+    """Phase 25: the configurations of WIDE_CONFIGS, past the production
+    plans' shared memory, at full depth on the flagship batch with seeded
+    weights: each layer's tiers (and bytes per block) at float32 and bf16
+    storage; K1 (item pass and sum) and the merged backward (with the dx
+    sum) at each layer's plan against their plain versions at both storage
+    widths (KERNEL_TOL, two runs bitwise equal); the forward against
+    `force_plain()` (MODEL_TOL) with exactly one launch per conv layer of
+    each of K1's kernels at the layer's tier, then WIDE_STEPS Adam steps,
+    each step's gradients against `force_plain()` (MODEL_TOL) and its
+    launches exact per tier; per layer the kernels' ms per call (CUDA
+    events over WIDE_REPS back-to-back calls) against one plain call and
+    `kernel_work`'s bound, and their device ms per train step (the
+    profiler). Returns the main-path launches of K1 and the backward (the
+    counted forward and steps), per tier, the kernels' max |d| at float32
+    and bf16, and per-layer times and bounds."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.ops.spherical_harmonics import spherical_harmonics
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+
+    n_nodes, n_edges = data[K.POSITIONS].shape[0], src.shape[0]
+    real = data[K.GRAPH_MASK]
+    errs = {k: 0.0 for k in (*COUNTERS, *BF16_COUNTERS)}
+    launched = {k: 0 for k in COUNTERS}
+    tiers = Counter()
+    layer_ms = {"fwd": [], "bwd": []}
+    plain_ms = {"fwd": [], "bwd": []}
+    bounds = {"fwd": [], "bwd": []}
+    task = CanonicalRegressionTask(name=TARGET)
+    for name, hp in WIDE_CONFIGS.items():
+        model = create_scalar_tensor_model(hp, DATASET_HPARAMS, device=dev, seed=SEED).eval()
+        plans = [c.uvu_plan for c in conv_layers(model)]
+        sh = spherical_harmonics(hp["irreps_edge_sh"], data[K.EDGE_VECTORS])
+        sh = (sh * data[K.EDGE_MASK][:, None].float()).contiguous()
+        layer_tiers = {b: [fused_conv.launch_tiers(p, dev, b) for p in plans] for b in (4, 2)}
+        tier_txt = "; ".join(
+            f"L{i} d1={p.irreps_in1.dim} dw={p.weight_numel} dout={p.irreps_out.dim} n_t="
+            f"{fused_conv.kernel_tables(p).t_meta.shape[0]}: "
+            + ", ".join(f"{'float32' if b == 4 else 'bf16'} K1 {f.label('fwd')} {f.smem} B, backward "
+                        f"{bw.label('bwd')} {bw.smem} B" for b in (4, 2) for f, bw in [layer_tiers[b][i]])
+            for i, p in enumerate(plans))
+        print(f"[25 {name} tiers] {hp['irreps_edge_sh']} x {hp['conv_layer_irreps']}: {tier_txt}", flush=True)
+
+        # each layer's kernels against their plain versions, float32 and bf16
+        gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+        edges = fused_conv.edge_plan(src, dst, n_nodes, n_nodes, with_src_order=True,
+                                     item_edges=fused_conv.item_edges_for(plans, dev))
+        parity, times = [], []
+        for i, plan in enumerate(plans):
+            x = torch.randn(n_nodes, plan.irreps_in1.dim, generator=gen, device=dev)
+            w = torch.randn(n_edges, plan.weight_numel, generator=gen, device=dev)
+            w = (w * data[K.EDGE_MASK][:, None].float()).contiguous()
+            g = torch.randn(n_nodes, plan.irreps_out.dim, generator=gen, device=dev)
+            txt = []
+            for dtype in ("float32", "bfloat16"):
+                with kernel_in_dtype(dtype):
+                    txt.append(f"{dtype} K1 {check_forward(plan, x, w, sh, src, dst, n_nodes, record=errs)[1]}; "
+                               + check_backward(plan, x, w, g, sh, src, dst, n_nodes, record=errs))
+            parity.append(f"L{i}: " + " | ".join(txt))
+            with torch.no_grad():
+                fns = {"fwd": (lambda: fused_conv.fused_uvu_conv(plan, x, sh, w, src, dst, n_nodes, edges),
+                               lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes)),
+                       "bwd": (lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
+                               lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes))}
+                for kind, (fn, plain) in fns.items():
+                    for _ in range(WARMUP):
+                        fn()
+                    layer_ms[kind].append(cuda_ms(lambda: [fn() for _ in range(WIDE_REPS)], torch) / WIDE_REPS)
+                    plain_ms[kind].append(cuda_ms(plain, torch))
+            n_items = edges.items(layer_tiers[4][i][0].edges)[1]
+            work = kernel_work(plan, n_nodes, n_nodes, n_edges, n_items)
+            for kind in bounds:
+                bounds[kind].append(bound_ms(*work[kind]))
+            times.append(f"L{i} K1 {layer_ms['fwd'][-1]:.4f} vs {plain_ms['fwd'][-1]:.4f} (bound "
+                         f"{bounds['fwd'][-1][0]:.4f}, {n_items} items), backward {layer_ms['bwd'][-1]:.4f} vs "
+                         f"{plain_ms['bwd'][-1]:.4f} (bound {bounds['bwd'][-1][0]:.4f})")
+            del x, w, g
+        print(f"[25 {name} kernels] max|d|/max|ref| (tol {KERNEL_TOL}), two runs bitwise equal, "
+              + "; ".join(parity), flush=True)
+
+        # the forward, counted, against the plain path
+        fwd_tiers = Counter(("fwd", f.label("fwd")) for f, _ in layer_tiers[4])
+        reset_counts(fused_conv)
+        with torch.inference_mode():
+            out_k = model(data)
+        torch.cuda.synchronize()
+        per_fwd, per_fwd_tiers = counts(fused_conv), Counter(fused_conv.tier_launches)
+        with fused_conv.force_plain(), torch.inference_mode():
+            out_p = model(data)
+        if per_fwd != {"fwd": len(plans), "fwd_sum": len(plans), "bwd": 0, "dx_sum": 0} or per_fwd_tiers != fwd_tiers:
+            raise AssertionError(f"{name}: launches per forward {per_fwd}, by tier {per_fwd_tiers}; expected "
+                                 f"{len(plans)} of K1's two kernels, by tier {fwd_tiers}")
+        if counts(fused_conv) != per_fwd:
+            raise AssertionError(f"{name}: the plain forward launched a kernel")
+        if tuple(out_k.shape) != (real.shape[0], 21) or not bool(torch.isfinite(out_k).all()):
+            raise AssertionError(f"{name}: model output {tuple(out_k.shape)} not finite [G, 21]")
+        fwd_rel = rel_err(out_k[real], out_p[real])
+        if not fwd_rel <= MODEL_TOL:
+            raise AssertionError(f"{name}: the forward through the kernels disagrees with the plain path: {fwd_rel}")
+        launched = {k: launched[k] + v for k, v in per_fwd.items()}
+        tiers += per_fwd_tiers
+
+        # WIDE_STEPS train steps through the kernels, each step's gradients
+        # against a copy under force_plain
+        step_tiers = fwd_tiers + Counter(("bwd", b.label("bwd")) for _, b in layer_tiers[4])
+        config = TrainerConfig(lr=0.01)
+        trainer = Trainer(create_scalar_tensor_model(hp, DATASET_HPARAMS, device=dev, seed=SEED), [task], config,
+                          device=dev)
+        trainer_p = Trainer(copy.deepcopy(trainer.model), [task], config, device=dev)
+        steps = []
+        for step in range(WIDE_STEPS):
+            loss_k, grads_k = step_grads(trainer, data, targets)
+            with fused_conv.force_plain():
+                loss_p, grads_p = step_grads(trainer_p, data, targets)
+            worst = max((rel_err(grads_k[n], r), n) for n, r in grads_p.items())
+            if not worst[0] <= MODEL_TOL:
+                raise AssertionError(f"{name}: step {step}'s gradients disagree with the plain path: {worst}")
+            reset_counts(fused_conv)
+            loss, _ = trainer.train_step(data, targets)
+            torch.cuda.synchronize()
+            step_counts, by_tier = counts(fused_conv), Counter(fused_conv.tier_launches)
+            if any(v != len(plans) for v in step_counts.values()) or by_tier != step_tiers:
+                raise AssertionError(f"{name}: launches in a train step {step_counts}, by tier {by_tier}; "
+                                     f"expected {len(plans)} of each kernel, by tier {step_tiers}")
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"{name}: train loss {float(loss)} not finite")
+            launched = {k: launched[k] + v for k, v in step_counts.items()}
+            tiers += by_tier
+            trainer_p.model.load_state_dict(trainer.model.state_dict())
+            steps.append(f"step {step}: loss {loss_k:.6f} vs {loss_p:.6f} plain, gradients worst "
+                         f"{worst[1]} {worst[0]:.3e}; loss after {float(loss):.6f}")
+        # the conv kernels' device time per train step (the profiler)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, st = traced(lambda: trainer.train_step(data, targets), WIDE_STEPS, Path(tmp), f"{name}_step", torch)
+        dev_ms = {k: (sum(t for n_, t in st["by_kernel"].items() if is_kind(n_, k)),
+                      st["per_layer"][k] if k in ("fwd", "fwd_sum") else st["per_layer"][k][::-1])
+                  for k in KERNEL_NAMES}
+        print(f"[25 {name} model] {card}: forward max|d|/max|ref| kernels vs plain {fwd_rel:.3e} (tol {MODEL_TOL}), "
+              f"launches {per_fwd}, by tier {dict(per_fwd_tiers)}; " + "; ".join(steps)
+              + f" (tol {MODEL_TOL}); per step launches {step_counts}, by tier {dict(by_tier)}; ms per call "
+              f"(CUDA events, {WIDE_REPS} calls) against one plain call: " + "; ".join(times)
+              + f"; device ms per train step (profiler, {WIDE_STEPS} steps): "
+              + "; ".join(f"{k} {t:.4f} (" + " / ".join(f"{v:.4f}" for v in per) + ")"
+                          for k, (t, per) in dev_ms.items())
+              + f"; device busy {st['busy_ms']:.4f} of a {st['span_ms']:.4f} ms span", flush=True)
+        del model, trainer, trainer_p, edges, sh
+        torch.cuda.empty_cache()
+    return launched, tiers, errs, layer_ms, plain_ms, bounds
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
@@ -2446,28 +2633,29 @@ def main() -> int:
     def bf16_kind(kind):
         return kind + "_bf16" if fused_tp.get_kernel_in_dtype() == "bfloat16" else kind
 
-    def check_forward(plan, x, w, sh_, src_, dst_, n_out, n_in=None):
+    def check_forward(plan, x, w, sh_, src_, dst_, n_out, n_in=None, record=max_abs):
         n_in = n_out if n_in is None else n_in
-        plan_e = fused_conv.edge_plan(src_, dst_, n_in, n_out)
+        plan_e = fused_conv.edge_plan(src_, dst_, n_in, n_out,
+                                      item_edges=fused_conv.item_edges_for((plan,), dev))
         with torch.inference_mode():
             out = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out, plan_e)
             out2 = fused_conv.fused_uvu_conv(plan, x, sh_, w, src_, dst_, n_out, plan_e)
             ref = fused_conv.uvu_conv_reference(plan, x, sh_, w, src_, dst_, n_out)
-            partial = fused_conv._launch_items(plan, x, st(sh_), st(w), src_, plan_e)
-            summed = fused_conv._launch_fwd_sum(partial, plan_e)
+            partial, item_ptr = fused_conv._launch_items(plan, x, st(sh_), st(w), plan_e)
+            summed = fused_conv._launch_fwd_sum(partial, item_ptr, n_out)
             item_node = torch.repeat_interleave(
-                torch.arange(n_out, device=dev), (plan_e.item_ptr[1:] - plan_e.item_ptr[:-1]).long())
+                torch.arange(n_out, device=dev), (item_ptr[1:] - item_ptr[:-1]).long())
             sum_ref = torch.zeros_like(summed).index_add_(0, item_node, partial)
         torch.cuda.synchronize()
         rel, rel_sum = rel_err(out, ref), rel_err(summed, sum_ref)
-        max_abs[bf16_kind("fwd")] = max(max_abs[bf16_kind("fwd")], float((out - ref).abs().max()))
-        max_abs["fwd_sum"] = max(max_abs["fwd_sum"], float((summed - sum_ref).abs().max()))
+        record[bf16_kind("fwd")] = max(record[bf16_kind("fwd")], float((out - ref).abs().max()))
+        record["fwd_sum"] = max(record["fwd_sum"], float((summed - sum_ref).abs().max()))
         if not (rel <= KERNEL_TOL and rel_sum <= KERNEL_TOL):
             raise AssertionError(f"K1 or its partial-row sum disagrees with its plain version at "
                                  f"d1={plan.irreps_in1.dim}, N={n_out}: {rel}, {rel_sum} > {KERNEL_TOL}")
         if not (torch.equal(out, out2) and torch.equal(out, summed)):
             raise AssertionError(f"K1 is not bitwise reproducible at d1={plan.irreps_in1.dim}, N={n_out}")
-        return out, f"{rel:.3e} (partial-row sum {rel_sum:.3e}; {plan_e.n_items} items)"
+        return out, f"{rel:.3e} (partial-row sum {rel_sum:.3e}; {partial.shape[0]} items)"
 
     for conv in convs:
         plan = conv.uvu_plan
@@ -2519,9 +2707,10 @@ def main() -> int:
           f"{max_abs['fwd_sum']:.3e}", flush=True)
 
     # 4. backward kernel parity: the 4 plans, then N = 2600 with the last plan
-    def check_backward(plan, x, w, g, sh_, src_, dst_, n_in):
+    def check_backward(plan, x, w, g, sh_, src_, dst_, n_in, record=max_abs):
         with torch.no_grad():
-            dxe, dw = fused_conv._launch_bwd_edges(plan, x, g, st(sh_), st(w), src_, dst_)
+            dxe, dw = fused_conv._launch_bwd_edges(plan, x, g, st(sh_), st(w),
+                                                   fused_conv.edge_plan(src_, dst_, n_in, g.shape[0]))
             dx = fused_conv._launch_dx_sum(dxe, fused_conv.src_order(src_, n_in), n_in)
             dx2, dw2 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
             dx3, dw3 = fused_conv.uvu_conv_bwd(plan, x, g, sh_, w, src_, dst_, n_in)
@@ -2535,7 +2724,7 @@ def main() -> int:
                                      (None, "dx", dx2, dx_ref), (None, "dw", dw2, dw_ref)):
             rel = rel_err(out, ref)
             if kind is not None:
-                max_abs[kind] = max(max_abs[kind], float((out - ref).abs().max()))
+                record[kind] = max(record[kind], float((out - ref).abs().max()))
             errs.append(f"{name} {rel:.3e}")
             if not rel <= KERNEL_TOL:
                 raise AssertionError(f"{name} of the backward kernels disagrees with its plain "
@@ -2662,14 +2851,14 @@ def main() -> int:
                 k1, lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_nodes), torch))
             # as the train step launches it: src and dst checked by the edge plan
             layer_ms["bwd"].append(interleaved(
-                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst),
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
                 lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes),
                 torch,
             ))
-            partial = fused_conv._launch_items(plan, x, sh, w, src, edges)
-            dxe, _ = fused_conv._launch_bwd_edges(plan, x, g, sh, w, src, dst, want_dw=False)
+            partial, _ = fused_conv._launch_items(plan, x, sh, w, edges)
+            dxe, _ = fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges, want_dw=False)
             for kind, rows, idx, fn in (
-                    ("fwd_sum", partial, item_node, lambda: fused_conv._launch_fwd_sum(partial, edges)),
+                    ("fwd_sum", partial, item_node, lambda: fused_conv._launch_fwd_sum(partial, edges.item_ptr, n_nodes)),
                     ("dx_sum", dxe, src_long, lambda: fused_conv._launch_dx_sum(dxe, edges.order, n_nodes))):
                 layer_ms[kind].append(interleaved(fn, lambda: scatter_sum(rows, idx, n_nodes), torch))
                 acc = torch.zeros(n_nodes, rows.shape[1], device=dev)
@@ -2718,6 +2907,10 @@ def main() -> int:
 
     # 24. the DEBUG-level model, the step timer and the profiler trace
     debug_phase(dev, card, torch, model, data)
+
+    # 25. plans past production: their tiers, kernels, forward and steps
+    wide_launched, wide_tiers, wide_errs, wide_ms, wide_plain_ms, wide_bounds = wide_phase(
+        dev, card, torch, check_forward, check_backward, data, targets, src, dst)
 
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
@@ -2776,6 +2969,25 @@ def main() -> int:
             "bound_ms": sum(b for b, _ in bf16_bounds[kind]),
             "bound_by": bound_by(bf16_bounds[kind]),
             "library_ms": None,
+        })
+    for kind in ("fwd", "bwd"):
+        if wide_launched[kind] == 0:
+            raise AssertionError(f"phase 25 never launched the {kind} kernel")
+        kernels.append({
+            "name": names[kind].split(" (")[0] + ", plans past production (phase 25: "
+                    + ", ".join(WIDE_CONFIGS) + ")",
+            "route": "cuda",
+            "source": sources[kind],
+            "replaces": replaces[kind],
+            "launches": wide_launched[kind],
+            "max_abs_err": wide_errs[kind],
+            "ms": sum(wide_ms[kind]),
+            "plain_ms": sum(wide_plain_ms[kind]),
+            "bound_ms": sum(b for b, _ in wide_bounds[kind]),
+            "bound_by": bound_by(wide_bounds[kind]),
+            "library_ms": None,
+            "tiers": {label: n for (k, label), n in sorted(wide_tiers.items()) if k == kind},
+            "bf16_max_abs_err": wide_errs[kind + "_bf16"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

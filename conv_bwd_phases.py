@@ -28,11 +28,11 @@ import torch
 import chip_smoke as cs
 
 TASKS = "  for (int k = __ldg(a.warp_ptr + warp); k < k_end; ++k) {"
-T_E = "  contract_te<BWD_THREADS>("
+T_E = "  contract_te<BWD_THREADS, ANY_L>("
 VARIANTS = {
     "full": [],
     "no_tasks": [(TASKS, TASKS.replace("k < k_end;", "k < k_end && a.n_t < 0;"))],
-    "no_t": [(T_E, "  if (a.n_edges < 0) contract_te<BWD_THREADS>(")],
+    "no_t": [(T_E, "  if (a.n_edges < 0) contract_te<BWD_THREADS, ANY_L>(")],
 }
 VARIANTS["prologue"] = VARIANTS["no_tasks"] + VARIANTS["no_t"]
 
@@ -60,7 +60,7 @@ def build(_build):
         if proc.returncode != 0:
             raise SystemExit(f"conv_bwd_phases: nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(out / f"{name}.so"))
-        lib.fused_uvu_conv_bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        lib.fused_uvu_conv_bwd.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
         libs[name] = lib
     return libs
 
@@ -95,7 +95,8 @@ def main() -> int:
         w = torch.randn(e, dw, generator=gen, device=dev)
         g = torch.randn(n, dout, generator=gen, device=dev)
         t_meta = fc._tables_on(plan, dev)[0]
-        tt = fc._tile_tables_on(plan, dev)
+        tier = fc.launch_tiers(plan, dev, 4)[1]
+        tt = fc._tile_tables_on(plan, dev, fc.FWD_ITEM_EDGES, tier.edges)
         dxe, dw_out = torch.empty(e, d1, device=dev), torch.empty(e, dw, device=dev)
         ptrs = [x, g, sh, w, src, dst, t_meta, tt.cg_t, tt.t_sh, tt.sh_src, tt.groups, tt.paths,
                 tt.path_pw, tt.tasks, tt.warp_ptr, dw_out, dxe]
@@ -104,7 +105,8 @@ def main() -> int:
             def launch():
                 rc = lib.fused_uvu_conv_bwd(
                     *(t.data_ptr() for t in ptrs), e, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0], 4,
-                    fc.BWD_TILE_EDGES, fc.BWD_WARPS, torch.cuda.current_stream(dev).cuda_stream)
+                    tier.edges, int(tier.stage_w), tier.g_slots, int(tt.any_l), fc.BWD_WARPS,
+                    torch.cuda.current_stream(dev).cuda_stream)
                 if rc != 0:
                     raise SystemExit(f"conv_bwd_phases: {name} launch failed (cudaError {rc})")
             cs.cuda_ms(lambda: [launch() for _ in range(cs.WARMUP)], torch)

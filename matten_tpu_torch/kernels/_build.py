@@ -103,15 +103,15 @@ def load_library() -> ctypes.CDLL:
         return _lib
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_uvu_conv_fwd.argtypes = [p] * 16 + [i] * 11 + [p]
+    lib.fused_uvu_conv_fwd.argtypes = [p] * 16 + [i] * 13 + [p]
     lib.fused_uvu_conv_fwd.restype = ctypes.c_int
-    lib.fused_uvu_conv_bwd.argtypes = [p] * 17 + [i] * 10 + [p]
+    lib.fused_uvu_conv_bwd.argtypes = [p] * 17 + [i] * 13 + [p]
     lib.fused_uvu_conv_bwd.restype = ctypes.c_int
     lib.segment_sum.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.segment_sum.restype = ctypes.c_int
     for kind in ("fwd", "bwd"):
         fn = getattr(lib, f"fused_uvu_conv_{kind}_smem")
-        fn.argtypes = [i] * 6
+        fn.argtypes = [i] * 9
         fn.restype = ctypes.c_size_t
     _lib = lib
     return lib

@@ -25,7 +25,7 @@
 // one contraction before it scatters the messages into the sources.
 //
 // Design.
-// * Work unit: a tile of BWD_TE = 16 consecutive dst-sorted edges per block,
+// * Work unit: a tile of TE = 16 consecutive dst-sorted edges per block,
 //   ceil(E / 16) blocks (1344 on the flagship batch): every block does about
 //   the same work, whatever the degree of the nodes.
 // * Ownership without atomics: one lane owns one (input channel (i, u),
@@ -48,7 +48,7 @@
 //   stride: lanes of different edges hit different banks, lanes of one edge
 //   read one address), the tile's sh rows with each irrep padded to 4
 //   floats (so the t_e contraction reads them 16 bytes at a time), the g
-//   rows of the tile's first BWD_GSLOTS destinations (a tile of the
+//   rows of the tile's first g_slots = 2 destinations (a tile of the
 //   flagship batch, mean degree 74, spans 1-2; edges of further
 //   destinations, as on degree-1 nodes or sparse random graphs, read g
 //   through the cache), and the tile's w rows (contiguous in w, 16 * dw
@@ -57,6 +57,12 @@
 //   most 85 registers each) are what hides latency. Where w does not fit
 //   beside the rest it is read from global memory, coalesced across u all
 //   the same.
+// * Tiers: where even that does not fit (wider multiplicities, sh irreps
+//   above l = 4), a smaller instance of the same kernel runs: fewer g slots
+//   (down to none: every g row read through the cache), then tiles of 8
+//   or 4 edges. The wrapper picks the first tier that fits per plan
+//   (fused_conv.py::choose_tiers) and deals the tasks for its tile size;
+//   every production plan runs the first, 16 edges and 2 g slots.
 // * Asynchronous copies: the w rows are copied with 16-byte cp.async as the
 //   block starts and the g rows with 4-byte cp.async (a g row is only
 //   4-byte aligned) while the block contracts t_e, so neither stalls the
@@ -64,9 +70,18 @@
 //   The contraction Y is unrolled for each (d1, d3), so all of a path's
 //   shared-memory loads are in flight together. dw and dxe are stored from
 //   the lanes: consecutive u write consecutive dw addresses.
-// * float32 on the CUDA cores: the contractions are d1, d3 <= 9 deep with a
-//   different CG product per edge, far below wgmma's 64-row tiles, and TF32
-//   would break the 1e-5 parity the checks hold.
+// * Irreps above l = 4 (d1, or the d3 of one of the irrep's paths, > 9)
+//   take one generic path: d1 and d3 read at run time, the channel's d1
+//   values in blocks of at most CONV_MAX_D registers (x, Y and dx), each
+//   block a pass over the irrep's paths whose dw partial sums the lane adds
+//   into its own dw entries. It is compiled only into the ANY_L instances,
+//   which the wrapper launches for a plan with an irrep above l = 4; the
+//   unrolled (d1, d3) paths of l <= 4 are the production ones. Whether the
+//   w rows are staged is a template parameter too (STAGE_W), so the
+//   production instance reads them from shared memory by address space.
+// * float32 on the CUDA cores: the contractions are d1, d3 <= 9 deep (11
+//   at l = 5) with a different CG product per edge, far below wgmma's
+//   64-row tiles, and TF32 would break the 1e-5 parity the checks hold.
 // * Storage of sh and w: float or bf16 (a template over T; the JAX kernels'
 //   `set_kernel_in_dtype`). At bf16 the tile's w rows are staged at 2 bytes
 //   and widened where a lane reads them, sh is widened as it is staged; x,
@@ -84,10 +99,9 @@
 
 #include "fused_conv_common.cuh"
 
-#define BWD_TE 16                    // edges per tile (block)
 #define BWD_WARPS 24
 #define BWD_THREADS (32 * BWD_WARPS)
-#define BWD_GSLOTS 2                 // destinations per tile with a staged g row
+#define BWD_MAX_GSLOTS 2             // destinations per tile with a staged g row, at most
 
 template <typename T>
 struct BwdArgs {
@@ -98,18 +112,20 @@ struct BwdArgs {
   const int* src;          // [E]
   const int* dst;          // [E], non-decreasing
   const int4* t_meta;      // [n_t]: cg offset, sh offset, d2_i, 0
-  const float* cg_t;       // [CONV_MAX_D, n_t]: C_i[m2] at m2 * n_t + i, 0 past d2_i
+  const float* cg_t;       // [rows, n_t]: C_i[m2] at m2 * n_t + i, 0 past d2_i
   const int* t_sh;         // [n_t]: offset of entry i's sh segment in a padded sh row
   const int* sh_src;       // [shp]: sh component of each padded slot, or -1
   const int4* groups;      // [irreps of in1]: x_off, d1, path begin, path end
   const int4* paths;       // [paths]: o_off, t_off, w_off, d3
   const float* path_pw;    // [paths]
-  const int4* tasks;       // u0 | nu << 16, group, u count, j0 | ne << 16
+  // u0 | nu << 16, group, u count | generic << 16, j0 | ne << 16 (generic:
+  // the irrep's d1 or a path's d3 is above CONV_MAX_D)
+  const int4* tasks;
   const int* warp_ptr;     // [BWD_WARPS + 1] offsets of each warp's tasks
   float* dw_out;           // [E, dw], or null: dw not wanted
   float* dxe;              // [E, d1], or null: dx not wanted
   int n_edges, d1, d2, shp, dw, dout, n_t;
-  int stage_w;             // 1: the tile's w rows are copied to shared memory
+  int g_slots;             // destinations per tile with a staged g row, 0 .. BWD_MAX_GSLOTS
 };
 
 // Y[m1] = sum_{m3} t[m1 * D3 + m3] * G[m3] of one path: fully unrolled, so
@@ -159,7 +175,7 @@ static __device__ __forceinline__ void channel_edge(
       case 3: path_y<D1, 3>(tp, gp, y); break;
       case 5: path_y<D1, 5>(tp, gp, y); break;
       case 7: path_y<D1, 7>(tp, gp, y); break;
-      default: path_y<D1, 9>(tp, gp, y); break;  // the wrapper admits l <= 4 only
+      default: path_y<D1, 9>(tp, gp, y); break;  // d3 <= CONV_MAX_D here
     }
     if (dwrow) {
       float s = 0.f;
@@ -179,29 +195,86 @@ static __device__ __forceinline__ void channel_edge(
   }
 }
 
+// channel_edge for any d1 and d3 (an irrep above l = 4, or one with a
+// path to an output above l = 4): the channel's m1 in blocks of CONV_MAX_D,
+// each block a pass over the irrep's paths with x, Y and dx of the block in
+// registers; dw[e, k] = pw_p sum_{m1} x Y is written by the first block and
+// added to by the later ones (the lane owns the entry), and each block's
+// dx values are written once.
 template <typename T>
+static __device__ __forceinline__ void channel_edge_any(
+    const int4* __restrict__ paths, const float* __restrict__ path_pw, const float* trow,
+    const float* grow, const float* xrow, const T* wrow, float* dwrow, float* drow,
+    int d1, int u, int q_begin, int q_end) {
+  for (int b0 = 0; b0 < d1; b0 += CONV_MAX_D) {
+    const int nb = min(CONV_MAX_D, d1 - b0);
+    float xv[CONV_MAX_D], dxv[CONV_MAX_D];
+#pragma unroll
+    for (int k = 0; k < CONV_MAX_D; ++k) {
+      xv[k] = dwrow && k < nb ? __ldg(xrow + b0 + k) : 0.f;
+      dxv[k] = 0.f;
+    }
+    for (int q = q_begin; q < q_end; ++q) {
+      const int4 pm = __ldg(paths + q);
+      const float pw = __ldg(path_pw + q);
+      const int d3 = pm.w;
+      const float* gp = grow + pm.x + u * d3;
+      const float* tp = trow + pm.y + b0 * d3;
+      float y[CONV_MAX_D];
+#pragma unroll
+      for (int k = 0; k < CONV_MAX_D; ++k) y[k] = 0.f;
+      for (int m3 = 0; m3 < d3; ++m3) {
+        const float gv = gp[m3];
+#pragma unroll
+        for (int k = 0; k < CONV_MAX_D; ++k)
+          if (k < nb) y[k] = fmaf(tp[k * d3 + m3], gv, y[k]);
+      }
+      if (dwrow) {
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < CONV_MAX_D; ++k) s = fmaf(xv[k], y[k], s);
+        dwrow[pm.z] = b0 ? dwrow[pm.z] + pw * s : pw * s;
+      }
+      if (drow) {
+        const float wv = pw * to_f32(wrow[pm.z]);
+#pragma unroll
+        for (int k = 0; k < CONV_MAX_D; ++k) dxv[k] = fmaf(wv, y[k], dxv[k]);
+      }
+    }
+    if (drow) {
+#pragma unroll
+      for (int k = 0; k < CONV_MAX_D; ++k)
+        if (k < nb) drow[b0 + k] = dxv[k];
+    }
+  }
+}
+
+// One block per tile of at most TE edges; STAGE_W: the tile's w rows are
+// copied to shared memory (else the lanes read them from global memory);
+// ANY_L: the plan has irreps above l = 4.
+template <typename T, int TE, bool STAGE_W, bool ANY_L>
 __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(const BwdArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ts_stride = a.n_t | 1;
-  T* ws = reinterpret_cast<T*>(smem);  // [BWD_TE][dw] from ws + w_pad, if stage_w
-  // [BWD_TE][shp], 16-byte aligned
-  float* shs = reinterpret_cast<float*>(ws + (a.stage_w ? staged_len<T>((size_t)BWD_TE * a.dw) : 0));
-  float* ts = shs + BWD_TE * a.shp;                   // [BWD_TE][ts_stride]
-  float* gs = ts + BWD_TE * ts_stride;                // [BWD_GSLOTS][dout]
-  int* src_s = reinterpret_cast<int*>(gs + BWD_GSLOTS * a.dout);  // [BWD_TE]
-  int* dst_s = src_s + BWD_TE;                        // [BWD_TE]
-  int* slot_s = dst_s + BWD_TE;                       // [BWD_TE]: g slot, or -1
-  int* slot_node = slot_s + BWD_TE;                   // [BWD_GSLOTS]
-  int* n_slots = slot_node + BWD_GSLOTS;              // [1]
+  T* ws = reinterpret_cast<T*>(smem);  // [TE][dw] from ws + w_pad, if STAGE_W
+  // [TE][shp], 16-byte aligned
+  float* shs = reinterpret_cast<float*>(ws + (STAGE_W ? staged_len<T>((size_t)TE * a.dw) : 0));
+  float* ts = shs + TE * a.shp;                       // [TE][ts_stride]
+  float* gs = ts + TE * ts_stride;                    // [g_slots][dout]
+  int* src_s = reinterpret_cast<int*>(gs + a.g_slots * a.dout);  // [TE]
+  int* dst_s = src_s + TE;                            // [TE]
+  int* slot_s = dst_s + TE;                           // [TE]: g slot, or -1
+  int* slot_node = slot_s + TE;                       // [g_slots]
+  int* n_slots = slot_node + a.g_slots;               // [1]
 
   const int tid = threadIdx.x;
-  const int tile0 = blockIdx.x * BWD_TE;
-  const int nj = min(BWD_TE, a.n_edges - tile0);
+  const int tile0 = blockIdx.x * TE;
+  const int nj = min(TE, a.n_edges - tile0);
 
   // 1. start copying the tile's w rows (contiguous, nj * dw floats); load
   //    the edge ends and the padded sh rows
-  const int w_pad = a.stage_w ? cp_async_rows<BWD_THREADS, T>(ws, a.w + (size_t)tile0 * a.dw, nj * a.dw) : 0;
-  if (tid < BWD_TE) {
+  const int w_pad = STAGE_W ? cp_async_rows<BWD_THREADS, T>(ws, a.w + (size_t)tile0 * a.dw, nj * a.dw) : 0;
+  if (tid < TE) {
     src_s[tid] = tid < nj ? a.src[tile0 + tid] : 0;
     dst_s[tid] = tid < nj ? a.dst[tile0 + tid] : -1;
   }
@@ -209,13 +282,13 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
   __syncthreads();
 
   // 2. destinations: edge j lies in the run-th run of equal dst; the first
-  //    BWD_GSLOTS runs get a staged g row, later ones read g from the cache
+  //    g_slots runs get a staged g row, later ones read g from the cache
   if (tid < nj) {
     int run = 0;
     for (int k = 1; k <= tid; ++k) run += dst_s[k] != dst_s[k - 1];
-    slot_s[tid] = run < BWD_GSLOTS ? run : -1;
-    if (run < BWD_GSLOTS && (tid == 0 || dst_s[tid] != dst_s[tid - 1])) slot_node[run] = dst_s[tid];
-    if (tid == nj - 1) *n_slots = min(run + 1, BWD_GSLOTS);
+    slot_s[tid] = run < a.g_slots ? run : -1;
+    if (run < a.g_slots && (tid == 0 || dst_s[tid] != dst_s[tid - 1])) slot_node[run] = dst_s[tid];
+    if (tid == nj - 1) *n_slots = min(run + 1, a.g_slots);
   }
   __syncthreads();
 
@@ -226,7 +299,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
     const int s = idx / a.dout;
     cp_async4(gs + idx, a.g + (size_t)slot_node[s] * a.dout + (idx - s * a.dout));
   }
-  contract_te<BWD_THREADS>(ts, ts_stride, shs, a.shp, a.t_meta, a.cg_t, a.t_sh, a.n_t, nj);
+  contract_te<BWD_THREADS, ANY_L>(ts, ts_stride, shs, a.shp, a.t_meta, a.cg_t, a.t_sh, a.n_t, nj);
   cp_async_wait_all();
   __syncthreads();
 
@@ -240,7 +313,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
     const int du = lane % nu;
     const int dj = lane / nu;
     const int j = (tk.w & 0xffff) + dj;
-    if (du >= tk.z || dj >= (tk.w >> 16) || j >= nj) continue;
+    if (du >= (tk.z & 0xffff) || dj >= (tk.w >> 16) || j >= nj) continue;
     const int u = (tk.x & 0xffff) + du;
     const int e = tile0 + j;
     const int4 gm = __ldg(a.groups + tk.y);
@@ -249,9 +322,13 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
     const float* grow = sl >= 0 ? gs + sl * a.dout : a.g + (size_t)dst_s[j] * a.dout;
     const float* trow = ts + j * ts_stride;
     const float* xrow = a.x + (size_t)src_s[j] * a.d1 + xb;
-    const T* wrow = (a.stage_w ? ws + w_pad + j * a.dw : a.w + (size_t)e * a.dw) + u;
+    const T* wrow = (STAGE_W ? ws + w_pad + j * a.dw : a.w + (size_t)e * a.dw) + u;
     float* dwrow = a.dw_out ? a.dw_out + (size_t)e * a.dw + u : nullptr;
     float* drow = a.dxe ? a.dxe + (size_t)e * a.d1 + xb : nullptr;
+    if (ANY_L && (tk.z >> 16)) {  // an irrep above l = 4, or with a path to one
+      channel_edge_any<T>(a.paths, a.path_pw, trow, grow, xrow, wrow, dwrow, drow, gm.y, u, gm.z, gm.w);
+      continue;
+    }
 #define CHANNEL_EDGE(D1)                                                                  \
   channel_edge<D1, T>(a.paths, a.path_pw, trow, grow, xrow, wrow, dwrow, drow, u, gm.z, gm.w)
     switch (gm.y) {  // d1 of the irrep, the same for the whole warp
@@ -259,36 +336,56 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_uvu_conv_bwd_kernel(cons
       case 3: CHANNEL_EDGE(3); break;
       case 5: CHANNEL_EDGE(5); break;
       case 7: CHANNEL_EDGE(7); break;
-      default: CHANNEL_EDGE(9); break;  // the wrapper admits l <= 4 only
+      default: CHANNEL_EDGE(9); break;
     }
 #undef CHANNEL_EDGE
   }
 }
 
-// Shared memory (bytes) one block of the merged kernel needs without the
-// staged w rows. `shp` is the padded sh row (TileTables.sh_src).
-static size_t bwd_smem_base(int shp, int dout, int n_t) {
-  return sizeof(float) * ((size_t)BWD_TE * (n_t | 1) + (size_t)BWD_GSLOTS * dout +
-                          (size_t)BWD_TE * shp) +
-         sizeof(int) * (3 * BWD_TE + BWD_GSLOTS + 1);
+// Shared memory (bytes) one block of the merged kernel needs at a tier:
+// `te` edges per tile, `g_slots` staged g rows, and the tile's w rows at
+// `in_bytes` (4: float, 2: bf16) of storage when `stage_w` (217 KB at the
+// production layer 3 in float at its tier: 16 edges, 2 slots, w staged).
+// `shp` is the padded sh row (TileTables.sh_src).
+// kernels/fused_conv.py::bwd_smem mirrors it.
+static size_t bwd_smem(int shp, int dw, int dout, int n_t, int in_bytes, int te, int stage_w, int g_slots) {
+  const size_t w_bytes = !stage_w ? 0
+      : in_bytes == 2 ? sizeof(__nv_bfloat16) * staged_len<__nv_bfloat16>((size_t)te * dw)
+                      : sizeof(float) * staged_len<float>((size_t)te * dw);
+  return w_bytes + sizeof(float) * ((size_t)te * (n_t | 1) + (size_t)g_slots * dout + (size_t)te * shp) +
+         sizeof(int) * (3 * te + g_slots + 1);
 }
 
-// The staged w rows at `in_bytes` (4: float, 2: bf16) of storage.
-static size_t bwd_w_bytes(int dw, int in_bytes) {
-  return in_bytes == 2 ? sizeof(__nv_bfloat16) * staged_len<__nv_bfloat16>((size_t)BWD_TE * dw)
-                       : sizeof(float) * staged_len<float>((size_t)BWD_TE * dw);
+template <typename T, int TE, bool STAGE_W, bool ANY_L>
+static int launch_bwd(const BwdArgs<T>& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_uvu_conv_bwd_kernel<T, TE, STAGE_W, ANY_L>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_uvu_conv_bwd_kernel<T, TE, STAGE_W, ANY_L><<<(a.n_edges + TE - 1) / TE, BWD_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool ANY_L>
+static int launch_edges(const BwdArgs<T>& a, int te, int stage_w, size_t smem, cudaStream_t stream) {
+  switch (te * 2 + stage_w) {
+    case 33: return launch_bwd<T, 16, true, ANY_L>(a, smem, stream);
+    case 32: return launch_bwd<T, 16, false, ANY_L>(a, smem, stream);
+    case 17: return launch_bwd<T, 8, true, ANY_L>(a, smem, stream);
+    case 16: return launch_bwd<T, 8, false, ANY_L>(a, smem, stream);
+    case 9: return launch_bwd<T, 4, true, ANY_L>(a, smem, stream);
+    case 8: return launch_bwd<T, 4, false, ANY_L>(a, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-static int launch_bwd(const float* x, const float* g, const void* sh, const void* w,
-                      const int* src, const int* dst, const void* t_meta, const float* cg_t,
-                      const int* t_sh, const int* sh_src, const void* groups, const void* paths,
-                      const float* path_pw, const void* tasks, const int* warp_ptr,
-                      float* dw_out, float* dxe, int n_edges, int d1, int d2, int shp, int dw,
-                      int dout, int n_t, int stage_w, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_uvu_conv_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+static int launch_tier(const float* x, const float* g, const void* sh, const void* w,
+                       const int* src, const int* dst, const void* t_meta, const float* cg_t,
+                       const int* t_sh, const int* sh_src, const void* groups, const void* paths,
+                       const float* path_pw, const void* tasks, const int* warp_ptr,
+                       float* dw_out, float* dxe, int n_edges, int d1, int d2, int shp, int dw,
+                       int dout, int n_t, int te, int stage_w, int g_slots, int any_l, size_t smem,
+                       cudaStream_t stream) {
   BwdArgs<T> a;
   a.x = x;
   a.g = g;
@@ -314,35 +411,39 @@ static int launch_bwd(const float* x, const float* g, const void* sh, const void
   a.dw = dw;
   a.dout = dout;
   a.n_t = n_t;
-  a.stage_w = stage_w;
-  fused_uvu_conv_bwd_kernel<T><<<(n_edges + BWD_TE - 1) / BWD_TE, BWD_THREADS, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+  a.g_slots = g_slots;
+  return any_l ? launch_edges<T, true>(a, te, stage_w, smem, stream)
+               : launch_edges<T, false>(a, te, stage_w, smem, stream);
 }
 
 extern "C" {
 
-// Shared memory (bytes) one block of the merged kernel needs with the w
-// rows staged at `in_bytes` of storage (217 KB at the production layer 3 in
-// float); the wrapper names it when a launch fails.
-size_t fused_uvu_conv_bwd_smem(int d1, int shp, int dw, int dout, int n_t, int in_bytes) {
+// bwd_smem at a tier (`d1` unused), which the wrapper's tier choice reads.
+size_t fused_uvu_conv_bwd_smem(int d1, int shp, int dw, int dout, int n_t, int in_bytes,
+                               int tile_edges, int stage_w, int g_slots) {
   (void)d1;
-  return bwd_smem_base(shp, dout, n_t) + bwd_w_bytes(dw, in_bytes);
+  return bwd_smem(shp, dw, dout, n_t, in_bytes, tile_edges, stage_w, g_slots);
 }
 
 // Launches on `stream`, allocates nothing and returns the cudaError_t of
 // the launch (0 on success). sh and w are float (`in_bytes` 4) or bf16
-// (`in_bytes` 2). `tile_edges` and `warps` are the constants the wrapper
-// built its task table for; they must match this build's. The tile's w rows
-// are staged in shared memory when dx is wanted and they fit beside the rest
-// (they do at every production layer).
+// (`in_bytes` 2). The tier: `tile_edges` edges per tile (16, 8 or 4; the
+// wrapper's task table is built for it), `stage_w` (1: the tile's w rows
+// staged in shared memory, which only dx reads) and `g_slots` (0 to 2);
+// `any_l` (1: the plan has an irrep above l = 4, whose paths take the
+// generic code); `warps` must match this build's. cudaErrorInvalidValue for
+// another tier or a block that would need more shared memory than the
+// device's opt-in limit.
 int fused_uvu_conv_bwd(const float* x, const float* g, const void* sh, const void* w,
                        const int* src, const int* dst, const void* t_meta,
                        const float* cg_t, const int* t_sh, const int* sh_src,
                        const void* groups, const void* paths, const float* path_pw,
                        const void* tasks, const int* warp_ptr, float* dw_out, float* dxe,
                        int n_edges, int d1, int d2, int shp, int dw, int dout, int n_t,
-                       int in_bytes, int tile_edges, int warps, void* stream) {
-  if (tile_edges != BWD_TE || warps != BWD_WARPS || shp % 4 || (in_bytes != 4 && in_bytes != 2))
+                       int in_bytes, int tile_edges, int stage_w, int g_slots, int any_l,
+                       int warps, void* stream) {
+  if (warps != BWD_WARPS || shp % 4 || (in_bytes != 4 && in_bytes != 2) ||
+      (stage_w != 0 && stage_w != 1) || g_slots < 0 || g_slots > BWD_MAX_GSLOTS)
     return (int)cudaErrorInvalidValue;
   if (n_edges == 0) return 0;
   int device = 0, optin = 0;
@@ -350,17 +451,16 @@ int fused_uvu_conv_bwd(const float* x, const float* g, const void* sh, const voi
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return (int)err;
-  size_t smem = bwd_smem_base(shp, dout, n_t);
-  const size_t w_bytes = bwd_w_bytes(dw, in_bytes);
-  const int stage_w = dxe != nullptr && smem + w_bytes <= (size_t)optin;
-  if (stage_w) smem += w_bytes;
+  const size_t smem = bwd_smem(shp, dw, dout, n_t, in_bytes, tile_edges, stage_w, g_slots);
+  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
   return in_bytes == 2
-      ? launch_bwd<__nv_bfloat16>(x, g, sh, w, src, dst, t_meta, cg_t, t_sh, sh_src, groups,
-                                  paths, path_pw, tasks, warp_ptr, dw_out, dxe, n_edges, d1, d2,
-                                  shp, dw, dout, n_t, stage_w, smem, (cudaStream_t)stream)
-      : launch_bwd<float>(x, g, sh, w, src, dst, t_meta, cg_t, t_sh, sh_src, groups, paths,
-                          path_pw, tasks, warp_ptr, dw_out, dxe, n_edges, d1, d2, shp, dw, dout,
-                          n_t, stage_w, smem, (cudaStream_t)stream);
+      ? launch_tier<__nv_bfloat16>(x, g, sh, w, src, dst, t_meta, cg_t, t_sh, sh_src, groups,
+                                   paths, path_pw, tasks, warp_ptr, dw_out, dxe, n_edges, d1, d2,
+                                   shp, dw, dout, n_t, tile_edges, stage_w, g_slots, any_l, smem,
+                                   (cudaStream_t)stream)
+      : launch_tier<float>(x, g, sh, w, src, dst, t_meta, cg_t, t_sh, sh_src, groups, paths,
+                           path_pw, tasks, warp_ptr, dw_out, dxe, n_edges, d1, d2, shp, dw, dout,
+                           n_t, tile_edges, stage_w, g_slots, any_l, smem, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Device code that the fused uvu conv's forward (fused_conv.cu) and its
-// merged backward (fused_conv_bwd.cu) share: both walk runs of at most 16
-// consecutive dst-sorted edges per block, stage the run's sh rows, w rows
-// and the CG blocks contracted with sh (t_e) in shared memory, and read the
-// same per-plan tables (kernels/fused_conv.py::tile_tables).
+// merged backward (fused_conv_bwd.cu) share: both walk runs of at most 16,
+// 8 or 4 consecutive dst-sorted edges per block (the launch's tier), stage
+// the run's sh rows, w rows (where they fit) and the CG blocks contracted
+// with sh (t_e) in shared memory, and read the same per-plan tables
+// (kernels/fused_conv.py::tile_tables).
 //
 //   t_e[i] = sum_{m2} C_i[m2] * sh[e, sh_off(i) + m2]
 //
@@ -21,7 +22,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define CONV_MAX_D 9  // irreps up to l = 4: d1, d2_i, d3 <= 9
+// The largest d1, d2_i and d3 (l <= 4, the production range) of the
+// unrolled fast paths; irreps above l = 4 take the generic paths, which
+// keep at most CONV_MAX_D accumulators in registers for any l.
+#define CONV_MAX_D 9
 
 static __device__ __forceinline__ float to_f32(float v) { return v; }
 static __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -100,16 +104,38 @@ static __device__ __forceinline__ void stage_sh_rows(
 }
 
 // ts[j][i] = t_e[i] of the nj staged edges (row stride ts_stride). One CG
-// entry per thread for all nj edges: its coefficients load once, together,
-// from cg_t [CONV_MAX_D][n_t] (zero past d2_i); the sh segment (t_sh[i]:
+// entry per thread for all nj edges. cg_t is [rows][n_t] (zero past d2_i),
+// rows >= CONV_MAX_D and >= every d2_i rounded up to 4. An entry of
+// d2_i <= CONV_MAX_D loads its CONV_MAX_D coefficients once, together, into
+// registers; with ANY_L (a plan with irreps above l = 4) a larger one loads
+// them 4 at a time, each 4 a pass over the edges. The sh segment (t_sh[i]:
 // where entry i's irrep starts in a padded row) is read 4 floats at a time,
 // and its zero padding adds exact zeros.
-template <int THREADS>
+template <int THREADS, bool ANY_L>
 static __device__ __forceinline__ void contract_te(
     float* ts, int ts_stride, const float* shs, int shp, const int4* __restrict__ t_meta,
     const float* __restrict__ cg_t, const int* __restrict__ t_sh, int n_t, int nj) {
   for (int i = threadIdx.x; i < n_t; i += THREADS) {
     const int d2i = __ldg(t_meta + i).z;
+    if (ANY_L && d2i > CONV_MAX_D) {
+      const float4* y = reinterpret_cast<const float4*>(shs + __ldg(t_sh + i));
+      // 4 coefficients at a time, each chunk a pass over the edges that
+      // adds into their t_e entries
+      for (int q = 0; 4 * q < d2i; ++q) {
+        const float* cq = cg_t + (size_t)(4 * q) * n_t + i;
+        const float c0 = __ldg(cq), c1 = __ldg(cq + n_t), c2 = __ldg(cq + 2 * n_t), c3 = __ldg(cq + 3 * n_t);
+        for (int j = 0; j < nj; ++j) {
+          const float4 v = y[j * (shp / 4) + q];
+          float acc = q ? ts[j * ts_stride + i] : 0.f;
+          acc = fmaf(c0, v.x, acc);
+          acc = fmaf(c1, v.y, acc);
+          acc = fmaf(c2, v.z, acc);
+          acc = fmaf(c3, v.w, acc);
+          ts[j * ts_stride + i] = acc;
+        }
+      }
+      continue;
+    }
     float c[CONV_MAX_D];
 #pragma unroll
     for (int m2 = 0; m2 < CONV_MAX_D; ++m2) c[m2] = __ldg(cg_t + (size_t)m2 * n_t + i);

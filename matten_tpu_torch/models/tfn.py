@@ -111,6 +111,7 @@ def create_tfn_backbone(
         graph_axis=graph_axis,
         graph_shard_mode=graph_shard_mode,
     )
+    convs = []
     for _ in range(hparams.get("num_layers", 3)):
         m = PointConvWithActivation(
             m.irreps_out,
@@ -121,8 +122,14 @@ def create_tfn_backbone(
             **fc,
         )
         layers.append(m)
+        convs.append(m.conv)
     m = PointConv(m.irreps_out, conv_irreps, generator, **fc)
     layers.append(m)
+    convs.append(m)
+    # the layers share one edge plan per forward: its K1 items serve every
+    # layer's tier
+    for conv in convs:
+        conv.peer_plans = tuple(c.uvu_plan for c in convs)
     m = NodewiseLinear(m.irreps_out, head_irreps, generator, out_field=OUT_FIELD)
     layers.append(m)
     if pooling is not None:

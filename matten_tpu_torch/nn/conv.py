@@ -34,7 +34,7 @@ import torch
 
 from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
-from matten_tpu_torch.kernels.fused_conv import edge_plan, fused_uvu_conv
+from matten_tpu_torch.kernels.fused_conv import edge_plan, fused_uvu_conv, item_edges_for
 from matten_tpu_torch.nn.common import check_required, merge_irreps, normal_parameter
 from matten_tpu_torch.nn.gate import ActivationInfo
 from matten_tpu_torch.nn.norm import IrrepsBatchNorm, IrrepsInstanceNorm
@@ -49,11 +49,12 @@ from matten_tpu_torch.parallel.sharding import GRAPH_MODES, NODE_MODES, bound_ax
 
 
 # the conv kernels' edge plan (`kernels.fused_conv.EdgePlan`: the checked
-# edges, the dst CSR, K1's items and, when gradients are recorded, the src
-# order of the backward) in the batch dict: built on the card by the first
-# PointConv of a forward, with the forward's one host sync, and read by the
-# others, which share the edges; under "node_ring" a tuple of one
-# (src - g * c, dst, plan or None) per ring group g
+# edges, the dst CSR, K1's items at the item sizes of every layer's tier
+# and, when gradients are recorded, the src order of the backward) in the
+# batch dict: built on the card by the first PointConv of a forward, with
+# the forward's one host sync, and read by the others, which share the
+# edges; under "node_ring" a tuple of one (src - g * c, dst, plan or None)
+# per ring group g
 EDGE_PLAN = "edge_plan"
 
 
@@ -69,10 +70,11 @@ def _conv_plans(
     return sc, lin1, uvu, lin2
 
 
-def _ring_groups(data: Dict, sg: int, c: int):
+def _ring_groups(data: Dict, sg: int, c: int, peer_plans):
     """The ring layout's edge groups, one per source chunk g: (src - g * c,
     dst, edge plan on the card or None), each group's indices contiguous;
-    built by the first conv of a forward and shared by the others."""
+    built by the first conv of a forward, with K1's items for the tiers of
+    `peer_plans`, and shared by the others."""
     if EDGE_PLAN in data:
         return data[EDGE_PLAN]
     src, dst = data[K.EDGE_INDEX]
@@ -81,7 +83,8 @@ def _ring_groups(data: Dict, sg: int, c: int):
     for g in range(sg):
         s = (src[g * cap2:(g + 1) * cap2] - g * c).contiguous()
         d = dst[g * cap2:(g + 1) * cap2].contiguous()
-        plan = edge_plan(s, d, c, c, with_src_order=torch.is_grad_enabled()) if s.is_cuda else None
+        plan = edge_plan(s, d, c, c, with_src_order=torch.is_grad_enabled(),
+                         item_edges=item_edges_for(peer_plans, s.device)) if s.is_cuda else None
         groups.append((s, d, plan))
     data[EDGE_PLAN] = tuple(groups)
     return data[EDGE_PLAN]
@@ -120,6 +123,10 @@ class PointConv(torch.nn.Module):
             Irreps(self.irreps_in[K.EDGE_ATTRS]),
             self.conv_layer_irreps,
         )
+        # the uvu plans of every conv layer that shares this layer's edge
+        # plan (the backbone sets its layers'): whichever layer builds it
+        # lays out K1's items for all their tiers
+        self.peer_plans: Tuple[TensorProductPlan, ...] = (self.uvu_plan,)
         self._onehot_attrs = all(
             p.in2_is_onehot_compatible for p in (self.sc_plan, self.lin1_plan, self.lin2_plan)
         )
@@ -163,7 +170,7 @@ class PointConv(torch.nn.Module):
             chunk, agg = feats.contiguous(), None
             for k in range(sg):
                 g = (axis.index - k) % sg
-                g_src, g_dst, plan = _ring_groups(data, sg, num_nodes)[g]
+                g_src, g_dst, plan = _ring_groups(data, sg, num_nodes, self.peer_plans)[g]
                 rows = slice(g * cap2, (g + 1) * cap2)
                 part = fused_uvu_conv(self.uvu_plan, chunk, sh[rows], edge_weights[rows], g_src, g_dst,
                                       num_nodes, plan)
@@ -179,6 +186,7 @@ class PointConv(torch.nn.Module):
                 data[EDGE_PLAN] = edge_plan(
                     src.contiguous(), dst.contiguous(), x.shape[0], num_nodes,
                     with_src_order=torch.is_grad_enabled(),
+                    item_edges=item_edges_for(self.peer_plans, src.device),
                 )
             edges = data.get(EDGE_PLAN)
             if edges is not None:

@@ -137,13 +137,14 @@ def test_launch_takes_sh_and_w_in_one_storage_dtype():
     another dtype, is refused before anything is built."""
     _, pt, a, _ = _setup(53, 24, 24)
     t = {k: torch.as_tensor(v) for k, v in a.items()}
+    edges = fused_conv.edge_plan(t["src"], t["dst"], 24, 24)
     with pytest.raises(TypeError, match="w is torch.float32"):
-        fused_conv._launch(pt, t["x"], t["sh"].bfloat16(), t["w"], t["src"], t["dst"], 24)
+        fused_conv._launch(pt, t["x"], t["sh"].bfloat16(), t["w"], edges)
     with pytest.raises(TypeError, match="sh is torch.float16"):
-        fused_conv._launch(pt, t["x"], t["sh"].half(), t["w"].half(), t["src"], t["dst"], 24)
+        fused_conv._launch(pt, t["x"], t["sh"].half(), t["w"].half(), edges)
     g = torch.zeros(24, pt.irreps_out.dim)
     with pytest.raises(TypeError, match="w is torch.bfloat16"):
-        fused_conv._launch_bwd(pt, t["x"], g, t["sh"], t["w"].bfloat16(), t["src"], t["dst"], 24)
+        fused_conv._launch_bwd(pt, t["x"], g, t["sh"], t["w"].bfloat16(), edges)
 
 
 @pytest.mark.parametrize("avg", [30.0, None])

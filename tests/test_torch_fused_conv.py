@@ -10,11 +10,14 @@ atol=1e-4 after scaling by max(|ref|, 1), as the JAX package's own gradient
 tests.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from matten_tpu.kernels.fused_conv import _reference, fused_uvu_conv, fused_uvu_conv_t
 from matten_tpu.ops import tensor_product as jtp
@@ -24,8 +27,24 @@ from matten_tpu_torch.ops import tensor_product as ttp
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_blas_threads():
+    """The l=5 CG blocks are SVDs of matrices up to 4000 x 1331 (the JAX
+    package's `wigner_3j`). Under the suite's parallel workers, OpenBLAS
+    threads that spin on every core slow them a hundredfold; two threads
+    per worker keep them near their single-process time (and converge for
+    every l <= 5 block, which one thread does not for (2, 4, 4))."""
+    with threadpool_limits(limits=2, user_api="blas"):
+        yield
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 IR1, IR2 = Irreps("8x0e+4x1o+2x2e"), Irreps("0e+1o+2e")
+# a plan above l=4, which the kernels' generic paths take: d1 and d3 up to
+# 11, an sh irrep of 11 components
+L5_IR1, L5_IR2 = Irreps("2x0e+1x1o+1x5o+1x5e"), Irreps("0e+1o+2e+3o+4e+5o")
+# the edges per K1 item and per backward tile of the kernels' tiers
+TIER_EDGES = (16, 8, 4)
 
 
 def _setup(seed, n_in=24, n_out=24, e=96, ir1=IR1, ir2=IR2, out=None):
@@ -46,11 +65,13 @@ def _torch(arrs, device="cpu"):
     return {k: torch.as_tensor(v, device=device) for k, v in arrs.items()}
 
 
-@pytest.mark.parametrize("n_in,n_out", [(24, 24), (32, 16)])
-def test_reference_matches_jax_fused_kernel_and_reference(n_in, n_out):
+@pytest.mark.parametrize("n_in,n_out,ir1,ir2", [(24, 24, IR1, IR2), (32, 16, IR1, IR2),
+                                               (24, 24, L5_IR1, L5_IR2)], ids=["24", "halo", "l5"])
+def test_reference_matches_jax_fused_kernel_and_reference(n_in, n_out, ir1, ir2):
     """Plain version == JAX K1 (Pallas interpret mode, block 16) == JAX
-    `_reference`, including a halo-style n_in != n_out."""
-    pj, pt, a, n = _setup(21, n_in=n_in, n_out=n_out)
+    `_reference`, including a halo-style n_in != n_out and a plan above
+    l=4."""
+    pj, pt, a, n = _setup(21, n_in=n_in, n_out=n_out, ir1=ir1, ir2=ir2, out=ir1)
     j = {k: jnp.asarray(v) for k, v in a.items()}
     ref_kernel = np.asarray(
         fused_uvu_conv_t(pj, j["x"], j["sh"], j["w"].T, j["src"], j["dst"],
@@ -107,6 +128,7 @@ def _emulate_kernel(plan, x, sh, w, src, dst, n_out):
             Irreps("0e+1o+2e"),
             Irreps("4x0o+4x0e+2x1o+2x1e+1x2o+1x2e"),
         ),
+        (L5_IR1, L5_IR2, L5_IR1),
     ],
 )
 def test_kernel_tables_reproduce_the_plain_version(ir1, ir2, out):
@@ -118,31 +140,31 @@ def test_kernel_tables_reproduce_the_plain_version(ir1, ir2, out):
 
 
 def test_launch_rejects_bad_inputs():
-    """K1's launch without an edge plan builds one, which checks the
-    indices; given a plan, it checks that the plan is the edges'."""
+    """K1's launch takes the edges as an edge plan, whose build checks the
+    indices, and checks x, sh and w against it; a call's plan must be for
+    its node and edge counts."""
     _, pt, a, n = _setup(24)
     t = _torch(a)
-    args = [t["x"], t["sh"], t["w"], t["src"], t["dst"]]
-    bad_dtype = [t["x"].double()] + args[1:]
+    edges = fused_conv.edge_plan(t["src"], t["dst"], 24, n)
+    args = [t["x"], t["sh"], t["w"]]
     with pytest.raises(TypeError):
-        fused_conv._launch(pt, *bad_dtype, n)
-    bad_layout = args[:2] + [t["w"].t().contiguous().t()] + args[3:]
+        fused_conv._launch(pt, t["x"].double(), *args[1:], edges)
     with pytest.raises(ValueError, match="contiguous"):
-        fused_conv._launch(pt, *bad_layout, n)
-    unsorted = args[:4] + [t["dst"].flip(0).contiguous()]
+        fused_conv._launch(pt, *args[:2], t["w"].t().contiguous().t(), edges)
     with pytest.raises(ValueError, match="non-decreasing"):
-        fused_conv._launch(pt, *unsorted, n)
-    out_of_range = args[:3] + [(t["src"] + 24).contiguous(), t["dst"]]
+        fused_conv.edge_plan(t["src"], t["dst"].flip(0).contiguous(), 24, n)
     with pytest.raises(ValueError, match="src in"):
-        fused_conv._launch(pt, *out_of_range, n)
+        fused_conv.edge_plan((t["src"] + 24).contiguous(), t["dst"], 24, n)
     with pytest.raises(ValueError, match="shape"):
-        fused_conv._launch(pt, args[0][:, :-1].contiguous(), *args[1:], n)
+        fused_conv._launch(pt, args[0][:, :-1].contiguous(), *args[1:], edges)
+    with pytest.raises(ValueError, match="shape"):
+        fused_conv._launch(pt, *args[:2], t["w"][:-1].contiguous(), edges)
     other = fused_conv.edge_plan(t["src"], t["dst"], 24, n + 1)
     with pytest.raises(ValueError, match="edge plan"):
-        fused_conv._launch(pt, *args, n, other)
+        fused_conv._plan_for("fused_uvu_conv", t["src"], t["dst"], 24, n, other)
     with pytest.raises(ValueError, match="edge plan"):
-        fused_conv._launch(pt, *args[:3], t["src"].clone(), t["dst"], n,
-                           fused_conv.edge_plan(t["src"], t["dst"], 24, n))
+        fused_conv._plan_for("uvu_conv_bwd", t["src"][:-1], t["dst"][:-1], 24, n, edges)
+    assert fused_conv._plan_for("fused_uvu_conv", t["src"], t["dst"], 24, n, edges) is edges
 
 
 def test_edge_plan_rejects_bad_edges():
@@ -160,27 +182,128 @@ def test_edge_plan_rejects_bad_edges():
         fused_conv.edge_plan(src, dst[:3], 4, 4)
 
 
-def _replay_forward(plan, x, sh, w, edges):
-    """K1's item pass read off its tables, lane by lane, in float64: each
-    block finds its item (node, first edge) by the kernel's binary search
-    over item_ptr; each K1 warp task's lanes (channel u0 + lane % nu, edges
-    lane // nu, + ne, ...) sum their channel's d3 outputs over their edges,
-    the edge groups are added, and pw times the sum is the item's partial
-    row. Returns the partial rows, the writes to each entry, and each
-    item's (node, first edge, edge count)."""
-    tab, tt = fused_conv.kernel_tables(plan), fused_conv.tile_tables(plan)
+def test_edge_plan_reads_every_item_count_in_one_sync(monkeypatch):
+    """K1's items at 16 edges and at the smaller tiers' 8 and 4: each
+    item_ptr = cumsum(ceil(deg / te)), and all their counts come back with
+    the index check in one read to the host."""
+    deg = np.array([0, 1, 16, 0, 17, 159])
+    dst = torch.as_tensor(np.repeat(np.arange(len(deg)), deg).astype(np.int32))
+    src = torch.as_tensor(np.random.default_rng(39).integers(0, 9, len(dst)).astype(np.int32))
+    reads = []
+    for name in ("tolist", "item", "__bool__", "__int__", "__float__"):
+        orig = getattr(torch.Tensor, name)
+        monkeypatch.setattr(torch.Tensor, name,
+                            lambda self, *a, _o=orig, _n=name: reads.append(_n) or _o(self, *a))
+    plan = fused_conv.edge_plan(src, dst, 9, len(deg), item_edges=(8, 4))
+    monkeypatch.undo()
+    assert reads == ["tolist"]
+    assert sorted(plan.item_ptrs) == sorted(plan.item_counts) == [4, 8, 16]
+    for te in TIER_EDGES:
+        item_ptr, n_items = plan.items(te)
+        np.testing.assert_array_equal(item_ptr.numpy(), np.concatenate([[0], np.cumsum(-(-deg // te))]))
+        assert n_items == int((-(-deg // te)).sum())
+    assert plan.n_items == 14 and plan.item_ptr is plan.item_ptrs[16]
+    with pytest.raises(ValueError, match="not 2"):
+        plan.items(2)
+    with pytest.raises(ValueError, match="not 8"):
+        fused_conv.edge_plan(src, dst, 9, len(deg)).items(8)
+
+
+# ---------------------------------------------------------------- tiers
+
+# the shared memory a block of an H100 may opt in to: 227 KiB
+H100_SMEM = 232448
+# each conv layer's (K1 tier, backward tier) at H100_SMEM, by storage bytes
+# of sh and w; every other configuration keeps the first tiers
+PRODUCTION_TIERS = ["te16+w", "te16+w+g2"]
+WIDE_TIERS = {
+    ("sh5", 4): [PRODUCTION_TIERS, PRODUCTION_TIERS, ["te16+w", "te16-w+g2"], ["te16-w", "te16-w+g2"]],
+    ("sh5", 2): [PRODUCTION_TIERS] * 4,
+    ("x2", 4): [PRODUCTION_TIERS, PRODUCTION_TIERS, ["te16-w", "te16-w+g2"], ["te16-w", "te16-w+g2"]],
+    ("x2", 2): [PRODUCTION_TIERS, PRODUCTION_TIERS, ["te16+w", "te16-w+g2"], ["te16+w", "te16-w+g2"]],
+    ("sh5conv5", 4): [PRODUCTION_TIERS, ["te8+w", "te8-w+g2"], ["te8+w", "te8-w+g1"], ["te8+w", "te8-w+g1"]],
+    ("sh5conv5", 2): [PRODUCTION_TIERS, ["te8+w", "te8+w+g2"], ["te8+w", "te8+w+g1"], ["te8+w", "te8-w+g1"]],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _model_conv_plans(name):
+    """The conv layers' uvu plans of a configuration chip_smoke.py runs on
+    the card: the production, NMR and variants models, and phase 25's."""
+    import chip_smoke as cs
+    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
+
+    if name == "nmr":
+        model = create_atomic_tensor_model(cs.NMR_HPARAMS, cs.DATASET_HPARAMS, device="cpu")
+    elif name == "variants":
+        model = create_scalar_tensor_model(*cs.variant_hparams(), device="cpu")
+    else:
+        model = create_scalar_tensor_model(cs.WIDE_CONFIGS.get(name, cs.HPARAMS), cs.DATASET_HPARAMS,
+                                           device="cpu")
+    return tuple(c.uvu_plan for c in cs.conv_layers(model))
+
+
+@pytest.mark.parametrize("in_bytes", [4, 2], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", ["production", "nmr", "variants", "sh5", "x2", "sh5conv5"])
+def test_tier_choice_at_the_h100_limit(name, in_bytes):
+    """Each conv layer's tiers from the shared-memory mirrors at an H100's
+    227 KiB: the production, NMR and variants plans keep the first tiers
+    (16 edges, w staged, 2 g slots); the wider ones take the first smaller
+    tier that fits, as the bytes per block imply. Each tier's bytes are
+    the mirror's and within the limit; the edge plan's item sizes follow."""
+    plans = _model_conv_plans(name)
+    expect = WIDE_TIERS.get((name, in_bytes), [PRODUCTION_TIERS] * len(plans))
+    got = []
+    for plan in plans:
+        fwd, bwd = fused_conv.choose_tiers(plan, in_bytes, H100_SMEM)
+        dims = fused_conv._smem_dims(plan)
+        assert fwd.smem == fused_conv.fwd_smem(*dims, in_bytes, fwd.edges, fwd.stage_w) <= H100_SMEM
+        assert bwd.smem == fused_conv.bwd_smem(*dims, in_bytes, bwd.edges, bwd.stage_w, bwd.g_slots) <= H100_SMEM
+        # the first tier that fits: every earlier one is past the limit
+        earlier = fused_conv.FWD_TIERS[:fused_conv.FWD_TIERS.index((fwd.edges, fwd.stage_w))]
+        assert all(fused_conv.fwd_smem(*dims, in_bytes, te, sw) > H100_SMEM for te, sw in earlier)
+        got.append([fwd.label("fwd"), bwd.label("bwd")])
+    assert got == expect
+
+
+def test_a_plan_that_fits_no_tier_raises_with_its_needs():
+    """The production L3 plan under a limit below its smallest tiers: the
+    choice raises, naming the bytes K1 needs at its smallest tier; one
+    byte more and both kernels run their smallest tiers (4 edges, nothing
+    staged but t_e, the sh rows and, for K1, the x rows)."""
+    plan = _model_conv_plans("production")[-1]
+    dims = fused_conv._smem_dims(plan)
+    smallest = fused_conv.fwd_smem(*dims, 4, 4, False)
+    with pytest.raises(ValueError, match=f"fused_uvu_conv_fwd: .* needs {smallest} B .* allows {smallest - 1} B"):
+        fused_conv.choose_tiers(plan, 4, smallest - 1)
+    fwd, bwd = fused_conv.choose_tiers(plan, 4, smallest)
+    assert (fwd.label("fwd"), bwd.label("bwd")) == ("te4-w", "te4-w+g0")
+
+
+def _replay_forward(plan, x, sh, w, edges, te=16):
+    """K1's item pass at items of `te` edges read off its tables, lane by
+    lane, in float64: each block finds its item (node, first edge) by the
+    kernel's binary search over item_ptr; each K1 warp task's lanes
+    (channel u0 + lane % nu, edges lane // nu, + ne, ...) sum their
+    channel's d3 outputs over their edges, the edge groups are added, and
+    pw times the sum is the item's partial row. Returns the partial rows,
+    the writes to each entry, and each item's (node, first edge, edge
+    count)."""
+    tab, tt = fused_conv.kernel_tables(plan), fused_conv.tile_tables(plan, fwd_edges=te)
+    assert tt.fwd_edges == te
     x, sh, w = (a.double().numpy() for a in (x, sh, w))
     src = edges.src.numpy()
-    row_ptr, item_ptr = edges.row_ptr.numpy(), edges.item_ptr.numpy()
+    item_ptr, n_items = edges.items(te)
+    row_ptr, item_ptr = edges.row_ptr.numpy(), item_ptr.numpy()
     sh_pad = np.where(tt.sh_src >= 0, sh[:, np.maximum(tt.sh_src, 0)], 0.0)
     t = np.zeros((sh.shape[0], tab.t_meta.shape[0]))
     for i, (_, _, d2, _) in enumerate(tab.t_meta):
         t[:, i] = sh_pad[:, tt.t_sh[i] : tt.t_sh[i] + d2] @ tt.cg_t[:d2, i]
-    te, dout = fused_conv.FWD_ITEM_EDGES, plan.irreps_out.dim
-    partial = np.zeros((edges.n_items, dout))
+    dout = plan.irreps_out.dim
+    partial = np.zeros((n_items, dout))
     writes = np.zeros(partial.shape, int)
     spans = []
-    for item in range(edges.n_items):
+    for item in range(n_items):
         lo, hi = 0, edges.n_out
         while hi - lo > 1:
             mid = (lo + hi) // 2
@@ -190,7 +313,7 @@ def _replay_forward(plan, x, sh, w, edges):
         spans.append((lo, e0, nj))
         for q, gi, tu, tn in tt.fwd_tasks:
             nu, u0, n_u, ne = tu >> 16, tu & 0xFFFF, tn & 0xFFFF, tn >> 16
-            assert nu & (nu - 1) == 0 and n_u <= nu and nu * ne <= 32
+            assert nu & (nu - 1) == 0 and n_u <= nu and nu * ne <= 32 and ne <= te
             x_off, d1, _, _ = tt.groups[gi]
             o_off, t_off, w_off, d3 = tt.paths[q]
             for du in range(n_u):
@@ -213,31 +336,34 @@ def _replay_forward(plan, x, sh, w, edges):
         (IR1, IR2, IR1),
         # 3x: a channel count that is no power of two (nu = 4, one idle lane)
         (Irreps("3x0e+2x1o"), Irreps("0e+1o+2e"), Irreps("3x0e+2x1o+1x2e")),
+        (L5_IR1, L5_IR2, L5_IR1),
     ],
 )
-def test_k1_item_map_and_partial_rows_reproduce_the_plain_version(ir1, ir2, out):
+@pytest.mark.parametrize("te", TIER_EDGES)
+def test_k1_item_map_and_partial_rows_reproduce_the_plain_version(ir1, ir2, out, te):
     """Destinations of degree 0, 1, 16, 0, 17 and 159 (E = 193, no multiple
-    of 16): the items partition the edges in order, at most 16 edges of
-    one destination each, ceil(deg / 16) per destination; the replayed
-    partial rows, each entry written once, summed per destination in item
-    order, give the plain version."""
+    of 16), items of `te` edges: the items partition the edges in order, at
+    most te edges of one destination each, ceil(deg / te) per destination;
+    the replayed partial rows, each entry written once, summed per
+    destination in item order, give the plain version."""
     deg = np.array([0, 1, 16, 0, 17, 159])
     n_out, n_in = len(deg), 9
     dst = np.repeat(np.arange(n_out), deg).astype(np.int32)
     _, pt, a, _ = _setup(38, n_in=n_in, n_out=n_out, e=len(dst), ir1=ir1, ir2=ir2, out=out)
     a["dst"] = dst
     t = _torch(a)
-    edges = fused_conv.edge_plan(t["src"], t["dst"], n_in, n_out)
-    np.testing.assert_array_equal(edges.item_ptr.numpy(), np.concatenate([[0], np.cumsum(-(-deg // 16))]))
-    partial, writes, spans = _replay_forward(pt, t["x"], t["sh"], t["w"], edges)
-    assert edges.n_items == len(spans) == 14
+    edges = fused_conv.edge_plan(t["src"], t["dst"], n_in, n_out, item_edges=(te,))
+    item_ptr, n_items = edges.items(te)
+    np.testing.assert_array_equal(item_ptr.numpy(), np.concatenate([[0], np.cumsum(-(-deg // te))]))
+    partial, writes, spans = _replay_forward(pt, t["x"], t["sh"], t["w"], edges, te)
+    assert n_items == len(spans) == int((-(-deg // te)).sum())
     covered = np.concatenate([np.arange(e0, e0 + nj) for _, e0, nj in spans])
     np.testing.assert_array_equal(covered, np.arange(len(dst)))
     for node, e0, nj in spans:
-        assert 1 <= nj <= 16 and (dst[e0 : e0 + nj] == node).all()
+        assert 1 <= nj <= te and (dst[e0 : e0 + nj] == node).all()
     assert (writes == 1).all()
     # index_add_ on the CPU adds the rows one after another, in item order
-    item_node = torch.repeat_interleave(torch.arange(n_out), (edges.item_ptr[1:] - edges.item_ptr[:-1]).long())
+    item_node = torch.repeat_interleave(torch.arange(n_out), (item_ptr[1:] - item_ptr[:-1]).long())
     got = torch.zeros(n_out, partial.shape[1], dtype=torch.float64).index_add_(
         0, item_node, torch.as_tensor(partial))
     ref = fused_conv.uvu_conv_reference(pt, t["x"], t["sh"], t["w"], t["src"], t["dst"], n_out)
@@ -353,15 +479,16 @@ def test_gradient_matches_jax_chunked_backward():
     _assert_grads_close((dx_plain, dw_plain), (gx, gw[order]))
 
 
-def _replay_backward(plan, x, g, sh, w, src, dst, n_in):
+def _replay_backward(plan, x, g, sh, w, src, dst, n_in, te=16):
     """The merged backward kernel's arithmetic read off its tables, lane by
-    lane, in float64: tiles of BWD_TILE_EDGES edges (the last one partial);
+    lane, in float64: tiles of `te` edges (the last one partial);
     t_e = CG blocks . sh from `cg_t` and the sh rows padded per irrep to 4
     floats (`sh_src`, `t_sh`); each warp's tasks, each lane = (channel
     u0 + lane % nu, edge j0 + lane // nu) over its irrep's paths (Y, dw and
     the channel's dx); then the segment sum over `src_order`. Also counts
     the writes to every entry of dxe and dw."""
-    tab, bt = fused_conv.kernel_tables(plan), fused_conv.tile_tables(plan)
+    tab, bt = fused_conv.kernel_tables(plan), fused_conv.tile_tables(plan, bwd_edges=te)
+    assert bt.bwd_edges == te
     order = fused_conv.src_order(src, n_in)
     x, g, sh, w = (a.double().numpy() for a in (x, g, sh, w))
     src, dst = src.numpy(), dst.numpy()
@@ -373,13 +500,16 @@ def _replay_backward(plan, x, g, sh, w, src, dst, n_in):
         t[:, i] = sh_pad[:, bt.t_sh[i] : bt.t_sh[i] + d2] @ bt.cg_t[:d2, i]
     dxe, dw = np.zeros((n_e, d1)), np.zeros_like(w)
     writes_dxe, writes_dw = np.zeros(dxe.shape, int), np.zeros(dw.shape, int)
-    te = fused_conv.BWD_TILE_EDGES
     for tile0 in range(0, n_e, te):
         nj = min(te, n_e - tile0)
         for k in range(bt.warp_ptr[-1]):
-            tu, grp, u_count, tj = (int(v) for v in bt.tasks[k])
-            nu = tu >> 16
+            tu, grp, tz, tj = (int(v) for v in bt.tasks[k])
+            nu, u_count = tu >> 16, tz & 0xFFFF
             x_off, gd1, q0, q1 = (int(v) for v in bt.groups[grp])
+            # the generic path's flag: d1 or a path's d3 above the unrolled ones
+            assert tz >> 16 == (max([gd1] + [int(bt.paths[q][3]) for q in range(q0, q1)])
+                                > fused_conv.CONV_MAX_D)
+            assert (tj & 0xFFFF) < te and (tj >> 16) <= te
             for lane in range(32):
                 du, dj = lane % nu, lane // nu
                 j = (tj & 0xFFFF) + dj
@@ -410,14 +540,17 @@ def _replay_backward(plan, x, g, sh, w, src, dst, n_in):
             Irreps("0e+1o+2e"),
             Irreps("4x0o+4x0e+2x1o+2x1e+1x2o+1x2e"),
         ),
+        (L5_IR1, L5_IR2, L5_IR1),
     ],
 )
-def test_backward_tables_reproduce_the_plain_versions(ir1, ir2, out):
-    """40 edges: two full tiles and a partial one; n_in != n_out."""
-    _, pt, a, n = _setup(33, n_in=7, n_out=5, e=40, ir1=ir1, ir2=ir2, out=out)
+@pytest.mark.parametrize("te", TIER_EDGES)
+def test_backward_tables_reproduce_the_plain_versions(ir1, ir2, out, te):
+    """42 edges in tiles of `te`: full tiles and a partial one at every
+    tile size; n_in != n_out."""
+    _, pt, a, n = _setup(33, n_in=7, n_out=5, e=42, ir1=ir1, ir2=ir2, out=out)
     t = _torch(a)
     g = torch.as_tensor(np.random.default_rng(34).normal(size=(n, pt.irreps_out.dim)).astype(np.float32))
-    dx, dw, writes_dxe, writes_dw = _replay_backward(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 7)
+    dx, dw, writes_dxe, writes_dw = _replay_backward(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 7, te)
     dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(pt, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 7)
     np.testing.assert_allclose(dx, dx_ref.numpy(), **TOL)
     np.testing.assert_allclose(dw, dw_ref.numpy(), **TOL)
@@ -456,7 +589,7 @@ def test_backward_launches_reject_bad_inputs():
     g = torch.ones(n, pt.irreps_out.dim)
 
     def launch(g=g, dst=t["dst"]):
-        fused_conv._launch_bwd(pt, t["x"], g, t["sh"], t["w"], t["src"], dst, 24)
+        fused_conv._launch_bwd(pt, t["x"], g, t["sh"], t["w"], fused_conv.edge_plan(t["src"], dst, 24, n))
 
     with pytest.raises(TypeError):
         launch(g=g.double())

@@ -336,28 +336,157 @@ def test_segment_sum_matches_index_add_in_both_roles(dev, width):
     assert bool((out[torch.as_tensor(counts == 0, device=dev)] == 0).all())
 
 
-def test_k1_and_backward_with_an_edge_plan_do_not_sync(dev):
+@pytest.mark.parametrize("te", [16, 8, 4])
+def test_k1_and_backward_with_an_edge_plan_do_not_sync(dev, te):
     """Given the batch's edge plan, K1's launches and the backward's run
     without a host sync (torch.cuda.set_sync_debug_mode("error") raises on
-    one); the first calls, which build the kernels and copy the plan's
-    tables to the card, run before."""
+    one), at K1 items of `te` edges (a smaller tier forced by a smaller
+    shared-memory limit); the first calls, which build the kernels and
+    copy the plan's tables to the card, run before."""
     plan, t = _inputs(dev, 14, 300, 300, 5000)
+    dims = fused_conv._smem_dims(plan)
+    limit = None if te == 16 else fused_conv.fwd_smem(*dims, 4, te, True)
     g = torch.randn(300, plan.irreps_out.dim, device=dev)
-    edges = fused_conv.edge_plan(t["src"], t["dst"], 300, 300, with_src_order=True)
     args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"])
-    fused_conv.fused_uvu_conv(*args, 300, edges)
-    fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300, edges)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        out = fused_conv.fused_uvu_conv(*args, 300, edges)
-        dx, dw = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300, edges)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+    with fused_conv.smem_limit(limit):
+        assert fused_conv.launch_tiers(plan, dev)[0].edges == te
+        edges = fused_conv.edge_plan(t["src"], t["dst"], 300, 300, with_src_order=True,
+                                     item_edges=fused_conv.item_edges_for((plan,), dev))
+        fused_conv.fused_uvu_conv(*args, 300, edges)
+        fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300, edges)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fused_conv.fused_uvu_conv(*args, 300, edges)
+            dx, dw = fused_conv.uvu_conv_bwd(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300, edges)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
     np.testing.assert_allclose(out.cpu().numpy(), fused_conv.uvu_conv_reference(*args, 300).cpu().numpy(), **TOL)
     dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], 300)
     _assert_rel(dx, dx_ref)
     _assert_rel(dw, dw_ref)
+
+
+# the kernels' generic paths: d1 and d3 up to 11, an sh irrep of 11
+L5_IR1, L5_IR2 = Irreps("2x0e+1x1o+1x5o+1x5e"), Irreps("0e+1o+2e+3o+4e+5o")
+
+
+def _tier_plans(dev):
+    """A plan above l=4, and the last conv layer of chip_smoke.py's "x2"
+    configuration (the production multiplicities doubled)."""
+    import chip_smoke as cs
+    from matten_tpu_torch.models import create_scalar_tensor_model
+
+    x2 = create_scalar_tensor_model(cs.WIDE_CONFIGS["x2"], dict(allowed_species=list(SPECIES_5)), device=dev)
+    return {"l5": uvu_tp_plan(L5_IR1, L5_IR2, L5_IR1), "x2": _conv_plans(x2)[-1]}
+
+
+def _tier_limits(plan, in_bytes, optin):
+    """Every tier's bytes per block up to the device's opt-in limit, largest
+    first: under each as the limit the tier choice takes that tier or a
+    smaller one."""
+    dims = fused_conv._smem_dims(plan)
+    limits = {fused_conv.fwd_smem(*dims, in_bytes, te, sw) for te, sw in fused_conv.FWD_TIERS}
+    limits |= {fused_conv.bwd_smem(*dims, in_bytes, te, sw, g)
+               for te, g in fused_conv.BWD_TIERS for sw in (False, True)}
+    return sorted((b for b in limits if b <= optin), reverse=True)
+
+
+@pytest.mark.parametrize("in_bytes", [4, 2], ids=["float32", "bf16"])
+@pytest.mark.parametrize("name", ["l5", "x2"])
+def test_every_tier_matches_plain_and_is_bitwise_deterministic(dev, name, in_bytes):
+    """K1 (item pass and sum) and the merged backward (dx and dw) at each
+    tier a smaller shared-memory limit forces (`smem_limit`): against their
+    plain versions at the same storage rounding, two runs bitwise equal,
+    one launch counted at the tier the choice names. The limits reach every
+    K1 tier that fits the device, every tile size and g-slot count of the
+    backward, and the backward with and without its w rows staged."""
+    from matten_tpu_torch.kernels import fused_tp
+
+    plan = _tier_plans(dev)[name]
+    rng = np.random.default_rng(41)
+    n = 48
+    # degrees up to ~100: items of every size span several per destination
+    dst = np.sort(np.concatenate([rng.integers(0, n - 4, 1500), np.full(97, 5)]))
+    t = _inputs_on_graph(dev, 42, plan, n, rng.integers(0, n, len(dst)), dst)
+    g = torch.as_tensor(rng.normal(size=(n, plan.irreps_out.dim)).astype(np.float32), device=dev)
+    args = (plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], n)
+    bargs = (plan, t["x"], g, t["sh"], t["w"], t["src"], t["dst"], n)
+    kind = "" if in_bytes == 4 else "_bf16"
+    ran = {"fwd": set(), "bwd": set()}
+    fused_tp.set_kernel_in_dtype("float32" if in_bytes == 4 else "bfloat16")
+    try:
+        ref = fused_conv.uvu_conv_reference(*args)
+        dx_ref, dw_ref = fused_conv.uvu_conv_bwd_reference(*bargs)
+        optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+        for limit in _tier_limits(plan, in_bytes, optin):
+            try:
+                fwd, bwd = fused_conv.choose_tiers(plan, in_bytes, limit)
+            except ValueError:
+                continue
+            labels = (("fwd" + kind, fwd.label("fwd")), ("bwd" + kind, bwd.label("bwd")))
+            before = [fused_conv.tier_launches[k] for k in labels]
+            with fused_conv.smem_limit(limit):
+                assert fused_conv.launch_tiers(plan, dev) == (fwd, bwd)
+                edges = fused_conv.edge_plan(t["src"], t["dst"], n, n, with_src_order=True,
+                                             item_edges=fused_conv.item_edges_for((plan,), dev))
+                out, out2 = (fused_conv.fused_uvu_conv(*args, edges) for _ in range(2))
+                (dx, dw), (dx2, dw2) = (fused_conv.uvu_conv_bwd(*bargs, edges) for _ in range(2))
+            torch.cuda.synchronize()
+            assert [fused_conv.tier_launches[k] for k in labels] == [b + 2 for b in before], (limit, labels)
+            _assert_rel(out, ref)
+            _assert_rel(dx, dx_ref)
+            _assert_rel(dw, dw_ref)
+            assert torch.equal(out, out2) and torch.equal(dx, dx2) and torch.equal(dw, dw2)
+            ran["fwd"].add((fwd.edges, fwd.stage_w))
+            ran["bwd"].add((bwd.edges, bwd.stage_w, bwd.g_slots))
+    finally:
+        fused_tp.set_kernel_in_dtype("float32")
+    dims = fused_conv._smem_dims(plan)
+    assert ran["fwd"] == {(te, sw) for te, sw in fused_conv.FWD_TIERS
+                          if fused_conv.fwd_smem(*dims, in_bytes, te, sw) <= optin}
+    assert {te for te, _, _ in ran["bwd"]} == {16, 8, 4}
+    assert {g for _, _, g in ran["bwd"]} == {2, 1, 0}
+    assert {sw for _, sw, _ in ran["bwd"]} == {True, False}
+
+
+def test_smem_mirrors_match_the_library(dev):
+    """The Python mirrors of the kernels' shared-memory needs equal the C
+    library's at every tier, for the production, l=5 and x2 plans at both
+    storage widths; the device's tiers are the mirror's choice at its
+    opt-in limit."""
+    from matten_tpu_torch.kernels._build import load_library
+
+    lib = load_library()
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    plans = [*_production_plans(dev), *_tier_plans(dev).values()]
+    for plan in plans:
+        dims = fused_conv._smem_dims(plan)
+        for in_bytes in (4, 2):
+            for te in (16, 8, 4):
+                for sw in (False, True):
+                    assert lib.fused_uvu_conv_fwd_smem(*dims, in_bytes, te, sw, 0) == \
+                        fused_conv.fwd_smem(*dims, in_bytes, te, sw)
+                    for g in (0, 1, 2):
+                        assert lib.fused_uvu_conv_bwd_smem(*dims, in_bytes, te, sw, g) == \
+                            fused_conv.bwd_smem(*dims, in_bytes, te, sw, g)
+            assert fused_conv.launch_tiers(plan, dev, in_bytes) == fused_conv.choose_tiers(plan, in_bytes, limit)
+    # every production plan runs the first tiers
+    for plan in _production_plans(dev):
+        fwd, bwd = fused_conv.launch_tiers(plan, dev, 4)
+        assert (fwd.label("fwd"), bwd.label("bwd")) == ("te16+w", "te16+w+g2")
+
+
+def test_a_plan_past_every_tier_raises_before_launching(dev):
+    """Under a limit below K1's smallest tier the wrapper raises, naming
+    the bytes, and launches nothing."""
+    plan, t = _inputs(dev, 43, 24, 24, 300)
+    smallest = fused_conv.fwd_smem(*fused_conv._smem_dims(plan), 4, 4, False)
+    before = (fused_conv.launches, fused_conv.fwd_sum_launches, sum(fused_conv.tier_launches.values()))
+    with fused_conv.smem_limit(smallest - 1):
+        with pytest.raises(ValueError, match=f"needs {smallest} B of shared memory"):
+            fused_conv.fused_uvu_conv(plan, t["x"], t["sh"], t["w"], t["src"], t["dst"], 24)
+    assert (fused_conv.launches, fused_conv.fwd_sum_launches, sum(fused_conv.tier_launches.values())) == before
 
 
 def test_backward_kernels_reject_bad_inputs(dev):

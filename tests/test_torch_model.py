@@ -1,6 +1,7 @@
 """The port's conv modules, whole model and predict() against the JAX package.
 
-Small widths (2 conv layers, SH lmax 2, 2 crystals). The JAX side gets its
+Small widths (2 conv layers, SH lmax 2, and once SH lmax 5 with l=5 conv
+irreps; 2 crystals). The JAX side gets its
 parameter layout from `jax.eval_shape(init)`, filled with seeded numpy
 values, runs under jit on the CPU, and the same values reach the port
 through `convert.flax_to_state_dict`. Both FCTP branches are covered:
@@ -15,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from matten_tpu.data import keys as K
 from matten_tpu.data.graph import CrystalGraph, collate_graphs, pad_spec_for
@@ -34,6 +36,17 @@ from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.predict import predict
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_blas_threads():
+    """The l=5 CG blocks are SVDs of matrices up to 4000 x 1331 (the JAX
+    package's `wigner_3j`). Under the suite's parallel workers, OpenBLAS
+    threads that spin on every core slow them a hundredfold; two threads
+    per worker keep them near their single-process time (and converge for
+    every l <= 5 block, which one thread does not for (2, 4, 4))."""
+    with threadpool_limits(limits=2, user_api="blas"):
+        yield
 
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -55,6 +68,9 @@ HPARAMS = dict(
     reduce="mean",
 )
 SPECIES = {5: (8, 13, 14, 22, 56), 16: tuple(range(3, 19))}
+# above l=4: SH up to 5o and 5o / 5e conv irreps (the conv kernels' generic
+# paths on the card), 5 species
+HPARAMS_L5 = dict(HPARAMS, irreps_edge_sh="0e+1o+2e+3o+4e+5o", conv_layer_irreps=CONV_IRREPS + "+1x5o+1x5e")
 
 
 def _fill(shapes, seed):
@@ -163,21 +179,22 @@ def test_point_conv_with_activation_matches_jax(s, train):
 # ---------------------------------------------------------------- model
 
 
-@pytest.fixture(scope="module", params=[5, 16], ids=["S5", "S16"])
+@pytest.fixture(scope="module", params=[(5, HPARAMS), (16, HPARAMS), (5, HPARAMS_L5)],
+                ids=["S5", "S16", "L5"])
 def case(request):
     """JAX model output on a 2-crystal batch, and the port model loaded
     with the same (converted) variables."""
-    s = request.param
+    s, hparams = request.param
     species = SPECIES[s]
     ds = dict(allowed_species=list(species), average_num_neighbors=30.0)
     structures = _structures(species)
     graphs = [CrystalGraph.from_structure(st, r_cut=5.0) for st in structures]
     data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(species))
-    jm = jax_create_model(HPARAMS, ds)
+    jm = jax_create_model(hparams, ds)
     jd = {k: jnp.asarray(v) for k, v in data.items()}
     variables = _fill(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jd)), seed=s)
     ref = np.asarray(jax.jit(lambda v, d: jm.apply(v, d, use_running_average=True))(variables, jd))
-    tm = create_scalar_tensor_model(HPARAMS, ds, device="cpu")
+    tm = create_scalar_tensor_model(hparams, ds, device="cpu")
     return dict(
         data=data, ref=ref, variables=variables, structures=structures,
         model=_load(tm, variables),

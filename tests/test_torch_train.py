@@ -1,6 +1,7 @@
 """The port's train step against the JAX `Trainer` on the CPU.
 
-A one-layer model (SH lmax 2, batch norm) on four small crystals with
+A one-layer model (SH lmax 2, and for the SGD steps once more with SH
+lmax 5 and l=5 conv irreps; batch norm) on four small crystals with
 seeded targets. The JAX side fills its parameter layout with seeded numpy
 values and runs its jitted step (xla tier); the port's model is loaded with
 the same values through `convert.flax_to_state_dict`. Tolerances: first-step
@@ -13,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from matten_tpu.data.graph import CrystalGraph, collate_graphs, pad_spec_for
 from matten_tpu.data.structure import Structure
@@ -33,6 +35,17 @@ from matten_tpu_torch.train.trainer import ReduceLROnPlateau
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_blas_threads():
+    """The l=5 CG blocks are SVDs of matrices up to 4000 x 1331 (the JAX
+    package's `wigner_3j`). Under the suite's parallel workers, OpenBLAS
+    threads that spin on every core slow them a hundredfold; two threads
+    per worker keep them near their single-process time (and converge for
+    every l <= 5 block, which one thread does not for (2, 4, 4))."""
+    with threadpool_limits(limits=2, user_api="blas"):
+        yield
+
 SPECIES = (8, 14)
 TARGET = "elastic_tensor_full"
 HPARAMS = dict(
@@ -52,6 +65,9 @@ HPARAMS = dict(
     reduce="mean",
 )
 DS = dict(allowed_species=list(SPECIES), average_num_neighbors=20.0)
+# above l=4: SH up to 5o and 5o / 5e conv irreps
+HPARAMS_L5 = dict(HPARAMS, irreps_edge_sh="0e+1o+2e+3o+4e+5o",
+                  conv_layer_irreps="4x0o+4x0e+2x1o+2x1e+2x2e+1x5o+1x5e")
 
 
 def _batch(seed=0, n=4):
@@ -84,16 +100,16 @@ def _fill(tree, seed):
     return jax.tree_util.tree_map_with_path(one, tree)
 
 
-def _pair(optimizer, lr):
+def _pair(optimizer, lr, hparams=HPARAMS):
     """A JAX trainer + state and a port trainer holding the same values."""
     data, targets = _batch()
     cfg = dict(lr=lr, optimizer=optimizer, scheduler="none")
-    jt = JaxTrainer(jax_create_model(HPARAMS, DS), [JaxTask(name=TARGET)], JaxConfig(**cfg))
+    jt = JaxTrainer(jax_create_model(hparams, DS), [JaxTask(name=TARGET)], JaxConfig(**cfg))
     state = jt.init_state((data, targets))
     params = _fill(state.params, 1)
     stats = _fill(state.batch_stats, 2)
     state = state.replace(params=params, batch_stats=stats, opt_state=jt.tx.init(params))
-    model = create_scalar_tensor_model(HPARAMS, DS, device="cpu")
+    model = create_scalar_tensor_model(hparams, DS, device="cpu")
     model.load_state_dict(flax_to_state_dict({"params": params, "batch_stats": stats}, model))
     pt = Trainer(model, [CanonicalRegressionTask(name=TARGET)], TrainerConfig(**cfg), device="cpu")
     return jt, state, pt, (data, targets), batch_to_device(data, "cpu", targets)
@@ -103,10 +119,10 @@ def _as_state_dict(tree, stats, model):
     return flax_to_state_dict({"params": tree, "batch_stats": stats}, model)
 
 
-@pytest.fixture(scope="module")
-def sgd():
+@pytest.fixture(scope="module", params=[HPARAMS, HPARAMS_L5], ids=["lmax2", "l5"])
+def sgd(request):
     """Gradients, statistics and parameters of the JAX and port SGD steps."""
-    jt, state, pt, (data, targets), (d, t) = _pair("sgd", 0.01)
+    jt, state, pt, (data, targets), (d, t) = _pair("sgd", 0.01, request.param)
     jgrads, jloss, _, jmetrics = jax.jit(jt._grads_and_metrics)(state, data, targets)
     pt.model.train()
     loss = pt._compute_loss(pt._preds(d), d, t)
@@ -115,7 +131,7 @@ def sgd():
     ref_grads = _as_state_dict(jgrads, state.batch_stats, pt.model)
 
     # the step itself (fresh port trainer, same values), three times
-    jt, state, pt, (data, targets), (d, t) = _pair("sgd", 0.01)
+    jt, state, pt, (data, targets), (d, t) = _pair("sgd", 0.01, request.param)
     step = jax.jit(jt._train_step)
     out = {"steps": []}
     for i in range(3):
