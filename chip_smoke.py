@@ -14,8 +14,10 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      N = 2600 nodes with the last layer's plan (the regime where the JAX
      package leaves its resident-node kernels for K3); and on a skewed graph
      (one destination with 3000 edges, destinations without edges, whose
-     rows must be 0); two runs bitwise equal; the segment sum of K1's
-     partial rows against index_add_ of the same rows;
+     rows must be 0); two runs bitwise equal; K1's grid, a static bound on
+     its items (`fused_conv.item_bound`), bitwise the grid of the item
+     count read back; the segment sum of K1's partial rows against
+     index_add_ of the same rows;
   4. backward kernel parity at the same 4 plans with a seeded cotangent g
      and at N = 2600: the merged backward kernel's dw and per-edge dx rows
      against their plain versions, the dx segment sum against index_add_ of
@@ -30,15 +32,18 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
   7. train gradients: one step's parameter gradients through the kernels
      against a deep copy of the model under `force_plain()`;
   8. train step, the second main path: `Trainer.train_step` (Adam, lr 0.01)
-     on the flagship batch and its targets, a few steps; exactly 4 launches
-     per step of each of K1's item pass, the segment sum in its two roles
-     (K1's partial rows, dx) and the merged backward; finite losses;
+     on the flagship batch and its targets, a few steps (the first eager,
+     the second captured as a CUDA graph and replayed, the third replayed);
+     exactly 4 launches per step of each of K1's item pass, the segment sum
+     in its two roles (K1's partial rows, dx) and the merged backward;
+     finite losses;
   9. timings with CUDA events, kernel against plain, interleaved: the
      forward and the train step; per layer K1 with its partial-row sum (on
      the batch's edge plan, as the model calls it), the merged backward
      (against the plain backward) and the segment sum in both roles
      (against the plain sum and index_add_ of the same rows); each beside
-     its bound; peak memory of a forward and a train step above what is
+     its bound; K1's item pass on its static grid against the grid of its
+     counted items; peak memory of a forward and a train step above what is
      resident before it;
  11. NMR kernel parity: the per-atom NMR model (the `model` section of
      scripts/configs/atomic_tensor.yaml, SH lmax 2) on its batch, the 16
@@ -81,14 +86,16 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      restored best model's evaluation over the train, val and test batches
      against a copy under `force_plain()` (each metric within 1e-5
      relative), and one train step's gradients on the first train batch of
-     each pad shape the loader gives (within 1e-4); and the epoch's time
-     with the trainer's pinned side-stream prefetch against blocking
-     `batch_to_device` copies, interleaved;
+     each pad shape the loader gives (within 1e-4); the fit graphed at the
+     yaml's `scan_steps: 8`; and the epoch's time with graphed steps
+     against eager steps, both fed by the trainer's group copies,
+     interleaved;
  17. fit, NMR, the seventh main path: the same with
      `train_atomic_tensor.main` and scripts/configs/atomic_tensor.yaml (its
      model, batch 2) on 32 crystals with an `atom_selector` column, 2
-     epochs; the NMR rows from disk finite symmetric [n_atoms, 3, 3]; the
-     same checks against the plain versions at its batch-2 batches;
+     epochs, at `scan_steps: 8` as the production yaml sets it; the NMR rows
+     from disk finite symmetric [n_atoms, 3, 3]; the same checks against
+     the plain versions at its batch-2 batches;
  18. the variants configuration, the eighth main path: the production model
      with instance norm, the norm activation, the gaussian basis, max
      pooling, an atom and a global feature column and a `k_voigt` head
@@ -175,12 +182,27 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      gradients against `force_plain()` (MODEL_TOL), with exact launches per
      tier; per layer the kernels' ms per call against one plain call and
      the bound, and their device ms per train step (the profiler).
+ 26. compiled steps, the fifteenth: the train and eval steps as CUDA graph
+     replays (`train/graphs.py`), on the flagship batch with the production
+     model and on the NMR batch with the NMR model, each at full width: a
+     graphed trainer against an eager one (its `_graphs` None) from the
+     same state, step for step: 8 train steps with the lr halved after step 4,
+     then a second pad shape (half the crystals) and the first again, then
+     `load_state_dict` and 2 steps, then 3 eval steps; every loss and metric
+     sum within 1e-5 relative, the parameters and Adam moments within
+     MODEL_TOL; every replay under `set_sync_debug_mode("error")` with
+     exactly 4 launches of each kernel; host ms per step (synced wall) and
+     the device's busy share of a profiled step, graphed against eager, with
+     each kind's conv kernels found in the profiled steps' trace equal to
+     what the counters added (4 per step: a replay's count is its
+     capture's, so the trace is what shows the graph ran them); the bytes
+     of the graphs' pools and the capture time of each key.
 The line before the last is the kernels JSON (its times are phase 9's; its
 max |d| the worst of the script's direct comparisons of a kernel with its
-plain version, phases 20-22's included; its
-launches count every main path's run: phases 6, 8, 12-14, 16-19 and, summed
-over both ranks, 20-22; the two bf16-storage entries' times, bounds, max
-|d| and launches are phase 23's; the last two entries, K1 and the merged
+plain version, phases 20-22's included; its launches count every main
+path's run: phases 6, 8, 12-14, 16-19, the graphed trainers of 26 and,
+summed over both ranks, 20-22; the two bf16-storage entries' times,
+bounds, max |d| and launches are phase 23's; the last two entries, K1 and the merged
 backward at the plans past production, are phase 25's, with their
 launches per tier and their max |d| at bf16 storage beside); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
@@ -311,6 +333,7 @@ KERNEL_TOL = 1e-5
 MODEL_TOL = 1e-4
 SEED = 0
 WARMUP, REPS = 3, 20
+GRID_LOOP = 20  # K1 launches per timed run when its static grid is timed against the counted one
 TRAIN_STEPS = 3
 TARGET = "elastic_tensor_full"
 # the `data` sidecar entries a checkpoint of each family carries
@@ -715,7 +738,7 @@ def profile_sums(sum_inputs, out_dir, torch):
         acc_f = torch.zeros(edges.n_out, partial.shape[1], device=partial.device)
         acc_d = torch.zeros(edges.n_in, dxe.shape[1], device=dxe.device)
         fns = {"K1": k1, "fwd_sum": lambda: fused_conv._launch_fwd_sum(partial, edges.item_ptr, edges.n_out),
-               "index_add_ fwd": lambda: acc_f.index_add_(0, item_node, partial),
+               "index_add_ fwd": lambda: acc_f.index_add_(0, item_node, partial[:item_node.shape[0]]),
                "dx_sum": lambda: fused_conv._launch_dx_sum(dxe, edges.order, edges.n_in),
                "index_add_ dx": lambda: acc_d.index_add_(0, src_long, dxe)}
         for name, fn in fns.items():
@@ -906,7 +929,7 @@ def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, e
             layer_ms["bwd"].append(interleaved(
                 lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
                 lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes), torch))
-        work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items)
+        work = kernel_work(plan, n_nodes, n_nodes, n_edges, int(edges.item_ptr[-1]))
         for kind in bounds:
             bounds[kind].append(bound_ms(*work[kind]))
     print(f"[15 NMR timings] {card}: NMR batch (16 crystals), median ms, kernel vs plain: forward "
@@ -916,7 +939,7 @@ def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, e
               f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f}" for k, p in layer_ms[kind]) for kind in layer_ms)
           + "; bound ms per layer: " + "; ".join(
               f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
-          + f"; K1 items {edges.n_items}", flush=True)
+          + f"; K1 items {int(edges.item_ptr[-1])} (grid {edges.items(16)[1]})", flush=True)
     return launched, trainer, (data, targets)
 
 
@@ -928,7 +951,7 @@ NMR_FIT_CRYSTALS, NMR_FIT_EPOCHS = 32, 2
 # an evaluation's loss, MAE and score through the kernels vs plain: means over
 # whole splits of KERNEL_TOL-sized differences
 FIT_EVAL_TOL = 1e-5
-EPOCH_REPS = 3  # interleaved epochs of each copy mode
+EPOCH_REPS = 3  # interleaved epochs, graphed and eager
 
 
 def symmetric(t):
@@ -1012,11 +1035,18 @@ def fit_expected(convs, epochs, n_train, n_val, n_test, batch):
 
 def twin(trainer, torch):
     """A trainer of its own over a deep copy of `trainer`'s model, on its
-    device and mesh, without checkpoints."""
+    device and mesh, with its `scan_steps`, without checkpoints."""
     from matten_tpu_torch.train import Trainer, TrainerConfig
 
-    return Trainer(copy.deepcopy(trainer.model), trainer.tasks, TrainerConfig(), device=trainer.device,
-                   mesh=trainer.mesh)
+    return Trainer(copy.deepcopy(trainer.model), trainer.tasks, TrainerConfig(scan_steps=trainer.config.scan_steps),
+                   device=trainer.device, mesh=trainer.mesh)
+
+
+def eager(trainer):
+    """`trainer` with every step run eagerly: its step graphs dropped, as
+    on the CPU (the same capturable Adam)."""
+    trainer._graphs = None
+    return trainer
 
 
 def fit_against_plain(label, trainer, convs, fused_conv, torch):
@@ -1083,28 +1113,27 @@ def fit_against_plain(label, trainer, convs, fused_conv, torch):
     return eval_err[0], grad_err[0], sorted(firsts), on_device
 
 
-def copy_modes(trainer, torch):
-    """Seconds of one train epoch of a copy of the trained model with the
-    trainer's copies (pinned, a side stream, one batch ahead) and with
-    blocking `batch_to_device` copies, EPOCH_REPS of each, interleaved;
-    each epoch ends with its one loss readback, as `fit`'s does."""
-    from matten_tpu_torch.predict import batch_to_device
-
-    t = twin(trainer, torch)
+def epoch_times(trainer, torch):
+    """Seconds of one train epoch of copies of the trained model, graphed
+    and eager, both fed by the trainer's group copies (`scan_steps`
+    batches of one shape stacked, one pinned non-blocking copy per field):
+    EPOCH_REPS of each after two warm-up epochs each (the graphed one runs
+    the first sight of each batch shape eagerly and captures the second),
+    interleaved; each epoch ends with its one loss readback, as `fit`'s
+    does."""
     loader = trainer.datamodule.train_dataloader()
-    modes = {
-        "prefetch": lambda: (d for _, d in t._device_batches(loader)),
-        "blocking": lambda: (batch_to_device(b[0], t.device, b[1]) for b in loader),
-    }
+    modes = {"graphed": twin(trainer, torch), "eager": eager(twin(trainer, torch))}
     times = {m: [] for m in modes}
-    for _ in range(EPOCH_REPS):
-        for m, batches in modes.items():
+    for rep in range(EPOCH_REPS + 2):
+        for m, t in modes.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            losses = [t.train_step(data, targets)[0] for data, targets in batches()]
+            losses = [t.train_step(data, targets)[0]
+                      for group in t._groups(loader) for _, (data, targets) in t._device_group(group)]
             if not math.isfinite(torch.stack(losses).mean().item()):
                 raise AssertionError(f"a {m} epoch gave a loss that is not finite")
-            times[m].append(time.perf_counter() - t0)
+            if rep >= 2:
+                times[m].append(time.perf_counter() - t0)
     return times
 
 
@@ -1120,6 +1149,9 @@ def fit_phase(label, script, config, rows, n_train, n_val, n_test, epochs, fused
     batch = config["data"]["loader_kwargs"]["batch_size"]
     ckpt = Path(config["trainer"]["checkpoint_dir"])
     metrics, trainer, setup_s, launched = run_script(script, config, fused_conv, torch)
+    if trainer._graphs is None or trainer.config.scan_steps != config["trainer"]["scan_steps"]:
+        raise AssertionError(f"{label}: the fit's steps are not graphed at scan_steps "
+                             f"{config['trainer']['scan_steps']}: {trainer.config}")
     expect = fit_expected(convs, epochs, n_train, n_val, n_test, batch)
     if launched != expect:
         raise AssertionError(f"{label}: launches {launched}, expected {expect}")
@@ -1134,7 +1166,7 @@ def fit_phase(label, script, config, rows, n_train, n_val, n_test, epochs, fused
         raise AssertionError(f"{label}: checkpoint directory holds {sorted(files)}")
 
     (e_err, e_name), (g_err, g_name), shapes, _ = fit_against_plain(label, trainer, convs, fused_conv, torch)
-    epoch_modes = copy_modes(trainer, torch)
+    epoch_modes = epoch_times(trainer, torch)
 
     # the host's share of an epoch: the train loader alone (shuffle and collation)
     t0 = time.perf_counter()
@@ -1190,10 +1222,10 @@ def fit_phase(label, script, config, rows, n_train, n_val, n_test, epochs, fused
           f"evaluation of the best model over train, val and test worst {e_name} {e_err:.3e} relative "
           f"(tol {FIT_EVAL_TOL}), one train step's gradients on the first batch of each of the "
           f"{len(shapes)} pad shapes (nodes, edges) {shapes} worst {g_name} {g_err:.3e} (tol {MODEL_TOL}); "
-          f"train epoch (s) with the prefetch "
-          + ", ".join(f"{x:.4f}" for x in epoch_modes["prefetch"])
-          + ", with blocking copies " + ", ".join(f"{x:.4f}" for x in epoch_modes["blocking"])
-          + " (interleaved)", flush=True)
+          f"scan_steps {trainer.config.scan_steps}, {len(trainer._graphs.graphs)} step graphs, their pools "
+          f"{trainer._graphs.pool_bytes() / 2**20:.1f} MiB; train epoch (s, interleaved, two warm-up epochs each "
+          "before): " + "; ".join(f"{m} " + ", ".join(f"{x:.4f}" for x in v) for m, v in epoch_modes.items()),
+          flush=True)
     return {k: launched[k] + launched2[k] + served[k] for k in COUNTERS}
 
 
@@ -1222,7 +1254,8 @@ def fit_phases(fused_conv, torch, card):
         config = load_config(CONFIGS / "atomic_tensor.yaml")
         config["data"].update(root=str(tmp), trainset_filename="nmr.json", valset_filename="nmr.json",
                               testset_filename="nmr.json")
-        config["trainer"].update(max_epochs=NMR_FIT_EPOCHS, checkpoint_dir=str(tmp / "nmr_ckpt"))
+        # scan_steps as the production yaml sets it (atomic_tensor.yaml leaves the default, 1)
+        config["trainer"].update(max_epochs=NMR_FIT_EPOCHS, checkpoint_dir=str(tmp / "nmr_ckpt"), scan_steps=8)
         nmr = fit_phase("17 fit, NMR", train_atomic_tensor, config, rows, NMR_FIT_CRYSTALS, NMR_FIT_CRYSTALS,
                         NMR_FIT_CRYSTALS, NMR_FIT_EPOCHS, fused_conv, torch, card)
     return {k: elastic[k] + nmr[k] for k in COUNTERS}
@@ -1385,7 +1418,7 @@ def variant_phases(dev, card, torch, check_forward, check_backward, production, 
             layer_ms["bwd"].append(interleaved(
                 lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
                 lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes), torch))
-        work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items)
+        work = kernel_work(plan, n_nodes, n_nodes, n_edges, int(edges.item_ptr[-1]))
         for kind in bounds:
             bounds[kind].append(bound_ms(*work[kind]))
     print(f"[18 variants kernels and gradients] {card}: max|d|/max|ref| (tol {KERNEL_TOL}), two runs bitwise "
@@ -1402,7 +1435,7 @@ def variant_phases(dev, card, torch, check_forward, check_backward, production, 
               f"{kind} " + " / ".join(f"{k:.4f} vs {p:.4f}" for k, p in layer_ms[kind]) for kind in layer_ms)
           + "; bound ms per layer: " + "; ".join(
               f"{kind} " + " / ".join(f"{b:.4f} ({by})" for b, by in bounds[kind]) for kind in bounds)
-          + f"; K1 items {edges.n_items}", flush=True)
+          + f"; K1 items {int(edges.item_ptr[-1])} (grid {edges.items(16)[1]})", flush=True)
     return launched, trainer, (data, targets_d)
 
 
@@ -1574,7 +1607,7 @@ def shard_kernels(model, hp, data, mode, n_graph, torch, timed=True, time_plain=
                         lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n_out), torch)
                     layer_plain["bwd"] += cuda_ms(
                         lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_in), torch)
-            for kind, (nbytes, flops) in kernel_work(plan, n_in, n_out, src.shape[0], edges.n_items).items():
+            for kind, (nbytes, flops) in kernel_work(plan, n_in, n_out, src.shape[0], int(edges.item_ptr[-1])).items():
                 t, by = bound_ms(nbytes, flops)
                 layer_bound[kind] = [layer_bound[kind][0] + t, by]
         for kind in ms:
@@ -2268,7 +2301,7 @@ def bf16_phase(dev, card, torch, check_forward, check_backward, layer_inputs, sh
                     lambda: fused_conv._launch_bwd_edges(plan, x, g, sh16, w16, edges),
                     lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n_nodes),
                     torch))
-            work = kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items, in_bytes=2)
+            work = kernel_work(plan, n_nodes, n_nodes, n_edges, int(edges.item_ptr[-1]), in_bytes=2)
             for kind in bounds:
                 bounds[kind].append(bound_ms(*work[kind.replace("_bf16", "")]))
 
@@ -2462,7 +2495,7 @@ def wide_phase(dev, card, torch, check_forward, check_backward, data, targets, s
                         fn()
                     layer_ms[kind].append(cuda_ms(lambda: [fn() for _ in range(WIDE_REPS)], torch) / WIDE_REPS)
                     plain_ms[kind].append(cuda_ms(plain, torch))
-            n_items = edges.items(layer_tiers[4][i][0].edges)[1]
+            n_items = int(edges.items(layer_tiers[4][i][0].edges)[0][-1])
             work = kernel_work(plan, n_nodes, n_nodes, n_edges, n_items)
             for kind in bounds:
                 bounds[kind].append(bound_ms(*work[kind]))
@@ -2541,6 +2574,147 @@ def wide_phase(dev, card, torch, check_forward, check_backward, data, targets, s
         del model, trainer, trainer_p, edges, sh
         torch.cuda.empty_cache()
     return launched, tiers, errs, layer_ms, plain_ms, bounds
+
+
+# phase 26: the train and eval steps replayed as CUDA graphs (train/graphs.py)
+GRAPH_STEPS = 8  # graphed train steps against as many eager ones, the lr halved after GRAPH_LR_STEP
+GRAPH_LR_STEP = 4
+GRAPH_LOSS_TOL = 1e-5  # the same kernels in the same order; pooling's atomic index_add_ may reorder sums
+GRAPH_PROFILED_STEPS = 5
+
+
+def graph_phase(label, dev, card, torch, trainer, batches):
+    """Phase 26 on one family: a graphed trainer over a deep copy of
+    `trainer`'s model and optimizer state against an eager one
+    (`eager`, the same capturable Adam) from the same state, step for
+    step: GRAPH_STEPS train steps on batch A with the lr halved after
+    GRAPH_LR_STEP (the train graph captured anew), then batch B, another pad
+    shape (eager, capture, replay) and A again, then `load_state_dict` of
+    the state after step GRAPH_LR_STEP (captured anew) and 2 steps; each
+    step's loss and metric sums within GRAPH_LOSS_TOL relative, the
+    parameters and Adam moments at the end within MODEL_TOL of their
+    largest entry; 3 eval steps (eager, capture, replay) against eager.
+    Every replay runs under `set_sync_debug_mode("error")` and launches
+    exactly one of each kernel per conv layer. Then host ms per step,
+    graphed against eager (synced wall clock), the device's busy share of a
+    profiled step and its conv kernels in the trace by kind (equal to what
+    the counters added), the bytes of the graphs' pools and the capture
+    time of each key. Returns the graphed trainer's launches in the checked steps."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.train import Trainer, TrainerConfig
+    from matten_tpu_torch.train.graphs import batch_key
+
+    config = TrainerConfig(lr=0.01, weight_decay=trainer.config.weight_decay)
+    g = Trainer(copy.deepcopy(trainer.model), trainer.tasks, config, device=dev)
+    e = eager(Trainer(copy.deepcopy(trainer.model), trainer.tasks, config, device=dev))
+    if g._graphs is None or e._graphs is not None or not g.optimizer.defaults["capturable"]:
+        raise AssertionError(f"{label}: the graphed trainer has no step graphs or the eager one has")
+    convs = len(conv_layers(g.model))
+    a, b = batches
+    launched = {k: 0 for k in COUNTERS}
+    errs, replays = [], 0
+
+    def step(kind, batch):
+        nonlocal replays
+        # a replay: the step's kind and batch key were captured before
+        replay = any(k[0] == kind.split("_")[0] and k[-1] == batch_key(*batch) for k in g._graphs.graphs)
+        before = counts(fused_conv)
+        if replay:
+            replays += 1
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, mg = getattr(g, kind)(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = {k: v - before[k] for k, v in counts(fused_conv).items()}
+        want = {k: convs if kind == "train_step" or k.startswith("fwd") else 0 for k in COUNTERS}
+        if got != want:
+            raise AssertionError(f"{label}: launches of one {kind} {got}, expected {want}")
+        for k in COUNTERS:
+            launched[k] += got[k]
+        le, me = getattr(e, kind)(*batch)
+        for name, x, y in [("loss", lg, le)] + [(f"{t} {j}", mg[t][j], me[t][j]) for t in me for j in (0, 1)]:
+            err = abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
+            errs.append(err)
+            if not err <= GRAPH_LOSS_TOL:
+                raise AssertionError(f"{label}: graphed {kind} {name} {float(x)!r} against eager {float(y)!r}")
+        return float(lg)
+
+    losses, saved = [], None
+    for i in range(GRAPH_STEPS):
+        losses.append(step("train_step", a))
+        if i + 1 == GRAPH_LR_STEP:
+            saved = copy.deepcopy(g.state_dict())
+            for t in (g, e):
+                t.set_lr(config.lr / 2)
+    for batch in (b, b, b, a):
+        losses.append(step("train_step", batch))
+    for t in (g, e):
+        t.load_state_dict(copy.deepcopy(saved))  # each its own tensors, as from a checkpoint
+    for _ in range(2):
+        losses.append(step("train_step", a))
+    for _ in range(3):
+        step("eval_step", a)
+    state_err = []
+    for (n, p), q in zip(g.model.named_parameters(), e.model.parameters()):
+        state_err.append((rel_err(p, q), n))
+        for k in ("exp_avg", "exp_avg_sq"):
+            state_err.append((rel_err(g.optimizer.state[p][k], e.optimizer.state[q][k]), f"{n} {k}"))
+    state_err.sort(reverse=True)
+    if not state_err[0][0] <= MODEL_TOL:
+        raise AssertionError(f"{label}: graphed and eager parameters or Adam moments apart: {state_err[:3]}")
+    # each key by its kind and its node count
+    capture_s = {f"{k[0]} N={next(shp[0] for n, shp, _ in k[-1][0] if n == K.NODE_MASK)}": v
+                 for k, v in g._graphs.capture_seconds().items()}
+    pool_mib = g._graphs.pool_bytes() / 2**20
+
+    # host ms per step (synced wall) and the device's busy share, graphed against eager
+    wall = {}
+    for name, t in (("graphed", g), ("eager", e)):
+        for _ in range(WARMUP):
+            t.train_step(*a)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            t.train_step(*a)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        wall[name] = ms
+    # the kernels each profiled step ran on the card, by kind, against what
+    # the counters added: a replay adds its capture's launches, so this is
+    # what shows that the graph holds every kernel
+    prof, in_trace = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, t in (("graphed", g), ("eager", e)):
+            before = counts(fused_conv)
+            ev, prof[name] = traced(lambda: t.train_step(*a), GRAPH_PROFILED_STEPS, Path(tmp),
+                                    f"{name}_step", torch)
+            counted = {k: (v - before[k]) / GRAPH_PROFILED_STEPS for k, v in counts(fused_conv).items()}
+            in_trace[name] = {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev)
+                              / GRAPH_PROFILED_STEPS for k in KERNEL_NAMES}
+            if in_trace[name] != counted or counted != {k: convs for k in COUNTERS}:
+                raise AssertionError(f"{label}: a profiled {name} step ran {in_trace[name]} kernels of each kind "
+                                     f"on the card, counted {counted}, expected {convs} of each")
+    print(f"[26 compiled steps, {label}] {card}: {GRAPH_STEPS} graphed train steps on batch A (N="
+          f"{a[0][K.NODE_MASK].shape[0]}) against eager from the same state, lr halved after step "
+          f"{GRAPH_LR_STEP}, then batch B (N={b[0][K.NODE_MASK].shape[0]}) x3 and A, then load_state_dict of "
+          f"step {GRAPH_LR_STEP}'s state and 2 steps, then 3 eval steps: losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; worst relative difference of a loss or metric sum {max(errs):.3e} (tol {GRAPH_LOSS_TOL}); "
+          f"parameters and Adam moments worst {state_err[0][1]} {state_err[0][0]:.3e} (tol {MODEL_TOL}); "
+          f"{replays} replays under set_sync_debug_mode('error'), launches exact ({convs} of each kernel per "
+          f"step); kernels per profiled step in the trace, graphed {in_trace['graphed']}, eager "
+          f"{in_trace['eager']}, each equal to the counters' step", flush=True)
+    print(f"[26 step time, {label}] {card}: host ms per train step on batch A (synced wall, median and q1-q3 of "
+          f"{REPS}): " + "; ".join(f"{n} {np.median(v):.4f} ({np.percentile(v, 25):.4f}-{np.percentile(v, 75):.4f})"
+                                  for n, v in wall.items())
+          + f"; under the profiler, per step of {GRAPH_PROFILED_STEPS}: "
+          + "; ".join(f"{n}: {device_summary(st)}" for n, st in prof.items()), flush=True)
+    print(f"[26 graph memory, {label}] {card}: the graphs' pools {pool_mib:.1f} MiB; capture s per key (kind, N): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items()), flush=True)
+    return launched
 
 
 def main() -> int:
@@ -2643,9 +2817,14 @@ def main() -> int:
             ref = fused_conv.uvu_conv_reference(plan, x, sh_, w, src_, dst_, n_out)
             partial, item_ptr = fused_conv._launch_items(plan, x, st(sh_), st(w), plan_e)
             summed = fused_conv._launch_fwd_sum(partial, item_ptr, n_out)
+            # the grid is a static bound on the items: launched on the count
+            # read back here, K1 gives the same bits
+            n_items = int(item_ptr[-1])
+            partial_c, _ = fused_conv._launch_items(plan, x, st(sh_), st(w), plan_e, n_items=n_items)
+            summed_c = fused_conv._launch_fwd_sum(partial_c, item_ptr, n_out)
             item_node = torch.repeat_interleave(
                 torch.arange(n_out, device=dev), (item_ptr[1:] - item_ptr[:-1]).long())
-            sum_ref = torch.zeros_like(summed).index_add_(0, item_node, partial)
+            sum_ref = torch.zeros_like(summed).index_add_(0, item_node, partial[:n_items])
         torch.cuda.synchronize()
         rel, rel_sum = rel_err(out, ref), rel_err(summed, sum_ref)
         record[bf16_kind("fwd")] = max(record[bf16_kind("fwd")], float((out - ref).abs().max()))
@@ -2655,7 +2834,12 @@ def main() -> int:
                                  f"d1={plan.irreps_in1.dim}, N={n_out}: {rel}, {rel_sum} > {KERNEL_TOL}")
         if not (torch.equal(out, out2) and torch.equal(out, summed)):
             raise AssertionError(f"K1 is not bitwise reproducible at d1={plan.irreps_in1.dim}, N={n_out}")
-        return out, f"{rel:.3e} (partial-row sum {rel_sum:.3e}; {partial.shape[0]} items)"
+        if not (n_items <= partial.shape[0] and torch.equal(partial[:n_items], partial_c)
+                and torch.equal(summed, summed_c)):
+            raise AssertionError(f"K1 on its bound of {partial.shape[0]} items is not bitwise K1 on the "
+                                 f"{n_items} items counted, at d1={plan.irreps_in1.dim}, N={n_out}")
+        return out, (f"{rel:.3e} (partial-row sum {rel_sum:.3e}; {n_items} items, a grid of "
+                     f"{partial.shape[0]}, bitwise the counted grid's)")
 
     for conv in convs:
         plan = conv.uvu_plan
@@ -2857,16 +3041,28 @@ def main() -> int:
             ))
             partial, _ = fused_conv._launch_items(plan, x, sh, w, edges)
             dxe, _ = fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges, want_dw=False)
+            # the kernel sums the partial rows as the model's K1 leaves them (its
+            # grid's bound of rows); the plain sum and index_add_ take the real ones
             for kind, rows, idx, fn in (
-                    ("fwd_sum", partial, item_node, lambda: fused_conv._launch_fwd_sum(partial, edges.item_ptr, n_nodes)),
+                    ("fwd_sum", partial[:item_node.shape[0]], item_node, lambda: fused_conv._launch_fwd_sum(partial, edges.item_ptr, n_nodes)),
                     ("dx_sum", dxe, src_long, lambda: fused_conv._launch_dx_sum(dxe, edges.order, n_nodes))):
                 layer_ms[kind].append(interleaved(fn, lambda: scatter_sum(rows, idx, n_nodes), torch))
                 acc = torch.zeros(n_nodes, rows.shape[1], device=dev)
                 library_ms[kind].append(interleaved(lambda: acc.index_add_(0, idx, rows), fn, torch)[0])
             sum_inputs.append((k1, partial, edges, item_node, dxe, src_long))
-        for kind, (nbytes, flops) in kernel_work(plan, n_nodes, n_nodes, n_edges, edges.n_items).items():
+        for kind, (nbytes, flops) in kernel_work(plan, n_nodes, n_nodes, n_edges, int(edges.item_ptr[-1])).items():
             bounds[kind].append(bound_ms(nbytes, flops))
 
+    # K1's item pass on its static grid against the grid of its counted items:
+    # device ms per call over GRID_LOOP calls between two events, interleaved
+    grid_ms = []
+    with torch.no_grad():
+        for plan, x, w, _ in layer_inputs:
+            n_items = int(edges.items(fused_conv.launch_tiers(plan, dev)[0].edges)[0][-1])
+            grid_ms.append(interleaved(
+                lambda: [fused_conv._launch_items(plan, x, sh, w, edges) for _ in range(GRID_LOOP)],
+                lambda: [fused_conv._launch_items(plan, x, sh, w, edges, n_items=n_items) for _ in range(GRID_LOOP)],
+                torch))
     peak_fwd = (own_peak_mib(fwd, torch), own_peak_mib(fwd_plain, torch))
     peak_step = (own_peak_mib(lambda: trainer.train_step(data, targets), torch),
                  own_peak_mib(step_plain, torch))
@@ -2881,9 +3077,12 @@ def main() -> int:
           f"bwd: the merged kernel vs the plain backward; fwd_sum, dx_sum: the segment sum vs "
           f"scatter_sum): {per_layer}; index_add_ of the same rows "
           + "; ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) for k, v in library_ms.items())
-          + f"; bound ms per layer: {bound_txt}; "
-          f"peak memory MiB above the resident: forward {peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, "
-          f"train step {peak_step[0]:.1f} vs {peak_step[1]:.1f}", flush=True)
+          + f"; bound ms per layer: {bound_txt}; K1's item pass, ms per call over {GRID_LOOP} calls, on "
+          f"its static grid ({edges.items(16)[1]} blocks) vs the counted grid ({int(edges.item_ptr[-1])}): "
+          + " / ".join(f"{b / GRID_LOOP:.4f} vs {c / GRID_LOOP:.4f}" for b, c in grid_ms)
+          + f"; peak memory MiB above the resident (the train step graphed, its pool resident): forward "
+          f"{peak_fwd[0]:.1f} vs {peak_fwd[1]:.1f}, train step {peak_step[0]:.1f} vs {peak_step[1]:.1f}",
+          flush=True)
 
     # 11-15. the per-atom NMR model, and both families served from disk
     nmr, nmr_trainer, nmr_batch = nmr_phases(dev, card, torch, check_forward, check_backward, model,
@@ -2912,6 +3111,16 @@ def main() -> int:
     wide_launched, wide_tiers, wide_errs, wide_ms, wide_plain_ms, wide_bounds = wide_phase(
         dev, card, torch, check_forward, check_backward, data, targets, src, dst)
 
+    # 26. compiled steps: the train and eval steps as CUDA graph replays against eager,
+    #     each family on its batch and on a second pad shape (half the crystals)
+    nmr_structures, nmr_rows = draw_structures(seed=2, n_graphs=16, per_atom=True)
+    graph_launched = {k: 0 for k in COUNTERS}
+    for label, tr, a_batch, half in (
+            ("flagship", trainer, (data, targets), collate(structures[:16], target_rows[:16])),
+            ("NMR", nmr_trainer, nmr_batch, collate(nmr_structures[:8], nmr_rows[:8], NMR_TARGET, SI))):
+        c = graph_phase(label, dev, card, torch, tr, (a_batch, batch_to_device(half[0], dev, half[1])))
+        graph_launched = {k: graph_launched[k] + c[k] for k in COUNTERS}
+
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
@@ -2938,7 +3147,7 @@ def main() -> int:
     kernels = []
     for kind in COUNTERS:
         launched = (served[kind] + trained[kind] + nmr[kind] + fitted[kind] + variants[kind] + variants_fit[kind]
-                    + mesh_launched[kind])
+                    + mesh_launched[kind] + graph_launched[kind])
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
         kernels.append({

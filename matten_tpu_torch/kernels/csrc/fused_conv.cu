@@ -14,7 +14,9 @@
 // Design.
 // * Work unit: an item, a run of at most TE = 16 consecutive edges of ONE
 //   destination (edges arrive sorted by destination). Items number
-//   sum_n ceil(deg(n) / 16), 1488 on the flagship batch, and each does about
+//   sum_n ceil(deg(n) / 16), 1488 on the flagship batch (the grid is the
+//   static bound min(E, (E + n_out * 15) / 16), 1644 there: the blocks past
+//   the count read it from item_ptr[n_out] and exit), and each does about
 //   the same work, so the highest-degree node (159 edges there) no longer
 //   sets the time as it did with one block per node. One block per item;
 //   the block finds its (node, first edge) by a binary search over
@@ -216,8 +218,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fused_uvu_conv_fwd_kernel(cons
   float* xs = ts + TE * ts_stride;                 // [TE][xs_stride]
 
   // 1. the item: its destination node (the last n with item_ptr[n] <= item)
-  //    and its edges e0 .. e0 + nj - 1
+  //    and its edges e0 .. e0 + nj - 1. The grid is a bound on the items
+  //    (the wrapper's item_bound); a block at or past the real count,
+  //    item_ptr[n_out], has no item and writes nothing.
   const int item = blockIdx.x;
+  if (item >= __ldg(a.item_ptr + a.n_out)) return;
   int lo = 0, hi = a.n_out;
   while (hi - lo > 1) {
     const int mid = (lo + hi) >> 1;
@@ -369,7 +374,9 @@ size_t fused_uvu_conv_fwd_smem(int d1, int shp, int dw, int dout, int n_t, int i
   return fwd_smem(d1, shp, dw, n_t, in_bytes, tile_edges, stage_w);
 }
 
-// Launches one block per item on `stream`; allocates nothing. sh and w are
+// Launches `n_items` blocks on `stream`, a bound on the items (the real
+// count, item_ptr[n_out], is read on the device, so the launch never waits
+// for it and can be captured in a CUDA graph); allocates nothing. sh and w are
 // float (`in_bytes` 4) or bf16 (`in_bytes` 2). The tier: `tile_edges` edges
 // per item (16, 8 or 4; the wrapper's item_ptr and task table are built
 // for it) and `stage_w` (1: the w rows staged in shared memory); `any_l`
@@ -386,7 +393,7 @@ int fused_uvu_conv_fwd(const float* x, const void* sh, const void* w, const int*
                        int in_bytes, int tile_edges, int stage_w, int any_l, int warps, void* stream) {
   if (warps != FWD_WARPS || shp % 4 || (in_bytes != 4 && in_bytes != 2) || (stage_w != 0 && stage_w != 1))
     return (int)cudaErrorInvalidValue;
-  if (n_items == 0) return 0;
+  if (n_items == 0) return 0;  // no edges: the wrapper's bound is 0
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)

@@ -149,8 +149,9 @@ static int launch_v(const float* rows, const int* perm, const int* ptr, float* o
 extern "C" {
 
 // out [n_seg, width] from rows [*, width]; perm null: no permutation.
-// n_rows: the rows summed in all (ptr[n_seg]; the wrapper passes it from
-// the shapes), which sets the threads per segment. Launches on `stream`,
+// n_rows: the rows of `rows` (at least ptr[n_seg], the rows summed in all;
+// the wrapper passes it from the shapes), which sets the threads per
+// segment. Launches on `stream`,
 // allocates nothing, returns the cudaError_t of the launch (0 on success).
 int segment_sum(const float* rows, const int* perm, const int* ptr, float* out, int n_seg,
                 int width, int n_rows, void* stream) {

@@ -44,9 +44,12 @@ every production plan runs the first, and a plan no tier fits raises
 before its launch. The kernels take irreps of any l: above l=4 (d > 9)
 they run generic paths beside the unrolled ones.
 
-The edges' checks and layout (`EdgePlan`: the dst CSR, K1's items at the
-plans' item sizes, the src order) are built once per batch with one host
-sync, so the launches themselves never wait on the card. The TPU
+The edges' layout (`EdgePlan`: the dst CSR, K1's items at the plans' item
+sizes, the src order) is built once per batch on the device, and K1's grid
+is a static bound on its items (`item_bound`), so no launch waits on the
+card and a whole train step can be captured as a CUDA graph
+(`train/graphs.py`); the index check reads one flag back outside a
+capture and asserts on the device under one. The TPU
 machinery of the JAX kernels (transposed [D, E] layout, one-hot-matmul
 gathers and scatters, node-chunk owner maps, VMEM budgets, m-major rows)
 has no counterpart here: edges arrive sorted by destination, both passes
@@ -76,6 +79,8 @@ __all__ = [
     "uvu_conv_bwd_reference",
     "EdgePlan",
     "edge_plan",
+    "item_bound",
+    "check_edges",
     "SrcOrder",
     "src_order",
     "force_plain",
@@ -89,8 +94,9 @@ __all__ = [
 # kernel launches in this process: K1's item pass (`launches`), the segment
 # sum in its two roles (K1's partial rows, dx), the merged backward, and the
 # bf16-storage instances of K1's item pass and the merged backward; each is
-# added to right where its kernel launches and nothing else touches them
-# except a caller resetting them
+# added to right where its kernel launches, and by the replay of a captured
+# step (train/graphs.py) what its capture launched; nothing else touches
+# them except a caller resetting them
 launches = 0
 fwd_sum_launches = 0
 bwd_launches = 0
@@ -576,7 +582,7 @@ def src_order(src: torch.Tensor, n_in: int) -> SrcOrder:
 
 
 class EdgePlan(NamedTuple):
-    """A batch's edges as the conv kernels walk them, checked once."""
+    """A batch's edges as the conv kernels walk them."""
 
     src: torch.Tensor  # [E] int32: the edges the plan was built for
     dst: torch.Tensor  # [E] int32, non-decreasing
@@ -584,7 +590,6 @@ class EdgePlan(NamedTuple):
     n_out: int
     row_ptr: torch.Tensor  # [n_out + 1] int32 offsets of each destination's edges
     item_ptrs: Dict[int, torch.Tensor]  # edges per K1 item -> [n_out + 1] int32 offsets of each destination's items
-    item_counts: Dict[int, int]  # edges per K1 item -> the number of items
     order: Optional[SrcOrder]  # the dx segment sum's src order, or None: sorted when needed
 
     @property
@@ -592,56 +597,82 @@ class EdgePlan(NamedTuple):
         """The item offsets of K1's first tier (FWD_ITEM_EDGES edges per item)."""
         return self.item_ptrs[FWD_ITEM_EDGES]
 
-    @property
-    def n_items(self) -> int:
-        return self.item_counts[FWD_ITEM_EDGES]
-
     def items(self, edges: int) -> Tuple[torch.Tensor, int]:
-        """(item_ptr, n_items) of K1 items of `edges` edges."""
+        """(item_ptr, item_bound) of K1 items of `edges` edges: the real
+        count, item_ptr[n_out], stays on the device."""
         if edges not in self.item_ptrs:
             raise ValueError(
                 f"the edge plan holds K1 items of {sorted(self.item_ptrs)} edges, not {edges}: build it "
                 f"with edge_plan(..., item_edges=item_edges_for(plans, device))")
-        return self.item_ptrs[edges], self.item_counts[edges]
+        return self.item_ptrs[edges], item_bound(self.src.shape[0], self.n_out, edges)
+
+
+def item_bound(n_edges: int, n_out: int, te: int) -> int:
+    """The most K1 items of `te` edges that n_edges edges into n_out
+    destinations make: sum_n ceil(deg_n / te) <= (E + n_out (te - 1)) / te,
+    and no more items than edges. K1's grid and partial rows are sized by
+    it, so no launch waits for the real count; blocks past it exit."""
+    return min(n_edges, (n_edges + n_out * (te - 1)) // te)
+
+
+_BAD_EDGES = ("edge_plan: dst must be non-decreasing in [0, n_out) and "
+              "src in [0, n_in) (collate_graphs sorts edges by destination)")
 
 
 def edge_plan(src: torch.Tensor, dst: torch.Tensor, n_in: int, n_out: int,
               with_src_order: bool = False, item_edges: Tuple[int, ...] = ()) -> EdgePlan:
     """Check a batch's edges and lay them out for the conv kernels.
 
-    Checks src in [0, n_in) and dst non-decreasing in [0, n_out), with one
-    device reduction and one host sync, which also reads K1's item counts.
-    Lays out the dst CSR offsets and K1's items, the runs of at most
-    `te` consecutive edges of one destination (item_ptr = cumsum(ceil(deg /
+    Lays out the dst CSR offsets and K1's items, the runs of at most `te`
+    consecutive edges of one destination (item_ptr = cumsum(ceil(deg /
     te))) for te = FWD_ITEM_EDGES and each of `item_edges` (the item sizes
-    of the plans' tiers, `item_edges_for`), and with `with_src_order` the src
-    order of the dx segment sum. Every conv layer of a batch shares its
-    edges, so a caller builds this once per batch and hands it to every
-    call: the launches then never wait on the card."""
+    of the plans' tiers, `item_edges_for`), and with `with_src_order` the
+    src order of the dx segment sum, all on the device: no count is read
+    back (K1 runs on `item_bound`). It checks src in [0, n_in) and dst
+    non-decreasing in [0, n_out) with one device reduction: outside a CUDA
+    graph capture one host read of its flag raises a ValueError; under a
+    capture the flag goes to a device-side assert (`torch._assert_async`),
+    so a replay of a bad batch fails with a CUDA error at its next sync
+    and leaves the process's CUDA context unusable, which is why `fit`
+    checks its batches on the host before their copy (`check_edges`).
+    Every conv layer of a batch shares its edges, so a caller builds this
+    once per batch and hands it to every call."""
     e = src.shape[0] if src.dim() == 1 else -1
     _check("edge_plan", {"src": (src, torch.int32, (e,)), "dst": (dst, torch.int32, (e,))})
     if n_in < 0 or n_out < 0:
         raise ValueError(f"edge_plan: n_in={n_in}, n_out={n_out}")
     row_ptr = _row_ptr(dst, n_out)
     deg = row_ptr[1:] - row_ptr[:-1]
-    sizes = sorted({FWD_ITEM_EDGES, *item_edges}, reverse=True)
     item_ptrs = {
         te: torch.cat([row_ptr.new_zeros(1), torch.cumsum(
             torch.div(deg + te - 1, te, rounding_mode="floor"), 0, dtype=torch.int32)])
-        for te in sizes
+        for te in sorted({FWD_ITEM_EDGES, *item_edges}, reverse=True)
     }
-    bad, counts = False, [0] * len(sizes)
     if e:
         bad = (src < 0).any() | (src >= n_in).any() | (dst < 0).any() | (dst >= n_out).any()
         bad = bad | (dst[1:] < dst[:-1]).any()
-        bad, *counts = torch.stack([bad.to(torch.int32)] + [item_ptrs[te][-1] for te in sizes]).tolist()
-    if bad:
-        raise ValueError(
-            "edge_plan: dst must be non-decreasing in [0, n_out) and "
-            "src in [0, n_in) (collate_graphs sorts edges by destination)"
-        )
+        if _capturing(src):
+            # a captured step cannot read the flag back: a replay of a bad
+            # batch stops the card before any kernel reads past its inputs
+            torch._assert_async(~bad, _BAD_EDGES)
+        elif bool(bad):
+            raise ValueError(_BAD_EDGES)
     order = src_order(src, n_in) if with_src_order else None
-    return EdgePlan(src, dst, n_in, n_out, row_ptr, item_ptrs, dict(zip(sizes, counts)), order)
+    return EdgePlan(src, dst, n_in, n_out, row_ptr, item_ptrs, order)
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    """A CUDA graph capture is under way on t's device's current stream."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
+def check_edges(src: np.ndarray, dst: np.ndarray, n_in: int, n_out: int) -> None:
+    """`edge_plan`'s index check on a host batch's edges, before they are
+    copied to the card: src in [0, n_in) and dst non-decreasing in [0,
+    n_out); raises its error."""
+    if len(src) and (src.min() < 0 or src.max() >= n_in or dst.min() < 0 or dst.max() >= n_out
+                     or (np.diff(dst) < 0).any()):
+        raise ValueError(_BAD_EDGES)
 
 
 def _check(fn: str, expect: Dict[str, Tuple[torch.Tensor, torch.dtype, Tuple[int, ...]]]) -> None:
@@ -686,8 +717,9 @@ def _segment_sum(rows: torch.Tensor, ptr: torch.Tensor, perm: Optional[torch.Ten
                  n_seg: int) -> torch.Tensor:
     """The segment sum kernel: out [n_seg, width], out[s] = the rows
     (rows[perm[k]] with perm, a permutation of the rows) of k in [ptr[s],
-    ptr[s + 1]), in k order; ptr[n_seg] is the number of rows. Its two
-    roles are told apart by perm: without, K1's partial rows into dst
+    ptr[s + 1]), in k order; ptr[n_seg] <= the number of rows, and rows
+    past it are not read (K1's partial rows past its real item count). Its
+    two roles are told apart by perm: without, K1's partial rows into dst
     (`fwd_sum_launches`); with, the dx rows into src (`dx_sum_launches`)."""
     global fwd_sum_launches, dx_sum_launches
     from matten_tpu_torch.kernels._build import load_library
@@ -732,18 +764,25 @@ def _count(kind: str, sh: torch.Tensor, tier: Tier) -> None:
     tier_launches[(kind, tier.label(kind))] += 1
 
 
-def _launch_items(plan, x, sh, w, edges: EdgePlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1's item pass at the plan's tier: the partial rows [items, dout],
-    each item's messages summed, and the items' offsets per destination,
-    for tensors that `_launch` checked (sh and w float32 or bf16)."""
+def _launch_items(plan, x, sh, w, edges: EdgePlan,
+                  n_items: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's item pass at the plan's tier: the partial rows [grid, dout],
+    each item's messages summed (rows past the real count, item_ptr[n_out],
+    are not written), and the items' offsets per destination, for tensors
+    that `_launch` checked (sh and w float32 or bf16). The grid is the
+    plan's `item_bound`. `n_items`, the real count read back by the
+    caller, launches the counted grid instead: no path of the package
+    passes it; it is there to hold the bounded grid bitwise to the counted
+    one (`chip_smoke.py`, `tests/test_torch_gpu.py`)."""
     from matten_tpu_torch.kernels._build import load_library
 
     dev = x.device
     d1, d2, dw, dout = plan.irreps_in1.dim, plan.irreps_in2.dim, plan.weight_numel, plan.irreps_out.dim
     tier = launch_tiers(plan, dev, sh.element_size())[0]
-    item_ptr, n_items = edges.items(tier.edges)
-    partial = torch.empty((n_items, dout), dtype=torch.float32, device=dev)
-    if not n_items:
+    item_ptr, grid = edges.items(tier.edges)
+    grid = grid if n_items is None else n_items
+    partial = torch.empty((grid, dout), dtype=torch.float32, device=dev)
+    if edges.src.shape[0] == 0:
         return partial, item_ptr
     t_meta = _tables_on(plan, dev)[0]
     tt = _tile_tables_on(plan, dev, tier.edges)
@@ -755,7 +794,7 @@ def _launch_items(plan, x, sh, w, edges: EdgePlan) -> Tuple[torch.Tensor, torch.
             tt.cg_t.data_ptr(), tt.t_sh.data_ptr(), tt.sh_src.data_ptr(),
             tt.groups.data_ptr(), tt.paths.data_ptr(), tt.path_pw.data_ptr(),
             tt.fwd_tasks.data_ptr(), tt.fwd_warp_ptr.data_ptr(), partial.data_ptr(),
-            n_items, edges.n_out, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0],
+            grid, edges.n_out, d1, d2, len(tt.sh_src), dw, dout, t_meta.shape[0],
             sh.element_size(), tier.edges, int(tier.stage_w), int(tt.any_l), FWD_WARPS,
             torch.cuda.current_stream(dev).cuda_stream,
         )

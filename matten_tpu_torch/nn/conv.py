@@ -51,8 +51,9 @@ from matten_tpu_torch.parallel.sharding import GRAPH_MODES, NODE_MODES, bound_ax
 # the conv kernels' edge plan (`kernels.fused_conv.EdgePlan`: the checked
 # edges, the dst CSR, K1's items at the item sizes of every layer's tier
 # and, when gradients are recorded, the src order of the backward) in the
-# batch dict: built on the card by the first PointConv of a forward, with
-# the forward's one host sync, and read by the others, which share the
+# batch dict: built on the card by the first PointConv of a forward (its
+# index check the forward's one host read, none under a CUDA graph
+# capture), and read by the others, which share the
 # edges; under "node_ring" a tuple of one (src - g * c, dst, plan or None)
 # per ring group g
 EDGE_PLAN = "edge_plan"

@@ -85,7 +85,7 @@ class NodewiseReduce(torch.nn.Module):
         else:
             if mask is not None:
                 sentinel = float("inf") if self.reduce == "min" else float("-inf")
-                x = torch.where(mask.bool()[:, None], x, x.new_tensor(sentinel))
+                x = x.masked_fill(~mask.bool()[:, None], sentinel)
             red, across = (scatter_min, pmin) if self.reduce == "min" else (scatter_max, pmax)
             out = across(red(x, data[K.BATCH], num_graphs), axis)
             out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))

@@ -10,7 +10,7 @@ both packages hold the same basis; only the apply runs in torch.
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +85,7 @@ class CartesianTensorMap:
 
     def __init__(self, formula: str):
         self.formula = formula.lower()
+        self._basis_on: Dict[Tuple[torch.dtype, torch.device], torch.Tensor] = {}
         k, group = _formula_group(self.formula)
         self.rank = k
         entries, blocks = _vector_power_decomposition(k)
@@ -138,7 +139,14 @@ class CartesianTensorMap:
 
     def to_cartesian(self, x: torch.Tensor) -> torch.Tensor:
         """[..., irreps.dim] -> [..., 3, 3, ...] Cartesian tensor."""
-        q = torch.as_tensor(self.basis, dtype=x.dtype, device=x.device)
+        # the basis copied to each (dtype, device) once: a copy per call would
+        # wait on the card, and a captured step cannot make it; made outside
+        # inference mode, so a later forward with gradients can save it
+        q = self._basis_on.get((x.dtype, x.device))
+        if q is None:
+            with torch.inference_mode(False):
+                q = torch.as_tensor(self.basis, dtype=x.dtype, device=x.device)
+            self._basis_on[x.dtype, x.device] = q
         return (x @ q).reshape(x.shape[:-1] + self.cartesian_shape)
 
     def __repr__(self) -> str:

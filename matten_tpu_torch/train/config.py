@@ -6,9 +6,10 @@ class_path/init_args surface), and an unknown class raises instead of
 training with the defaults; the `ModelCheckpoint` and `EarlyStopping`
 callbacks give `save_top_k` and the early-stopping patience.
 
-`trainer.scan_steps` is accepted and not used (a value above 1 is logged
-at INFO): on the TPU it groups same-shape batches into one dispatch, with
-no numerical effect; the port dispatches each step alone.
+`trainer.scan_steps` groups up to that many consecutive same-shape
+batches, as the JAX loop does for one `lax.scan` dispatch; on the card
+their graphed steps go out back to back (`train/trainer.py`), with no
+numerical effect.
 
 `trainer.devices` / `trainer.mesh` give the `MeshSpec` of a data and graph
 parallel run (`build_mesh_spec`); the scripts run it as one process per
@@ -17,15 +18,12 @@ rank (`torchrun --nproc-per-node N`).
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 from matten_tpu_torch.train.trainer import TrainerConfig
 
 __all__ = ["build_trainer_config", "build_mesh_spec", "MeshSpec"]
-
-logger = logging.getLogger(__name__)
 
 # class_path basename (case-insensitive) -> trainer optimizer kind
 _OPTIMIZERS = {"adam": "adam", "adamw": "adamw", "sgd": "sgd"}
@@ -75,10 +73,6 @@ def build_trainer_config(config: Dict[str, Any]) -> TrainerConfig:
     cb = {c.get("class_path", ""): c.get("init_args", {}) for c in tr.get("callbacks", [])}
     early = next((v for k, v in cb.items() if "EarlyStopping" in k), {})
     ckpt = next((v for k, v in cb.items() if "ModelCheckpoint" in k), {})
-    scan_steps = int(tr.get("scan_steps", 1))
-    if scan_steps > 1:
-        logger.info("trainer.scan_steps=%d is not used: the port dispatches each train step alone",
-                    scan_steps)
     return TrainerConfig(
         max_epochs=tr.get("max_epochs", 10),
         lr=opt.get("lr", 0.01),
@@ -91,6 +85,7 @@ def build_trainer_config(config: Dict[str, Any]) -> TrainerConfig:
         save_top_k=ckpt.get("save_top_k", 3),
         checkpoint_dir=tr.get("checkpoint_dir", "checkpoints"),
         seed=config.get("seed_everything", 35),
+        scan_steps=int(tr.get("scan_steps", 1)),
         save_last_every_epochs=int(tr.get("save_last_every_epochs", 1)),
     )
 

@@ -15,14 +15,24 @@ epoch: the loader reseeded per epoch, the train steps, an evaluation on the
 val set, the plateau scheduler on `val/score`, then a best-k save, early
 stopping, and the rolling `last` checkpoint with the loop state that
 `resume=True` continues from. It returns `self.history`, one record per
-epoch with the JAX loop's keys. The JAX loop's `scan_steps` grouping is a
-TPU dispatch device and has no counterpart.
+epoch with the JAX loop's keys.
 
-On the card batches are copied from pinned host memory with non-blocking
-copies on a side stream, one batch ahead of the step that uses them; the
-step losses and the evaluation sums stay on the device and are read back
-once per epoch and once per evaluation. The only other host sync of a step
-is the forward's edge check (`kernels.fused_conv.edge_plan`).
+On the card a single-device trainer runs each train step and each eval step
+as a replay of a CUDA graph captured once per padded batch shape
+(`train/graphs.py`), the counterpart of the JAX trainer's `jax.jit` steps:
+the first step of a shape runs eagerly, the second captures it, and every
+later one is one graph launch. `TrainerConfig.scan_steps = K` groups up to
+K consecutive batches of one shape as the JAX fit loop does for its
+`lax.scan` (a shape change flushes the group; batch order and resume
+replay are unchanged): each group's batches are checked on the host
+(`fused_conv.check_edges`, the check a captured step cannot make), stacked
+and copied to the card in one pinned, non-blocking copy per field, and
+their steps dispatched back to back; a group's losses come back as [K].
+Nothing in an epoch waits on the card but the two readbacks, the mean train
+loss and the evaluation sums. The mesh ranks (NCCL and gloo collectives
+are not captured), a model built at DEBUG log level (its anomaly checks
+read back every layer) and the CPU run every step eagerly, with the same
+grouping.
 
 With `mesh` (`parallel.make_mesh`), the trainer is one rank of a data and
 graph parallel run, the counterpart of the JAX trainer's `shard_map`
@@ -51,10 +61,13 @@ import torch
 import torch.distributed as dist
 
 from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.kernels.fused_conv import check_edges
 from matten_tpu_torch.parallel.collectives import psum
 from matten_tpu_torch.parallel.sharding import MESH, NODE_MODES, Mesh, local_block
 from matten_tpu_torch.train.checkpoint import CheckpointManager
+from matten_tpu_torch.train.graphs import StepGraphs, batch_key
 from matten_tpu_torch.train.task import Task, masked_abs_err_sum, masked_mse_sums
+from matten_tpu_torch.utils.anomaly import DetectAnomaly
 
 logger = logging.getLogger(__name__)
 
@@ -93,8 +106,7 @@ class ReduceLROnPlateau:
 
 @dataclass
 class TrainerConfig:
-    """The JAX `TrainerConfig` without its TPU dispatch field
-    (`scan_steps`)."""
+    """The JAX `TrainerConfig`."""
 
     max_epochs: int = 1000
     lr: float = 0.01
@@ -111,16 +123,25 @@ class TrainerConfig:
     save_top_k: int = 3
     log_every_epochs: int = 1
     seed: int = 35
+    # group up to this many consecutive batches of one padded shape, as the
+    # JAX fit loop does for one `lax.scan` dispatch; on the card their
+    # graphed steps are dispatched back to back from one stacked copy. 1
+    # takes every batch alone; the result is the same either way
+    scan_steps: int = 1
     # save the rolling `last` checkpoint every N epochs (and always at the
     # final or stopping epoch); a crash loses fewer than N epochs
     save_last_every_epochs: int = 1
 
 
-def make_optimizer(params, config: TrainerConfig) -> torch.optim.Optimizer:
+def make_optimizer(params, config: TrainerConfig, capturable: bool = False) -> torch.optim.Optimizer:
+    """The config's optimizer; `capturable`: Adam and AdamW keep their step
+    count on the device, so that a CUDA graph can capture their update (SGD
+    has no state to keep)."""
     kind = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW, "sgd": torch.optim.SGD}
     if config.optimizer not in kind:
         raise ValueError(f"unknown optimizer {config.optimizer!r}; expected one of {sorted(kind)}")
-    return kind[config.optimizer](params, lr=config.lr, weight_decay=config.weight_decay)
+    extra = {"capturable": capturable} if config.optimizer != "sgd" else {}
+    return kind[config.optimizer](params, lr=config.lr, weight_decay=config.weight_decay, **extra)
 
 
 def _check_graph_mode(model: torch.nn.Module, mesh: Mesh) -> None:
@@ -146,7 +167,8 @@ class Trainer:
     `metrics_logger`, an object with `.log(record, step=)`, gets each
     epoch's history record. `mesh` makes it one rank of a parallel run
     (module docstring); the mesh's mode must be the model's
-    `graph_parallel_mode`."""
+    `graph_parallel_mode`. On the card without a mesh the steps are CUDA
+    graph replays (module docstring)."""
 
     def __init__(
         self,
@@ -168,7 +190,14 @@ class Trainer:
         self.primary = mesh is None or mesh.rank == 0
         # the running statistics, averaged over the data axis after a step
         self._statistics = [b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))]
-        self.optimizer = make_optimizer(self.model.parameters(), config)
+        # Adam's update as a graph captures it wherever a step can be captured,
+        # so an eager step (DEBUG) computes the same update
+        capturable = self.device.type == "cuda" and mesh is None
+        self.optimizer = make_optimizer(self.model.parameters(), config, capturable=capturable)
+        # DEBUG-level models check every layer's output on the host
+        graphs = capturable and not any(isinstance(m, DetectAnomaly) for m in model.modules())
+        self._graphs = StepGraphs({"train": self._train_step, "eval": self._eval_step},
+                                  lambda kind: self.model.train(kind == "train")) if graphs else None
         self.scheduler = (
             ReduceLROnPlateau(factor=config.lr_factor, patience=config.lr_patience)
             if config.scheduler != "none"
@@ -180,7 +209,6 @@ class Trainer:
             if config.checkpoint_dir is not None
             else None
         )
-        self._copy_stream = None
 
     # ------------------------------------------------------------------
     def _task_mask(self, task: Task, data: Dict, targets: Dict) -> torch.Tensor:
@@ -250,11 +278,27 @@ class Trainer:
         return out if isinstance(out, dict) else {self.tasks[0].name: out}
 
     # ------------------------------------------------------------------
-    def train_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
-        """Forward (train mode), loss, backward, one optimizer update.
+    def _step(self, kind: str, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
+        if self._graphs is None or torch.is_anomaly_enabled():
+            return (self._train_step if kind == "train" else self._eval_step)(data, targets)
+        return self._graphs.run(kind, data, targets)
 
-        Returns the loss (a detached 0-d tensor on the device; reading it
-        syncs the host) and the metric (sum, count) pairs per task."""
+    def train_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
+        """Forward (train mode), loss, backward, one optimizer update; on the
+        card a CUDA graph's replay from the second step of a batch shape on.
+
+        Returns the loss (a detached 0-d tensor on the device, a copy the
+        next step leaves alone; reading it syncs the host) and the metric
+        (sum, count) pairs per task."""
+        return self._step("train", data, targets)
+
+    def eval_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
+        """Forward on the running statistics: (loss, metric sums); on the
+        card a graph's replay as `train_step`'s."""
+        return self._step("eval", data, targets)
+
+    def _train_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
+        """`train_step`, eagerly."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         preds = self._preds(data)
@@ -266,13 +310,17 @@ class Trainer:
         return loss.detach(), self._metric_sums(preds, data, targets)
 
     @torch.no_grad()
-    def eval_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
-        """Forward on the running statistics: (loss, metric sums)."""
+    def _eval_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
+        """`eval_step`, eagerly."""
         self.model.eval()
         preds = self._preds(data)
         return self._compute_loss(preds, data, targets), self._metric_sums(preds, data, targets)
 
     def set_lr(self, lr: float) -> None:
+        """The learning rate of every param group; a captured train step,
+        which holds the old one, is captured anew at its next step."""
+        if any(group["lr"] != lr for group in self.optimizer.param_groups) and self._graphs is not None:
+            self._graphs.drop("train")
         for group in self.optimizer.param_groups:
             group["lr"] = lr
 
@@ -293,62 +341,70 @@ class Trainer:
         if (state["scheduler"] is None) != (self.scheduler is None):
             raise ValueError("the checkpoint's scheduler does not match this trainer's config")
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        opt = state["optimizer"]
+        if "capturable" in self.optimizer.defaults:
+            # this trainer's own choice, whatever the writer's was: the load
+            # puts the step counts where it needs them
+            capturable = self.optimizer.defaults["capturable"]
+            opt = dict(opt, param_groups=[dict(g, capturable=capturable) for g in opt["param_groups"]])
+        self.optimizer.load_state_dict(opt)
+        if self._graphs is not None:
+            # new optimizer state tensors: the train graphs read the old ones
+            self._graphs.drop("train")
         if self.scheduler is not None:
             self.scheduler = ReduceLROnPlateau(**state["scheduler"])
 
     # ------------------------------------------------------------------
-    def _device_batches(self, loader: Iterable) -> Iterator[Tuple[Tuple[Dict, Dict], TensorBatch]]:
-        """(numpy batch, the batch on the device) for each batch of `loader`;
+    def _groups(self, loader: Iterable) -> Iterator[List[Tuple[Dict, Dict]]]:
+        """The loader's batches in groups, as the JAX fit loop groups them
+        for its `lax.scan`: consecutive batches of one `batch_key`,
+        `scan_steps` of them, or fewer where a shape change or the loader's
+        end cuts the group short."""
+        k = max(self.config.scan_steps, 1)
+        group, key = [], None
+        for batch in loader:
+            b_key = batch_key(*batch)
+            if group and b_key != key:
+                yield group
+                group = []
+            key = b_key
+            group.append(batch)
+            if len(group) == k:
+                yield group
+                group = []
+        if group:
+            yield group
+
+    def _device_group(self, group: List[Tuple[Dict, Dict]]) -> List[Tuple[Tuple[Dict, Dict], TensorBatch]]:
+        """(numpy batch, the batch on the device) for each batch of a group;
         with a mesh, this rank's block of it on the device, with the mesh.
 
-        On the card each batch is pinned and copied with non-blocking copies
-        on a side stream while the step before it runs; the compute stream
-        waits for the copy, and the copied tensors are marked as used by it
-        (`record_stream`) so their memory is not handed out again under a
-        running step."""
-        if self.mesh is not None:
+        Without a mesh each batch's edges are checked here, on the host
+        (`fused_conv.check_edges`: a captured forward does not check them).
+        Each field of the group's batches is stacked and copied in one copy,
+        on the card from pinned memory and non-blocking, so that no copy
+        waits for the steps queued before it."""
+        if self.mesh is None:
+            for data, _ in group:
+                src, dst = data[K.EDGE_INDEX]
+                n = data[K.NODE_MASK].shape[0]
+                check_edges(src, dst, n, n)
+            blocks = group
+        else:
             per_atom = [t.name for t in self.tasks if t.per_atom]
-            for batch, (data, targets) in self._copies(
-                    loader, lambda b: local_block(self.mesh, b, per_atom)):
-                yield batch, (dict(data, **{MESH: self.mesh}), targets)
-            return
-        yield from self._copies(loader, lambda b: b)
-
-    def _copies(self, loader: Iterable, block) -> Iterator[Tuple[Tuple[Dict, Dict], TensorBatch]]:
-        """(numpy batch, `block` of it on the device) for each batch."""
-        if self.device.type != "cuda":
-            # predict imports the train package: import it here, not at the top
-            from matten_tpu_torch.predict import batch_to_device
-
-            for batch in loader:
-                data, targets = block(batch)
-                yield batch, batch_to_device(data, self.device, targets)
-            return
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        stream, current = self._copy_stream, torch.cuda.current_stream(self.device)
-
-        def copy(batch):
-            with torch.cuda.stream(stream):
-                return tuple(
-                    {k: torch.as_tensor(np.ascontiguousarray(v)).pin_memory().to(self.device, non_blocking=True)
-                     for k, v in part.items()}
-                    for part in block(batch)
-                )
-
-        it = iter(loader)
-        batch = next(it, None)
-        copied = copy(batch) if batch is not None else None
-        while batch is not None:
-            current.wait_stream(stream)
-            for part in copied:
-                for t in part.values():
-                    t.record_stream(current)
-            nxt = next(it, None)
-            pending = copy(nxt) if nxt is not None else None
-            yield batch, copied
-            batch, copied = nxt, pending
+            blocks = [local_block(self.mesh, b, per_atom) for b in group]
+        parts = []
+        for i in range(2):
+            stacked = {}
+            for k in blocks[0][i]:
+                host = torch.from_numpy(np.stack([np.asarray(b[i][k]) for b in blocks]))
+                if self.device.type == "cuda":
+                    host = host.pin_memory()
+                stacked[k] = host.to(self.device, non_blocking=True).unbind(0)
+            parts.append([{k: v[j] for k, v in stacked.items()} for j in range(len(blocks))])
+        if self.mesh is not None:
+            parts[0] = [dict(d, **{MESH: self.mesh}) for d in parts[0]]
+        return list(zip(group, zip(*parts)))
 
     def _run_eval(self, loader: Iterable) -> Dict[str, float]:
         """Loss and MAE per task over a loader, and the score (the sum of
@@ -358,12 +414,13 @@ class Trainer:
         n = 0
         loss_sum = torch.zeros((), device=self.device)
         sums = {t.name: [torch.zeros((), device=self.device)] * 2 for t in self.tasks}
-        for _, (data, targets) in self._device_batches(loader):
-            n += 1
-            loss, ms = self.eval_step(data, targets)
-            loss_sum = loss_sum + loss
-            for name, (s, c) in ms.items():
-                sums[name] = [sums[name][0] + s, sums[name][1] + c]
+        for group in self._groups(loader):
+            n += len(group)
+            for _, (data, targets) in self._device_group(group):
+                loss, ms = self.eval_step(data, targets)
+                loss_sum = loss_sum + loss
+                for name, (s, c) in ms.items():
+                    sums[name] = [sums[name][0] + s, sums[name][1] + c]
         if n == 0:
             return {"loss": float("nan"), "score": float("inf")}
         packed = torch.stack([loss_sum] + [x for t in self.tasks for x in sums[t.name]]).tolist()
@@ -450,14 +507,16 @@ class Trainer:
                 train_loader.set_epoch(epoch)
             train_losses = []
             epoch_edges = 0
-            for (host, _), (data, targets) in self._device_batches(train_loader):
-                epoch_edges += int(host[K.EDGE_MASK].sum())
-                loss, _ = self.train_step(data, targets)
-                train_losses.append(loss)
+            for group in self._groups(train_loader):
+                losses = []
+                for (host, _), (data, targets) in self._device_group(group):
+                    epoch_edges += int(host[K.EDGE_MASK].sum())
+                    losses.append(self.train_step(data, targets)[0])
+                train_losses.append(torch.stack(losses))
 
             val_metrics = self._run_eval(val_loader)
             score = val_metrics["score"]
-            train_loss = torch.stack(train_losses).mean().item() if train_losses else float("nan")
+            train_loss = torch.cat(train_losses).mean().item() if train_losses else float("nan")
 
             # plateau scheduler, then best-k save and early stopping on val/score
             if self.scheduler is not None and self.scheduler.step(score):

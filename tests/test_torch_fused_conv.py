@@ -171,7 +171,7 @@ def test_edge_plan_rejects_bad_edges():
     src = torch.as_tensor(np.array([0, 3, 1, 2], np.int32))
     dst = torch.as_tensor(np.array([0, 0, 2, 3], np.int32))
     plan = fused_conv.edge_plan(src, dst, 4, 4)
-    assert plan.n_items == 3 and plan.order is None
+    assert int(plan.item_ptr[-1]) == 3 and plan.items(16)[1] == 4 and plan.order is None
     for s, d, n_in, n_out in ((src, dst.flip(0).contiguous(), 4, 4), (src, dst, 3, 4),
                               (src, dst, 4, 3), (src - 1, dst, 4, 4)):
         with pytest.raises(ValueError, match="non-decreasing"):
@@ -184,25 +184,31 @@ def test_edge_plan_rejects_bad_edges():
 
 def test_edge_plan_reads_every_item_count_in_one_sync(monkeypatch):
     """K1's items at 16 edges and at the smaller tiers' 8 and 4: each
-    item_ptr = cumsum(ceil(deg / te)), and all their counts come back with
-    the index check in one read to the host."""
+    item_ptr = cumsum(ceil(deg / te)), its count left on the device and the
+    grid a static bound on it. No count is read to the host: outside a
+    capture only the index check's flag is, under a capture nothing."""
     deg = np.array([0, 1, 16, 0, 17, 159])
     dst = torch.as_tensor(np.repeat(np.arange(len(deg)), deg).astype(np.int32))
     src = torch.as_tensor(np.random.default_rng(39).integers(0, 9, len(dst)).astype(np.int32))
     reads = []
-    for name in ("tolist", "item", "__bool__", "__int__", "__float__"):
+    for name in ("tolist", "item", "__bool__", "__int__", "__float__", "__index__", "numpy"):
         orig = getattr(torch.Tensor, name)
         monkeypatch.setattr(torch.Tensor, name,
                             lambda self, *a, _o=orig, _n=name: reads.append(_n) or _o(self, *a))
     plan = fused_conv.edge_plan(src, dst, 9, len(deg), item_edges=(8, 4))
+    assert reads == ["__bool__"]
+    reads.clear()
+    monkeypatch.setattr(fused_conv, "_capturing", lambda t: True)
+    captured = fused_conv.edge_plan(src, dst, 9, len(deg), item_edges=(8, 4), with_src_order=True)
+    assert reads == []
     monkeypatch.undo()
-    assert reads == ["tolist"]
-    assert sorted(plan.item_ptrs) == sorted(plan.item_counts) == [4, 8, 16]
+    assert sorted(plan.item_ptrs) == [4, 8, 16]
     for te in TIER_EDGES:
-        item_ptr, n_items = plan.items(te)
+        item_ptr, bound = plan.items(te)
         np.testing.assert_array_equal(item_ptr.numpy(), np.concatenate([[0], np.cumsum(-(-deg // te))]))
-        assert n_items == int((-(-deg // te)).sum())
-    assert plan.n_items == 14 and plan.item_ptr is plan.item_ptrs[16]
+        assert torch.equal(captured.items(te)[0], item_ptr)
+        assert bound == min(len(dst), (len(dst) + len(deg) * (te - 1)) // te) >= int(item_ptr[-1])
+    assert plan.items(16)[1] == 17 and int(plan.item_ptr[-1]) == 14 and plan.item_ptr is plan.item_ptrs[16]
     with pytest.raises(ValueError, match="not 2"):
         plan.items(2)
     with pytest.raises(ValueError, match="not 8"):
@@ -293,17 +299,19 @@ def _replay_forward(plan, x, sh, w, edges, te=16):
     assert tt.fwd_edges == te
     x, sh, w = (a.double().numpy() for a in (x, sh, w))
     src = edges.src.numpy()
-    item_ptr, n_items = edges.items(te)
+    item_ptr, grid = edges.items(te)
     row_ptr, item_ptr = edges.row_ptr.numpy(), item_ptr.numpy()
     sh_pad = np.where(tt.sh_src >= 0, sh[:, np.maximum(tt.sh_src, 0)], 0.0)
     t = np.zeros((sh.shape[0], tab.t_meta.shape[0]))
     for i, (_, _, d2, _) in enumerate(tab.t_meta):
         t[:, i] = sh_pad[:, tt.t_sh[i] : tt.t_sh[i] + d2] @ tt.cg_t[:d2, i]
     dout = plan.irreps_out.dim
-    partial = np.zeros((n_items, dout))
+    partial = np.zeros((grid, dout))
     writes = np.zeros(partial.shape, int)
     spans = []
-    for item in range(n_items):
+    for item in range(grid):
+        if item >= item_ptr[edges.n_out]:
+            continue  # a block past the real count exits
         lo, hi = 0, edges.n_out
         while hi - lo > 1:
             mid = (lo + hi) // 2
@@ -353,15 +361,18 @@ def test_k1_item_map_and_partial_rows_reproduce_the_plain_version(ir1, ir2, out,
     a["dst"] = dst
     t = _torch(a)
     edges = fused_conv.edge_plan(t["src"], t["dst"], n_in, n_out, item_edges=(te,))
-    item_ptr, n_items = edges.items(te)
+    item_ptr, grid = edges.items(te)
     np.testing.assert_array_equal(item_ptr.numpy(), np.concatenate([[0], np.cumsum(-(-deg // te))]))
     partial, writes, spans = _replay_forward(pt, t["x"], t["sh"], t["w"], edges, te)
-    assert n_items == len(spans) == int((-(-deg // te)).sum())
+    n_items = len(spans)
+    assert grid >= n_items == int((-(-deg // te)).sum()) == int(item_ptr[-1])
     covered = np.concatenate([np.arange(e0, e0 + nj) for _, e0, nj in spans])
     np.testing.assert_array_equal(covered, np.arange(len(dst)))
     for node, e0, nj in spans:
         assert 1 <= nj <= te and (dst[e0 : e0 + nj] == node).all()
-    assert (writes == 1).all()
+    # every entry of the real items' rows written once, the rows past them never
+    assert (writes[:n_items] == 1).all() and (writes[n_items:] == 0).all()
+    partial = partial[:n_items]
     # index_add_ on the CPU adds the rows one after another, in item order
     item_node = torch.repeat_interleave(torch.arange(n_out), (item_ptr[1:] - item_ptr[:-1]).long())
     got = torch.zeros(n_out, partial.shape[1], dtype=torch.float64).index_add_(

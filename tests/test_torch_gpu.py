@@ -22,6 +22,8 @@ naming the count found; they import `chip_smoke` from the repository's
 root, from which pytest runs.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -753,24 +755,17 @@ def test_predict_from_checkpoint_dir_on_the_card(dev, tmp_path):
             _assert_rel(torch.as_tensor(np.asarray(b)), torch.as_tensor(np.asarray(a)), 1e-6)
 
 
-def test_fit_launch_counts_and_host_syncs(dev):
-    """A 2-epoch `fit` on the card, after a warm-up epoch that builds the
-    kernels and copies their tables: one launch of each of K1's kernels per
-    conv layer in every train step and val batch, and of the merged
-    backward and the dx sum in every train step. Under
-    `set_sync_debug_mode("warn")` the loop's host syncs are the forward's
-    edge check (`edge_plan`) once per train step and val batch, and two per
-    epoch: the val sums and the mean train loss, each read back once."""
-    import dataclasses
-    import warnings
-
+def _fit_setup(dev, num_layers=2):
+    """A 16-crystal elasticity data module (10 train crystals in 3 batches
+    of at most 4, shuffled each epoch; 6 val crystals in 2), its task and
+    the production model at `num_layers`."""
     from matten_tpu_torch.data.datamodule import BatchLoader
     from matten_tpu_torch.data.graph import CrystalGraph
     from matten_tpu_torch.data.transform import MeanNormNormalize
     from matten_tpu_torch.models import create_scalar_tensor_model
     from matten_tpu_torch.nn.embedding import atomic_number_map
     from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
-    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+    from matten_tpu_torch.train import CanonicalRegressionTask
 
     rng = np.random.default_rng(21)
     graphs = []
@@ -790,12 +785,35 @@ def test_fit_launch_counts_and_host_syncs(dev):
     irreps = cartesian_tensor_map("ijkl=jikl=klij").irreps
     task = CanonicalRegressionTask(name="elastic_tensor_full", normalizer=MeanNormNormalize(
         irreps, mean=rng.normal(size=21), norm=rng.uniform(0.5, 2.0, 21)))
-    hp = dict(PRODUCTION, num_layers=2)
+    hp = dict(PRODUCTION, num_layers=num_layers)
     model = create_scalar_tensor_model(hp, dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0),
                                        device=dev)
+    return DataModule(), task, model
+
+
+def test_fit_launch_counts_and_host_syncs(dev):
+    """A 2-epoch `fit` on the card, after a warm-up epoch that runs each
+    batch shape's train and eval step eagerly (building the kernels and
+    copying their tables): one launch of each of K1's kernels per conv
+    layer in every train step and val batch, and of the merged backward
+    and the dx sum in every train step. Under `set_sync_debug_mode("warn")`
+    the loop's host syncs are two per epoch, the val sums and the mean
+    train loss, each read back once, and one for each first sight of a
+    batch shape (shuffled, a shape may first come in a later epoch), whose
+    eager step reads back `edge_plan`'s check. The second sight captures
+    the step; the `torch.cuda.synchronize` that `torch.cuda.graph` makes
+    before a capture is not reported by the debug mode. A replay waits on
+    nothing."""
+    import dataclasses
+    import warnings
+
+    from matten_tpu_torch.train import Trainer, TrainerConfig
+
+    dm, task, model = _fit_setup(dev)
     trainer = Trainer(model, [task], TrainerConfig(max_epochs=1, lr=0.01), device=dev)
-    trainer.fit(DataModule())
+    trainer.fit(dm)
     torch.cuda.synchronize()
+    seen, graphs = set(trainer._graphs.seen), dict(trainer._graphs.graphs)
     trainer.config = dataclasses.replace(trainer.config, max_epochs=2)
     counters = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches")
     before = [getattr(fused_conv, c) for c in counters]
@@ -803,16 +821,160 @@ def test_fit_launch_counts_and_host_syncs(dev):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            history = trainer.fit(DataModule())[1:]
+            history = trainer.fit(dm)[1:]
         finally:
             torch.cuda.set_sync_debug_mode(0)
     steps, val, convs = 2 * 3, 2 * 2, 3
     assert [getattr(fused_conv, c) - b for c, b in zip(counters, before)] == [
         convs * (steps + val)] * 2 + [convs * steps] * 2
-    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
-    assert len(syncs) == steps + val + 2 * 2, syncs
+    first_sights = len(trainer._graphs.seen - seen)
+    captures = sum(graphs.get(k) is not g for k, g in trainer._graphs.graphs.items())
+    assert {k[0] for k in trainer._graphs.graphs} == {"train", "eval"} and captures >= 1
+    # the debug mode's notice that it is a prototype comes once per process
+    syncs = [str(w.message) for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 2 * 2 + first_sights, (first_sights, captures, syncs)
     assert [h["epoch"] for h in history] == [0, 1]
     assert all(np.isfinite(h[k]) for h in history for k in ("train/loss", "val/loss", "val/score"))
+
+
+def test_graphed_steps_match_eager_through_shapes_lr_and_restore(dev, tmp_path):
+    """A graphed trainer and an eager one (its step graphs dropped, as on
+    the CPU; the same capturable Adam) from the same weights, step for step through two pad
+    shapes, an lr change (the train graphs captured anew) and
+    `restore_last` (the optimizer's state replaced: captured anew): every
+    loss and metric sum within 1e-5 relative, the parameters and Adam
+    moments at the end within 1e-4 of their largest entry; the eval step
+    graphed against eager; replays without a host sync and with exact
+    launches; a failed capture raises."""
+    import copy
+
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import Trainer, TrainerConfig
+
+    dm, task, model = _fit_setup(dev)
+    cfg = TrainerConfig(lr=0.01, checkpoint_dir=str(tmp_path / "ck"))
+    g = Trainer(model, [task], cfg, device=dev)
+    e = Trainer(copy.deepcopy(model), [task], cfg, device=dev)
+    e._graphs = None
+    assert g._graphs is not None
+    assert g.optimizer.defaults["capturable"] and e.optimizer.defaults["capturable"]
+    batches = [batch_to_device(d, dev, t) for d, t in dm.train_dataloader()]
+    a, b = batches[0], next(x for x in batches if x[0][K.NODE_MASK].shape != batches[0][0][K.NODE_MASK].shape)
+
+    def both(kind, batch, replay):
+        before = {c: getattr(fused_conv, c) for c in ("launches", "bwd_launches")}
+        if replay:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            lg, mg = getattr(g, kind)(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launched = {c: getattr(fused_conv, c) - v for c, v in before.items()}
+        assert launched == {"launches": 3, "bwd_launches": 3 if kind == "train_step" else 0}, launched
+        le, me = getattr(e, kind)(*batch)
+        for x, y in [(lg, le)] + [(mg[task.name][j], me[task.name][j]) for j in range(2)]:
+            assert abs(float(x) - float(y)) <= 1e-5 * abs(float(y)), (kind, float(x), float(y))
+
+    # eager, capture, replay of a; of b; a replay of a between
+    for batch, replay in ((a, 0), (a, 0), (a, 1), (b, 0), (b, 0), (a, 1), (b, 1)):
+        both("train_step", batch, replay)
+    assert len(g._graphs.graphs) == 2
+    g.set_lr(0.005)
+    e.set_lr(0.005)
+    assert not g._graphs.graphs
+    for batch, replay in ((a, 0), (a, 1), (b, 0), (b, 1)):
+        both("train_step", batch, replay)
+    g._ckpt_manager.save_last(g.state_dict())
+    for batch in (a, b):
+        both("train_step", batch, 1)
+    g.restore_last()
+    e.load_state_dict(g._manager().restore(last=True, device=dev))
+    assert not g._graphs.graphs
+    for batch, replay in ((b, 0), (b, 1), (a, 0), (a, 1)):
+        both("train_step", batch, replay)
+    for replay in (0, 0, 1):
+        both("eval_step", a, replay)
+    for (n, p), q in zip(g.model.named_parameters(), e.model.parameters()):
+        _assert_rel(p, q, 1e-4)
+        for k in ("exp_avg", "exp_avg_sq"):
+            _assert_rel(g.optimizer.state[p][k], e.optimizer.state[q][k], 1e-4)
+    # a step that cannot be captured (a host read inside it) raises
+    g._graphs.steps["train"] = lambda d, t: (d[K.NODE_MASK].sum().item(), {})
+    g._graphs.drop("train")
+    with pytest.raises(RuntimeError):
+        g.train_step(*a)
+
+
+# a replay of a batch whose dst is out of order, in a process of its own: a
+# device-side assert leaves the CUDA context unusable
+_BAD_REPLAY = """
+import os, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from test_torch_gpu import _fit_setup
+from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.predict import batch_to_device
+from matten_tpu_torch.train import Trainer, TrainerConfig
+
+dev = torch.device("cuda", 0)
+dm, task, model = _fit_setup(dev, num_layers=1)
+t = Trainer(model, [task], TrainerConfig(lr=0.01), device=dev)
+data, targets = next(iter(dm.train_dataloader()))
+data, targets = batch_to_device(data, dev, targets)
+for _ in range(3):  # eager, capture, replay
+    float(t.train_step(data, targets)[0])
+assert len(t._graphs.graphs) == 1
+edges = data[K.EDGE_INDEX].clone()
+edges[1, 0] = data[K.NODE_MASK].shape[0] - 1  # in range, but the first edge's dst now tops the rest
+print("replayed", flush=True)
+try:
+    t.train_step(dict(data, **{K.EDGE_INDEX: edges}), targets)
+    torch.cuda.synchronize()
+except RuntimeError as err:
+    print("raised:", err, flush=True)
+    os._exit(3)
+os._exit(0)
+"""
+
+
+def test_bad_batch_on_a_replay_stops_the_card(dev):
+    """A captured step cannot read `edge_plan`'s index check back: it asserts
+    on the device (`torch._assert_async`), so a replay of a batch whose dst
+    is out of order (in range, which no gather of the forward would catch)
+    raises at the next sync instead of running K1 on it."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tests.parent)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    r = subprocess.run([sys.executable, "-c", _BAD_REPLAY, str(tests)], capture_output=True, text=True,
+                       timeout=600, cwd=tests.parent, env=env)
+    assert r.returncode == 3 and "replayed" in r.stdout and "device-side assert" in r.stdout, (
+        r.returncode, r.stdout[-2000:], r.stderr[-4000:])
+
+
+def test_k1_on_its_static_bound_is_bitwise_the_counted_grid(dev):
+    """K1's grid is a bound on its items, never below their count; launched
+    on the bound it gives the partial rows and the output of a launch on
+    the counted grid bitwise, at each item size."""
+    plan, t = _inputs(dev, 15, 300, 300, 5000)
+    dims = fused_conv._smem_dims(plan)
+    for te in (16, 8, 4):
+        limit = None if te == 16 else fused_conv.fwd_smem(*dims, 4, te, True)
+        with fused_conv.smem_limit(limit):
+            edges = fused_conv.edge_plan(t["src"], t["dst"], 300, 300,
+                                         item_edges=fused_conv.item_edges_for((plan,), dev))
+            item_ptr, bound = edges.items(te)
+            count = int(item_ptr[-1])
+            assert count <= bound
+            args = (plan, t["x"], t["sh"], t["w"], edges)
+            part_b, _ = fused_conv._launch_items(*args)
+            part_c, _ = fused_conv._launch_items(*args, n_items=count)
+            assert part_b.shape[0] == bound and torch.equal(part_b[:count], part_c)
+            assert torch.equal(fused_conv._launch_fwd_sum(part_b, item_ptr, 300),
+                               fused_conv._launch_fwd_sum(part_c, item_ptr, 300))
 
 
 def _sharded_layout(ring):

@@ -1,7 +1,8 @@
 """The port's data and graph parallel train step against the JAX package's.
 
 Mirrors `tests/parallel/test_dp.py` (without its scan and chunked-kernel
-tests: the port has neither `scan_steps` nor the chunk-aligned layout).
+tests: `scan_steps` is held to the JAX loop in `test_torch_scan_steps.py`,
+and the port has no chunk-aligned layout).
 The JAX file's small model and 8 crystals; parameters from the JAX
 `init_state(rng_seed=0)`, carried over with `convert.flax_to_state_dict`.
 The port's ranks are processes of one 4-rank gloo world on the CPU

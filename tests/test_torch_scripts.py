@@ -134,7 +134,7 @@ def _trainer_cases():
 def test_build_trainer_config_matches_jax(config):
     ours, ref = build_trainer_config(config), jax_build_trainer_config(config)
     fields = vars(ours)
-    assert set(fields) == set(vars(ref)) - {"scan_steps"}
+    assert set(fields) == set(vars(ref))
     for k, v in fields.items():
         assert v == getattr(ref, k), k
 

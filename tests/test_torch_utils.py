@@ -144,12 +144,14 @@ def test_restore_by_run_identifier(tmp_path):
 
 
 def test_scan_steps_above_one_is_logged(caplog):
-    cfg = {"trainer": {"scan_steps": 8}}
+    """`trainer.scan_steps` reaches TrainerConfig as the JAX
+    `build_trainer_config` passes it (1 when absent), and is not logged as
+    unused."""
     with caplog.at_level("INFO", logger="matten_tpu_torch.train.config"):
-        build_trainer_config(cfg)
-        build_trainer_config({"trainer": {"scan_steps": 1}})
-    msgs = [r.message for r in caplog.records if "scan_steps" in r.message]
-    assert len(msgs) == 1 and "scan_steps=8" in msgs[0]
+        assert build_trainer_config({"trainer": {"scan_steps": 8}}).scan_steps == 8
+        assert build_trainer_config({"trainer": {"scan_steps": 1}}).scan_steps == 1
+        assert build_trainer_config({"trainer": {}}).scan_steps == 1
+    assert not [r for r in caplog.records if "scan_steps" in r.message]
 
 
 def test_train_scripts_configure_the_tiers(monkeypatch):
