@@ -122,14 +122,16 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
  20. data parallel 2 x 1, the tenth main path: 2 ranks started as processes
      (`parallel.launch`) that share the card under the gloo backend, each
      taking its block of the port loader's stacked flagship batch (2 x 16
-     crystals) through `Trainer(mesh=...).train_step` (SGD, lr 0.01) at
-     production width without batch norm (data parallelism normalizes each
+     crystals) through `Trainer(mesh=...).train_step` (SGD, lr 0.01; gloo's
+     collectives run on the host, so the steps are eager: no rank has step
+     graphs) at production width without batch norm (data parallelism normalizes each
      shard by its own statistics, so only then is it the 1-rank step), and a
      ragged batch, one crystal over the 2 ranks: the loss and metric sum
      within 1e-5 relative of the 1-rank step on the whole batch, every
      gradient within MODEL_TOL of its largest entry, the parameters after
-     the step within 2e-5, both ranks bitwise equal; exact launches per
-     step and rank; each rank's K1 and backward (with their segment sums)
+     the step within 2e-5, both ranks bitwise equal (the counted step the
+     third from the seed state); exact launches per step and rank; each
+     rank's K1 and backward (with their segment sums)
      against their plain versions at its own edge plans (KERNEL_TOL); their
      times per layer beside their bounds at the rank's shapes and the step
      time by CUDA events beside the 1-rank step's (both ranks at once on
@@ -197,13 +199,27 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      what the counters added (4 per step: a replay's count is its
      capture's, so the trace is what shows the graph ran them); the bytes
      of the graphs' pools and the capture time of each key.
+ 27. predict, the sixteenth: `predict` of phase 14's elasticity and NMR
+     directories' models, its forward eager chunk by chunk: 6 chunks of 3
+     pad shapes (chunks of 8 flagship crystals, of 4 NMR crystals) in one
+     call against a call per chunk, within 1e-6 relative, 4 launches of
+     K1's two kernels per chunk; the forward on the whole batch as a CUDA
+     graph replay against eager (CUDA events and host clock), a replay's
+     conv kernels in the profiler's trace as counted; a screening call of
+     1024 flagship crystals in chunks of 32, predict's eager chunk loop
+     against a CUDA graph per pad shape within the call (host ms, pad
+     shapes, captures, replays, capture s and pool MiB per shape); one
+     `predict(32 flagship crystals, directory)` call, whole and split into
+     load, graph building, collation, host check, copy, forward and
+     readout.
 The line before the last is the kernels JSON (its times are phase 9's; its
 max |d| the worst of the script's direct comparisons of a kernel with its
 plain version, phases 20-22's included; its launches count every main
-path's run: phases 6, 8, 12-14, 16-19, the graphed trainers of 26 and,
-summed over both ranks, 20-22; the two bf16-storage entries' times,
-bounds, max |d| and launches are phase 23's; the last two entries, K1 and the merged
-backward at the plans past production, are phase 25's, with their
+path's run: phases 6, 8, 12-14, 16-19, the graphed trainers of 26, the
+counted predict calls of 27 and, summed over both ranks, 20-22; the two
+bf16-storage entries' times, bounds, max |d| and launches are phase 23's;
+the last two entries, K1 and the merged backward at the plans past
+production, are phase 25's, with their
 launches per tier and their max |d| at bf16 storage beside); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
@@ -231,17 +247,28 @@ node and node_ring at 1 x N, node at 2 x N/2 without batch norm, node on
 the NMR batch at 1 x N, node at 1 x N with max pooling: pmax across the
 cards) held as phases 20-21 hold theirs against the 1-rank step computed
 meanwhile on card 0, each rank's kernels against
-plain at its own plans, no rank staging through the host; each case's
-step time per rank (CUDA events) beside the 1-rank step's, the conv and
-NCCL kernels' device time per step on rank 0 (the profiler); then
+plain at its own plans, no rank staging through the host. Under nccl every
+rank's steps are CUDA graph replays with the step's collectives captured
+(the same keys on every rank): the counted step is a replay (after the
+eager first sight and the capture, each from the seed state), and each
+rank's graphed Adam trainer is held against its eager twin from the same
+state over 6 train steps on two pad shapes with an lr change and 2 eval
+steps (losses and metric sums 1e-5 relative, parameters and Adam moments
+MODEL_TOL, replays without a host sync, the ranks bitwise equal); each
+case's step time per rank graphed and eager (CUDA events and host clock)
+beside the graphed 1-rank step's; in eager steps the device's busy share
+per rank, the conv and NCCL kernels' device time per step on rank 0 with
+each conv kernel kind in the trace as the counters say (the profiler; a
+replay of a graph that holds NCCL kernels is not profiled, ROADMAP §3);
+the all-reduces' bytes per step, the graph pools and capture times; then
 `torchrun --standalone --nproc-per-node N -m
 matten_tpu_torch.scripts.train_materials_tensor CONFIG` on the production
 yaml with `trainer.mesh: {data: 1, graph: N, mode: node}`, phase 16's
 data, 2 epochs, against the same config fitted on card 0 (every epoch's
 loss and val score and the test metrics within 1e-4 relative, the same
 directory, `predict` from both within 1e-5, no NCCL warning of a guessed
-device). It prints the N cards' nvidia-smi lines and ends with the same
-last line, with "count": N.
+device, rank 0's steps graph replays by its log). It prints the N
+cards' nvidia-smi lines and ends with the same last line, with "count": N.
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
@@ -762,9 +789,10 @@ def max_rel(results, refs):
 
 
 def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, elastic_structures,
-               elastic_targets):
+               elastic_targets, ckpt_root):
     """Phases 11-15, the per-atom NMR model at full width, and serving both
-    families from a checkpoint directory. Returns the launch counts of the
+    families from a checkpoint directory (written under `ckpt_root`, as
+    "elasticity" and "NMR", for phase 27 too). Returns the launch counts of the
     main-path runs among them (the forward (12), the train steps (13) and
     `predict` from disk (14)), and the NMR trainer and batch, for phase 10."""
     from matten_tpu_torch.data import keys as K
@@ -880,34 +908,33 @@ def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, e
         ("NMR", trainer.model, trainer.state_dict(), NMR_HPARAMS, NMR_DATA, ds_hp, stats, structures),
     )
     served = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, fam_model, state, hp, data_hp, fam_ds, fam_stats, fam_structures in families:
-            ckpt = Path(tmp) / name
-            save_sidecar(ckpt, {"model": hp, "data": data_hp, "dataset_hparams": fam_ds,
-                                "normalize_tensor_target": True}, fam_stats.to_arrays())
-            manager = CheckpointManager(ckpt)
-            manager.save(0, state, {"val/score": 1.0})
-            manager.save_last(state)
-            batch = fam_structures + [si_structure()]
-            reset_counts(fused_conv)
-            results = predict(batch, ckpt)
-            torch.cuda.synchronize()
-            c = counts(fused_conv)
-            if c["fwd"] == 0 or c["fwd_sum"] == 0:
-                raise AssertionError(f"predict from the {name} checkpoint did not launch K1: {c}")
-            launched = {k: launched[k] + v for k, v in c.items()}
-            refs = predict(batch, fam_model, fam_stats.target_normalizer)
-            for s, r in zip(batch, results):
-                shape = (len(s), 3, 3) if name == "NMR" else (3, 3, 3, 3)
-                if r is None or r.shape != shape or not np.isfinite(r).all():
-                    raise AssertionError(f"predict from the {name} checkpoint: not a finite {shape} tensor")
-                if name == "NMR" and np.abs(r - r.transpose(0, 2, 1)).max() > 1e-6 * np.abs(r).max():
-                    raise AssertionError("an NMR prediction is not symmetric")
-            err = max_rel(results, refs)
-            served.append(f"{name} {len(batch)} structures, max|d|/max|ref| {err:.3e} against the in-memory "
-                          f"predict, launches {c}")
-            if not err <= 1e-6:
-                raise AssertionError(f"predict from the {name} checkpoint disagrees with the in-memory one: {err}")
+    for name, fam_model, state, hp, data_hp, fam_ds, fam_stats, fam_structures in families:
+        ckpt = ckpt_root / name
+        save_sidecar(ckpt, {"model": hp, "data": data_hp, "dataset_hparams": fam_ds,
+                            "normalize_tensor_target": True}, fam_stats.to_arrays())
+        manager = CheckpointManager(ckpt)
+        manager.save(0, state, {"val/score": 1.0})
+        manager.save_last(state)
+        batch = fam_structures + [si_structure()]
+        reset_counts(fused_conv)
+        results = predict(batch, ckpt)
+        torch.cuda.synchronize()
+        c = counts(fused_conv)
+        if c["fwd"] == 0 or c["fwd_sum"] == 0:
+            raise AssertionError(f"predict from the {name} checkpoint did not launch K1: {c}")
+        launched = {k: launched[k] + v for k, v in c.items()}
+        refs = predict(batch, fam_model, fam_stats.target_normalizer)
+        for s, r in zip(batch, results):
+            shape = (len(s), 3, 3) if name == "NMR" else (3, 3, 3, 3)
+            if r is None or r.shape != shape or not np.isfinite(r).all():
+                raise AssertionError(f"predict from the {name} checkpoint: not a finite {shape} tensor")
+            if name == "NMR" and np.abs(r - r.transpose(0, 2, 1)).max() > 1e-6 * np.abs(r).max():
+                raise AssertionError("an NMR prediction is not symmetric")
+        err = max_rel(results, refs)
+        served.append(f"{name} {len(batch)} structures, max|d|/max|ref| {err:.3e} against the in-memory "
+                      f"predict, launches {c}")
+        if not err <= 1e-6:
+            raise AssertionError(f"predict from the {name} checkpoint disagrees with the in-memory one: {err}")
     print("[14 from disk] CheckpointManager + save_sidecar, then predict(structures, checkpoint_dir) on the "
           "card (tol 1e-6): " + "; ".join(served) + f"; Si NMR tensor of atom 0 diagonal "
           f"{np.diag(results[-1][0]).round(6).tolist()}", flush=True)
@@ -1528,7 +1555,13 @@ MESH_TIMEOUT_S = 600
 MESH_REPS = 5  # timed train steps, and timed kernel calls per layer, on each rank
 MESH_PROFILED_STEPS = 2  # profiled train steps per rank (phase 21's flagship graph modes; every case of --cards)
 # what a rank's seconds per case were spent on (`mesh_rank`)
-MESH_PHASES = ("mesh and model", "counted step", "kernel checks", "timed steps", "profiled steps")
+MESH_PHASES = ("mesh and model", "counted step", "kernel checks", "timed steps", "eager twin", "profiled steps")
+# under nccl, each rank's graphed trainer against its eager twin (`mesh_twins`):
+# train steps on the case's batch "a" and half its crystals "b", the lr
+# halved after MESH_TWIN_LR_STEP, then MESH_TWIN_EVALS eval steps on "a"
+MESH_TWIN_STEPS = "aabbab"
+MESH_TWIN_LR_STEP = 3
+MESH_TWIN_EVALS = 2
 # torch threads of each rank: the host's cores are shared by this process
 # and both ranks
 MESH_THREADS = 2
@@ -1618,16 +1651,92 @@ def shard_kernels(model, hp, data, mode, n_graph, torch, timed=True, time_plain=
     return max_abs, worst, ms, plain_ms, bounds
 
 
+def mesh_twins(case, mesh, dev, task, torch):
+    """Under nccl, on this rank: a graphed trainer (Adam, lr 0.01, from the
+    seed) against its eager twin (`eager`) from the same state, step for
+    step (`graphed_step`): the train steps of MESH_TWIN_STEPS over the
+    case's two pad shapes ("a" its batch, "b" half its crystals), the lr
+    halved after step MESH_TWIN_LR_STEP (the train graphs captured anew),
+    then MESH_TWIN_EVALS eval steps on "a"; every replay under
+    `set_sync_debug_mode("error")` with exact launches, every loss and
+    metric sum within GRAPH_LOSS_TOL relative of the twin's; then the
+    parameters and Adam moments against the twin's. Returns the worst
+    differences, the replays, the graphed trainer's
+    parameters and moments (for the ranks' bitwise check), its pools' MiB
+    and the capture seconds of each key."""
+    from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
+    from matten_tpu_torch.parallel import shard_batch
+    from matten_tpu_torch.train import Trainer, TrainerConfig
+    from matten_tpu_torch.train.graphs import batch_key
+
+    create = create_atomic_tensor_model if case["per_atom"] else create_scalar_tensor_model
+    config = TrainerConfig(lr=0.01)
+    g, e = (Trainer(create(case["hparams"], case["ds"], device=dev, seed=SEED), [task], config, device=dev,
+                    mesh=mesh) for _ in range(2))
+    eager(e)
+    per_atom = [task.name] if task.per_atom else []
+    batches = {"a": shard_batch(mesh, *case["batch"], dev, per_atom),
+               "b": shard_batch(mesh, *case["batch_half"], dev, per_atom)}
+    if batch_key(*batches["a"]) == batch_key(*batches["b"]):
+        raise AssertionError(f"{case['name']}: its two batches share one pad shape")
+    label = f"{case['name']} rank {mesh.rank}"
+    convs = (case["hparams"]["num_layers"] + 1) * (case["n_graph"] if case["mode"] == "node_ring" else 1)
+    errs, replays = [], 0
+    steps = [("train_step", n) for n in MESH_TWIN_STEPS] + [("eval_step", "a")] * MESH_TWIN_EVALS
+    for i, (kind, n) in enumerate(steps):
+        want = {k: convs if kind == "train_step" or k.startswith("fwd") else 0 for k in COUNTERS}
+        _, replay, step_errs, _ = graphed_step(label, g, e, kind, batches[n], want, torch)
+        errs += step_errs
+        replays += replay
+        if i + 1 == MESH_TWIN_LR_STEP:
+            for t in (g, e):
+                t.set_lr(config.lr / 2)
+    state = {n: p.detach().cpu().numpy().copy() for n, p in g.model.named_parameters()}
+    state.update({f"{n} {k}": g.optimizer.state[p][k].cpu().numpy().copy()
+                  for n, p in g.model.named_parameters() for k in ("exp_avg", "exp_avg_sq")})
+    out = {"loss_err": max(errs), "state_err": state_errors(g, e)[:3], "replays": replays, "state": state,
+           "pool_mib": g._graphs.pool_bytes() / 2**20, "capture_s": sorted(g._graphs.capture_seconds().values())}
+    g.free_graphs()  # before the group's communicators go: never left to the garbage collector
+    return out
+
+
+def rank_step_ms(step, torch):
+    """Median ms of MESH_REPS steps by CUDA events, then of MESH_REPS by the
+    host clock around the step and a synchronize, after a warm-up step;
+    every rank times at once."""
+    step()
+    torch.cuda.synchronize()
+    events = [cuda_ms(step, torch) for _ in range(MESH_REPS)]
+    wall = []
+    for _ in range(MESH_REPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(events)), float(np.median(wall))
+
+
 def mesh_rank(rank, world_size, job):
     """A rank of phases 20-21 and of `--cards`: for each case, its mesh,
-    the model from the seed, one counted SGD `Trainer.train_step` on its
-    block of the stacked batch (the main path), its gradients and
-    parameters, the kernels against their plain versions at its own plans,
-    then MESH_REPS steps timed by CUDA events, and with the case's
-    `profile` the conv and NCCL kernels' device time per step on rank 0;
-    the seconds each of these took. The rank's
-    card is the launcher's: cuda:0 for ranks that share it under gloo,
-    card r under nccl."""
+    the SGD trainer from the seed (graphed when the mesh's step groups are
+    nccl's, eager under gloo: `captures_collectives`), its block of the
+    stacked batch, and one counted train step from the seed state (the
+    main path): under nccl a replay, after the first sight's eager step and
+    the capture, each from the seed state again (the model's state loaded
+    back in place), under `set_sync_debug_mode("error")`; its loss, metric,
+    gradients and parameters. Then the kernels against their plain versions
+    at its own plans, the step's median ms by CUDA events and by the host
+    clock (`rank_step_ms`; under nccl graphed and eager, the step graphs
+    set aside); under nccl the graphed Adam trainer against its eager twin
+    (`mesh_twins`), and the case's graphs freed. Last, once every case's
+    graphs are gone, for each case with `profile` MESH_PROFILED_STEPS
+    profiled eager steps: the device's busy share on every rank, and on
+    rank 0 the conv and NCCL kernels' device time per step and each conv
+    kernel kind in the trace against the counters (a replay of a graph that
+    holds NCCL kernels is not profiled: ROADMAP §3). The seconds each part
+    took (MESH_PHASES). The rank's card is the
+    launcher's: cuda:0 for ranks that share it under gloo, card r under
+    nccl."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1635,11 +1744,11 @@ def mesh_rank(rank, world_size, job):
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
     from matten_tpu_torch.parallel import make_mesh, shard_batch
-    from matten_tpu_torch.parallel.collectives import stages_through_host
+    from matten_tpu_torch.parallel.collectives import captures_collectives, stages_through_host
     from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    out = {}
+    out, profiled = {}, []
     for case in job:
         marks = [time.perf_counter()]
         mesh = make_mesh(case["n_data"], case["n_graph"], case["mode"])
@@ -1648,10 +1757,24 @@ def mesh_rank(rank, world_size, job):
         task = CanonicalRegressionTask(name=case["target"], per_atom=case["per_atom"])
         trainer = Trainer(model, [task], TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev,
                           mesh=mesh)
+        graphed = trainer._graphs is not None
+        if graphed != captures_collectives(mesh):
+            raise AssertionError(f"{case['name']}: step graphs {graphed}, but captures_collectives says "
+                                 f"{captures_collectives(mesh)}")
         data, targets = shard_batch(mesh, *case["batch"], dev, [task.name] if task.per_atom else [])
         marks.append(time.perf_counter())
+        seed_state = copy.deepcopy(trainer.model.state_dict())
+        for _ in range(2):  # the first sight (eager), then the capture, each from the seed state
+            trainer.train_step(data, targets)
+            trainer.model.load_state_dict(seed_state)
+        torch.cuda.synchronize()
         reset_counts(fused_conv)
-        loss, metrics = trainer.train_step(data, targets)
+        if graphed:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss, metrics = trainer.train_step(data, targets)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         launched = counts(fused_conv)
         marks.append(time.perf_counter())
@@ -1659,33 +1782,58 @@ def mesh_rank(rank, world_size, job):
             "loss": float(loss), "metric": float(metrics[task.name][0]), "launched": launched,
             "grads": {n: p.grad.cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
             "params": {n: p.detach().cpu().numpy().copy() for n, p in trainer.model.named_parameters()},
-            "staged": stages_through_host(data["pos"], mesh.graph),
+            "staged": stages_through_host(data["pos"], mesh.graph), "graphed": graphed,
+            "keys": sorted(repr(k) for k in trainer._graphs.graphs) if graphed else [],
+            # the gradient all-reduce over the world and the running statistics' over the data axis
+            "allreduce_bytes": (sum(p.numel() * p.element_size() for p in model.parameters()) * (mesh.size > 1)
+                                + sum(b.numel() * b.element_size() for b in trainer._statistics)
+                                * (mesh.n_data > 1)),
         }
         # the profiled cases also time the plain versions (PERF.md's rows
         # of a rank's block)
         (res["max_abs"], res["kernel_rel"], res["kernel_ms"], res["plain_ms"], res["bounds"]) = shard_kernels(
             trainer.model, case["hparams"], data, case["mode"], case["n_graph"], torch, time_plain=case["profile"])
         marks.append(time.perf_counter())
-        res["step_ms"] = float(np.median(
-            [cuda_ms(lambda: trainer.train_step(data, targets), torch) for _ in range(MESH_REPS)]))
+
+        def step(trainer=trainer, data=data, targets=targets):
+            trainer.train_step(data, targets)
+
+        graphs = trainer._graphs
+        res["step_ms"], res["wall_ms"] = rank_step_ms(step, torch)
+        if graphed:
+            trainer._graphs = None
+            res["eager_ms"], res["eager_wall_ms"] = rank_step_ms(step, torch)
+            trainer._graphs = graphs
         marks.append(time.perf_counter())
-        # device time per step of the conv kernels and of NCCL's, on rank 0
-        # (the others take the same steps unprofiled: they meet in their
-        # collectives)
-        res["device_ms"] = res["nccl_ms"] = None
-        if case["profile"] and rank == 0:
-            with tempfile.TemporaryDirectory() as tmp:
-                _, st = traced(lambda: trainer.train_step(data, targets), MESH_PROFILED_STEPS, Path(tmp), "step",
-                               torch)
-            res["device_ms"] = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k)) for k in KERNEL_NAMES}
-            res["nccl_ms"] = sum(t for n, t in st["by_kernel"].items() if n.startswith("nccl"))
-        elif case["profile"]:
-            for _ in range(MESH_PROFILED_STEPS):
-                trainer.train_step(data, targets)
-            torch.cuda.synchronize()
+        res["twin"] = mesh_twins(case, mesh, dev, task, torch) if graphed else None
+        trainer.free_graphs()  # before the group's communicators go: never left to the garbage collector
+        eager(trainer)
         marks.append(time.perf_counter())
-        res["phase_s"] = np.diff(marks).tolist()  # MESH_PHASES
         out[case["name"]] = res
+        if case["profile"]:
+            profiled.append((res, step, marks))
+        else:
+            res["busy"], res["device_ms"], res["nccl_ms"], res["in_trace"] = None, None, None, None
+            res["phase_s"] = np.diff(marks + [marks[-1]]).tolist()  # MESH_PHASES
+    # every rank profiles the same eager steps (they meet in their
+    # collectives), once every case's graphs are freed: a replay of a graph
+    # that holds NCCL kernels is not profiled, since under torch.profiler it
+    # died on a segmentation fault on the card (ROADMAP §3)
+    with tempfile.TemporaryDirectory() as tmp:
+        for res, step, marks in profiled:
+            before, t0 = counts(fused_conv), time.perf_counter()
+            ev, st = traced(step, MESH_PROFILED_STEPS, Path(tmp), "eager", torch)
+            res["busy"] = {k: st[k] for k in ("busy_ms", "span_ms", "kernel", "launches")}
+            res["device_ms"], res["nccl_ms"], res["in_trace"] = None, None, None
+            if rank == 0:
+                res["device_ms"] = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k))
+                                    for k in KERNEL_NAMES}
+                res["nccl_ms"] = sum(t for n, t in st["by_kernel"].items() if n.startswith("nccl"))
+                res["in_trace"] = (
+                    {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev)
+                     / MESH_PROFILED_STEPS for k in KERNEL_NAMES},
+                    {k: (v - before[k]) / MESH_PROFILED_STEPS for k, v in counts(fused_conv).items()})
+            res["phase_s"] = np.diff(marks).tolist() + [time.perf_counter() - t0]  # MESH_PHASES
     return out
 
 
@@ -1705,7 +1853,7 @@ def script_rank(rank, world_size, job):
     from matten_tpu_torch.train import load_sidecar
 
     metrics, trainer, setup_s, launched = run_script(train_materials_tensor, job["config"], fused_conv, torch)
-    res = {"metrics": metrics, "launched": launched, "setup_s": setup_s,
+    res = {"metrics": metrics, "launched": launched, "setup_s": setup_s, "graphed": trainer._graphs is not None,
            "history": [{k: h[k] for k in ("epoch", "epoch_time", "train/edges_per_s", "val/score")}
                        for h in trainer.history],
            "served": {k: 0 for k in COUNTERS}}
@@ -1770,8 +1918,9 @@ def mesh_cases(specs, structures, target_rows, profile_all):
     tests; the graph modes keep the whole graph's statistics),
     "no_bn_ragged" (one crystal over the data axis), "max_pool" (the
     production model pooling by max) and "nmr" (the NMR model on the NMR
-    batch). A case is profiled in the graph modes on the
-    flagship batch, or always with `profile_all`."""
+    batch). Each case also holds the stacked batch of half its crystals,
+    another pad shape, under "batch_half". A case is profiled in the graph
+    modes on the flagship batch, or always with `profile_all`."""
     from matten_tpu_torch.data.datamodule import BatchLoader
     from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
     from matten_tpu_torch.nn.embedding import atomic_number_map
@@ -1792,12 +1941,13 @@ def mesh_cases(specs, structures, target_rows, profile_all):
     cases = []
     for name, n_data, n_graph, mode, model in specs:
         hp, ds, gs, per_atom = models[model]
-        loader = BatchLoader(gs, batch_size=max(len(gs), n_data), species_map=smap, num_buckets=1,
-                             **MeshSpec(n_data, n_graph, mode).loader_kwargs())
+        batch, half = (next(iter(BatchLoader(g, batch_size=max(len(g), n_data), species_map=smap, num_buckets=1,
+                                             **MeshSpec(n_data, n_graph, mode).loader_kwargs())))
+                       for g in (gs, gs[:max(1, len(gs) // 2)]))
         parallel = dict(hp, graph_parallel_axis="graph", graph_parallel_mode=mode) if n_graph > 1 else hp
         cases.append(dict(name=name, n_data=n_data, n_graph=n_graph, mode=mode, hparams=parallel, ds=ds,
                           per_atom=per_atom, target=NMR_TARGET if per_atom else TARGET,
-                          batch=next(iter(loader)), single=(hp, gs),
+                          batch=batch, batch_half=half, single=(hp, gs),
                           profile=profile_all or (n_graph > 1 and not per_atom)))
     return cases
 
@@ -1806,9 +1956,11 @@ def mesh_steps(cases, world, backend, dev, torch):
     """Every case on `world` ranks (`mesh_rank`, started with
     `parallel.launch` under `backend`), and meanwhile the 1-rank SGD step
     on each whole batch on `dev`; after the world has ended, that step's
-    time (median of MESH_REPS by CUDA events, the cases in turns). Returns (each rank's
-    results, the 1-rank (loss, metric, gradients, parameters) and step ms
-    per case, seconds of the world)."""
+    time (a graph replay on the card: median of MESH_REPS by CUDA events
+    and of MESH_REPS by the host clock, the cases in turns). Returns (each
+    rank's results, the 1-rank (loss, metric, gradients, parameters) and
+    (CUDA-event ms, host ms) of its step per case, seconds of the
+    world)."""
     from matten_tpu_torch.data.datamodule import BatchLoader
     from matten_tpu_torch.models import create_atomic_tensor_model, create_scalar_tensor_model
     from matten_tpu_torch.nn.embedding import atomic_number_map
@@ -1817,7 +1969,8 @@ def mesh_steps(cases, world, backend, dev, torch):
     from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
 
     smap = atomic_number_map(SPECIES_5)
-    env = {"PYTHONPATH": str(Path(__file__).resolve().parent)}
+    # a rank that dies on a signal prints its Python stack
+    env = {"PYTHONPATH": str(Path(__file__).resolve().parent), "PYTHONFAULTHANDLER": "1"}
     jobs = [{k: v for k, v in c.items() if k != "single"} for c in cases]
     refs, singles = {}, {}
     t0 = time.perf_counter()
@@ -1838,14 +1991,20 @@ def mesh_steps(cases, world, backend, dev, torch):
             singles[c["name"]] = (trainer, batch)
         steps = ranks.join()
     world_s = time.perf_counter() - t0
-    # the cases in turns, after a warm-up step each
-    times = {name: [] for name in singles}
-    for r in range(MESH_REPS + 1):
+    # the cases in turns, after a warm-up step each: odd turns by CUDA
+    # events, even ones by the host clock around the step and a synchronize
+    times = {name: ([], []) for name in singles}
+    for r in range(2 * MESH_REPS + 1):
         for name, (trainer, batch) in singles.items():
-            t = cuda_ms(lambda: trainer.train_step(*batch), torch)
-            if r:
-                times[name].append(t)
-    return steps, refs, {name: float(np.median(t)) for name, t in times.items()}, world_s
+            if r % 2:
+                times[name][0].append(cuda_ms(lambda: trainer.train_step(*batch), torch))
+            else:
+                t0 = time.perf_counter()
+                trainer.train_step(*batch)
+                torch.cuda.synchronize()
+                if r:
+                    times[name][1].append((time.perf_counter() - t0) * 1e3)
+    return steps, refs, {name: tuple(float(np.median(t)) for t in ts) for name, ts in times.items()}, world_s
 
 
 def check_mesh_steps(cases, steps, refs, one_ms, card, backend, world_s):
@@ -1925,10 +2084,76 @@ def check_mesh_steps(cases, steps, refs, one_ms, card, backend, world_s):
               + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["bwd"])
               + "; train step median ms (CUDA events) per rank "
               + " / ".join(f"{r['step_ms']:.2f}" for r in rs)
-              + f", 1 rank on the whole batch {one_ms[name]:.2f} ({shared}); rank 0's seconds: "
+              + f", 1 rank on the whole batch {one_ms[name][0]:.2f} ({shared}); rank 0's seconds: "
               + ", ".join(f"{k} {t:.1f}" for k, t in zip(MESH_PHASES, r0["phase_s"]))
               + f"; world {world_s:.1f} s", flush=True)
     return launched, max_abs
+
+
+def check_mesh_graphs(cases, steps, one_ms, card, backend):
+    """Each case's step graphs: under gloo no rank has any; under nccl
+    every rank has, with the same keys on every rank (the ranks capture the
+    same collectives), and on each rank the graphed trainer matched its
+    eager twin (`mesh_twins`: losses and metric sums within GRAPH_LOSS_TOL
+    there, parameters and Adam moments within MODEL_TOL here, with
+    replays), the ranks' graphed states bitwise equal; in rank 0's profiled
+    eager steps each conv kernel kind ran as often as the counters say,
+    one per conv layer (per ring group under node_ring) and step (the
+    graphed steps are not profiled: ROADMAP §3). Under nccl prints a line
+    per case: a rank's step graphed and eager (CUDA events, host clock)
+    beside the graphed one-card step, the device's busy share per rank and
+    the NCCL kernels' device ms on rank 0 in the eager steps, the bytes the
+    all-reduces move per step, the twins' pools and capture seconds."""
+    for c in cases:
+        name, rs = c["name"], [s[c["name"]] for s in steps]
+        r0 = rs[0]
+        if any(r["graphed"] != (backend == "nccl") for r in rs):
+            raise AssertionError(f"{name}: step graphs {[r['graphed'] for r in rs]} under {backend}")
+        if backend != "nccl":
+            continue
+        if any(r["keys"] != r0["keys"] for r in rs) or not r0["keys"]:
+            raise AssertionError(f"{name}: the ranks captured different keys: {[r['keys'] for r in rs]}")
+        for i, r in enumerate(rs):
+            t = r["twin"]
+            if not (t["state_err"][0][0] <= MODEL_TOL and t["replays"] > 0):
+                raise AssertionError(f"{name}: rank {i}'s graphed trainer against its eager twin: parameters and "
+                                     f"moments {t['state_err']}, {t['replays']} replays")
+            for n, v in r0["twin"]["state"].items():
+                if not np.array_equal(v, t["state"][n]):
+                    raise AssertionError(f"{name}: the graphed trainers of ranks 0 and {i} differ in {n}")
+        groups = c["n_graph"] if c["mode"] == "node_ring" else 1
+        per_step = {k: (c["hparams"]["num_layers"] + 1) * groups for k in COUNTERS}
+        if c["profile"]:
+            in_trace, counted = r0["in_trace"]
+            if in_trace != counted or counted != per_step:
+                raise AssertionError(f"{name}: rank 0's profiled eager step ran {in_trace} conv kernels on the "
+                                     f"card, counted {counted}, expected {per_step}")
+
+        def busy(r):
+            b = r["busy"]
+            return "-" if b is None else f"{100 * b['busy_ms'] / b['span_ms']:.1f}% ({b['busy_ms']:.3f} of {b['span_ms']:.3f})"
+
+        print(f"[{name} graphs] {card}: {len(rs)} ranks, every rank's steps CUDA graph replays with the same "
+              f"{len(r0['keys'])} key(s); against each rank's eager twin (Adam from the seed, train steps "
+              f"{MESH_TWIN_STEPS} on its block and on half the crystals' block, lr halved after step "
+              f"{MESH_TWIN_LR_STEP}, then {MESH_TWIN_EVALS} eval steps): losses and metric sums worst "
+              f"{max(r['twin']['loss_err'] for r in rs):.3e} (tol {GRAPH_LOSS_TOL}), parameters and Adam moments "
+              f"worst {max(r['twin']['state_err'][0] for r in rs)} (tol {MODEL_TOL}), replays per rank "
+              f"{r0['twin']['replays']} under set_sync_debug_mode('error'), the ranks' graphed states bitwise equal; "
+              f"the counted SGD step a replay; train step median ms per rank graphed / eager, CUDA events "
+              + ", ".join(f"{r['step_ms']:.3f} / {r['eager_ms']:.3f}" for r in rs) + ", host clock "
+              + ", ".join(f"{r['wall_ms']:.3f} / {r['eager_wall_ms']:.3f}" for r in rs)
+              + f"; one card on the whole batch, graphed: {one_ms[name][0]:.3f} CUDA events, {one_ms[name][1]:.3f} "
+              f"host; device busy per rank in eager steps ({MESH_PROFILED_STEPS} profiled steps, ms of the span; "
+              "graphed steps not profiled) " + ", ".join(busy(r) for r in rs)
+              + ("" if r0["nccl_ms"] is None else
+                 f"; rank 0 per eager step: NCCL kernels {r0['nccl_ms']:.4f} ms, conv kernels "
+                 + ", ".join(f"{k} {t:.4f}" for k, t in r0["device_ms"].items())
+                 + f" ms, each kind in the trace as counted {r0['in_trace'][0]}")
+              + f"; all-reduces per step {r0['allreduce_bytes']} bytes (the gradients over the world, the running "
+              f"statistics over the data axis); the twins' graph pools per rank "
+              + ", ".join(f"{r['twin']['pool_mib']:.1f}" for r in rs) + " MiB, capture s per key (rank 0) "
+              + ", ".join(f"{t:.3f}" for t in r0["twin"]["capture_s"]), flush=True)
 
 
 def parallel_phases(dev, card, torch, structures, target_rows):
@@ -1942,6 +2167,7 @@ def parallel_phases(dev, card, torch, structures, target_rows):
     cases = mesh_cases(GLOO_CASES, structures, target_rows, profile_all=False)
     steps, refs, one_ms, steps_s = mesh_steps(cases, 2, "gloo", dev, torch)
     launched, max_abs = check_mesh_steps(cases, steps, refs, one_ms, card, "gloo", steps_s)
+    check_mesh_graphs(cases, steps, one_ms, card, "gloo")
 
     env = {"PYTHONPATH": str(Path(__file__).resolve().parent)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1966,6 +2192,8 @@ def parallel_phases(dev, card, torch, structures, target_rows):
     for r in (r0, r1):
         if r["launched"] != expect:
             raise AssertionError(f"22: a rank's launches {r['launched']}, expected {expect}")
+        if r["graphed"]:
+            raise AssertionError("22: a rank of a gloo mesh has step graphs")
         if not r["kernel_rel"] <= KERNEL_TOL:
             raise AssertionError(f"22: a kernel disagrees with its plain version at a rank's fit blocks: "
                                  f"{r['kernel_rel']}")
@@ -1979,7 +2207,8 @@ def parallel_phases(dev, card, torch, structures, target_rows):
     if not {"hparams.json", "dataset_statistics.npz", "index.json", "last", "loop_state.json"} <= set(r0["files"]):
         raise AssertionError(f"22: the directory holds {r0['files']}")
     print(f"[22 mesh fit] {card}: train_materials_tensor.main with trainer.mesh {{data: 1, graph: 2, mode: "
-          f"node}} on 2 ranks sharing the card (gloo), {FIT_TRAIN} train / {FIT_VAL} val crystals, batch 32, "
+          f"node}} on 2 ranks sharing the card (gloo: eager steps), {FIT_TRAIN} train / {FIT_VAL} val crystals, "
+          f"batch 32, "
           f"{MESH_EPOCHS} epochs: launches per rank {r0['launched']} (expected {expect}); epoch times (s) rank 0 "
           + ", ".join(f"{h['epoch_time']:.4f}" for h in r0["history"]) + ", train edges/s "
           + ", ".join(f"{h['train/edges_per_s']:.1f}" for h in r0["history"])
@@ -2056,7 +2285,9 @@ def torchrun_fit(n, card, torch):
     and val score as the script logs them (5 decimals, the one-card values
     rounded alike) and the test metrics within 1e-4 relative, the same
     files in both directories, `predict` from both within 1e-5; no NCCL
-    warning of an unbound device in the ranks' log."""
+    warning of an unbound device in the ranks' log, and rank 0's log line
+    saying that its steps are CUDA graph replays (the scripts log on the
+    primary rank only)."""
     from matten_tpu_torch.data.structure import Structure
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.predict import predict
@@ -2106,6 +2337,9 @@ def torchrun_fit(n, card, torch):
             raise AssertionError(f"NCCL warned of an unbound device ({unbound}):\n{log[-6000:]}")
         if f"mesh: data=1 graph={n} mode=node" not in log:
             raise AssertionError(f"torchrun's fit did not run on the mesh:\n{log[-6000:]}")
+        # the scripts log on the primary rank only; every rank reads the same backends
+        if "rank 0 of a 1 x " + str(n) + " node mesh: steps replayed as CUDA graphs" not in log:
+            raise AssertionError(f"torchrun's fit: rank 0 does not replay its steps as CUDA graphs:\n{log[-6000:]}")
         epochs = [(int(e), float(loss), float(score), float(t)) for e, loss, score, t in EPOCH_LOG.findall(log)]
         tests = TEST_LOG.findall(log)
         if len(epochs) != MESH_EPOCHS or len(tests) != 1:
@@ -2141,7 +2375,8 @@ def torchrun_fit(n, card, torch):
     print(f"[fit {n} cards] {card}: torchrun --standalone --nproc-per-node {n} -m "
           f"matten_tpu_torch.scripts.train_materials_tensor with materials_tensor_production.yaml, trainer.mesh "
           f"{{data: 1, graph: {n}, mode: node}}, {FIT_TRAIN} train / {FIT_VAL} val crystals, batch 32, "
-          f"{MESH_EPOCHS} epochs (nccl): exit 0 in {many_s:.1f} s, no unbound-device warning; against the "
+          f"{MESH_EPOCHS} epochs (nccl, the steps CUDA graph replays): exit 0 in {many_s:.1f} s, no "
+          f"unbound-device warning; against the "
           f"one-card fit on card 0 ({one_s:.1f} s, setup {setup1:.2f} s, launches {launched1}): epochs (train "
           "loss, val score; logged to 5 decimals) "
           + "; ".join(f"{e}: {loss:.5f} vs {h['train/loss']:.8f}, {score:.5f} vs {h['val/score']:.8f}"
@@ -2154,15 +2389,109 @@ def torchrun_fit(n, card, torch):
           f"{predict_err:.3e} apart (tol 1e-5)", flush=True)
 
 
+# `--cards`: the fault of ROADMAP §3 reduced to one all-reduce of one
+# communicator, each variant a 2-rank nccl world of its own: (what it shows,
+# a graph of the all-reduce captured, replayed and freed before, the
+# profiler's activities around a replay or None)
+PROBE_VARIANTS = (("unprofiled, after a freed graph", True, None),
+                  ("profiled (CPU and CUDA), no graph freed before", False, "cpu+cuda"),
+                  ("profiled (CPU and CUDA), after a freed graph", True, "cpu+cuda"),
+                  ("profiled (CUDA only), after a freed graph", True, "cuda"))
+PROBE_TIMEOUT_S = 60
+
+
+def graph_probe_rank(rank, world_size, job):
+    """A rank of `graph_probe`: an all-reduce of the world's communicator
+    run eagerly first (the communicator made); with job["freed"] a CUDA
+    graph of it captured, replayed and freed; then a graph of it captured
+    anew and replayed; with job["profile"] replayed once more under
+    torch.profiler. Returns the (min, max) of the sum after each replay."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.full((1 << 20,), float(rank + 1), device=torch.device("cuda", torch.cuda.current_device()))
+
+    def step():
+        y = x * 2
+        dist.all_reduce(y)
+        return y
+
+    def capture():
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            y = step()
+        return g, y
+
+    step()
+    torch.cuda.synchronize()
+    if job["freed"]:
+        g, y = capture()
+        g.replay()
+        torch.cuda.synchronize()
+        del g, y
+        torch.cuda.synchronize()
+    g, y = capture()
+    g.replay()
+    torch.cuda.synchronize()
+    sums = [(float(y.min()), float(y.max()))]
+    if job["profile"] is not None:
+        y.zero_()
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if "cpu" in job["profile"] else [])
+        with profile(activities=activities):
+            g.replay()
+            torch.cuda.synchronize()
+        sums.append((float(y.min()), float(y.max())))
+    del g, y
+    torch.cuda.synchronize()
+    return sums
+
+
+def graph_probe(card):
+    """`--cards`' probe of the profiler fault (ROADMAP §3): the variants of
+    PROBE_VARIANTS at once, each a 2-rank nccl world on cards 0 and 1
+    (`graph_probe_rank`). The unprofiled replay of a graph captured after
+    another was freed must give the exact sum on both ranks; each profiled
+    variant's outcome, exact sums or how its world ended (a rank killed by
+    a signal), is reported as found, since that is what the probe asks."""
+    from matten_tpu_torch.parallel.launch import start_ranks
+
+    env = {"PYTHONPATH": str(Path(__file__).resolve().parent), "PYTHONFAULTHANDLER": "1"}
+    want = float(2 * (1 + 2))
+    worlds = [(label, start_ranks("chip_smoke:graph_probe_rank", 2, {"freed": freed, "profile": how},
+                                  timeout_s=PROBE_TIMEOUT_S, env=env, backend="nccl"))
+              for label, freed, how in PROBE_VARIANTS]
+    found = {}
+    for label, ranks in worlds:
+        with ranks:
+            try:
+                sums = ranks.join()
+            except RuntimeError as err:
+                found[label] = str(err).splitlines()[0].split(": ", 1)[-1] + (
+                    " (Segmentation fault)" if "Segmentation fault" in str(err) else "")
+                continue
+        exact = all(v == want for r in sums for pair in r for v in pair)
+        found[label] = "exact sums" if exact else f"wrong sums {sums}"
+    first = PROBE_VARIANTS[0][0]
+    if found[first] != "exact sums":
+        raise AssertionError(f"graph probe: a graph of one all-reduce captured after another was freed: "
+                             f"{found[first]}")
+    print(f"[graph probe] {card}: one all-reduce of 2^20 floats on 2 ranks (nccl), made eagerly, then as CUDA "
+          "graphs, a world per variant: " + "; ".join(f"{k}: {v}" for k, v in found.items()), flush=True)
+
+
 def cards_phases(n, dev, card, torch):
     """`--cards n`: the step cases of `card_cases(n)` on n ranks, a card
     each under nccl, against the 1-rank step on card 0; then the materials
-    script under torchrun on n cards against one card."""
+    script under torchrun on n cards against one card; last the probe of
+    the profiler fault (`graph_probe`)."""
     structures, target_rows = draw_structures()
     cases = mesh_cases(card_cases(n), structures, target_rows, profile_all=True)
     steps, refs, one_ms, world_s = mesh_steps(cases, n, "nccl", dev, torch)
     check_mesh_steps(cases, steps, refs, one_ms, card, "nccl", world_s)
+    check_mesh_graphs(cases, steps, one_ms, card, "nccl")
     torchrun_fit(n, card, torch)
+    graph_probe(card)
 
 
 # phase 23: bf16 storage of the conv kernels' edge inputs sh and w
@@ -2583,27 +2912,68 @@ GRAPH_LOSS_TOL = 1e-5  # the same kernels in the same order; pooling's atomic in
 GRAPH_PROFILED_STEPS = 5
 
 
+def graphed_step(label, g, e, kind, batch, want, torch):
+    """One step of `kind` ("train_step" or "eval_step") on the graphed
+    trainer g, then on its eager twin e: g's step a replay (its kind and
+    batch key captured before) runs under `set_sync_debug_mode("error")`;
+    its launches must be `want`, and its loss and metric sums within
+    GRAPH_LOSS_TOL relative of e's. Returns (g's launches, whether it
+    replayed, the relative differences, g's loss)."""
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.train.graphs import batch_key
+
+    replay = any(k[0] == kind.split("_")[0] and k[-1] == batch_key(*batch) for k in g._graphs.graphs)
+    before = counts(fused_conv)
+    if replay:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, mg = getattr(g, kind)(*batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = {k: v - before[k] for k, v in counts(fused_conv).items()}
+    if got != want:
+        raise AssertionError(f"{label}: launches of one {kind} {got}, expected {want}")
+    le, me = getattr(e, kind)(*batch)
+    errs = []
+    for name, x, y in [("loss", lg, le)] + [(f"{t} {j}", mg[t][j], me[t][j]) for t in me for j in (0, 1)]:
+        errs.append(abs(float(x) - float(y)) / max(abs(float(y)), 1e-30))
+        if not errs[-1] <= GRAPH_LOSS_TOL:
+            raise AssertionError(f"{label}: graphed {kind} {name} {float(x)!r} against eager {float(y)!r}")
+    return got, replay, errs, float(lg)
+
+
+def state_errors(g, e):
+    """Each parameter and Adam moment of g against e's, max |d| / max |ref|,
+    worst first."""
+    errs = []
+    for (n, p), q in zip(g.model.named_parameters(), e.model.parameters()):
+        errs.append((rel_err(p, q), n))
+        for k in ("exp_avg", "exp_avg_sq"):
+            errs.append((rel_err(g.optimizer.state[p][k], e.optimizer.state[q][k]), f"{n} {k}"))
+    return sorted(errs, reverse=True)
+
+
 def graph_phase(label, dev, card, torch, trainer, batches):
     """Phase 26 on one family: a graphed trainer over a deep copy of
     `trainer`'s model and optimizer state against an eager one
     (`eager`, the same capturable Adam) from the same state, step for
-    step: GRAPH_STEPS train steps on batch A with the lr halved after
-    GRAPH_LR_STEP (the train graph captured anew), then batch B, another pad
-    shape (eager, capture, replay) and A again, then `load_state_dict` of
-    the state after step GRAPH_LR_STEP (captured anew) and 2 steps; each
-    step's loss and metric sums within GRAPH_LOSS_TOL relative, the
-    parameters and Adam moments at the end within MODEL_TOL of their
-    largest entry; 3 eval steps (eager, capture, replay) against eager.
-    Every replay runs under `set_sync_debug_mode("error")` and launches
-    exactly one of each kernel per conv layer. Then host ms per step,
-    graphed against eager (synced wall clock), the device's busy share of a
-    profiled step and its conv kernels in the trace by kind (equal to what
-    the counters added), the bytes of the graphs' pools and the capture
-    time of each key. Returns the graphed trainer's launches in the checked steps."""
+    step (`graphed_step`): GRAPH_STEPS train steps on batch A with the lr
+    halved after GRAPH_LR_STEP (the train graph captured anew), then batch
+    B, another pad shape (eager, capture, replay) and A again, then
+    `load_state_dict` of the state after step GRAPH_LR_STEP (captured anew)
+    and 2 steps; each step's loss and metric sums within GRAPH_LOSS_TOL
+    relative, the parameters and Adam moments at the end within MODEL_TOL
+    of their largest entry; 3 eval steps (eager, capture, replay) against
+    eager. Every replay runs under `set_sync_debug_mode("error")` and
+    launches exactly one of each kernel per conv layer. Then host ms per
+    step, graphed against eager (synced wall clock), the device's busy
+    share of a profiled step and its conv kernels in the trace by kind
+    (equal to what the counters added), the bytes of the graphs' pools and
+    the capture time of each key. Returns the graphed trainer's launches in
+    the checked steps."""
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.train import Trainer, TrainerConfig
-    from matten_tpu_torch.train.graphs import batch_key
 
     config = TrainerConfig(lr=0.01, weight_decay=trainer.config.weight_decay)
     g = Trainer(copy.deepcopy(trainer.model), trainer.tasks, config, device=dev)
@@ -2617,29 +2987,13 @@ def graph_phase(label, dev, card, torch, trainer, batches):
 
     def step(kind, batch):
         nonlocal replays
-        # a replay: the step's kind and batch key were captured before
-        replay = any(k[0] == kind.split("_")[0] and k[-1] == batch_key(*batch) for k in g._graphs.graphs)
-        before = counts(fused_conv)
-        if replay:
-            replays += 1
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            lg, mg = getattr(g, kind)(*batch)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        got = {k: v - before[k] for k, v in counts(fused_conv).items()}
         want = {k: convs if kind == "train_step" or k.startswith("fwd") else 0 for k in COUNTERS}
-        if got != want:
-            raise AssertionError(f"{label}: launches of one {kind} {got}, expected {want}")
+        got, replay, step_errs, loss = graphed_step(label, g, e, kind, batch, want, torch)
+        replays += replay
+        errs.extend(step_errs)
         for k in COUNTERS:
             launched[k] += got[k]
-        le, me = getattr(e, kind)(*batch)
-        for name, x, y in [("loss", lg, le)] + [(f"{t} {j}", mg[t][j], me[t][j]) for t in me for j in (0, 1)]:
-            err = abs(float(x) - float(y)) / max(abs(float(y)), 1e-30)
-            errs.append(err)
-            if not err <= GRAPH_LOSS_TOL:
-                raise AssertionError(f"{label}: graphed {kind} {name} {float(x)!r} against eager {float(y)!r}")
-        return float(lg)
+        return loss
 
     losses, saved = [], None
     for i in range(GRAPH_STEPS):
@@ -2656,12 +3010,7 @@ def graph_phase(label, dev, card, torch, trainer, batches):
         losses.append(step("train_step", a))
     for _ in range(3):
         step("eval_step", a)
-    state_err = []
-    for (n, p), q in zip(g.model.named_parameters(), e.model.parameters()):
-        state_err.append((rel_err(p, q), n))
-        for k in ("exp_avg", "exp_avg_sq"):
-            state_err.append((rel_err(g.optimizer.state[p][k], e.optimizer.state[q][k]), f"{n} {k}"))
-    state_err.sort(reverse=True)
+    state_err = state_errors(g, e)
     if not state_err[0][0] <= MODEL_TOL:
         raise AssertionError(f"{label}: graphed and eager parameters or Adam moments apart: {state_err[:3]}")
     # each key by its kind and its node count
@@ -2714,6 +3063,276 @@ def graph_phase(label, dev, card, torch, trainer, batches):
           + "; ".join(f"{n}: {device_summary(st)}" for n, st in prof.items()), flush=True)
     print(f"[26 graph memory, {label}] {card}: the graphs' pools {pool_mib:.1f} MiB; capture s per key (kind, N): "
           + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items()), flush=True)
+    return launched
+
+
+# phase 27: predict, its forward eager chunk by chunk (predict.py), and what
+# a CUDA graph per pad shape within a call would give it
+PREDICT_CHUNKS = "aababc"  # the pad shapes of the counted call's chunks, in order
+PREDICT_TOL = 1e-6  # the same kernels in the same order; mean pooling's atomic index_add_ may reorder sums
+PREDICT_TRACED = 3  # replayed forwards under the profiler
+SPLIT_REPS = 5  # predict calls timed whole and split into stages, in turns
+# the stages of one predict call: the names in matten_tpu_torch.predict that each runs
+PREDICT_STAGES = {"load": ("load_pretrained",), "graphs": ("load_tensor_dataset",),
+                  "collation": ("pad_spec_for", "collate_graphs"), "host check": ("check_block_edges",),
+                  "copy": ("batch_to_device",), "forward": ("_served",), "readout": ("_readout",)}
+# a screening call: flagship crystals drawn as the flagship batch is, served
+# in chunks of predict's default batch size
+SCREEN_N, SCREEN_BATCH, SCREEN_SEED, SCREEN_REPS = 1024, 32, 3, 3
+
+
+@contextlib.contextmanager
+def timed_stages(torch):
+    """The stages of a predict call (PREDICT_STAGES) timed by the host
+    clock, each until the card has finished what it queued: {stage:
+    seconds}, summed over the calls."""
+    from matten_tpu_torch import predict as predict_mod
+
+    spent = {k: 0.0 for k in PREDICT_STAGES}
+
+    def timed(stage, fn):
+        def wrapped(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[stage] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    patched = [(stage, n, getattr(predict_mod, n)) for stage, names in PREDICT_STAGES.items() for n in names]
+    for stage, n, fn in patched:
+        setattr(predict_mod, n, timed(stage, fn))
+    try:
+        yield spent
+    finally:
+        for _, n, fn in patched:
+            setattr(predict_mod, n, fn)
+
+
+def serve_chunks(graphs, model, normalizer, size, forward, torch):
+    """predict's chunk loop (`matten_tpu_torch.predict.predict`) on graphs
+    already built, with `forward(batch)` in place of its eager forward:
+    collation, the host check, the copy, the forward and the readout of
+    each chunk, under `inference_mode`. Returns the results."""
+    from matten_tpu_torch import predict as P
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
+
+    smap, cmap = atomic_number_map(SPECIES_5), cartesian_tensor_map(model.output_formula)
+    dev = next(model.parameters()).device
+    results = []
+    with torch.inference_mode():
+        for i in range(0, len(graphs), size):
+            chunk = graphs[i:i + size]
+            data, _ = P.collate_graphs(chunk, P.pad_spec_for(chunk), species_map=smap)
+            P.check_block_edges(None, data)
+            results += P._readout(forward(P.batch_to_device(data, dev)), chunk, False, normalizer, cmap)
+    return results
+
+
+def screening_call(model, normalizer, card, torch):
+    """A screening call of SCREEN_N flagship crystals in chunks of
+    SCREEN_BATCH (their graphs built once), served by predict's eager
+    chunk loop and by the same loop with a CUDA graph per pad shape for the
+    length of the call (`StepGraphs` of the forward: a shape's first chunk
+    eager, its second captured, later ones replayed), the two in turns,
+    SCREEN_REPS each, each graphed call with graphs of its own: host ms per
+    call (synced), the pad shapes and how often each came, the graphed
+    call's captures and replays, capture s and pool MiB per shape; the two
+    within PREDICT_TOL."""
+    from matten_tpu_torch.data.dataset import TensorDatasetConfig, load_tensor_dataset
+    from matten_tpu_torch.data.graph import pad_spec_for
+    from matten_tpu_torch.predict import _served
+    from matten_tpu_torch.train.graphs import StepGraphs
+
+    structures, _ = draw_structures(seed=SCREEN_SEED, n_graphs=SCREEN_N)
+    t0 = time.perf_counter()
+    graphs = load_tensor_dataset(None, TensorDatasetConfig(r_cut=5.0, tensor_target_name=None),
+                                 structures=structures)[0]
+    build_s = time.perf_counter() - t0
+    pads = [pad_spec_for(graphs[i:i + SCREEN_BATCH]) for i in range(0, len(graphs), SCREEN_BATCH)]
+    seen = {}
+    for p in pads:
+        key = (p.num_nodes, p.num_edges, p.num_graphs)
+        seen[key] = seen.get(key, 0) + 1
+
+    def eager_call():
+        return serve_chunks(graphs, model, normalizer, SCREEN_BATCH, lambda b: _served(model, b), torch)
+
+    def graphed_call():
+        steps = StepGraphs({"forward": lambda data, _targets: _served(model, data)})
+        return serve_chunks(graphs, model, normalizer, SCREEN_BATCH,
+                            lambda b: steps.run("forward", b, {}), torch), steps
+
+    eager_call()  # warm: every shape's tables and caches
+    wall = {"eager": [], "graphed": []}
+    for r in range(2 * SCREEN_REPS):
+        how = ("eager", "graphed")[(r + r // 2) % 2]  # e g g e e g ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eager_call() if how == "eager" else graphed_call()
+        torch.cuda.synchronize()
+        wall[how].append((time.perf_counter() - t0) * 1e3)
+        if how == "eager":
+            ref = out
+        else:
+            got, steps = out
+    err = max_rel(got, ref)
+    if not err <= PREDICT_TOL:
+        raise AssertionError(f"27 screening call: the graphed chunk loop against the eager one: {err}")
+
+    def padded(key):  # a graph's key -> its batch's padded (nodes, edges)
+        shapes = {field: shape for field, shape, _ in key[-1][0]}
+        return shapes["pos"][0], shapes["edge_index"][1]
+
+    capture = {padded(k): g.capture_s for k, g in steps.graphs.items()}
+    pools = {padded(k): g.pool_bytes() / 2**20 for k, g in steps.graphs.items()}
+    captures = len(steps.graphs)
+    replays = sum(n - 2 for n in seen.values() if n > 2)
+    steps.drop()
+    print(f"[27 predict screening call] {card}: {SCREEN_N} flagship crystals (graphs built once, "
+          f"{build_s:.2f} s), chunks of {SCREEN_BATCH}: {len(pads)} chunks in {len(seen)} pad shapes, chunks per "
+          f"shape {sorted(seen.values(), reverse=True)}; host ms per call (synced, {SCREEN_REPS} each, in turns), "
+          f"predict's eager chunk loop {np.median(wall['eager']):.3f} (" + ", ".join(f"{t:.3f}" for t in wall["eager"])
+          + f") against a CUDA graph per pad shape within the call {np.median(wall['graphed']):.3f} ("
+          + ", ".join(f"{t:.3f}" for t in wall["graphed"]) + f"): {captures} captures, {replays} replays, "
+          f"max|d|/max|ref| {err:.3e} (tol {PREDICT_TOL}); capture s per captured shape (nodes, edges) "
+          + ", ".join(f"{n}: {t:.3f}" for n, t in capture.items()) + "; pool MiB per captured shape "
+          + ", ".join(f"{n}: {m:.1f}" for n, m in pools.items()), flush=True)
+
+
+def predict_phase(dev, card, torch, ckpt_root, families):
+    """Phase 27, the sixteenth main path: `predict` from phase 14's
+    checkpoint directories, its forward eager chunk by chunk. For each
+    family (name, structures, chunk size): three chunks of distinct pad
+    shapes drawn from its structures, served in one call as PREDICT_CHUNKS
+    by the directory's model against a call per chunk, within PREDICT_TOL
+    relative, with 4 launches of K1's two kernels per chunk. Then the
+    forward on the family's whole batch as a CUDA graph replay (`StepGraphs`
+    of predict's `_served`) against eager: CUDA-event ms (interleaved) and
+    host ms (synced); 4 launches of each K1 kernel counted per replay, and
+    in PREDICT_TRACED profiled replays each kind found in the trace as
+    often as the counters add. For the first family, a screening call
+    (`screening_call`) and one `predict(structures, directory)` call,
+    whole (host clock) and split into its stages (`timed_stages`), in
+    turns. Returns the launches of the counted calls."""
+    from matten_tpu_torch.data.dataset import TensorDatasetConfig, load_tensor_dataset
+    from matten_tpu_torch.data.graph import collate_graphs, pad_spec_for
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.predict import _served, batch_to_device, load_pretrained, predict
+    from matten_tpu_torch.train.graphs import StepGraphs
+
+    launched = {k: 0 for k in COUNTERS}
+    for i, (name, structures, size) in enumerate(families):
+        ckpt = ckpt_root / name
+        model, cfg, stats, normalize = load_pretrained(ckpt, dev)
+        normalizer = stats.target_normalizer if normalize else None
+        convs = len(conv_layers(model))
+        per_chunk = {k: convs if k.startswith("fwd") else 0 for k in COUNTERS}
+
+        def graphs_of_chunk(chunk):
+            return load_tensor_dataset(None, TensorDatasetConfig(r_cut=cfg.r_cut, tensor_target_name=None),
+                                       structures=chunk)[0]
+
+        shapes = {}  # (nodes, edges, graphs) of a chunk's pad -> the chunk
+        for j in range(0, len(structures) - size + 1, size):
+            pad = pad_spec_for(graphs_of_chunk(structures[j:j + size]))
+            shapes.setdefault((pad.num_nodes, pad.num_edges, pad.num_graphs), structures[j:j + size])
+        if len(shapes) < 3:
+            raise AssertionError(f"27 {name}: the chunks of {size} give {len(shapes)} pad shapes, not 3")
+        picked = dict(zip("abc", shapes.values()))
+        chunks = [picked[c] for c in PREDICT_CHUNKS]
+        served = [s for chunk in chunks for s in chunk]
+        predict(chunks[0], model, normalizer, batch_size=size)  # this model's tables and caches warm
+        torch.cuda.synchronize()
+        reset_counts(fused_conv)
+        results = predict(served, model, normalizer, batch_size=size)
+        torch.cuda.synchronize()
+        c = counts(fused_conv)
+        refs = [r for chunk in chunks for r in predict(chunk, model, normalizer, batch_size=size)]
+        err = max_rel(results, refs)
+        if not err <= PREDICT_TOL:
+            raise AssertionError(f"27 {name}: the predict call against a call per chunk: {err}")
+        if c != {k: v * len(chunks) for k, v in per_chunk.items()}:
+            raise AssertionError(f"27 {name}: launches {c} in {len(chunks)} chunks, expected {per_chunk} each")
+        launched = {k: launched[k] + c[k] for k in COUNTERS}
+
+        # the forward on the family's whole batch, a graph replay against eager
+        whole = graphs_of_chunk(structures)
+        data, _ = collate_graphs(whole, pad_spec_for(whole), species_map=atomic_number_map(SPECIES_5))
+        batch = batch_to_device(data, dev)
+        steps = StepGraphs({"forward": lambda d, _t: _served(model, d)})
+
+        def replay():
+            return steps.run("forward", batch, {})
+
+        with torch.inference_mode():
+            out_e = _served(model, batch)
+            replay()
+            replay()  # captured, replayed
+            before = counts(fused_conv)
+            out_g = replay()
+            replayed = {k: v - before[k] for k, v in counts(fused_conv).items()}
+            fwd_err = rel_err(out_g, out_e)
+            with tempfile.TemporaryDirectory() as tmp:
+                before = counts(fused_conv)
+                ev, _ = traced(replay, PREDICT_TRACED, Path(tmp), "forward", torch)
+            counted = {k: (v - before[k]) / PREDICT_TRACED for k, v in counts(fused_conv).items()}
+            in_trace = {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev) / PREDICT_TRACED
+                        for k in KERNEL_NAMES}
+            ms_g, ms_e = interleaved(replay, lambda: _served(model, batch), torch)
+            wall = {}
+            for how, f in (("graphed", replay), ("eager", lambda: _served(model, batch))):
+                wall[how] = []
+                for _ in range(REPS):
+                    t0 = time.perf_counter()
+                    f()
+                    torch.cuda.synchronize()
+                    wall[how].append((time.perf_counter() - t0) * 1e3)
+        pool_mib = steps.pool_bytes() / 2**20
+        capture_s = list(steps.capture_seconds().values())
+        steps.drop()
+        if replayed != per_chunk or not fwd_err <= PREDICT_TOL:
+            raise AssertionError(f"27 {name}: a replayed forward launched {replayed}, max|d|/max|ref| {fwd_err}")
+        if {k: counted[k] for k in KERNEL_NAMES} != {k: per_chunk[k] for k in KERNEL_NAMES} or in_trace != {
+                k: counted[k] for k in KERNEL_NAMES}:
+            raise AssertionError(f"27 {name}: per profiled replay the trace holds {in_trace} conv kernels, the "
+                                 f"counters add {counted}, expected {per_chunk}")
+        print(f"[27 predict, {name}] {card}: one predict call of {len(served)} structures from the directory's "
+              f"model, chunks of {size} in pad shapes {PREDICT_CHUNKS} (nodes, edges, graphs: "
+              + ", ".join(f"{k}={p}" for k, p in zip("abc", shapes)) + f"), each chunk's forward eager, against a "
+              f"call per chunk: max|d|/max|ref| {err:.3e} (tol {PREDICT_TOL}); launches per chunk {per_chunk}; the "
+              f"forward on the whole batch (N={batch['pos'].shape[0]}) as a CUDA graph replay against eager: "
+              f"max|d|/max|ref| {fwd_err:.3e}, median ms CUDA events {ms_g:.4f} vs {ms_e:.4f}, host clock "
+              f"(synced, {REPS}) "
+              + " vs ".join(f"{np.median(v):.4f} ({np.percentile(v, 25):.4f}-{np.percentile(v, 75):.4f})"
+                            for v in wall.values())
+              + f"; a replay launches {replayed}, in {PREDICT_TRACED} profiled replays per replay each kind in the "
+              f"trace {in_trace}, as counted; capture {capture_s[0]:.3f} s, pool {pool_mib:.1f} MiB", flush=True)
+        if i:
+            continue
+        screening_call(model, normalizer, card, torch)
+        # one predict call from the directory, whole and split into its stages
+        whole_s, split = [], {}
+        predict(structures, ckpt)
+        for _ in range(SPLIT_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predict(structures, ckpt)
+            torch.cuda.synchronize()
+            whole_s.append(time.perf_counter() - t0)
+            with timed_stages(torch) as spent:
+                t0 = time.perf_counter()
+                predict(structures, ckpt)
+                total = time.perf_counter() - t0
+            for k, v in [*spent.items(), ("other", total - sum(spent.values())), ("total", total)]:
+                split.setdefault(k, []).append(v)
+        print(f"[27 predict split, {name}] {card}: predict(structures, directory) of the {len(structures)} "
+              f"structures (one chunk), host ms, medians of {SPLIT_REPS}: the call "
+              f"{1e3 * np.median(whole_s):.3f} (q1-q3 {1e3 * np.percentile(whole_s, 25):.3f}-"
+              f"{1e3 * np.percentile(whole_s, 75):.3f}); split, each stage until the card has finished it: "
+              + ", ".join(f"{k} {1e3 * np.median(v):.3f}" for k, v in split.items()), flush=True)
     return launched
 
 
@@ -3085,8 +3704,9 @@ def main() -> int:
           flush=True)
 
     # 11-15. the per-atom NMR model, and both families served from disk
+    ckpts = tempfile.TemporaryDirectory()  # phase 14's checkpoint directories, served again in phase 27
     nmr, nmr_trainer, nmr_batch = nmr_phases(dev, card, torch, check_forward, check_backward, model,
-                                             structures, target_rows)
+                                             structures, target_rows, Path(ckpts.name))
 
     # 16-17. both train scripts from data files, on the card
     fitted = fit_phases(fused_conv, torch, card)
@@ -3121,6 +3741,11 @@ def main() -> int:
         c = graph_phase(label, dev, card, torch, tr, (a_batch, batch_to_device(half[0], dev, half[1])))
         graph_launched = {k: graph_launched[k] + c[k] for k in COUNTERS}
 
+    # 27. predict from phase 14's directories, and its forward as a graph replay
+    predict_launched = predict_phase(dev, card, torch, Path(ckpts.name),
+                                     (("elasticity", structures, 8), ("NMR", nmr_structures, 4)))
+    ckpts.cleanup()
+
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
         print(profile_train(trainer, (data, targets), args.profile, torch), flush=True)
@@ -3147,7 +3772,7 @@ def main() -> int:
     kernels = []
     for kind in COUNTERS:
         launched = (served[kind] + trained[kind] + nmr[kind] + fitted[kind] + variants[kind] + variants_fit[kind]
-                    + mesh_launched[kind] + graph_launched[kind])
+                    + mesh_launched[kind] + graph_launched[kind] + predict_launched[kind])
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
         kernels.append({

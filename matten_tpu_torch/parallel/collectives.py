@@ -22,6 +22,11 @@ shift stages CUDA tensors through host copies (`stages_through_host`);
 every other collective takes them as they are. On an axis of size 1, and
 with no axis (None: a module that is not graph-parallel), each is the
 identity.
+
+Under nccl every collective here, the ring's sends and receives included,
+is enqueued on the card and can be captured into a CUDA graph with the
+kernels of a step; under gloo they run on the host and cannot.
+`captures_collectives(mesh)` tells the two apart for a trainer's steps.
 """
 
 from __future__ import annotations
@@ -31,9 +36,10 @@ import torch.distributed as dist
 
 from typing import Optional
 
-from matten_tpu_torch.parallel.sharding import Axis
+from matten_tpu_torch.parallel.sharding import Axis, Mesh
 
-__all__ = ["psum", "pmean", "all_gather", "ring_shift", "pmax", "pmin", "stages_through_host"]
+__all__ = ["psum", "pmean", "all_gather", "ring_shift", "pmax", "pmin", "stages_through_host",
+           "captures_collectives"]
 
 
 def _all_reduce(x: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM) -> torch.Tensor:
@@ -71,6 +77,20 @@ def stages_through_host(x: torch.Tensor, axis: Axis) -> bool:
     """Whether `ring_shift` copies x through the host: CUDA tensors under
     gloo, whose point-to-point transport reads host memory only."""
     return x.is_cuda and axis.group is not None and dist.get_backend(axis.group) == "gloo"
+
+
+def captures_collectives(mesh: Optional[Mesh]) -> bool:
+    """Whether a CUDA graph can capture the collectives of a step on `mesh`:
+    every group a step uses is nccl's, the world's (the gradient
+    all-reduce) and each axis's of more than one rank. gloo's collectives
+    run on the host, and its ring shift stages through host memory, so a
+    mesh with a gloo step group runs its steps eagerly. No mesh, or one of
+    one rank, has no collectives. `Mesh.barrier`'s host group is never in
+    a step."""
+    if mesh is None or mesh.size == 1:
+        return True
+    groups = [None] + [a.group for a in (mesh.data, mesh.graph) if a.group is not None]
+    return all(dist.get_backend(g) == "nccl" for g in groups)
 
 
 def _shift(x: torch.Tensor, axis: Axis, step: int) -> torch.Tensor:

@@ -141,6 +141,7 @@ def _rank_main(target: str, rank: int, world_size: int, threads: int, tmp: Path,
     import torch.distributed as dist
 
     from matten_tpu_torch.parallel.distributed import initialize_distributed
+    from matten_tpu_torch.train.graphs import live_graphs
 
     torch.set_num_threads(threads)
     try:
@@ -152,6 +153,12 @@ def _rank_main(target: str, rank: int, world_size: int, threads: int, tmp: Path,
         result = getattr(importlib.import_module(module), fn)(rank, world_size, arg)
         with open(tmp / f"rank{rank}.pkl", "wb") as f:
             pickle.dump(result, f)
+        # NCCL destroys a communicator only once every graph that captured
+        # its operations is gone: the target frees its step graphs
+        # (`Trainer.free_graphs`), never the garbage collector
+        live = live_graphs()
+        if live:
+            raise RuntimeError(f"{target} left {live} step graph(s) alive; free them before the group goes")
         dist.destroy_process_group()
     except Exception:  # the rank's boundary: report and fail the world
         traceback.print_exc()

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from matten_tpu_torch.data import keys as K
+from matten_tpu_torch.kernels.fused_conv import check_edges
 from matten_tpu_torch.parallel.distributed import HOST_WAIT_S
 
 __all__ = [
@@ -46,6 +47,7 @@ __all__ = [
     "graph_sharded_fields",
     "node_sharded_target_keys",
     "local_block",
+    "check_block_edges",
     "shard_batch",
 ]
 
@@ -203,6 +205,32 @@ def local_block(mesh: Mesh, batch: Batch, per_atom_targets: Iterable[str] = ()) 
         {k: (v[s, g] if k in dkeys else v[s]) for k, v in data.items()},
         {k: (v[s, g] if k in tkeys else v[s]) for k, v in targets.items()},
     )
+
+
+def check_block_edges(mesh: Optional[Mesh], data: Mapping[str, Any]) -> None:
+    """`edge_plan`'s index check (`fused_conv.check_edges`) on a rank's
+    numpy block, or on a whole batch without a mesh, with the bounds of the
+    edge plans its mode builds (`nn/conv.py`), so that a bad block raises
+    on the host before its copy instead of in a captured step:
+
+      * no mesh, data parallelism and "edge" (nodes replicated): src and
+        dst in [0, N), N the block's nodes;
+      * "node": src into the Sg * c gathered rows, dst in [0, c), c the
+        block's nodes;
+      * "node_ring": for each ring group g (the g-th of Sg equal runs of
+        the block's edges), src - g * c and dst in [0, c).
+
+    dst non-decreasing in each; raises edge_plan's ValueError."""
+    src, dst = data[K.EDGE_INDEX]
+    c = data[K.NODE_MASK].shape[0]
+    mode, sg = ("edge", 1) if mesh is None else (mesh.mode, mesh.n_graph)
+    if mode == "node_ring":
+        cap = src.shape[0] // sg
+        for g in range(sg):
+            rows = slice(g * cap, (g + 1) * cap)
+            check_edges(src[rows] - g * c, dst[rows], c, c)
+    else:
+        check_edges(src, dst, sg * c if mode == "node" else c, c)
 
 
 def shard_batch(

@@ -7,12 +7,21 @@ statistics and the model of the right family, and the weights come from
 the best epoch of `index.json`, else from `last` (`load_pretrained`). The
 same call takes a model already in memory, `predict(structures, model,
 statistics)`. Structures go through `load_tensor_dataset` (graphs at the
-checkpoint's r_cut), `pad_spec_for` + `collate_graphs`, the forward in eval
+checkpoint's r_cut), then chunk by chunk of `batch_size`: `pad_spec_for` +
+`collate_graphs`, the host check of the chunk's edges (`edge_plan`'s, before
+the copy), a pinned non-blocking copy to the device, the forward in eval
 mode under `torch.inference_mode()`, the optional
-`MeanNormNormalize.inverse`, and the Cartesian readout: a tensor per
-crystal for the graph-level model (an `ElasticTensor` for [3, 3, 3, 3]),
-[n_atoms, 3, 3] per crystal for the per-atom model. Structures whose graph
-cannot be built come back as None.
+`MeanNormNormalize.inverse`, and the Cartesian readout (`_readout`): a
+tensor per crystal for the graph-level model (an `ElasticTensor` for [3, 3,
+3, 3]), [n_atoms, 3, 3] per crystal for the per-atom model. Structures
+whose graph cannot be built come back as None.
+
+The forward runs eagerly, chunk by chunk. The JAX `predict` compiles its
+`fwd` once per pad shape per call; the port's counterpart, a CUDA graph per
+pad shape for the length of a call, is left out: a call's chunks rarely
+share a pad shape (buckets of 64 nodes and 512 edges), so a call captures
+few graphs and replays fewer, and each would hold a memory pool for the
+rest of the call (PERF.md, the serving entry).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from matten_tpu_torch.models.tfn import (
 from matten_tpu_torch.nn.embedding import atomic_number_map
 from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
 from matten_tpu_torch.ops.elasticity import ElasticTensor
+from matten_tpu_torch.parallel.sharding import check_block_edges
 from matten_tpu_torch.train.checkpoint import CheckpointManager, load_sidecar
 
 logger = logging.getLogger(__name__)
@@ -60,11 +70,19 @@ def check_species(structures: Sequence[Structure], allowed_species) -> None:
 
 def batch_to_device(data, device, targets=None):
     """Collated numpy batch -> dict of tensors on `device`; with the targets
-    dict of the same collation, (data, targets) both on `device`."""
-    moved = {k: torch.as_tensor(v).to(device) for k, v in data.items()}
+    dict of the same collation, (data, targets) both on `device`. To the
+    card each field goes from pinned memory without a host sync (the
+    device's stream orders the copy before the work queued after it)."""
+    device = torch.device(device)
+
+    def put(v):
+        t = torch.as_tensor(v)
+        return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+    moved = {k: put(v) for k, v in data.items()}
     if targets is None:
         return moved
-    return moved, {k: torch.as_tensor(v).to(device) for k, v in targets.items()}
+    return moved, {k: put(v) for k, v in targets.items()}
 
 
 def model_from_sidecar(
@@ -108,6 +126,33 @@ def load_pretrained(
     model.load_state_dict(state["model"])
     normalize = bool(hparams.get("normalize_tensor_target", False))
     return model.eval(), cfg, statistics, normalize
+
+
+def _served(model: Model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The model's tensor output on a chunk (the scalar heads beside it are
+    not served)."""
+    out = model(batch)
+    return out[model.tensor_target_name] if isinstance(out, dict) else out
+
+
+def _readout(out: torch.Tensor, chunk, per_atom: bool, normalizer, cmap) -> List[np.ndarray]:
+    """A chunk's served rows read back to the host, the normalization
+    undone and mapped to Cartesian tensors: one per crystal (an
+    `ElasticTensor` for [3, 3, 3, 3]), [n_atoms, 3, 3] per crystal for the
+    per-atom model (its real rows, graph after graph; padded rows dropped)."""
+    out = out.double().cpu().numpy()
+    if per_atom:
+        counts = np.cumsum([g.num_nodes for g in chunk])
+        rows = np.split(out[: counts[-1]], counts[:-1])
+    else:
+        rows = out[: len(chunk)]
+    results = []
+    for v in rows:
+        if normalizer is not None:
+            v = np.asarray(normalizer.inverse(v))
+        cart = cmap.to_cartesian(torch.from_numpy(v)).numpy()
+        results.append(ElasticTensor(cart) if cart.shape == (3, 3, 3, 3) else cart)
+    return results
 
 
 def predict(
@@ -169,21 +214,9 @@ def predict(
         for i in range(0, len(graphs), batch_size):
             chunk = graphs[i : i + batch_size]
             data, _ = collate_graphs(chunk, pad_spec_for(chunk), species_map=species_map)
-            out = model(batch_to_device(data, device))
-            if isinstance(out, dict):  # scalar heads beside the tensor: the tensor is served
-                out = out[model.tensor_target_name]
-            out = out.double().cpu().numpy()
-            if per_atom:
-                # the real nodes' rows, graph after graph; padded rows dropped
-                counts = np.cumsum([g.num_nodes for g in chunk])
-                rows = np.split(out[: counts[-1]], counts[:-1])
-            else:
-                rows = out[: len(chunk)]
-            for v in rows:
-                if normalizer is not None:
-                    v = np.asarray(normalizer.inverse(v))
-                cart = cmap.to_cartesian(torch.from_numpy(v)).numpy()
-                results.append(ElasticTensor(cart) if cart.shape == (3, 3, 3, 3) else cart)
+            check_block_edges(None, data)
+            out = _served(model, batch_to_device(data, device))
+            results += _readout(out, chunk, per_atom, normalizer, cmap)
 
     final: List[Optional[np.ndarray]] = []
     it = iter(results)

@@ -155,10 +155,15 @@ def run(
         )
 
     resume = bool(config.get("restore", config.get("trainer", {}).get("restore", False)))
-    trainer.fit(dm, resume=resume)
-    # test with the BEST checkpoint, not the post-plateau final state
-    if trainer.has_best():
-        trainer.restore_best()
-    metrics = trainer.test(dm)
+    try:
+        trainer.fit(dm, resume=resume)
+        # test with the BEST checkpoint, not the post-plateau final state
+        if trainer.has_best():
+            trainer.restore_best()
+        metrics = trainer.test(dm)
+    finally:
+        if mesh is not None:
+            # the graphs hold the group's NCCL communicators: freed before it is
+            trainer.free_graphs()
     logger.info("test metrics (best checkpoint): %s", metrics)
     return metrics

@@ -1,24 +1,46 @@
-"""Train and eval steps replayed as CUDA graphs, one per batch shape.
+"""Steps replayed as CUDA graphs, one per batch shape.
 
-Counterpart of the JAX trainer's compiled steps: `jax.jit` compiles
-`_train_step_impl` and `_eval_step_impl` once per padded batch shape and
-runs every later step of that shape as one dispatch. Here a step of a
-shape seen before is one `cudaGraphLaunch` of the kernels its eager run
-launched, in place of the ~2000 launches the host would make again.
+Counterpart of the JAX package's compiled steps: `jax.jit` compiles the
+trainer's `_train_step_impl` and `_eval_step_impl` (under `shard_map` on a
+mesh) once per padded batch shape, and runs every later call of that shape
+as one dispatch. Here a call of a shape seen
+before is one `cudaGraphLaunch` of the kernels its eager run launched, in
+place of the ~2000 launches the host would make again.
 
-`StepGraphs.run(kind, data, targets)` keys a step by its kind ("train" or
-"eval"), the conv's global settings (the tier, the storage dtype of sh and
-w, a forced shared-memory limit) and `batch_key`, the JAX fit loop's key
-of a batch. The first sight of a key runs the real step eagerly, which is
-the warm-up (the kernels built, the tables and the optimizer state
-allocated); the second captures the step into a graph with its own memory
-pool and replays it; every later sight replays it. So no extra step is
-taken: every call is one real step. A replay copies the batch into the
-graph's static inputs (device-to-device, no host sync), launches the
-graph, adds to the kernel launch counters of `kernels.fused_conv` what the
-capture launched, and returns a copy of the step's outputs, which the next
-replay overwrites. A capture that fails raises; nothing falls back to the
-eager step.
+`StepGraphs.run(kind, data, targets)` runs one of its step functions, each
+a function of `(data, targets)` that returns a tensor or a flat tuple of
+tensors: the trainer's train and eval steps, or a forward. It
+keys a call by the kind, the conv's global settings (the tier, the storage
+dtype of sh and w, a forced shared-memory limit), the mesh's shape and mode
+when the batch carries one (`parallel.MESH`: a graph holds the collectives
+of its mesh's groups) and `batch_key`, the JAX fit loop's key of a batch.
+The first sight of a key runs the real step eagerly, which is the warm-up
+(the kernels built, the tables and the optimizer state allocated, and on a
+mesh the NCCL communicators created, the point-to-point one of the ring
+shift included); the second captures the step into a graph with its own
+memory pool and replays it; every later sight replays it. So no extra step
+is taken: every call is one real step. A replay copies the batch into the
+graph's static inputs (device-to-device, no host sync), launches the graph,
+adds to the kernel launch counters of `kernels.fused_conv` what the capture
+launched, and returns a copy of the step's outputs, which the next replay
+overwrites. A capture that fails raises; nothing falls back to the eager
+step.
+
+A capture records the NCCL collectives of a mesh step (all-reduces,
+all-gathers and the ring's sends and receives) with the kernels around
+them; the ranks capture and replay the same sequence, since their blocks
+share one shape. It runs in the "thread_local" capture mode, so the
+process group's watchdog thread, which queries events of earlier eager
+collectives, does not invalidate it. gloo's collectives run on the host
+and cannot be captured: such a mesh is not given graphs
+(`parallel.captures_collectives`). A replayed collective is not watched by
+the group's timeout: a rank that dies leaves the others waiting until
+their launcher ends the world. A graph that captured NCCL operations holds
+its communicators: NCCL destroys a communicator only once every such graph
+is gone, so the graphs are freed (`drop()`, `Trainer.free_graphs`) before
+the process group is destroyed, never left to the garbage collector
+(`live_graphs()` counts those not yet freed; `parallel.launch` refuses to
+destroy a rank's group while any is).
 
 What a replay reads is what the capture saw: the parameters, buffers and
 optimizer state tensors (updated in place), the learning rate of each
@@ -26,36 +48,56 @@ param group (a float, baked into the graph), and the gradients, which the
 captured backward writes into the graph's pool. So `drop("train")` must
 follow anything that changes the learning rate or replaces the optimizer's
 state tensors (`Trainer.set_lr`, `Trainer.load_state_dict`); the next step
-of a key seen before captures anew. The eval graphs read only the model,
-whose `load_state_dict` copies in place.
+of a key seen before captures anew. The eval and forward graphs read only
+the model, whose `load_state_dict` copies in place.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from collections import Counter
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from matten_tpu_torch.kernels import fused_conv, fused_tp
+from matten_tpu_torch.parallel.sharding import MESH
+from matten_tpu_torch.utils.anomaly import DetectAnomaly
 
-__all__ = ["StepGraphs", "batch_key"]
+__all__ = ["StepGraphs", "batch_key", "can_capture", "live_graphs"]
 
 # the launch counters of kernels/fused_conv.py (each kernel's count) and,
 # beside them, its `tier_launches` Counter
 COUNTERS = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches", "bf16_launches",
             "bf16_bwd_launches")
 
+Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+# every captured step not yet freed (`live_graphs`)
+_LIVE: "weakref.WeakSet[_Captured]" = weakref.WeakSet()
+
 
 def batch_key(data: Dict[str, Any], targets: Dict[str, Any]) -> Tuple:
     """The JAX fit loop's key of a batch: the sorted (name, shape) of every
     data and target field, with its dtype; entries without a shape (an
-    edge plan a forward stored) are not fields."""
+    edge plan a forward stored, the mesh) are not fields."""
     return tuple(
         tuple(sorted((k, tuple(v.shape), str(v.dtype)) for k, v in part.items() if hasattr(v, "shape")))
         for part in (data, targets)
     )
+
+
+def can_capture(model: torch.nn.Module, device: torch.device) -> bool:
+    """Whether a step of `model` on `device` can be captured: on the card,
+    and built without DEBUG anomaly layers, whose checks read every layer's
+    output back on the host."""
+    return device.type == "cuda" and not any(isinstance(m, DetectAnomaly) for m in model.modules())
+
+
+def live_graphs() -> int:
+    """How many captured steps of this process are not yet freed."""
+    return len(_LIVE)
 
 
 def _counts() -> Tuple[Dict[str, int], Counter]:
@@ -73,37 +115,40 @@ class _Captured:
     """One captured step: its graph, static inputs and outputs, and the
     launches its capture made."""
 
-    def __init__(self, step: Callable, data: Dict, targets: Dict):
-        self.data = {k: v.clone() for k, v in data.items() if torch.is_tensor(v)}
+    def __init__(self, step: Callable[[Dict, Dict], Outputs], data: Dict, targets: Dict):
+        # the batch's other entries (the mesh) go into the static dict as they are
+        self.data = {k: v.clone() if torch.is_tensor(v) else v for k, v in data.items()}
         self.targets = {k: v.clone() for k, v in targets.items()}
-        # (static input, batch dict, field): the capture's forward adds its
-        # edge plan to the static data dict, which is no input
-        self.inputs = [(v, i, k) for i, part in enumerate((self.data, self.targets)) for k, v in part.items()]
+        # (static input, batch dict, field): the capture's forward may add
+        # its edge plan to the static data dict, which is no input
+        self.inputs = [(v, i, k) for i, part in enumerate((self.data, self.targets))
+                       for k, v in part.items() if torch.is_tensor(v)]
         self.graph = torch.cuda.CUDAGraph()
         before = _counts()
         t0 = time.perf_counter()
         try:
             # the graph's own memory pool: nothing else allocates from it
-            with torch.cuda.graph(self.graph):
-                loss, sums = step(self.data, self.targets)
-                self.names = list(sums)
-                self.out = torch.stack([loss] + [x for n in self.names for x in sums[n]])
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                out = step(self.data, self.targets)
+                self.single = torch.is_tensor(out)
+                self.out = (out,) if self.single else tuple(out)
         finally:
             after = _counts()
             _set_counts(*before)
         self.capture_s = time.perf_counter() - t0
+        _LIVE.add(self)
         self.launches = {c: after[0][c] - before[0][c] for c in COUNTERS}
         self.tier_launches = after[1] - before[1]
 
-    def replay(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, Dict]:
+    def replay(self, data: Dict, targets: Dict) -> Outputs:
         batch = (data, targets)
         for v, i, k in self.inputs:
             v.copy_(batch[i][k], non_blocking=True)
         self.graph.replay()
         counts, tiers = _counts()
         _set_counts({c: counts[c] + self.launches[c] for c in COUNTERS}, tiers + self.tier_launches)
-        out = self.out.clone()
-        return out[0], {n: (out[1 + 2 * i], out[2 + 2 * i]) for i, n in enumerate(self.names)}
+        out = tuple(x.clone() for x in self.out)
+        return out[0] if self.single else out
 
     def pool_bytes(self) -> int:
         """Bytes of the device memory segments of the graph's pool."""
@@ -113,33 +158,41 @@ class _Captured:
 
 
 class StepGraphs:
-    """The captured train and eval steps of one trainer. `steps` maps each
-    kind to its eager step, `(data, targets) -> (loss, {task: (sum,
-    count)})`, and `prepare` runs before each replay (the model's train or
-    eval mode, which the graph does not set)."""
+    """The captured steps of one trainer. `steps` maps each kind to its
+    eager step, `(data, targets) -> tensor or flat tuple of tensors`, and
+    `prepare`, if given, runs before each replay (the model's train or eval
+    mode, which the graph does not set)."""
 
-    def __init__(self, steps: Dict[str, Callable], prepare: Callable[[str], None]):
+    def __init__(self, steps: Dict[str, Callable[[Dict, Dict], Outputs]],
+                 prepare: Optional[Callable[[str], None]] = None):
         self.steps = steps
         self.prepare = prepare
         self.seen = set()
         self.graphs: Dict[Tuple, _Captured] = {}
 
-    def run(self, kind: str, data: Dict, targets: Dict) -> Tuple[torch.Tensor, Dict]:
-        key = (kind, fused_tp.get_tp_impl(), fused_tp.get_kernel_in_dtype(), fused_conv._smem_cap,
-               batch_key(data, targets))
+    def key(self, kind: str, data: Dict, targets: Dict) -> Tuple:
+        """(kind, the conv's tier settings, the mesh's (n_data, n_graph,
+        mode) or None, `batch_key`)."""
+        mesh = data.get(MESH)
+        return (kind, fused_tp.get_tp_impl(), fused_tp.get_kernel_in_dtype(), fused_conv._smem_cap,
+                None if mesh is None else (mesh.n_data, mesh.n_graph, mesh.mode), batch_key(data, targets))
+
+    def run(self, kind: str, data: Dict, targets: Dict) -> Outputs:
+        key = self.key(kind, data, targets)
         captured = self.graphs.get(key)
         if captured is None:
             if key not in self.seen:
                 self.seen.add(key)
                 return self.steps[kind](data, targets)
             captured = self.graphs[key] = _Captured(self.steps[kind], data, targets)
-        self.prepare(kind)
+        if self.prepare is not None:
+            self.prepare(kind)
         return captured.replay(data, targets)
 
-    def drop(self, kind: str) -> None:
-        """Forget the graphs of `kind`; the next step of each key seen
-        before captures anew."""
-        self.graphs = {k: g for k, g in self.graphs.items() if k[0] != kind}
+    def drop(self, kind: Optional[str] = None) -> None:
+        """Forget the graphs of `kind` (every graph with None); the next
+        step of each key seen before captures anew."""
+        self.graphs = {k: g for k, g in self.graphs.items() if kind is not None and k[0] != kind}
 
     def capture_seconds(self) -> Dict[Tuple, float]:
         return {k: g.capture_s for k, g in self.graphs.items()}

@@ -17,22 +17,27 @@ stopping, and the rolling `last` checkpoint with the loop state that
 `resume=True` continues from. It returns `self.history`, one record per
 epoch with the JAX loop's keys.
 
-On the card a single-device trainer runs each train step and each eval step
-as a replay of a CUDA graph captured once per padded batch shape
-(`train/graphs.py`), the counterpart of the JAX trainer's `jax.jit` steps:
-the first step of a shape runs eagerly, the second captures it, and every
-later one is one graph launch. `TrainerConfig.scan_steps = K` groups up to
-K consecutive batches of one shape as the JAX fit loop does for its
-`lax.scan` (a shape change flushes the group; batch order and resume
-replay are unchanged): each group's batches are checked on the host
-(`fused_conv.check_edges`, the check a captured step cannot make), stacked
-and copied to the card in one pinned, non-blocking copy per field, and
-their steps dispatched back to back; a group's losses come back as [K].
-Nothing in an epoch waits on the card but the two readbacks, the mean train
-loss and the evaluation sums. The mesh ranks (NCCL and gloo collectives
-are not captured), a model built at DEBUG log level (its anomaly checks
-read back every layer) and the CPU run every step eagerly, with the same
-grouping.
+On the card each train step and each eval step is a replay of a CUDA graph
+captured once per padded batch shape (`train/graphs.py`), the counterpart
+of the JAX trainer's `jax.jit` steps (`jax.jit(shard_map(...))` on a
+mesh): the first step of a shape runs eagerly, the second captures it, and
+every later one is one graph launch. On a mesh the graph holds the step's
+NCCL collectives too, when every group a step uses is nccl's
+(`parallel.collectives.captures_collectives`); a mesh with gloo step
+groups (ranks that share a card, or the CPU) runs its steps eagerly, and
+`Mesh.barrier`'s host waits stay outside every graph, and `free_graphs`
+frees the graphs before the process group is destroyed.
+`TrainerConfig.scan_steps = K` groups up to K consecutive batches of one
+shape as the JAX fit loop does for its `lax.scan` (a shape change flushes
+the group; batch order and resume replay are unchanged): each group's
+batches (with a mesh, this rank's blocks) are checked on the host
+(`parallel.sharding.check_block_edges`, the check a captured step cannot
+make), stacked and copied to the card in one pinned, non-blocking copy per
+field, and their steps dispatched back to back; a group's losses come back
+as [K]. Nothing in an epoch waits on the card but the two readbacks, the
+mean train loss and the evaluation sums. A model built at DEBUG log level
+(its anomaly checks read back every layer) and the CPU run every step
+eagerly, with the same grouping.
 
 With `mesh` (`parallel.make_mesh`), the trainer is one rank of a data and
 graph parallel run, the counterpart of the JAX trainer's `shard_map`
@@ -61,13 +66,11 @@ import torch
 import torch.distributed as dist
 
 from matten_tpu_torch.data import keys as K
-from matten_tpu_torch.kernels.fused_conv import check_edges
-from matten_tpu_torch.parallel.collectives import psum
-from matten_tpu_torch.parallel.sharding import MESH, NODE_MODES, Mesh, local_block
+from matten_tpu_torch.parallel.collectives import captures_collectives, psum
+from matten_tpu_torch.parallel.sharding import MESH, NODE_MODES, Mesh, check_block_edges, local_block
 from matten_tpu_torch.train.checkpoint import CheckpointManager
-from matten_tpu_torch.train.graphs import StepGraphs, batch_key
+from matten_tpu_torch.train.graphs import StepGraphs, batch_key, can_capture
 from matten_tpu_torch.train.task import Task, masked_abs_err_sum, masked_mse_sums
-from matten_tpu_torch.utils.anomaly import DetectAnomaly
 
 logger = logging.getLogger(__name__)
 
@@ -167,8 +170,8 @@ class Trainer:
     `metrics_logger`, an object with `.log(record, step=)`, gets each
     epoch's history record. `mesh` makes it one rank of a parallel run
     (module docstring); the mesh's mode must be the model's
-    `graph_parallel_mode`. On the card without a mesh the steps are CUDA
-    graph replays (module docstring)."""
+    `graph_parallel_mode`. On the card the steps are CUDA graph replays,
+    on a mesh when its step groups are nccl's (module docstring)."""
 
     def __init__(
         self,
@@ -190,14 +193,16 @@ class Trainer:
         self.primary = mesh is None or mesh.rank == 0
         # the running statistics, averaged over the data axis after a step
         self._statistics = [b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))]
-        # Adam's update as a graph captures it wherever a step can be captured,
-        # so an eager step (DEBUG) computes the same update
-        capturable = self.device.type == "cuda" and mesh is None
-        self.optimizer = make_optimizer(self.model.parameters(), config, capturable=capturable)
-        # DEBUG-level models check every layer's output on the host
-        graphs = capturable and not any(isinstance(m, DetectAnomaly) for m in model.modules())
-        self._graphs = StepGraphs({"train": self._train_step, "eval": self._eval_step},
+        # Adam's update as a graph captures it on every CUDA trainer, so an
+        # eager step (DEBUG, a gloo mesh) computes the same update
+        self.optimizer = make_optimizer(self.model.parameters(), config,
+                                        capturable=self.device.type == "cuda")
+        graphs = can_capture(model, self.device) and captures_collectives(mesh)
+        self._graphs = StepGraphs({"train": self._flat(self._train_step), "eval": self._flat(self._eval_step)},
                                   lambda kind: self.model.train(kind == "train")) if graphs else None
+        if mesh is not None:
+            logger.info("rank %d of a %d x %d %s mesh: %s", mesh.rank, mesh.n_data, mesh.n_graph, mesh.mode,
+                        "steps replayed as CUDA graphs" if graphs else "eager steps")
         self.scheduler = (
             ReduceLROnPlateau(factor=config.lr_factor, patience=config.lr_patience)
             if config.scheduler != "none"
@@ -278,10 +283,19 @@ class Trainer:
         return out if isinstance(out, dict) else {self.tasks[0].name: out}
 
     # ------------------------------------------------------------------
+    def _flat(self, step):
+        """`step` with its (loss, {task: (sum, count)}) as one flat tuple of
+        tensors, in task order: what a step graph returns."""
+        def flat(data: Dict, targets: Dict) -> Tuple[torch.Tensor, ...]:
+            loss, sums = step(data, targets)
+            return (loss,) + tuple(x for t in self.tasks for x in sums[t.name])
+        return flat
+
     def _step(self, kind: str, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
         if self._graphs is None or torch.is_anomaly_enabled():
             return (self._train_step if kind == "train" else self._eval_step)(data, targets)
-        return self._graphs.run(kind, data, targets)
+        out = self._graphs.run(kind, data, targets)
+        return out[0], {t.name: (out[1 + 2 * i], out[2 + 2 * i]) for i, t in enumerate(self.tasks)}
 
     def train_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
         """Forward (train mode), loss, backward, one optimizer update; on the
@@ -323,6 +337,17 @@ class Trainer:
             self._graphs.drop("train")
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+
+    def free_graphs(self) -> None:
+        """Free every step graph, once the card has finished them; a later
+        step of a shape seen before is captured anew. On a mesh a graph holds
+        the NCCL communicators whose operations it captured, and NCCL
+        destroys a communicator only once every such graph is gone: free
+        them before the process group is destroyed (the train scripts do as
+        they end)."""
+        if self._graphs is not None:
+            self._graphs.drop()
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
@@ -379,20 +404,19 @@ class Trainer:
         """(numpy batch, the batch on the device) for each batch of a group;
         with a mesh, this rank's block of it on the device, with the mesh.
 
-        Without a mesh each batch's edges are checked here, on the host
-        (`fused_conv.check_edges`: a captured forward does not check them).
-        Each field of the group's batches is stacked and copied in one copy,
-        on the card from pinned memory and non-blocking, so that no copy
-        waits for the steps queued before it."""
+        Each batch's (block's) edges are checked here, on the host, before
+        any of the group is copied (`check_block_edges` with the bounds of
+        the mesh's mode: a captured forward does not check them). Each field
+        of the group's batches is stacked and copied in one copy, on the
+        card from pinned memory and non-blocking, so that no copy waits for
+        the steps queued before it."""
         if self.mesh is None:
-            for data, _ in group:
-                src, dst = data[K.EDGE_INDEX]
-                n = data[K.NODE_MASK].shape[0]
-                check_edges(src, dst, n, n)
             blocks = group
         else:
             per_atom = [t.name for t in self.tasks if t.per_atom]
             blocks = [local_block(self.mesh, b, per_atom) for b in group]
+        for data, _ in blocks:
+            check_block_edges(self.mesh, data)
         parts = []
         for i in range(2):
             stacked = {}

@@ -5,7 +5,8 @@
   group gets it as `device_id`, under nccl; gloo on the CPU binds nothing.
 - `parallel.launch` refuses an nccl world without CUDA, and one larger than
   the visible cards, each with its message, and never falls back to gloo.
-- The launcher gives each rank as many BLAS threads as torch threads.
+- The launcher gives each rank as many BLAS threads as torch threads, and
+  fails a rank that leaves a step graph alive before its group goes.
 - A host-side wait on the primary rank's work outlives the collectives'
   timeout: the materials script on a 2-rank mesh whose group times out
   after 2 s completes while rank 0's data setup takes 4 s longer.
@@ -81,6 +82,15 @@ def test_launcher_gives_each_rank_its_blas_threads(monkeypatch):
     env = {"PYTHONPATH": os.pathsep.join([str(ROOT / "tests"), str(ROOT)])}
     ranks = launch.run_ranks("test_torch_parallel_ranks:thread_counts", 2, threads=2, timeout_s=120, env=env)
     assert ranks == [(2, "2", "2")] * 2
+
+
+def test_launcher_fails_a_rank_that_leaves_a_step_graph_alive():
+    """NCCL destroys a communicator only once every graph that captured its
+    operations is gone: a rank whose target leaves a step graph alive fails
+    with its count instead of destroying the group under it."""
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT / "tests"), str(ROOT)])}
+    with pytest.raises(RuntimeError, match=r"rank 1 exited with 1(.|\n)*left 1 step graph\(s\) alive"):
+        launch.run_ranks("test_torch_parallel_ranks:graph_left_alive", 2, timeout_s=120, env=env)
 
 
 def test_setup_wait_outlives_the_group_timeout(tmp_path):

@@ -1027,14 +1027,18 @@ def test_kernels_at_the_node_sharded_plans(dev, ring):
         assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
 
 
-@pytest.mark.parametrize("mode", ["edge", "node_ring"])
-def test_two_rank_nccl_step_matches_one_rank(mode):
-    """A data 1 x graph 2 step of the production model on the flagship
-    batch, one card per rank under nccl (`chip_smoke.mesh_rank` through
-    `parallel.launch`), against the 1-rank step on card 0, at chip_smoke's
-    tolerances (`check_mesh_steps`: loss and metric 1e-5, gradients 1e-4 of
-    their largest entry, parameters 2e-5, the ranks bitwise equal, exact
-    launches, each rank's kernels against plain, no host staging)."""
+# the 2-rank nccl cases, one world for all (`nccl_pair`)
+PAIR_CASES = {"dp": ("dp 2x1", 2, 1, "edge", "no_bn"), "edge": ("edge 1x2", 1, 2, "edge", "production"),
+              "node": ("node 1x2", 1, 2, "node", "production"),
+              "node_ring": ("node_ring 1x2", 1, 2, "node_ring", "production")}
+
+
+@pytest.fixture(scope="module")
+def nccl_pair():
+    """Every case of PAIR_CASES on one 2-rank nccl world, a card per rank
+    (`chip_smoke.mesh_rank` through `parallel.launch`), and the 1-rank step
+    on card 0 meanwhile: (cases by mode, the ranks' results, the 1-rank
+    results, the 1-rank ms, the world's seconds, the card's name)."""
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if cards < 2:
         pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
@@ -1042,6 +1046,71 @@ def test_two_rank_nccl_step_matches_one_rank(mode):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     structures, rows = chip_smoke.draw_structures()
-    cases = chip_smoke.mesh_cases([(f"{mode} 1x2", 1, 2, mode, "production")], structures, rows, profile_all=False)
+    cases = chip_smoke.mesh_cases(list(PAIR_CASES.values()), structures, rows, profile_all=False)
     steps, refs, one_ms, world_s = chip_smoke.mesh_steps(cases, 2, "nccl", torch.device("cuda", 0), torch)
-    chip_smoke.check_mesh_steps(cases, steps, refs, one_ms, torch.cuda.get_device_name(0), "nccl", world_s)
+    return (dict(zip(PAIR_CASES, cases)), steps, refs, one_ms, world_s, torch.cuda.get_device_name(0))
+
+
+@pytest.mark.parametrize("mode", ["edge", "node_ring"])
+def test_two_rank_nccl_step_matches_one_rank(mode, nccl_pair):
+    """A data 1 x graph 2 step of the production model on the flagship
+    batch, one card per rank under nccl (`chip_smoke.mesh_rank` through
+    `parallel.launch`; the counted step a graph replay), against the 1-rank
+    step on card 0, at chip_smoke's tolerances (`check_mesh_steps`: loss
+    and metric 1e-5, gradients 1e-4 of their largest entry, parameters
+    2e-5, the ranks bitwise equal, exact launches, each rank's kernels
+    against plain, no host staging)."""
+    import chip_smoke
+
+    cases, steps, refs, one_ms, world_s, card = nccl_pair
+    chip_smoke.check_mesh_steps([cases[mode]], steps, refs, one_ms, card, "nccl", world_s)
+
+
+@pytest.mark.parametrize("mode", list(PAIR_CASES))
+def test_two_rank_nccl_graphed_steps_match_eager(mode, nccl_pair):
+    """Data parallelism and each graph mode at 2 ranks under nccl: every
+    rank's steps are CUDA graphs holding the step's collectives (the ring's
+    sends and receives under node_ring), captured with the same keys on
+    both ranks; each rank's graphed Adam trainer against an eager twin from
+    the same state (`chip_smoke.mesh_twins`: 6 train steps over two pad
+    shapes with `set_lr` after step 3, then 2 eval steps; losses and
+    metric sums within 1e-5 relative, replays under
+    `set_sync_debug_mode("error")` with exact launches), its parameters and
+    Adam moments within MODEL_TOL, the ranks' graphed states bitwise equal
+    (`check_mesh_graphs`)."""
+    import chip_smoke
+
+    cases, steps, _, one_ms, _, card = nccl_pair
+    chip_smoke.check_mesh_graphs([cases[mode]], steps, one_ms, card, "nccl")
+
+
+def test_predict_over_chunks_of_three_pad_shapes_on_the_card(dev):
+    """`predict` on the card over 6 chunks of 3 pad shapes (A A B A B C),
+    each chunk's forward eager: the call's results equal a call per chunk
+    within 1e-6 relative, with 4 launches of each of K1's kernels per chunk
+    and none of the backward's."""
+    from matten_tpu_torch.data.graph import CrystalGraph, pad_spec_for
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.predict import predict
+
+    model = create_scalar_tensor_model(PRODUCTION, dict(allowed_species=list(SPECIES_5), average_num_neighbors=30.0),
+                                       device=dev).eval()
+    pool = _nmr_structures(n=12, seed=30)
+    shapes = {}
+    for i in range(0, 12, 3):
+        pad = pad_spec_for([CrystalGraph.from_structure(s, r_cut=5.0) for s in pool[i:i + 3]])
+        shapes.setdefault((pad.num_nodes, pad.num_edges, pad.num_graphs), pool[i:i + 3])
+    assert len(shapes) >= 3, shapes.keys()
+    a, b, c = list(shapes.values())[:3]
+    chunks = [a, a, b, a, b, c]
+    structures = [s for chunk in chunks for s in chunk]
+    predict(a, model, batch_size=3)  # the kernels built, the tables on the card
+    torch.cuda.synchronize()
+    counters = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches")
+    before = [getattr(fused_conv, k) for k in counters]
+    served = predict(structures, model, batch_size=3)
+    torch.cuda.synchronize()
+    assert [getattr(fused_conv, k) - v for k, v in zip(counters, before)] == [4 * 6, 4 * 6, 0, 0]
+    eager = [r for chunk in chunks for r in predict(chunk, model, batch_size=3)]
+    for x, y in zip(served, eager):
+        _assert_rel(torch.as_tensor(np.asarray(x)), torch.as_tensor(np.asarray(y)), 1e-6)

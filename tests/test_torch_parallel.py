@@ -294,6 +294,14 @@ def test_sharded_step_matches_jax(world, name):
     assert_step_matches(port, ref, name)
 
 
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_gloo_mesh_steps_are_not_captured(world, name):
+    """Under gloo, whose collectives run on the host, no rank's step groups
+    can be captured, and the trainer holds no step graphs."""
+    port, _ = world[name]
+    assert [r["graphs"] for r in port] == [(False, False)] * 4
+
+
 def test_ragged_tail_shard_is_all_masked():
     graphs = port_graphs(jax_graphs(np.random.default_rng(0), 3))
     data, _ = next(iter(BatchLoader(graphs, 8, SMAP, **shard_kwargs(4, 1, "edge"), **LOADER)))

@@ -45,6 +45,7 @@ def _numbers(loss, metrics):
 
 def _step(case, mesh):
     from matten_tpu_torch.parallel import shard_batch
+    from matten_tpu_torch.parallel.collectives import captures_collectives
     from matten_tpu_torch.train import Trainer, TrainerConfig
 
     tasks = _tasks(case)
@@ -54,6 +55,8 @@ def _step(case, mesh):
     out = {"eval": _numbers(*trainer.eval_step(data, targets))}
     out["train"] = _numbers(*trainer.train_step(data, targets))
     out["state"] = {k: v.numpy().copy() for k, v in trainer.model.state_dict().items()}
+    # the backend choice of the step graphs: gloo's step groups are not captured
+    out["graphs"] = (captures_collectives(mesh), trainer._graphs is not None)
     return out
 
 
@@ -166,6 +169,23 @@ def script_after_slow_setup(rank, world_size, job):
 def thread_counts(rank, world_size, _):
     """This rank's torch threads and the BLAS thread counts of its environment."""
     return torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS"), os.environ.get("OPENBLAS_NUM_THREADS")
+
+
+class _Graph:
+    """Stands for a captured step in `graphs._LIVE`."""
+
+
+_KEPT = []
+
+
+def graph_left_alive(rank, world_size, _):
+    """Rank 1 keeps a (stand-in) step graph alive past its target."""
+    from matten_tpu_torch.train import graphs
+
+    if rank == 1:
+        _KEPT.append(_Graph())
+        graphs._LIVE.add(_KEPT[-1])
+    return rank
 
 
 def collectives_on_cpu(rank, world_size, _):
