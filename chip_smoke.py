@@ -256,19 +256,32 @@ state over 6 train steps on two pad shapes with an lr change and 2 eval
 steps (losses and metric sums 1e-5 relative, parameters and Adam moments
 MODEL_TOL, replays without a host sync, the ranks bitwise equal); each
 case's step time per rank graphed and eager (CUDA events and host clock)
-beside the graphed 1-rank step's; in eager steps the device's busy share
-per rank, the conv and NCCL kernels' device time per step on rank 0 with
-each conv kernel kind in the trace as the counters say (the profiler; a
-replay of a graph that holds NCCL kernels is not profiled, ROADMAP §3);
-the all-reduces' bytes per step, the graph pools and capture times; then
+beside the graphed 1-rank step's; in `profile_trace` sessions, each
+timing its steps after a warm-up step and a barrier, first two of
+replays of the step graphs the unprofiled steps replayed (before they
+are freed, a graph launch per step, no capture, the ranks' parameters
+after them the same bits), then, the graphs freed, one of eager steps:
+the device's busy share per rank, the conv and NCCL kernels' device time
+per step on rank 0 with each conv kernel kind in the trace as the
+counters say; the graphed step timed again with CUPTI left attached; the
+all-reduces' bytes per step, the graph pools and capture times; then
 `torchrun --standalone --nproc-per-node N -m
 matten_tpu_torch.scripts.train_materials_tensor CONFIG` on the production
 yaml with `trainer.mesh: {data: 1, graph: N, mode: node}`, phase 16's
 data, 2 epochs, against the same config fitted on card 0 (every epoch's
 loss and val score and the test metrics within 1e-4 relative, the same
 directory, `predict` from both within 1e-5, no NCCL warning of a guessed
-device, rank 0's steps graph replays by its log). It prints the N
-cards' nvidia-smi lines and ends with the same last line, with "count": N.
+device, rank 0's steps graph replays by its log); last the probe of the
+profiler's fault on replays of graphs that hold NCCL collectives
+(`graph_probe`: one all-reduce on 2 ranks grown to an all-gather on an
+axis group, the ring shift, two graphs alive, (e) rank steps of three
+2-rank meshes in turn with only graphed sessions from one to the next,
+and (f) a fit's order of captures, sessions and `set_lr`, a world per
+variant, each to be exact on every rank with NCCL kernels in each
+session's trace). While (e) dies on the open fault (ROADMAP §3) the
+probe raises and the run exits non-zero after the rest has run. It
+prints the N cards' nvidia-smi lines and ends with the same last line,
+with "count": N.
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
@@ -281,6 +294,8 @@ import ast
 import contextlib
 import copy
 import functools
+import hashlib
+import itertools
 import json
 import math
 import os
@@ -576,16 +591,13 @@ def is_kind(name, kind):
 
 
 def traced(fn, n, out_dir, name, torch):
-    """Run fn n times under torch.profiler; write the tables and the trace
-    to out_dir; return the trace's complete events and per-run device stats.
+    """Run fn n times under torch.profiler (the port's `profiler()`: the
+    process-level setup that `profile_trace` makes too); write the tables
+    and the trace to out_dir; return the trace's complete events and
+    per-run device stats (`trace_stats`)."""
+    from matten_tpu_torch.utils.timing import profiler
 
-    Device numbers come from the trace's "kernel", "gpu_memcpy" and
-    "gpu_memset" events only; the "gpu_user_annotation" ranges that labels
-    add on the device side span kernels and are kept out of every count and
-    sum."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -597,8 +609,39 @@ def traced(fn, n, out_dir, name, torch):
         + ka.table(sort_by="cpu_time_total", row_limit=40))
     trace = out_dir / f"{name}_trace.json"
     prof.export_chrome_trace(str(trace))
-    ev = json.loads(trace.read_text())
-    ev = [e for e in (ev["traceEvents"] if isinstance(ev, dict) else ev) if e.get("ph") == "X"]
+    ev = trace_events(trace)
+    return ev, trace_stats(ev, n)
+
+
+def trace_events(path):
+    """The complete ("X") events of a Chrome trace file."""
+    ev = json.loads(Path(path).read_text())
+    return [e for e in (ev["traceEvents"] if isinstance(ev, dict) else ev) if e.get("ph") == "X"]
+
+
+STEADY = "steady steps"  # the range of a session's counted steps (`profiled_steps`)
+
+
+def in_range(ev, label):
+    """The events of a trace that ran inside its CPU range `label`: host
+    events within the range, and device operations that started in it
+    (the range ends after a synchronize, and the device was idle, after
+    another, as it began)."""
+    r = next(e for e in ev if e.get("cat") == "user_annotation" and e["name"] == label)
+    end = r["ts"] + r["dur"]
+    return [e for e in ev if r["ts"] <= e["ts"] and (e.get("cat") in DEVICE_OPS or e["ts"] + e["dur"] <= end)]
+
+
+def trace_stats(ev, n):
+    """Per-run device stats of a trace of n runs: counts of each device
+    operation, the span and busy ms, `cudaLaunchKernel` and
+    `cudaGraphLaunch` calls, device ms by kernel name, and the conv kernels'
+    ms per layer.
+
+    Device numbers come from the trace's "kernel", "gpu_memcpy" and
+    "gpu_memset" events only; the "gpu_user_annotation" ranges that labels
+    add on the device side span kernels and are kept out of every count and
+    sum."""
     dev_ops = sorted((e for e in ev if e.get("cat") in DEVICE_OPS), key=lambda e: e["ts"])
     busy, end = 0.0, -1.0  # union of device intervals, us
     for e in dev_ops:
@@ -608,8 +651,8 @@ def traced(fn, n, out_dir, name, torch):
     stats = {c: sum(e["cat"] == c for e in dev_ops) / n for c in DEVICE_OPS}
     stats["span_ms"] = (dev_ops[-1]["ts"] + dev_ops[-1]["dur"] - dev_ops[0]["ts"]) / n / 1e3
     stats["busy_ms"] = busy / n / 1e3
-    stats["launches"] = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith("cudaLaunchKernel")
-                            for e in ev) / n
+    for key, call in (("launches", "cudaLaunchKernel"), ("graph_launches", "cudaGraphLaunch")):
+        stats[key] = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith(call) for e in ev) / n
     per_name = {}
     for e in dev_ops:
         if e["cat"] == "kernel":
@@ -620,7 +663,7 @@ def traced(fn, n, out_dir, name, torch):
         for k, v in ((k, [e["dur"] / 1e3 for e in dev_ops if is_kind(e["name"], k)])
                      for k in KERNEL_NAMES)
     }
-    return ev, stats
+    return stats
 
 
 def device_summary(st):
@@ -1553,9 +1596,15 @@ def variants_fit_phase(fused_conv, torch, card):
 MESH_EPOCHS = 2
 MESH_TIMEOUT_S = 600
 MESH_REPS = 5  # timed train steps, and timed kernel calls per layer, on each rank
-MESH_PROFILED_STEPS = 2  # profiled train steps per rank (phase 21's flagship graph modes; every case of --cards)
+# profiled train steps per rank and session (phase 21's flagship graph modes;
+# every case of --cards, graphed and eager)
+MESH_PROFILED_STEPS = 2
 # what a rank's seconds per case were spent on (`mesh_rank`)
-MESH_PHASES = ("mesh and model", "counted step", "kernel checks", "timed steps", "eager twin", "profiled steps")
+MESH_PHASES = ("mesh and model", "counted step", "kernel checks", "timed steps", "eager twin",
+               "profiled steps, graphed and eager")
+# the sessions of a profiled case's graphed steps, in turn around the same
+# graphs (`mesh_rank`)
+GRAPHED_SESSIONS = ("graphed", "graphed again")
 # under nccl, each rank's graphed trainer against its eager twin (`mesh_twins`):
 # train steps on the case's batch "a" and half its crystals "b", the lr
 # halved after MESH_TWIN_LR_STEP, then MESH_TWIN_EVALS eval steps on "a"
@@ -1728,13 +1777,21 @@ def mesh_rank(rank, world_size, job):
     at its own plans, the step's median ms by CUDA events and by the host
     clock (`rank_step_ms`; under nccl graphed and eager, the step graphs
     set aside); under nccl the graphed Adam trainer against its eager twin
-    (`mesh_twins`), and the case's graphs freed. Last, once every case's
-    graphs are gone, for each case with `profile` MESH_PROFILED_STEPS
-    profiled eager steps: the device's busy share on every rank, and on
-    rank 0 the conv and NCCL kernels' device time per step and each conv
-    kernel kind in the trace against the counters (a replay of a graph that
-    holds NCCL kernels is not profiled: ROADMAP §3). The seconds each part
-    took (MESH_PHASES). The rank's card is the
+    (`mesh_twins`, which makes and frees graphs on the same communicators).
+    Then, for a case with `profile`, under nccl MESH_PROFILED_STEPS steps
+    in each of the GRAPHED_SESSIONS sessions of the port's `profile_trace`
+    in turn (`profiled_steps`): replays of the step graphs the unprofiled
+    steps replayed, under the same keys and with no capture, and the
+    parameters after them (every rank's must be the same bits); then the
+    graphed step timed again, with CUPTI left attached by the sessions.
+    Then, the case's graphs freed, as many eager steps in another session,
+    unless the case sets `eager_profile` False: the next case's graphed
+    sessions then follow this one's with no session between, the order in
+    which a rank died on a segmentation fault (`graph_probe`'s (e),
+    ROADMAP §3). Each profile gives the device's busy share on every rank,
+    and on rank 0 the conv and NCCL kernels' device time per step and each
+    conv kernel kind in the trace against the counters. The seconds each
+    part took (MESH_PHASES). The rank's card is the
     launcher's: cuda:0 for ranks that share it under gloo, card r under
     nccl."""
     import torch
@@ -1748,7 +1805,7 @@ def mesh_rank(rank, world_size, job):
     from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    out, profiled = {}, []
+    out = {}
     for case in job:
         marks = [time.perf_counter()]
         mesh = make_mesh(case["n_data"], case["n_graph"], case["mode"])
@@ -1806,35 +1863,78 @@ def mesh_rank(rank, world_size, job):
             trainer._graphs = graphs
         marks.append(time.perf_counter())
         res["twin"] = mesh_twins(case, mesh, dev, task, torch) if graphed else None
-        trainer.free_graphs()  # before the group's communicators go: never left to the garbage collector
-        eager(trainer)
         marks.append(time.perf_counter())
+        # every rank profiles the same steps (they meet in their collectives):
+        # under nccl the replays of the step graphs the unprofiled steps
+        # replayed, in sessions in turn, before the graphs are freed; then
+        # eager steps, unless the case has `eager_profile` False
+        res["profiles"] = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            if case["profile"] and graphed:
+                held = dict(graphs.graphs)  # the captured steps themselves: a capture would replace one
+                for how in GRAPHED_SESSIONS:
+                    res["profiles"][how] = profiled_steps(step, Path(tmp) / how.replace(" ", "_"), rank,
+                                                          fused_conv, torch, f"{case['name']} {how}")
+                if graphs.graphs.keys() != held.keys() or any(graphs.graphs[k] is not g for k, g in held.items()):
+                    raise AssertionError(f"{case['name']}: the profiled steps captured graphs anew: keys "
+                                         f"{sorted(map(repr, graphs.graphs))}, held {sorted(map(repr, held))}")
+                del held
+                # the gradients' all-reduce under the profiler gives every rank the same sums
+                res["profiled_params"] = hashlib.sha256(b"".join(
+                    p.detach().cpu().numpy().tobytes() for p in trainer.model.parameters())).hexdigest()
+                # the graphed step again, CUPTI left attached by the sessions
+                res["attached_ms"], res["attached_wall_ms"] = rank_step_ms(step, torch)
+            trainer.free_graphs()  # before the group's communicators go: never left to the garbage collector
+            eager(trainer)
+            if case["profile"] and case.get("eager_profile", True):
+                res["profiles"]["eager"] = profiled_steps(step, Path(tmp) / "eager", rank, fused_conv, torch,
+                                                          f"{case['name']} eager")
+        marks.append(time.perf_counter())
+        res["phase_s"] = np.diff(marks).tolist()  # MESH_PHASES
         out[case["name"]] = res
-        if case["profile"]:
-            profiled.append((res, step, marks))
-        else:
-            res["busy"], res["device_ms"], res["nccl_ms"], res["in_trace"] = None, None, None, None
-            res["phase_s"] = np.diff(marks + [marks[-1]]).tolist()  # MESH_PHASES
-    # every rank profiles the same eager steps (they meet in their
-    # collectives), once every case's graphs are freed: a replay of a graph
-    # that holds NCCL kernels is not profiled, since under torch.profiler it
-    # died on a segmentation fault on the card (ROADMAP §3)
-    with tempfile.TemporaryDirectory() as tmp:
-        for res, step, marks in profiled:
-            before, t0 = counts(fused_conv), time.perf_counter()
-            ev, st = traced(step, MESH_PROFILED_STEPS, Path(tmp), "eager", torch)
-            res["busy"] = {k: st[k] for k in ("busy_ms", "span_ms", "kernel", "launches")}
-            res["device_ms"], res["nccl_ms"], res["in_trace"] = None, None, None
-            if rank == 0:
-                res["device_ms"] = {k: sum(t for n, t in st["by_kernel"].items() if is_kind(n, k))
-                                    for k in KERNEL_NAMES}
-                res["nccl_ms"] = sum(t for n, t in st["by_kernel"].items() if n.startswith("nccl"))
-                res["in_trace"] = (
-                    {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev)
-                     / MESH_PROFILED_STEPS for k in KERNEL_NAMES},
-                    {k: (v - before[k]) / MESH_PROFILED_STEPS for k, v in counts(fused_conv).items()})
-            res["phase_s"] = np.diff(marks).tolist() + [time.perf_counter() - t0]  # MESH_PHASES
     return out
+
+
+def profiled_steps(step, logdir, rank, fused_conv, torch, label):
+    """MESH_PROFILED_STEPS calls of `step` in a session of the port's
+    `profile_trace` (CPU and CUDA activity), traced into `logdir`, after a
+    warm-up call and a barrier of every rank inside the session: of the
+    steps in the STEADY range only (`in_range`), the device's busy ms,
+    span, kernels, `cudaLaunchKernel` and `cudaGraphLaunch` calls per step,
+    and on rank 0 the conv kernels' and NCCL kernels' device ms per step
+    and each conv kernel kind in the trace against the counters (`in_trace`:
+    per step in the trace, counted). The session's start and end go to the
+    rank's log, which a failed world shows."""
+    import torch.distributed as dist
+
+    from matten_tpu_torch.utils.timing import profile_trace
+
+    n = MESH_PROFILED_STEPS
+    print(f"rank {rank}: {label} steps in a profile_trace session", file=sys.stderr, flush=True)
+    with profile_trace(str(logdir)):
+        step()  # the warm-up: every rank enters the session at its own time
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = counts(fused_conv)
+        with torch.profiler.record_function(STEADY):
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        counted = {k: (v - before[k]) / n for k, v in counts(fused_conv).items()}
+    print(f"rank {rank}: {label} session ended", file=sys.stderr, flush=True)
+    ev = in_range(trace_events(logdir / "trace.json"), STEADY)
+    st = trace_stats(ev, n)
+    prof = {"busy": {k: st[k] for k in ("busy_ms", "span_ms", "kernel", "launches", "graph_launches")},
+            "device_ms": None, "nccl_ms": None, "nccl_kernels": None, "in_trace": None}
+    if rank == 0:
+        prof["device_ms"] = {k: sum(t for name, t in st["by_kernel"].items() if is_kind(name, k))
+                             for k in KERNEL_NAMES}
+        prof["nccl_ms"] = sum(t for name, t in st["by_kernel"].items() if name.startswith("nccl"))
+        prof["nccl_kernels"] = sum(x.get("cat") == "kernel" and x["name"].startswith("nccl") for x in ev) / n
+        prof["in_trace"] = ({k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev) / n
+                             for k in KERNEL_NAMES}, counted)
+    return prof
 
 
 def script_rank(rank, world_size, job):
@@ -2062,6 +2162,8 @@ def check_mesh_steps(cases, steps, refs, one_ms, card, backend, world_s):
         else:
             how = f"{world} ranks, a card each (nccl; no rank staged through the host)"
             shared = "a card per rank"
+        how_profiled = "graphed" if "graphed" in r0["profiles"] else "eager"
+        prof = r0["profiles"].get(how_profiled)
         print(f"[{name}] {card}: {how}, {c['n_data']} x {c['n_graph']} {c['mode']}, block "
               f"{tuple(c['batch'][0]['pos'].shape)} of pos: against the 1-rank SGD step on the whole batch, "
               f"loss {r0['loss']:.8f} vs {loss:.8f} ({loss_rel:.2e}, tol 1e-5), metric sum {metric_rel:.2e} "
@@ -2073,12 +2175,12 @@ def check_mesh_steps(cases, steps, refs, one_ms, card, backend, world_s):
               f"rank at once): K1 with its sum "
               + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["fwd"]) + ", the backward (merged kernel, dx sum) "
               + " / ".join(f"{t:.4f}" for t in r0["kernel_ms"]["bwd"])
-              + ("" if r0["device_ms"] is None else "; plain K1 "
+              + ("" if prof is None else "; plain K1 "
                  + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["fwd"]) + ", plain backward "
-                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["bwd"]) + "; device ms per step (profiler, "
-                 f"{MESH_PROFILED_STEPS} steps, rank 0): conv kernels "
-                 + ", ".join(f"{k} {t:.4f}" for k, t in r0["device_ms"].items())
-                 + f", NCCL kernels {r0['nccl_ms']:.4f}")
+                 + " / ".join(f"{t:.4f}" for t in r0["plain_ms"]["bwd"]) + f"; device ms per {how_profiled} step "
+                 f"(profiler, {MESH_PROFILED_STEPS} steps, rank 0): conv kernels "
+                 + ", ".join(f"{k} {t:.4f}" for k, t in prof["device_ms"].items())
+                 + f", NCCL kernels {prof['nccl_ms']:.4f}")
               + "; bound K1 "
               + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["fwd"]) + ", backward "
               + " / ".join(f"{t:.4f}" for t, _ in r0["bounds"]["bwd"])
@@ -2096,14 +2198,18 @@ def check_mesh_graphs(cases, steps, one_ms, card, backend):
     same collectives), and on each rank the graphed trainer matched its
     eager twin (`mesh_twins`: losses and metric sums within GRAPH_LOSS_TOL
     there, parameters and Adam moments within MODEL_TOL here, with
-    replays), the ranks' graphed states bitwise equal; in rank 0's profiled
-    eager steps each conv kernel kind ran as often as the counters say,
-    one per conv layer (per ring group under node_ring) and step (the
-    graphed steps are not profiled: ROADMAP §3). Under nccl prints a line
-    per case: a rank's step graphed and eager (CUDA events, host clock)
-    beside the graphed one-card step, the device's busy share per rank and
-    the NCCL kernels' device ms on rank 0 in the eager steps, the bytes the
-    all-reduces move per step, the twins' pools and capture seconds."""
+    replays), the ranks' graphed states bitwise equal. A profiled case's
+    graphed steps were one graph launch each on every rank, with no
+    capture (`mesh_rank`), after which the ranks' parameters are the same
+    bits; in rank 0's profiles, graphed and eager, each conv kernel kind
+    ran as often as the counters say, one per conv layer (per ring group
+    under node_ring) and step, and NCCL kernels ran. Under nccl prints a
+    line per case: a rank's step graphed and eager (CUDA events, host
+    clock) beside the graphed one-card step, the device's busy share per
+    rank and, on rank 0, the NCCL and conv kernels' device ms per step of
+    each session (the steps after its warm-up and barrier), the graphed
+    step timed again with CUPTI left attached, the bytes the all-reduces
+    move per step, the twins' pools and capture seconds."""
     for c in cases:
         name, rs = c["name"], [s[c["name"]] for s in steps]
         r0 = rs[0]
@@ -2124,15 +2230,31 @@ def check_mesh_graphs(cases, steps, one_ms, card, backend):
         groups = c["n_graph"] if c["mode"] == "node_ring" else 1
         per_step = {k: (c["hparams"]["num_layers"] + 1) * groups for k in COUNTERS}
         if c["profile"]:
-            in_trace, counted = r0["in_trace"]
-            if in_trace != counted or counted != per_step:
-                raise AssertionError(f"{name}: rank 0's profiled eager step ran {in_trace} conv kernels on the "
-                                     f"card, counted {counted}, expected {per_step}")
+            launches = [r["profiles"][how]["busy"]["graph_launches"] for how in GRAPHED_SESSIONS for r in rs]
+            if launches != [1] * len(launches) or any(r["profiled_params"] != r0["profiled_params"] for r in rs):
+                raise AssertionError(f"{name}: per profiled graphed step the ranks made {launches} graph launches "
+                                     f"(expected 1), parameters after them {[r['profiled_params'] for r in rs]}")
+            for how, prof in r0["profiles"].items():
+                in_trace, counted = prof["in_trace"]
+                if in_trace != counted or counted != per_step or not prof["nccl_kernels"] > 0:
+                    raise AssertionError(f"{name}: rank 0's profiled {how} step ran {in_trace} conv kernels and "
+                                         f"{prof['nccl_kernels']} NCCL kernels on the card, counted {counted}, "
+                                         f"expected {per_step}")
 
-        def busy(r):
-            b = r["busy"]
-            return "-" if b is None else f"{100 * b['busy_ms'] / b['span_ms']:.1f}% ({b['busy_ms']:.3f} of {b['span_ms']:.3f})"
+        def busy(r, how):
+            b = r["profiles"][how]["busy"]
+            return f"{100 * b['busy_ms'] / b['span_ms']:.1f}% ({b['busy_ms']:.3f} of {b['span_ms']:.3f})"
 
+        profiled = "" if not c["profile"] else "".join(
+            f"; {how} steps in a profile_trace session ({MESH_PROFILED_STEPS} per rank after a warm-up step and a "
+            "barrier" + (", a graph launch each, no capture): " if how in GRAPHED_SESSIONS else "): ")
+            + "device busy per rank (ms of the span) " + ", ".join(busy(r, how) for r in rs)
+            + f", rank 0 per step NCCL kernels {p0['nccl_ms']:.4f} ms ({p0['nccl_kernels']:g} kernels), conv kernels "
+            + ", ".join(f"{k} {t:.4f}" for k, t in p0["device_ms"].items())
+            + f" ms, each kind in the trace as counted {p0['in_trace'][0]}"
+            for how, p0 in r0["profiles"].items()) + (
+            "; the graphed step after the sessions, CUPTI left attached, CUDA events / host ms per rank "
+            + ", ".join(f"{r['attached_ms']:.3f} / {r['attached_wall_ms']:.3f}" for r in rs))
         print(f"[{name} graphs] {card}: {len(rs)} ranks, every rank's steps CUDA graph replays with the same "
               f"{len(r0['keys'])} key(s); against each rank's eager twin (Adam from the seed, train steps "
               f"{MESH_TWIN_STEPS} on its block and on half the crystals' block, lr halved after step "
@@ -2144,16 +2266,12 @@ def check_mesh_graphs(cases, steps, one_ms, card, backend):
               + ", ".join(f"{r['step_ms']:.3f} / {r['eager_ms']:.3f}" for r in rs) + ", host clock "
               + ", ".join(f"{r['wall_ms']:.3f} / {r['eager_wall_ms']:.3f}" for r in rs)
               + f"; one card on the whole batch, graphed: {one_ms[name][0]:.3f} CUDA events, {one_ms[name][1]:.3f} "
-              f"host; device busy per rank in eager steps ({MESH_PROFILED_STEPS} profiled steps, ms of the span; "
-              "graphed steps not profiled) " + ", ".join(busy(r) for r in rs)
-              + ("" if r0["nccl_ms"] is None else
-                 f"; rank 0 per eager step: NCCL kernels {r0['nccl_ms']:.4f} ms, conv kernels "
-                 + ", ".join(f"{k} {t:.4f}" for k, t in r0["device_ms"].items())
-                 + f" ms, each kind in the trace as counted {r0['in_trace'][0]}")
-              + f"; all-reduces per step {r0['allreduce_bytes']} bytes (the gradients over the world, the running "
-              f"statistics over the data axis); the twins' graph pools per rank "
+              f"host{profiled}; all-reduces per step {r0['allreduce_bytes']} bytes (the gradients over the world, "
+              "the running statistics over the data axis); the twins' graph pools per rank "
               + ", ".join(f"{r['twin']['pool_mib']:.1f}" for r in rs) + " MiB, capture s per key (rank 0) "
-              + ", ".join(f"{t:.3f}" for t in r0["twin"]["capture_s"]), flush=True)
+              + ", ".join(f"{t:.3f}" for t in r0["twin"]["capture_s"])
+              + ("; the ranks' parameters after the profiled graphed steps the same bits" if c["profile"] else ""),
+              flush=True)
 
 
 def parallel_phases(dev, card, torch, structures, target_rows):
@@ -2389,109 +2507,343 @@ def torchrun_fit(n, card, torch):
           f"{predict_err:.3e} apart (tol 1e-5)", flush=True)
 
 
-# `--cards`: the fault of ROADMAP §3 reduced to one all-reduce of one
-# communicator, each variant a 2-rank nccl world of its own: (what it shows,
-# a graph of the all-reduce captured, replayed and freed before, the
-# profiler's activities around a replay or None)
-PROBE_VARIANTS = (("unprofiled, after a freed graph", True, None),
-                  ("profiled (CPU and CUDA), no graph freed before", False, "cpu+cuda"),
-                  ("profiled (CPU and CUDA), after a freed graph", True, "cpu+cuda"),
-                  ("profiled (CUDA only), after a freed graph", True, "cuda"))
-PROBE_TIMEOUT_S = 60
+# `--cards`: the profiler's fault on replays of graphs that hold NCCL
+# collectives (ROADMAP §3), from one all-reduce of one communicator grown
+# toward a mesh rank's step, each variant a world of its own, its graphs
+# the port's step graphs: (what it shows, its job). 2-rank variants
+# (`graph_probe_rank`): "ops" the
+# collectives of the captured step, on the world's communicator
+# (all_reduce) and on the graph axis of a 1 x 2 node mesh, a second one
+# (all_gather, ring_shift); "freed" a graph of the step captured, replayed
+# and freed first; "alive" a second graph captured beside the profiled one
+# and freed before its profiled replays; "sessions" profiler sessions in
+# turn around replays; "cuda_only" CUDA activity alone; "before" a session
+# around an all-reduce's graph first; "size" the floats per rank. The last
+# variant runs `mesh_rank` over rank steps in turn (`graph_probe_steps`).
+PROBE_VARIANTS = (
+    ("unprofiled, after a freed graph", dict(ops=("all_reduce",), freed=True, sessions=0)),
+    ("profiled (CPU and CUDA), no graph freed before", dict(ops=("all_reduce",), sessions=1)),
+    ("profiled (CPU and CUDA), after a freed graph", dict(ops=("all_reduce",), freed=True, sessions=1)),
+    ("profiled (CUDA only), after a freed graph", dict(ops=("all_reduce",), freed=True, sessions=1,
+                                                       cuda_only=True)),
+    ("(a) two sessions in turn", dict(ops=("all_reduce",), sessions=2)),
+    ("(b) (a) with an all-gather on an axis group", dict(ops=("all_reduce", "all_gather"), sessions=2)),
+    ("(c) (b) with the ring shift", dict(ops=("all_reduce", "all_gather", "ring_shift"), sessions=2)),
+    ("(d) (c) with two graphs alive, one freed before the profiled replays",
+     dict(ops=("all_reduce", "all_gather", "ring_shift"), sessions=2, alive=True)),
+    ("(d') a session around an all-reduce's graph, then (b) of 16 floats first run, captured and profiled",
+     dict(ops=("all_reduce", "all_gather"), sessions=1, before=True, size=16)),
+    ("(e) rank steps in turn as mesh_rank opens their sessions: dp 2x1 unprofiled, then edge and node 1x2, "
+     "graphed sessions only from one case's to the next", None),
+    ("(f) a fit's order: sessions between a new pad shape's capture and set_lr's, other graphs alive", None),
+)
+# (e)'s cases, on 2 ranks (`graph_probe_steps`), and (f)'s (`fit_probe_rank`)
+PROBE_STEPS = (("dp 2x1", 2, 1, "edge", "no_bn"), ("edge 1x2", 1, 2, "edge", "production"),
+               ("node 1x2", 1, 2, "node", "production"))
+PROBE_FIT = ("node 1x2", 1, 2, "node", "production")
+# (f)'s steps in order, (kind, batch, session): session 0 unprofiled; the
+# set_lr after the second session frees the train graphs while the eval
+# graph lives; session 4 replays only that eval graph
+PROBE_FIT_STEPS = (("train_step", "a", 0), ("train_step", "a", 0), ("eval_step", "a", 0), ("eval_step", "a", 0),
+                   ("train_step", "a", 1), ("eval_step", "a", 1),
+                   ("train_step", "b", 0), ("train_step", "b", 0),
+                   ("train_step", "a", 2), ("train_step", "b", 2), ("eval_step", "a", 2),
+                   ("set_lr", None, 0), ("train_step", "a", 0), ("train_step", "b", 0),
+                   ("train_step", "a", 3), ("train_step", "b", 3),
+                   ("eval_step", "a", 4))
+PROBE_TIMEOUT_S = 120
+PROBE_REPLAYS = 2  # replays per session
 
 
 def graph_probe_rank(rank, world_size, job):
-    """A rank of `graph_probe`: an all-reduce of the world's communicator
-    run eagerly first (the communicator made); with job["freed"] a CUDA
-    graph of it captured, replayed and freed; then a graph of it captured
-    anew and replayed; with job["profile"] replayed once more under
-    torch.profiler. Returns the (min, max) of the sum after each replay."""
+    """A rank of `graph_probe`'s 2-rank variants, its graphs the port's step
+    graphs (`StepGraphs`: a kind's first run eager, the second captured and
+    replayed, later runs replayed; `drop` frees). With job["before"],
+    first an all-reduce on the world captured, replayed in a session and
+    freed. Then the step (the collectives of job["ops"] on job["size"]
+    floats) run eagerly, which makes the communicators (a 1 x 2 node mesh's
+    graph axis for an all-gather or the ring shift); with job["freed"] its
+    graph captured, replayed and freed; then its graph captured anew and
+    replayed, and with job["alive"] a second one beside it, replayed and
+    freed; then job["sessions"] sessions around PROBE_REPLAYS replays each.
+    A session is the port's `profile_trace` (`profiler` with CUDA activity
+    alone under job["cuda_only"]). Run k feeds x = rank + 1 + k. Returns
+    whether each run gave the exact values and the NCCL kernels in each
+    session's trace."""
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
-    x = torch.full((1 << 20,), float(rank + 1), device=torch.device("cuda", torch.cuda.current_device()))
+    from matten_tpu_torch.parallel import make_mesh
+    from matten_tpu_torch.parallel.collectives import all_gather, ring_shift
+    from matten_tpu_torch.train.graphs import StepGraphs
+    from matten_tpu_torch.utils.timing import profile_trace, profiler
 
-    def step():
-        y = x * 2
-        dist.all_reduce(y)
-        return y
+    dev = torch.device("cuda", torch.cuda.current_device())
+    size, ops = job.get("size", 1 << 20), job["ops"]
+    axis = make_mesh(1, world_size, "node").graph if len(ops) > 1 else None
 
-    def capture():
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, capture_error_mode="thread_local"):
-            y = step()
-        return g, y
+    def step(which):
+        def run(data, _targets):
+            outs = []
+            for op in which:
+                x = data["x"]
+                if op == "all_reduce":
+                    y = x * 2
+                    dist.all_reduce(y)
+                else:
+                    y = all_gather(x * 2, axis) if op == "all_gather" else ring_shift(x * 3, axis)
+                outs.append(y)
+            return tuple(outs)
+        return run
 
-    step()
-    torch.cuda.synchronize()
-    if job["freed"]:
-        g, y = capture()
-        g.replay()
+    def want(op, k):
+        # x = r + 1 + k on rank r: all_reduce 2 sum_r x; all_gather of 2x
+        # each rank's block in turn; ring_shift of 3x the rank before's
+        one = torch.ones(size, device=dev)
+        if op == "all_reduce":
+            return one * 2.0 * sum(r + 1 + k for r in range(world_size))
+        if op == "all_gather":
+            return torch.cat([one * 2.0 * (r + 1 + k) for r in range(world_size)])
+        return one * 3.0 * ((rank - 1) % world_size + 1 + k)
+
+    graphs = StepGraphs({"before": step(("all_reduce",)), "step": step(ops)})
+    other = StepGraphs({"step": step(ops)})
+    exact, nccl = [], []
+
+    def run(kind, steps=graphs):
+        k = len(exact)
+        outs = steps.run(kind, {"x": torch.full((size,), float(rank + 1 + k), device=dev)}, {})
         torch.cuda.synchronize()
-        del g, y
-        torch.cuda.synchronize()
-    g, y = capture()
-    g.replay()
-    torch.cuda.synchronize()
-    sums = [(float(y.min()), float(y.max()))]
-    if job["profile"] is not None:
-        y.zero_()
-        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if "cpu" in job["profile"] else [])
-        with profile(activities=activities):
-            g.replay()
-            torch.cuda.synchronize()
-        sums.append((float(y.min()), float(y.max())))
-    del g, y
-    torch.cuda.synchronize()
-    return sums
+        which = ("all_reduce",) if kind == "before" else ops
+        exact.append(all(torch.equal(y, want(op, k)) for op, y in zip(which, outs)))
+
+    def session(logdir, kind):
+        if job.get("cuda_only"):
+            logdir.mkdir()
+            with profiler([torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(PROBE_REPLAYS):
+                    run(kind)
+            prof.export_chrome_trace(str(logdir / "trace.json"))
+        else:
+            with profile_trace(str(logdir)):
+                for _ in range(PROBE_REPLAYS):
+                    run(kind)
+        nccl.append(sum(e.get("cat") == "kernel" and e["name"].startswith("nccl")
+                        for e in trace_events(logdir / "trace.json")))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if job.get("before"):
+            run("before")
+            run("before")
+            session(Path(tmp) / "before", "before")
+            graphs.drop("before")
+        run("step")  # eager: the communicators made
+        if job.get("freed"):
+            run("step")
+            graphs.drop("step")
+        run("step")  # captured, replayed
+        if job.get("alive"):
+            run("step", other)
+            run("step", other)
+            run("step")
+            other.drop()
+        for i in range(job["sessions"]):
+            session(Path(tmp) / f"session{i}", "step")
+    graphs.drop()  # before the group goes
+    return {"exact": exact, "nccl_in_trace": nccl}
 
 
-def graph_probe(card):
-    """`--cards`' probe of the profiler fault (ROADMAP §3): the variants of
-    PROBE_VARIANTS at once, each a 2-rank nccl world on cards 0 and 1
-    (`graph_probe_rank`). The unprofiled replay of a graph captured after
-    another was freed must give the exact sum on both ranks; each profiled
-    variant's outcome, exact sums or how its world ended (a rank killed by
-    a signal), is reported as found, since that is what the probe asks."""
+def fit_probe_rank(rank, world_size, job):
+    """A rank of `graph_probe`'s variant (f): a fit's order of events on the
+    case `job` (PROBE_FIT), a graphed Adam trainer against its eager twin
+    step for step (`graphed_step`: within GRAPH_LOSS_TOL, exact launches)
+    over PROBE_FIT_STEPS: on batch a train and eval steps seen and captured
+    unprofiled, session 1 around their replays; batch b, another pad shape,
+    seen and captured with CUPTI left attached by it; session 2 around
+    both shapes' train steps and the eval step; `set_lr` (the train graphs
+    freed, the eval graph alive) and both train graphs captured anew;
+    session 3 around them; session 4 around the eval graph, which lived
+    through the release. Returns per session (1-4) each conv kernel kind in
+    the trace and counted (rank 0), NCCL kernels (rank 0) and
+    `cudaGraphLaunch` calls; the parameters and Adam moments against the
+    twin's and a hash of the parameters."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.parallel import make_mesh, shard_batch
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+    from matten_tpu_torch.utils.timing import profile_trace
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(job["n_data"], job["n_graph"], job["mode"])
+    task = CanonicalRegressionTask(name=job["target"])
+    config = TrainerConfig(lr=0.01)
+    g, e = (Trainer(create_scalar_tensor_model(job["hparams"], job["ds"], device=dev, seed=SEED), [task], config,
+                    device=dev, mesh=mesh) for _ in range(2))
+    eager(e)
+    batches = {"a": shard_batch(mesh, *job["batch"], dev), "b": shard_batch(mesh, *job["batch_half"], dev)}
+    convs = job["hparams"]["num_layers"] + 1
+    sessions = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for session, run in itertools.groupby(PROBE_FIT_STEPS, key=lambda step: step[2]):
+            run = list(run)
+            before = counts(fused_conv)
+            logdir = Path(tmp) / f"session{session}"
+            with profile_trace(str(logdir)) if session else contextlib.nullcontext():
+                for kind, batch, _ in run:
+                    if kind == "set_lr":
+                        for t in (g, e):
+                            t.set_lr(config.lr / 2)
+                        continue
+                    want = {k: convs if kind == "train_step" or k.startswith("fwd") else 0 for k in COUNTERS}
+                    graphed_step(f"(f) rank {rank}", g, e, kind, batches[batch], want, torch)
+                torch.cuda.synchronize()
+            if session:
+                ev = trace_events(logdir / "trace.json")
+                sessions[session] = {
+                    "steps": len(run),
+                    "graph_launches": sum(x.get("cat") == "cuda_runtime" and x["name"].startswith("cudaGraphLaunch")
+                                          for x in ev),
+                    "in_trace": {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev)
+                                 for k in KERNEL_NAMES},
+                    "counted": {k: v - before[k] for k, v in counts(fused_conv).items()},
+                    "nccl_kernels": sum(x.get("cat") == "kernel" and x["name"].startswith("nccl") for x in ev)}
+    out = {"sessions": sessions, "state_err": state_errors(g, e)[0],
+           "params": hashlib.sha256(b"".join(p.detach().cpu().numpy().tobytes()
+                                             for p in g.model.parameters())).hexdigest()}
+    g.free_graphs()  # before the group goes
+    return out
+
+
+def check_fit_probe(res):
+    """What (f) found: "exact sums" when the graphed trainer stayed within
+    MODEL_TOL of its twin on every rank, the ranks' parameters are the same
+    bits, each of sessions 1-3 made a graph launch per step on every rank
+    and traced, on rank 0, each conv kernel kind as counted (the graphed
+    and the twin's steps, some of each) and NCCL kernels. Session 4, the
+    eval graph that lived through set_lr's release, is reported beside
+    it."""
+    s0 = res[0]["sessions"]
+    ok = (all(r["state_err"][0] <= MODEL_TOL for r in res) and len({r["params"] for r in res}) == 1
+          and all(r["sessions"][k]["graph_launches"] == r["sessions"][k]["steps"] for r in res for k in (1, 2, 3))
+          and all(s0[k]["in_trace"] == s0[k]["counted"] and min(s0[k]["counted"].values()) > 0
+                  and s0[k]["nccl_kernels"] > 0 for k in (1, 2, 3)))
+    found = (f"session 4 (the eval graph through the release): conv kernels in the trace {s0[4]['in_trace']} of "
+             f"{s0[4]['counted']} counted (its twin's eager half of them), {s0[4]['nccl_kernels']} NCCL kernels")
+    if ok:
+        return "exact sums", found
+    return (f"twin {[r['state_err'] for r in res]}, {len({r['params'] for r in res})} distinct parameter sets, "
+            f"sessions {[r['sessions'] for r in res]}"), found
+
+
+def graph_probe_steps(structures, target_rows, env):
+    """`graph_probe`'s variant (e), started: `mesh_rank` on 2 ranks over
+    PROBE_STEPS in turn, each without its eager session (`eager_profile`
+    False), so that node 1 x 2's graphs, captured after edge 1 x 2's were
+    traced and freed, are replayed in sessions with no other session
+    between edge's and node's graphed ones. Returns the cases and the world
+    (`check_probe_steps` reads it)."""
+    from matten_tpu_torch.parallel.launch import start_ranks
+
+    cases = [dict(c, eager_profile=False) for c in mesh_cases(PROBE_STEPS, structures, target_rows, False)]
+    job = [{k: v for k, v in c.items() if k != "single"} for c in cases]
+    return cases, start_ranks("chip_smoke:mesh_rank", 2, job, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS,
+                              env=env, backend="nccl")
+
+
+def check_probe_steps(cases, steps):
+    """What (e) found: "exact sums" when, in every profiled case, every
+    rank's profiled graphed steps were one graph launch each, after which
+    the ranks' parameters are the same bits, and every session of rank 0
+    traced each conv kernel kind as counted and NCCL kernels."""
+    for c in (c for c in cases if c["profile"]):
+        rs = [s[c["name"]] for s in steps]
+        per_step = {k: (c["hparams"]["num_layers"] + 1) for k in COUNTERS}
+        launches = [r["profiles"][how]["busy"]["graph_launches"] for how in GRAPHED_SESSIONS for r in rs]
+        traced_ = [(p["in_trace"], p["nccl_kernels"]) for p in rs[0]["profiles"].values()]
+        if not (launches == [1] * len(launches) and len({r["profiled_params"] for r in rs}) == 1
+                and all(t[0] == t[1] == per_step and k > 0 for t, k in traced_)):
+            return (f"{c['name']}: graph launches per step {launches}, {len({r['profiled_params'] for r in rs})} "
+                    f"distinct parameter sets, rank 0's sessions (conv kernels in the trace and counted, NCCL "
+                    f"kernels) {traced_}")
+    return "exact sums"
+
+
+def graph_probe(structures, target_rows, n, card):
+    """`--cards n`' probe of the profiler on replays of graphs that hold
+    NCCL collectives (ROADMAP §3): every variant of PROBE_VARIANTS on 2
+    ranks at once, a world each, the `graph_probe_rank` ones on cards 0
+    and 1, (e) (`graph_probe_steps`) and (f) (`fit_probe_rank`) on cards 2
+    and 3 where n >= 4. Each must give exact values on every rank after
+    every run, profiled or not, and every session's trace must hold NCCL
+    kernels (with the conv kernels as counted in (e) and (f)); a world that
+    ends otherwise (a rank killed by a signal included) is reported with
+    the rest, and then the probe raises."""
     from matten_tpu_torch.parallel.launch import start_ranks
 
     env = {"PYTHONPATH": str(Path(__file__).resolve().parent), "PYTHONFAULTHANDLER": "1"}
-    want = float(2 * (1 + 2))
-    worlds = [(label, start_ranks("chip_smoke:graph_probe_rank", 2, {"freed": freed, "profile": how},
-                                  timeout_s=PROBE_TIMEOUT_S, env=env, backend="nccl"))
-              for label, freed, how in PROBE_VARIANTS]
+    visible = os.environ["CUDA_VISIBLE_DEVICES"].split(",")
     found = {}
+
+    def ended(err):
+        errors = [line for line in str(err).splitlines() if re.match(r"\w+(Error|Exception): ", line)]
+        return (str(err).splitlines()[0].split(": ", 1)[-1]
+                + (" (Segmentation fault)" if "Segmentation fault" in str(err) else "")
+                + (f" ({errors[-1]})" if errors else ""))
+
+    last = dict(env, CUDA_VISIBLE_DEVICES=",".join(visible[2:4])) if n >= 4 else env
+    step_cases, step_world = graph_probe_steps(structures, target_rows, last)
+    fit_job = {k: v for k, v in mesh_cases([PROBE_FIT], structures, target_rows, False)[0].items() if k != "single"}
+    fit_world = start_ranks("chip_smoke:fit_probe_rank", 2, fit_job, timeout_s=MESH_TIMEOUT_S,
+                            threads=MESH_THREADS, env=last, backend="nccl")
+    (label_e, _), (label_f, _) = PROBE_VARIANTS[-2:]
+    worlds = [(label, start_ranks("chip_smoke:graph_probe_rank", 2, job, timeout_s=PROBE_TIMEOUT_S,
+                                  env=dict(env, CUDA_VISIBLE_DEVICES=",".join(visible[:2])), backend="nccl"))
+              for label, job in PROBE_VARIANTS if job is not None] + [(label_e, step_world), (label_f, fit_world)]
+    reported = ""
     for label, ranks in worlds:
         with ranks:
             try:
-                sums = ranks.join()
+                res = ranks.join()
             except RuntimeError as err:
-                found[label] = str(err).splitlines()[0].split(": ", 1)[-1] + (
-                    " (Segmentation fault)" if "Segmentation fault" in str(err) else "")
+                found[label] = ended(err)
                 continue
-        exact = all(v == want for r in sums for pair in r for v in pair)
-        found[label] = "exact sums" if exact else f"wrong sums {sums}"
-    first = PROBE_VARIANTS[0][0]
-    if found[first] != "exact sums":
-        raise AssertionError(f"graph probe: a graph of one all-reduce captured after another was freed: "
-                             f"{found[first]}")
-    print(f"[graph probe] {card}: one all-reduce of 2^20 floats on 2 ranks (nccl), made eagerly, then as CUDA "
-          "graphs, a world per variant: " + "; ".join(f"{k}: {v}" for k, v in found.items()), flush=True)
+        if ranks is step_world:
+            found[label] = check_probe_steps(step_cases, res)
+            continue
+        if ranks is fit_world:
+            found[label], reported = check_fit_probe(res)
+            continue
+        sessions = [r["nccl_in_trace"] for r in res]
+        exact = all(all(r["exact"]) for r in res) and all(k > 0 for ks in sessions for k in ks)
+        found[label] = "exact sums" if exact else (f"exact per run {[r['exact'] for r in res]}, NCCL kernels "
+                                                  f"per session {sessions}")
+    print(f"[graph probe] {card}: the port's step graphs of NCCL collectives on 2 ranks (2^20 floats unless said) "
+          f"replayed, unprofiled and in profile_trace sessions ({PROBE_REPLAYS} replays each; (e) "
+          f"{MESH_PROFILED_STEPS} steps per session), a world per variant, its ranks started with TEARDOWN_CUPTI "
+          f"{os.environ.get('TEARDOWN_CUPTI', 'unset')}: " + "; ".join(f"{k}: {v}" for k, v in found.items())
+          + (f"; (f)'s {reported}" if reported else ""), flush=True)
+    faulted = [k for k, v in found.items() if v != "exact sums"]
+    if faulted:
+        raise AssertionError(f"graph probe: {faulted[0]} is the first variant that did not give exact sums "
+                             f"({len(faulted)} of {len(found)})")
 
 
 def cards_phases(n, dev, card, torch):
     """`--cards n`: the step cases of `card_cases(n)` on n ranks, a card
-    each under nccl, against the 1-rank step on card 0; then the materials
+    each under nccl, against the 1-rank step on card 0; the materials
     script under torchrun on n cards against one card; last the probe of
-    the profiler fault (`graph_probe`)."""
+    the profiler's fault on graphs of NCCL collectives (`graph_probe`),
+    which raises while a variant finds it."""
     structures, target_rows = draw_structures()
     cases = mesh_cases(card_cases(n), structures, target_rows, profile_all=True)
     steps, refs, one_ms, world_s = mesh_steps(cases, n, "nccl", dev, torch)
     check_mesh_steps(cases, steps, refs, one_ms, card, "nccl", world_s)
     check_mesh_graphs(cases, steps, one_ms, card, "nccl")
     torchrun_fit(n, card, torch)
-    graph_probe(card)
+    graph_probe(structures, target_rows, n, card)
 
 
 # phase 23: bf16 storage of the conv kernels' edge inputs sh and w
@@ -2968,9 +3320,10 @@ def graph_phase(label, dev, card, torch, trainer, batches):
     launches exactly one of each kernel per conv layer. Then host ms per
     step, graphed against eager (synced wall clock), the device's busy
     share of a profiled step and its conv kernels in the trace by kind
-    (equal to what the counters added), the bytes of the graphs' pools and
-    the capture time of each key. Returns the graphed trainer's launches in
-    the checked steps."""
+    (equal to what the counters added), the graphed step's host ms again
+    with CUPTI left attached by those sessions, the bytes of the graphs'
+    pools and the capture time of each key; then the graphs are freed.
+    Returns the graphed trainer's launches in the checked steps."""
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.train import Trainer, TrainerConfig
@@ -3046,6 +3399,14 @@ def graph_phase(label, dev, card, torch, trainer, batches):
             if in_trace[name] != counted or counted != {k: convs for k in COUNTERS}:
                 raise AssertionError(f"{label}: a profiled {name} step ran {in_trace[name]} kernels of each kind "
                                      f"on the card, counted {counted}, expected {convs} of each")
+    # the graphed step again, with CUPTI left attached by the sessions (g's graphs live)
+    wall["graphed, CUPTI attached"] = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        g.train_step(*a)
+        torch.cuda.synchronize()
+        wall["graphed, CUPTI attached"].append((time.perf_counter() - t0) * 1e3)
+    g.free_graphs()
     print(f"[26 compiled steps, {label}] {card}: {GRAPH_STEPS} graphed train steps on batch A (N="
           f"{a[0][K.NODE_MASK].shape[0]}) against eager from the same state, lr halved after step "
           f"{GRAPH_LR_STEP}, then batch B (N={b[0][K.NODE_MASK].shape[0]}) x3 and A, then load_state_dict of "
@@ -3057,7 +3418,7 @@ def graph_phase(label, dev, card, torch, trainer, batches):
           f"step); kernels per profiled step in the trace, graphed {in_trace['graphed']}, eager "
           f"{in_trace['eager']}, each equal to the counters' step", flush=True)
     print(f"[26 step time, {label}] {card}: host ms per train step on batch A (synced wall, median and q1-q3 of "
-          f"{REPS}): " + "; ".join(f"{n} {np.median(v):.4f} ({np.percentile(v, 25):.4f}-{np.percentile(v, 75):.4f})"
+          f"{REPS}; the last after the profiled sessions below): " + "; ".join(f"{n} {np.median(v):.4f} ({np.percentile(v, 25):.4f}-{np.percentile(v, 75):.4f})"
                                   for n, v in wall.items())
           + f"; under the profiler, per step of {GRAPH_PROFILED_STEPS}: "
           + "; ".join(f"{n}: {device_summary(st)}" for n, st in prof.items()), flush=True)

@@ -50,6 +50,12 @@ follow anything that changes the learning rate or replaces the optimizer's
 state tensors (`Trainer.set_lr`, `Trainer.load_state_dict`); the next step
 of a key seen before captures anew. The eval and forward graphs read only
 the model, whose `load_state_dict` copies in place.
+
+Under `utils.timing.profile_trace` a replay is traced like eager steps;
+the port's profiler keeps CUPTI attached between sessions while the
+graphs it traced live, and `drop` tears it down once it has freed any
+(`utils.timing._Profile` says why, and names the order that still
+faults).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 from matten_tpu_torch.kernels import fused_conv, fused_tp
 from matten_tpu_torch.parallel.sharding import MESH
 from matten_tpu_torch.utils.anomaly import DetectAnomaly
+from matten_tpu_torch.utils.timing import release_cupti
 
 __all__ = ["StepGraphs", "batch_key", "can_capture", "live_graphs"]
 
@@ -191,8 +198,14 @@ class StepGraphs:
 
     def drop(self, kind: Optional[str] = None) -> None:
         """Forget the graphs of `kind` (every graph with None); the next
-        step of each key seen before captures anew."""
-        self.graphs = {k: g for k, g in self.graphs.items() if kind is not None and k[0] != kind}
+        step of each key seen before captures anew. Once they are freed, a
+        CUPTI that a profiler session left attached is torn down
+        (`utils.timing.release_cupti`)."""
+        kept = {k: g for k, g in self.graphs.items() if kind is not None and k[0] != kind}
+        freed = len(kept) < len(self.graphs)
+        self.graphs = kept
+        if freed:
+            release_cupti()
 
     def capture_seconds(self) -> Dict[Tuple, float]:
         return {k: g.capture_s for k, g in self.graphs.items()}

@@ -5,7 +5,11 @@ Counterpart of `matten_tpu/utils/timing.py`: the step timer waits for the
 device of the result it is given (`torch.cuda.synchronize`, where JAX uses
 `block_until_ready`), and `profile_trace` writes a `torch.profiler` trace
 (Chrome trace JSON, with CUDA activity when a card is present) in place of
-the jax profiler's.
+the jax profiler's. Every session is a `profiler()`, which keeps CUPTI
+attached between sessions while the step graphs it traced live, and
+`release_cupti` tears it down as one of them is freed, so that the card's
+step graphs, those that hold NCCL collectives included, are traced in
+sessions in turn (`_Profile` names the order that still faults).
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import time
 
 import torch
 
-__all__ = ["TimeMeter", "StepTimer", "profile_trace"]
+__all__ = ["TimeMeter", "StepTimer", "profiler", "profile_trace", "release_cupti"]
 
 
 class TimeMeter:
@@ -74,15 +78,104 @@ class StepTimer:
         return self.edges / self.seconds if self.seconds > 0 else 0.0
 
 
-@contextlib.contextmanager
-def profile_trace(logdir: str = "matten_tpu_trace"):
-    """Profile the block with `torch.profiler` (CPU, and CUDA when a card is
-    present) and write its Chrome trace to `logdir/trace.json`."""
-    os.makedirs(logdir, exist_ok=True)
+# CUPTI, the card's tracing interface, as this module's sessions leave it:
+# "wrote" the TEARDOWN_CUPTI value the module last set, "kept" whether the
+# last session ended with CUPTI attached, "dropped" whether a step graph
+# was freed during a session (`_Profile`, `release_cupti`)
+_cupti = {"wrote": None, "kept": False, "dropped": False}
+
+
+def _sets_teardown() -> bool:
+    """Whether TEARDOWN_CUPTI is the port's to set: unset, or as the port
+    last set it. A value that the user or torch set is left as it is, and
+    so is every value once DISABLE_CUPTI_LAZY_REINIT is set (torch.compile's
+    CUDA graphs set both, to keep CUPTI attached for the whole process)."""
+    return (os.environ.get("TEARDOWN_CUPTI") in (None, _cupti["wrote"])
+            and "DISABLE_CUPTI_LAZY_REINIT" not in os.environ)
+
+
+def _set_teardown(value: str) -> None:
+    os.environ["TEARDOWN_CUPTI"] = _cupti["wrote"] = value
+
+
+class _Profile(torch.profiler.profile):
+    """`torch.profiler.profile` that keeps CUPTI attached past its end
+    while a step graph lives (`train.graphs.live_graphs`), until one is
+    freed (`release_cupti`).
+
+    Kineto, torch.profiler's tracer, tears CUPTI down when a session ends
+    (unless `TEARDOWN_CUPTI=0`, read as the session ends) and attaches it
+    anew at the next one. Torch's own profiler turns that teardown off for
+    the CUDA graphs of torch.compile (`torch/profiler/profiler.py`,
+    `_KinetoProfile.start_trace`: "CUDA Graph does not work well with CUPTI
+    teardown ... Workaround: turn off CUPTI teardown when using CUDA
+    Graphs"), but not for a `torch.cuda.graph` capture like the step
+    graphs'. On H100s under torch 2.11 (CUDA 12.8, NCCL 2.28), with the
+    teardown a graph replayed in a session ran in later sessions with none
+    of its kernels in the trace (`chip_smoke.py::graph_probe`'s (a)); so
+    CUPTI stays attached while the graphs it traced live, and is torn down
+    once none does or as one of them is freed. Not repaired: a mesh's new
+    graphs of NCCL collectives, replayed in a session after another mesh's
+    graphs were traced and freed with no session between, killed a rank
+    on a segmentation fault in `CUDAGraph.replay` whether CUPTI stayed
+    attached or was torn down (probe (e))."""
+
+    def start(self):
+        self._owns_teardown = _sets_teardown()
+        super().start()
+
+    def stop(self):
+        if self._owns_teardown and _sets_teardown():
+            from matten_tpu_torch.train.graphs import live_graphs
+
+            keep = live_graphs() > 0 and not _cupti["dropped"]
+            _set_teardown("0" if keep else "1")
+            _cupti.update(kept=keep, dropped=False)
+        super().stop()
+
+
+def release_cupti() -> None:
+    """Tear down the CUPTI that a session left attached (`_Profile`), as
+    `train.graphs.StepGraphs.drop` has freed a step graph; during a session,
+    that session ends with the teardown. With it, a fit's order of events
+    (a new pad shape captured after a session, `set_lr` freeing the train
+    graphs while the eval graph lives) traced every session, the graphs
+    that lived through it included (`chip_smoke.py::graph_probe`'s (f))."""
+    if torch.autograd._profiler_enabled():
+        _cupti["dropped"] = True
+        return
+    if not _cupti["kept"]:
+        return
+    _cupti["kept"] = False
+    if _sets_teardown():
+        _set_teardown("1")
+        prof = torch.profiler.profile(activities=_activities())
+        prof.start()
+        prof.stop()
+
+
+def _activities():
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=activities)
+    return activities
+
+
+def profiler(activities=None) -> torch.profiler.profile:
+    """A profiler of `activities` (CPU, and CUDA when a card is present),
+    not started: a `torch.profiler.profile` that keeps CUPTI attached past
+    its end while the step graphs it traced live (`_Profile`)."""
+    return _Profile(activities=_activities() if activities is None else activities)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str = "matten_tpu_trace"):
+    """Profile the block with `torch.profiler` (`profiler()`: CPU, and CUDA
+    when a card is present) and write its Chrome trace to
+    `logdir/trace.json`. Sessions may follow one another in a process,
+    around graph replays too (`_Profile` names the order that faults)."""
+    os.makedirs(logdir, exist_ok=True)
+    prof = profiler()
     prof.start()
     try:
         yield logdir

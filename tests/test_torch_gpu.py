@@ -1084,6 +1084,85 @@ def test_two_rank_nccl_graphed_steps_match_eager(mode, nccl_pair):
     chip_smoke.check_mesh_graphs([cases[mode]], steps, one_ms, card, "nccl")
 
 
+def test_two_rank_nccl_graphed_steps_trace_in_consecutive_profile_trace_sessions(nccl_pair):
+    """The profiled cases of `nccl_pair` (edge, node and node_ring 1 x 2,
+    in turn in each rank's process): after each case's eager twin made and
+    freed graphs on the same communicators, `chip_smoke.mesh_rank` replays
+    the case's step graphs in two sessions of the port's `profile_trace`
+    in turn, frees them, and runs eager steps in a third session, each
+    case after the earlier cases' sessions ended. Every rank survives,
+    each profiled graphed step is one graph launch of the graphs the
+    unprofiled steps replayed, the ranks' parameters after them are the
+    same bits, and each of rank 0's traces holds each conv kernel kind as
+    often as the counters say and NCCL kernels."""
+    import chip_smoke
+
+    cases, steps, _, _, _, _ = nccl_pair
+    profiled = [c for c in cases.values() if c["profile"]]
+    assert len(profiled) >= 2
+    for c in profiled:
+        rs = [s[c["name"]] for s in steps]
+        per_step = (c["hparams"]["num_layers"] + 1) * (c["n_graph"] if c["mode"] == "node_ring" else 1)
+        assert list(rs[0]["profiles"]) == [*chip_smoke.GRAPHED_SESSIONS, "eager"], c["name"]
+        for how in chip_smoke.GRAPHED_SESSIONS:
+            assert [r["profiles"][how]["busy"]["graph_launches"] for r in rs] == [1, 1], (c["name"], how)
+        assert len({r["profiled_params"] for r in rs}) == 1, c["name"]
+        for how, p0 in rs[0]["profiles"].items():
+            in_trace, counted = p0["in_trace"]
+            assert in_trace == counted == {k: per_step for k in in_trace}, (c["name"], how, in_trace, counted)
+            assert p0["nccl_kernels"] > 0 and p0["nccl_ms"] > 0, (c["name"], how)
+
+
+def test_two_rank_nccl_graphed_sessions_case_after_case():
+    """The order of the open profiler fault (ROADMAP §3), as the probe's
+    variant (e) runs it (`chip_smoke.graph_probe_steps`): dp 2 x 1
+    unprofiled, then edge and node 1 x 2 on a 2-rank nccl world, each
+    case's step graphs replayed in two `profile_trace` sessions and freed,
+    with no other session until the next case's graphed ones. Every rank
+    must survive, each profiled graphed step be one graph launch, the
+    ranks' parameters after them the same bits, and each of rank 0's
+    traces hold each conv kernel kind as counted and NCCL kernels
+    (`chip_smoke.check_probe_steps`)."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
+    import chip_smoke
+
+    structures, rows = chip_smoke.draw_structures()
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
+    cases, world = chip_smoke.graph_probe_steps(structures, rows, env)
+    with world:
+        steps = world.join()
+    assert chip_smoke.check_probe_steps(cases, steps) == "exact sums"
+
+
+def test_two_rank_nccl_fit_order_traces_every_session():
+    """A fit's order of events on a 2-rank nccl world, a card per rank
+    (`chip_smoke.fit_probe_rank`, the probe's variant (f)): on a node 1 x 2
+    mesh a graphed Adam trainer against its eager twin, with `profile_trace`
+    sessions after the first captures, after a new pad shape captured with
+    CUPTI left attached, and after `set_lr` freed the train graphs while
+    the eval graph lived and they were captured anew. Every rank survives,
+    the graphed trainer stays with its twin, the ranks' parameters are the
+    same bits, and each of those sessions made a graph launch per step and
+    traced each conv kernel kind as counted and NCCL kernels on rank 0
+    (`chip_smoke.check_fit_probe`)."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
+    import chip_smoke
+    from matten_tpu_torch.parallel.launch import run_ranks
+
+    structures, rows = chip_smoke.draw_structures()
+    case = chip_smoke.mesh_cases([chip_smoke.PROBE_FIT], structures, rows, profile_all=False)[0]
+    job = {k: v for k, v in case.items() if k != "single"}
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
+    res = run_ranks("chip_smoke:fit_probe_rank", 2, job, timeout_s=chip_smoke.MESH_TIMEOUT_S,
+                    threads=chip_smoke.MESH_THREADS, env=env, backend="nccl")
+    found, reported = chip_smoke.check_fit_probe(res)
+    assert found == "exact sums", (found, reported)
+
+
 def test_predict_over_chunks_of_three_pad_shapes_on_the_card(dev):
     """`predict` on the card over 6 chunks of 3 pad shapes (A A B A B C),
     each chunk's forward eager: the call's results equal a call per chunk

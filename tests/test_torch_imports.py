@@ -1,7 +1,7 @@
 """The torch port runs without JAX and without the JAX package.
 
 The GPU machine has no jax, flax, optax, orbax, pandas, pyyaml, sklearn or
-wandb, and the port stands alone: neither its sources nor chip_smoke.py may
+wandb, and the port stands alone: neither its sources nor chip_smoke.py nor profiler_fault.py may
 import any of them or anything of `matten_tpu` (it keeps its own copies of
 the numpy modules it shares with it; `parallel/` included), except wandb,
 which only `utils/wandb_utils.py` imports, inside its functions. The runtime checks run in subprocesses
@@ -27,7 +27,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "orbax", "pandas", "yaml", "sklearn", "matten_tpu")
-SOURCES = sorted((ROOT / "matten_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "matten_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "profiler_fault.py"]
 
 
 def _imported(path: Path):

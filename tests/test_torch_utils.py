@@ -14,6 +14,7 @@ other module tests.
 
 import json
 import logging
+import os
 
 import jax
 import jax.numpy as jnp
@@ -51,7 +52,7 @@ from matten_tpu_torch.train import task as ptask
 from matten_tpu_torch.train.config import build_trainer_config
 from matten_tpu_torch.utils import logging as plogging
 from matten_tpu_torch.utils.anomaly import DetectAnomaly, check_finite, enable_nan_debugging
-from matten_tpu_torch.utils.timing import StepTimer, TimeMeter, profile_trace
+from matten_tpu_torch.utils.timing import StepTimer, TimeMeter, profile_trace, profiler
 from matten_tpu_torch.utils.wandb_utils import WandbLogger, write_running_metadata
 
 torch.set_num_threads(2)
@@ -96,6 +97,198 @@ def test_time_meter_step_timer_and_trace(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     assert logdir == str(tmp_path / "trace") and trace["traceEvents"]
+
+
+@pytest.fixture
+def cupti(monkeypatch):
+    """The port's CUPTI state fresh, TEARDOWN_CUPTI and
+    DISABLE_CUPTI_LAZY_REINIT unset, and every profiler start and stop
+    recorded with the TEARDOWN_CUPTI it saw: (state, events)."""
+    from matten_tpu_torch.utils import timing
+
+    state = {"wrote": None, "kept": False, "dropped": False}
+    monkeypatch.setattr(timing, "_cupti", state)
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    monkeypatch.delenv("DISABLE_CUPTI_LAZY_REINIT", raising=False)
+    events = []
+    start, stop = torch.profiler.profile.start, torch.profiler.profile.stop
+
+    def recording_start(self):
+        events.append(("start", os.environ.get("TEARDOWN_CUPTI")))
+        return start(self)
+
+    def recording_stop(self):
+        events.append(("stop", os.environ.get("TEARDOWN_CUPTI")))
+        return stop(self)
+
+    monkeypatch.setattr(torch.profiler.profile, "start", recording_start)
+    monkeypatch.setattr(torch.profiler.profile, "stop", recording_stop)
+    return state, events
+
+
+@pytest.mark.parametrize("live", [0, 2])
+def test_a_session_keeps_cupti_attached_past_its_end_while_a_step_graph_lives(monkeypatch, tmp_path, cupti, live):
+    """As a session of `profile_trace` ends, TEARDOWN_CUPTI is 0 while a
+    step graph lives (kineto keeps CUPTI attached, so that a later session
+    traces that graph's kernels) and 1 once none does (CUPTI torn down, so
+    that graphs captured later are traced by a CUPTI attached anew)."""
+    from matten_tpu_torch.train import graphs
+
+    state, events = cupti
+    monkeypatch.setattr(graphs, "live_graphs", lambda: live)
+    with profile_trace(str(tmp_path / "trace")):
+        torch.ones(8) * 2
+    assert events == [("start", None), ("stop", "0" if live else "1")] and state["kept"] == bool(live)
+
+
+@pytest.mark.parametrize("value", ["0", "1"])
+def test_a_cupti_teardown_setting_of_the_environment_is_kept(monkeypatch, tmp_path, cupti, value):
+    from matten_tpu_torch.train import graphs
+
+    monkeypatch.setenv("TEARDOWN_CUPTI", value)
+    for live in (0, 1):
+        monkeypatch.setattr(graphs, "live_graphs", lambda: live)
+        with profile_trace(str(tmp_path / f"trace{live}")):
+            torch.ones(8) * 2
+        assert os.environ["TEARDOWN_CUPTI"] == value
+
+
+def test_torch_compile_s_cupti_settings_made_during_a_session_are_kept(monkeypatch, tmp_path, cupti):
+    """torch's `start_trace` sets TEARDOWN_CUPTI=0 and
+    DISABLE_CUPTI_LAZY_REINIT=1 for torch.compile's CUDA graphs once a
+    session has started; the port never turns that 0 into a 1, and leaves
+    both as they are from then on."""
+    from matten_tpu_torch.train import graphs
+
+    state, _ = cupti
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    with profile_trace(str(tmp_path / "kept")):
+        torch.ones(8) * 2
+    assert os.environ["TEARDOWN_CUPTI"] == "0" and state["kept"]
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 0)
+    with profile_trace(str(tmp_path / "compiled")):
+        monkeypatch.setenv("DISABLE_CUPTI_LAZY_REINIT", "1")
+        torch.ones(8) * 2
+    with profile_trace(str(tmp_path / "after")):
+        torch.ones(8) * 2
+    assert os.environ["TEARDOWN_CUPTI"] == "0"
+
+
+def _step_graphs_of(*kinds):
+    from matten_tpu_torch.train.graphs import StepGraphs
+
+    steps = StepGraphs({})
+    steps.graphs = {(kind, i): object() for i, kind in enumerate(kinds)}
+    return steps
+
+
+def test_dropping_a_step_graph_tears_down_the_cupti_a_session_left_attached(monkeypatch, tmp_path, cupti):
+    """After a session that left CUPTI attached, `StepGraphs.drop` of a
+    graph frees it, then runs an empty session that ends with
+    TEARDOWN_CUPTI=1 (kineto tears CUPTI down); a drop that frees nothing,
+    or one with CUPTI already torn down, runs no session."""
+    from matten_tpu_torch.train import graphs
+
+    state, events = cupti
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 2)
+    steps = _step_graphs_of("train", "eval")
+    held = []
+    stop = torch.profiler.profile.stop
+
+    def holding_stop(self):
+        held.append(sorted(k[0] for k in steps.graphs))
+        return stop(self)
+
+    monkeypatch.setattr(torch.profiler.profile, "stop", holding_stop)
+    with profile_trace(str(tmp_path / "trace")):
+        torch.ones(8) * 2
+    assert state["kept"]
+    steps.drop("test")  # frees nothing
+    assert len(events) == 2
+    steps.drop("train")
+    assert events[2:] == [("start", "1"), ("stop", "1")] and held[1] == ["eval"]
+    assert list(steps.graphs) == [("eval", 1)] and not state["kept"]
+    steps.drop()
+    assert len(events) == 4 and steps.graphs == {}
+
+
+def test_a_session_during_which_a_step_graph_is_freed_ends_with_a_teardown(monkeypatch, tmp_path, cupti):
+    """A graph freed during a session (a fit's `set_lr` under
+    `profile_trace`) starts no session of its own; the session ends with
+    TEARDOWN_CUPTI=1 though graphs live, and the next one keeps CUPTI
+    attached again."""
+    from matten_tpu_torch.train import graphs
+
+    state, events = cupti
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    steps = _step_graphs_of("train", "eval")
+    with profile_trace(str(tmp_path / "dropped")):
+        steps.drop("train")
+    assert events == [("start", None), ("stop", "1")] and not state["kept"]
+    with profile_trace(str(tmp_path / "next")):
+        torch.ones(8) * 2
+    assert events[2:] == [("start", "1"), ("stop", "0")] and state["kept"]
+
+
+def test_two_profile_trace_sessions_in_one_process_each_write_their_trace(tmp_path):
+    """Consecutive `profile_trace` sessions in one process each write the
+    trace of their own block."""
+    for name in ("first", "second"):
+        with profile_trace(str(tmp_path / name)):
+            with torch.profiler.record_function(f"block_{name}"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+    for name, other in (("first", "second"), ("second", "first")):
+        names = {e.get("name") for e in json.loads((tmp_path / name / "trace.json").read_text())["traceEvents"]}
+        assert f"block_{name}" in names and f"block_{other}" not in names
+
+
+def test_profiler_records_cpu_activity_here_and_the_activities_asked_for():
+    """`profiler()` is a `torch.profiler.profile`, not started; on a machine
+    without a card it records CPU activity, and activities passed in are
+    the ones it records."""
+    cpu = torch.profiler.ProfilerActivity.CPU
+    prof = profiler()
+    assert isinstance(prof, torch.profiler.profile) and prof.profiler is None
+    assert set(prof.activities) == {cpu} and set(profiler([cpu]).activities) == {cpu}
+
+
+def test_trace_stats_counts_graph_launches_and_the_busy_union():
+    """`chip_smoke.trace_stats` per run: overlapping device intervals count
+    once in the busy time; `cudaGraphLaunch` and `cudaLaunchKernel` calls
+    are counted apart; a label's device range is no device operation."""
+    import chip_smoke
+
+    ev = [{"ph": "X", "cat": "kernel", "name": "ncclDevKernel_AllReduce", "ts": 0.0, "dur": 10.0},
+          {"ph": "X", "cat": "kernel", "name": "fused_uvu_conv_fwd<1>", "ts": 5.0, "dur": 10.0},
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoD", "ts": 30.0, "dur": 10.0},
+          {"ph": "X", "cat": "gpu_user_annotation", "name": "label", "ts": 0.0, "dur": 100.0},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 0.0, "dur": 1.0},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 20.0, "dur": 1.0},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 2.0, "dur": 1.0}]
+    st = chip_smoke.trace_stats(ev, 2)
+    assert st["graph_launches"] == 1 and st["launches"] == 0.5
+    assert st["busy_ms"] == pytest.approx(25.0 / 2 / 1e3) and st["span_ms"] == pytest.approx(40.0 / 2 / 1e3)
+    assert st["kernel"] == 1 and st["gpu_memcpy"] == 0.5
+    assert st["by_kernel"]["ncclDevKernel_AllReduce"] == pytest.approx(5.0 / 1e3)
+
+
+def test_in_range_keeps_what_ran_inside_a_labelled_range():
+    """`chip_smoke.in_range`: host events that start and end inside the
+    label's CPU range and device operations that start in it; a session's
+    warm-up before the range is left out."""
+    import chip_smoke
+
+    ev = [{"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 5.0, "dur": 1.0},
+          {"ph": "X", "cat": "kernel", "name": "warm-up", "ts": 6.0, "dur": 3.0},
+          {"ph": "X", "cat": "user_annotation", "name": chip_smoke.STEADY, "ts": 10.0, "dur": 50.0},
+          {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 11.0, "dur": 1.0},
+          {"ph": "X", "cat": "kernel", "name": "ncclDevKernel_AllReduce", "ts": 12.0, "dur": 30.0},
+          {"ph": "X", "cat": "gpu_user_annotation", "name": chip_smoke.STEADY, "ts": 12.0, "dur": 30.0},
+          {"ph": "X", "cat": "user_annotation", "name": "after", "ts": 59.0, "dur": 5.0}]
+    kept = chip_smoke.in_range(ev, chip_smoke.STEADY)
+    assert [e["ts"] for e in kept] == [10.0, 11.0, 12.0, 12.0]
+    st = chip_smoke.trace_stats(kept, 1)
+    assert st["graph_launches"] == 1 and st["kernel"] == 1 and st["busy_ms"] == pytest.approx(0.03)
 
 
 def test_set_logger_levels(tmp_path):
