@@ -260,7 +260,9 @@ beside the graphed 1-rank step's; in `profile_trace` sessions, each
 timing its steps after a warm-up step and a barrier, first two of
 replays of the step graphs the unprofiled steps replayed (before they
 are freed, a graph launch per step, no capture, the ranks' parameters
-after them the same bits), then, the graphs freed, one of eager steps:
+after them the same bits), then, for data parallelism only, the graphs
+freed, one of eager steps (the graph-split cases' graphed sessions
+follow one another with no session between):
 the device's busy share per rank, the conv and NCCL kernels' device time
 per step on rank 0 with each conv kernel kind in the trace as the
 counters say; the graphed step timed again with CUPTI left attached; the
@@ -278,10 +280,10 @@ axis group, the ring shift, two graphs alive, (e) rank steps of three
 2-rank meshes in turn with only graphed sessions from one to the next,
 and (f) a fit's order of captures, sessions and `set_lr`, a world per
 variant, each to be exact on every rank with NCCL kernels in each
-session's trace). While (e) dies on the open fault (ROADMAP §3) the
-probe raises and the run exits non-zero after the rest has run. It
-prints the N cards' nvidia-smi lines and ends with the same last line,
-with "count": N.
+session's trace; (e) is the order of ROADMAP §3's repaired fault). A
+variant that is not exact makes the probe raise and the run exit
+non-zero after the rest has run. It prints the N cards' nvidia-smi lines
+and ends with the same last line, with "count": N.
 
 The flagship batch is the one `bench.py::build_batch` draws
 (np.random.default_rng(0), 32 crystals of 4-12 atoms over 5 species,
@@ -1776,24 +1778,26 @@ def mesh_rank(rank, world_size, job):
     gradients and parameters. Then the kernels against their plain versions
     at its own plans, the step's median ms by CUDA events and by the host
     clock (`rank_step_ms`; under nccl graphed and eager, the step graphs
-    set aside); under nccl the graphed Adam trainer against its eager twin
-    (`mesh_twins`, which makes and frees graphs on the same communicators).
-    Then, for a case with `profile`, under nccl MESH_PROFILED_STEPS steps
-    in each of the GRAPHED_SESSIONS sessions of the port's `profile_trace`
-    in turn (`profiled_steps`): replays of the step graphs the unprofiled
-    steps replayed, under the same keys and with no capture, and the
-    parameters after them (every rank's must be the same bits); then the
-    graphed step timed again, with CUPTI left attached by the sessions.
-    Then, the case's graphs freed, as many eager steps in another session,
-    unless the case sets `eager_profile` False: the next case's graphed
-    sessions then follow this one's with no session between, the order in
-    which a rank died on a segmentation fault (`graph_probe`'s (e),
-    ROADMAP §3). Each profile gives the device's busy share on every rank,
-    and on rank 0 the conv and NCCL kernels' device time per step and each
-    conv kernel kind in the trace against the counters. The seconds each
-    part took (MESH_PHASES). The rank's card is the
-    launcher's: cuda:0 for ranks that share it under gloo, card r under
-    nccl."""
+    set aside); under nccl, unless the case sets `twins` False, the graphed
+    Adam trainer against its eager twin (`mesh_twins`, a second trainer
+    whose graphs are made and freed on the same communicators). Then, for
+    a case with `profile`, under nccl MESH_PROFILED_STEPS steps in each of
+    the GRAPHED_SESSIONS sessions of the port's `profile_trace` in turn
+    (`profiled_steps`): replays of the step graphs the unprofiled steps
+    replayed, under the same keys and with no capture, and the parameters
+    after them (every rank's must be the same bits); then the graphed step
+    timed again, with CUPTI left attached by the sessions. Then, the case's
+    graphs freed, as many eager steps in another session, unless the case
+    sets `eager_profile` False: the next case's graphed sessions then
+    follow this one's with no session between, the order of ROADMAP §3's
+    repaired fault (`graph_probe`'s (e)), in which every free runs the
+    trainer's eval forward under the profiler first
+    (`utils.timing.traced_before_free`). Each profile gives the device's
+    busy share on every rank, and on rank 0 the conv and NCCL kernels'
+    device time per step and each conv kernel kind in the trace against
+    the counters. The seconds each part took (MESH_PHASES). The rank's
+    card is the launcher's: cuda:0 for ranks that share it under gloo,
+    card r under nccl."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1862,7 +1866,7 @@ def mesh_rank(rank, world_size, job):
             res["eager_ms"], res["eager_wall_ms"] = rank_step_ms(step, torch)
             trainer._graphs = graphs
         marks.append(time.perf_counter())
-        res["twin"] = mesh_twins(case, mesh, dev, task, torch) if graphed else None
+        res["twin"] = mesh_twins(case, mesh, dev, task, torch) if graphed and case.get("twins", True) else None
         marks.append(time.perf_counter())
         # every rank profiles the same steps (they meet in their collectives):
         # under nccl the replays of the step graphs the unprofiled steps
@@ -2580,7 +2584,7 @@ def graph_probe_rank(rank, world_size, job):
 
     dev = torch.device("cuda", torch.cuda.current_device())
     size, ops = job.get("size", 1 << 20), job["ops"]
-    axis = make_mesh(1, world_size, "node").graph if len(ops) > 1 else None
+    axis = make_mesh(1, world_size, "node").graph if len(ops) > 1 and not job.get("late_mesh") else None
 
     def step(which):
         def run(data, _targets):
@@ -2637,6 +2641,8 @@ def graph_probe_rank(rank, world_size, job):
             run("before")
             session(Path(tmp) / "before", "before")
             graphs.drop("before")
+        if len(ops) > 1 and job.get("late_mesh"):
+            axis = make_mesh(1, world_size, "node").graph
         run("step")  # eager: the communicators made
         if job.get("freed"):
             run("step")
@@ -2738,16 +2744,19 @@ def check_fit_probe(res):
             f"sessions {[r['sessions'] for r in res]}"), found
 
 
-def graph_probe_steps(structures, target_rows, env):
+def graph_probe_steps(structures, target_rows, env, twins=None):
     """`graph_probe`'s variant (e), started: `mesh_rank` on 2 ranks over
     PROBE_STEPS in turn, each without its eager session (`eager_profile`
     False), so that node 1 x 2's graphs, captured after edge 1 x 2's were
     traced and freed, are replayed in sessions with no other session
-    between edge's and node's graphed ones. Returns the cases and the world
-    (`check_probe_steps` reads it)."""
+    between edge's and node's graphed ones. With `twins` (case names) only
+    those cases run `mesh_twins`: ("node 1x2",) is the smallest order that
+    faulted before the repair (`profiler_fault.py`'s (e12)). Returns the
+    cases and the world (`check_probe_steps` reads it)."""
     from matten_tpu_torch.parallel.launch import start_ranks
 
-    cases = [dict(c, eager_profile=False) for c in mesh_cases(PROBE_STEPS, structures, target_rows, False)]
+    cases = [dict(c, eager_profile=False, twins=twins is None or c["name"] in twins)
+             for c in mesh_cases(PROBE_STEPS, structures, target_rows, False)]
     job = [{k: v for k, v in c.items() if k != "single"} for c in cases]
     return cases, start_ranks("chip_smoke:mesh_rank", 2, job, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS,
                               env=env, backend="nccl")
@@ -2760,7 +2769,8 @@ def check_probe_steps(cases, steps):
     traced each conv kernel kind as counted and NCCL kernels."""
     for c in (c for c in cases if c["profile"]):
         rs = [s[c["name"]] for s in steps]
-        per_step = {k: (c["hparams"]["num_layers"] + 1) for k in COUNTERS}
+        groups = c["n_graph"] if c["mode"] == "node_ring" else 1
+        per_step = {k: (c["hparams"]["num_layers"] + 1) * groups for k in COUNTERS}
         launches = [r["profiles"][how]["busy"]["graph_launches"] for how in GRAPHED_SESSIONS for r in rs]
         traced_ = [(p["in_trace"], p["nccl_kernels"]) for p in rs[0]["profiles"].values()]
         if not (launches == [1] * len(launches) and len({r["profiled_params"] for r in rs}) == 1
@@ -2838,7 +2848,11 @@ def cards_phases(n, dev, card, torch):
     the profiler's fault on graphs of NCCL collectives (`graph_probe`),
     which raises while a variant finds it."""
     structures, target_rows = draw_structures()
-    cases = mesh_cases(card_cases(n), structures, target_rows, profile_all=True)
+    # the graph-split cases' graphed sessions follow one another with no
+    # session between (the order of ROADMAP §3's repaired fault); data
+    # parallelism's eager session measures eager steps
+    cases = [dict(c, eager_profile=c["n_graph"] == 1)
+             for c in mesh_cases(card_cases(n), structures, target_rows, profile_all=True)]
     steps, refs, one_ms, world_s = mesh_steps(cases, n, "nccl", dev, torch)
     check_mesh_steps(cases, steps, refs, one_ms, card, "nccl", world_s)
     check_mesh_graphs(cases, steps, one_ms, card, "nccl")

@@ -12,7 +12,8 @@ then rank r runs on card r with `LOCAL_RANK=r`, as torchrun would start
 it, and a world larger than the visible cards, or nccl without CUDA, is
 refused; it never falls back to gloo. The whole world is joined
 with a time limit: a rank that fails or outlives it fails the call, with
-the ranks' stderr, and every rank still running is killed. Train scripts
+every rank that failed named and the ranks' stderr, and every rank still
+running is killed. Train scripts
 are launched with torchrun instead (`scripts/`).
 """
 
@@ -30,6 +31,10 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 __all__ = ["run_ranks", "start_ranks", "Ranks"]
+
+# after a rank fails, its peers get this long to end on their own before
+# they are killed, so that a peer's failure is reported beside the first
+FAIL_GRACE_S = 5.0
 
 
 class Ranks:
@@ -60,23 +65,33 @@ class Ranks:
                 self._procs.append(subprocess.Popen(cmd, env=rank_env, stdout=err, stderr=subprocess.STDOUT))
 
     def join(self) -> List[Any]:
-        failed, pending = None, list(range(self.world_size))
-        while pending and failed is None:
+        """The ranks' results in rank order. A failed world raises, naming
+        every rank that exited with a non-zero code, each with its code, in
+        the order seen (after the first, its peers get FAIL_GRACE_S to end
+        on their own), and the ranks still running, which are killed."""
+        failed, pending, end = {}, list(range(self.world_size)), self._deadline
+        while pending:
             for rank in list(pending):
                 rc = self._procs[rank].poll()
                 if rc is not None:
                     pending.remove(rank)
                     if rc != 0:
-                        failed = f"rank {rank} exited with {rc}"
-            if pending and failed is None:
-                if time.monotonic() > self._deadline:
-                    failed = f"ranks {pending} still running after {self.timeout_s:.0f} s"
+                        if not failed:
+                            end = min(end, time.monotonic() + FAIL_GRACE_S)
+                        failed[rank] = rc
+            if pending:
+                if time.monotonic() > end:
+                    break
                 time.sleep(0.05)
         self._kill()
-        if failed is not None:
+        if failed or pending:
+            what = [f"rank {r} exited with {rc}" for r, rc in failed.items()]
+            if pending:
+                what.append(f"ranks {pending} killed {FAIL_GRACE_S:.0f} s after" if failed
+                            else f"ranks {pending} still running after {self.timeout_s:.0f} s")
             logs = "\n".join(f"--- rank {r} ---\n" + (self.dir / f"rank{r}.err").read_text()[-4000:]
                              for r in range(self.world_size))
-            raise RuntimeError(f"{self.target}: {failed}\n{logs}")
+            raise RuntimeError(f"{self.target}: {', '.join(what)}\n{logs}")
         results = []
         for rank in range(self.world_size):
             with open(self.dir / f"rank{rank}.pkl", "rb") as f:

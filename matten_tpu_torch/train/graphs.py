@@ -53,9 +53,12 @@ the model, whose `load_state_dict` copies in place.
 
 Under `utils.timing.profile_trace` a replay is traced like eager steps;
 the port's profiler keeps CUPTI attached between sessions while the
-graphs it traced live, and `drop` tears it down once it has freed any
-(`utils.timing._Profile` says why, and names the order that still
-faults).
+graphs it traced live, and `drop` tears it down once it has freed any.
+Once a session has run, `drop` first runs the owner's eager forward
+(`forward`, the trainer's eval step) on a freed graph's inputs inside a
+session of its own: without it, a later session's launch of another
+step graph died on a segmentation fault inside CUPTI
+(`utils.timing._Profile` says why).
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ import torch
 from matten_tpu_torch.kernels import fused_conv, fused_tp
 from matten_tpu_torch.parallel.sharding import MESH
 from matten_tpu_torch.utils.anomaly import DetectAnomaly
-from matten_tpu_torch.utils.timing import release_cupti
+from matten_tpu_torch.utils.timing import release_cupti, traced_before_free
 
 __all__ = ["StepGraphs", "batch_key", "can_capture", "live_graphs"]
 
@@ -168,12 +171,17 @@ class StepGraphs:
     """The captured steps of one trainer. `steps` maps each kind to its
     eager step, `(data, targets) -> tensor or flat tuple of tensors`, and
     `prepare`, if given, runs before each replay (the model's train or eval
-    mode, which the graph does not set)."""
+    mode, which the graph does not set). `forward`, if given, is an eager
+    step with no effect on the trainer's state (its eval forward, which
+    leaves the model's mode as it was), which `drop` runs on a freed
+    graph's inputs under the profiler (`utils.timing.traced_before_free`)."""
 
     def __init__(self, steps: Dict[str, Callable[[Dict, Dict], Outputs]],
-                 prepare: Optional[Callable[[str], None]] = None):
+                 prepare: Optional[Callable[[str], None]] = None,
+                 forward: Optional[Callable[[Dict, Dict], object]] = None):
         self.steps = steps
         self.prepare = prepare
+        self.forward = forward
         self.seen = set()
         self.graphs: Dict[Tuple, _Captured] = {}
 
@@ -197,15 +205,27 @@ class StepGraphs:
         return captured.replay(data, targets)
 
     def drop(self, kind: Optional[str] = None) -> None:
-        """Forget the graphs of `kind` (every graph with None); the next
-        step of each key seen before captures anew. Once they are freed, a
-        CUPTI that a profiler session left attached is torn down
-        (`utils.timing.release_cupti`)."""
+        """Free the graphs of `kind` (every graph with None); the next step
+        of each key seen before captures anew. Once a profiler session has
+        run, `forward` first runs on the first freed graph's inputs inside
+        a session of its own (`utils.timing.traced_before_free`; its
+        launches are not counted, as a capture's are not); once they are
+        freed, a CUPTI that a session left attached is torn down
+        (`utils.timing.release_cupti`). On a mesh every rank drops the same
+        graphs at the same point of its steps, as every rank steps."""
         kept = {k: g for k, g in self.graphs.items() if kind is not None and k[0] != kind}
-        freed = len(kept) < len(self.graphs)
+        freed = [g for k, g in self.graphs.items() if k not in kept]
+        if not freed:
+            return
+        if self.forward is not None:
+            counts = _counts()
+            first = freed[0]
+            traced_before_free(lambda: self.forward(first.data, first.targets))
+            _set_counts(*counts)
+            del first
         self.graphs = kept
-        if freed:
-            release_cupti()
+        del freed  # the last references: the graphs are freed here
+        release_cupti()
 
     def capture_seconds(self) -> Dict[Tuple, float]:
         return {k: g.capture_s for k, g in self.graphs.items()}

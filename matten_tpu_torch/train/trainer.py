@@ -199,7 +199,8 @@ class Trainer:
                                         capturable=self.device.type == "cuda")
         graphs = can_capture(model, self.device) and captures_collectives(mesh)
         self._graphs = StepGraphs({"train": self._flat(self._train_step), "eval": self._flat(self._eval_step)},
-                                  lambda kind: self.model.train(kind == "train")) if graphs else None
+                                  lambda kind: self.model.train(kind == "train"),
+                                  self._eval_forward) if graphs else None
         if mesh is not None:
             logger.info("rank %d of a %d x %d %s mesh: %s", mesh.rank, mesh.n_data, mesh.n_graph, mesh.mode,
                         "steps replayed as CUDA graphs" if graphs else "eager steps")
@@ -322,6 +323,16 @@ class Trainer:
             self._reduce_across_ranks()
         self.optimizer.step()
         return loss.detach(), self._metric_sums(preds, data, targets)
+
+    def _eval_forward(self, data: Dict, targets: Dict) -> None:
+        """`_eval_step` with the model left in the mode it was in: the
+        forward that `StepGraphs.drop` runs under the profiler before it
+        frees graphs (`utils.timing.traced_before_free`)."""
+        training = self.model.training
+        try:
+            self._eval_step(data, targets)
+        finally:
+            self.model.train(training)
 
     @torch.no_grad()
     def _eval_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:

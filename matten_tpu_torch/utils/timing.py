@@ -9,7 +9,9 @@ the jax profiler's. Every session is a `profiler()`, which keeps CUPTI
 attached between sessions while the step graphs it traced live, and
 `release_cupti` tears it down as one of them is freed, so that the card's
 step graphs, those that hold NCCL collectives included, are traced in
-sessions in turn (`_Profile` names the order that still faults).
+sessions in turn; `traced_before_free` runs an eager forward under the
+profiler before step graphs are freed, once a session has run, without
+which a later session's graph launch faulted in CUPTI (`_Profile`).
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import Callable
 
 import torch
 
-__all__ = ["TimeMeter", "StepTimer", "profiler", "profile_trace", "release_cupti"]
+__all__ = ["TimeMeter", "StepTimer", "profiler", "profile_trace", "release_cupti", "traced_before_free"]
 
 
 class TimeMeter:
@@ -110,15 +113,26 @@ class _Profile(torch.profiler.profile):
     `_KinetoProfile.start_trace`: "CUDA Graph does not work well with CUPTI
     teardown ... Workaround: turn off CUPTI teardown when using CUDA
     Graphs"), but not for a `torch.cuda.graph` capture like the step
-    graphs'. On H100s under torch 2.11 (CUDA 12.8, NCCL 2.28), with the
-    teardown a graph replayed in a session ran in later sessions with none
-    of its kernels in the trace (`chip_smoke.py::graph_probe`'s (a)); so
-    CUPTI stays attached while the graphs it traced live, and is torn down
-    once none does or as one of them is freed. Not repaired: a mesh's new
-    graphs of NCCL collectives, replayed in a session after another mesh's
-    graphs were traced and freed with no session between, killed a rank
-    on a segmentation fault in `CUDAGraph.replay` whether CUPTI stayed
-    attached or was torn down (probe (e))."""
+    graphs'. On H100s under torch 2.11 (CUDA 12.8, CUPTI 12.8, NCCL 2.28),
+    with the teardown a graph replayed in a session ran in later sessions
+    with none of its kernels in the trace (`chip_smoke.py::graph_probe`'s
+    (a)); so CUPTI stays attached while the graphs it traced live, and is
+    torn down once none does or as one of them is freed.
+
+    A second fault is CUPTI's own: once a session has run, step graphs
+    freed with no eager run of their model's forward under the profiler
+    since (a second trainer's graphs, freed by `set_lr` and
+    `free_graphs`) made a later session's first launch of another such
+    graph die on a segmentation fault inside libcupti, called from
+    `cuGraphLaunch`, reading address 0x113 in libcuda (probe (e) on two
+    H100s, `profiler_fault.py`). It struck whether CUPTI
+    was torn down or kept attached, with graphs freed inside an active
+    session, with the kernels linked to torch's CUDA runtime, and after
+    eager runs of the conv kernels alone; it did not with no graph freed,
+    with the conv's plain versions in the graphs, or with one session of
+    eager train or eval steps before the frees. So the port does the
+    last: `StepGraphs.drop` runs its trainer's eager eval forward inside a
+    session of its own before it frees graphs (`traced_before_free`)."""
 
     def start(self):
         self._owns_teardown = _sets_teardown()
@@ -154,6 +168,23 @@ def release_cupti() -> None:
         prof.stop()
 
 
+def traced_before_free(forward: Callable[[], None]) -> None:
+    """Run `forward`, an eager forward of the model whose step graphs are
+    about to be freed, inside a session of its own (CPU and CUDA activity,
+    nothing written), once a session of this module has ended in this
+    process having set TEARDOWN_CUPTI (`_sets_teardown`: not where the
+    user or torch.compile set it); no session runs before that, nor
+    while one is running. The step graphs' repair of CUPTI's fault
+    (`_Profile`): on a mesh every rank frees its graphs at the same point,
+    so the forward's collectives meet."""
+    if _cupti["wrote"] is None or torch.autograd._profiler_enabled():
+        return
+    with torch.profiler.profile(activities=_activities()):
+        forward()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
 def _activities():
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -173,7 +204,7 @@ def profile_trace(logdir: str = "matten_tpu_trace"):
     """Profile the block with `torch.profiler` (`profiler()`: CPU, and CUDA
     when a card is present) and write its Chrome trace to
     `logdir/trace.json`. Sessions may follow one another in a process,
-    around graph replays too (`_Profile` names the order that faults)."""
+    around graph replays too (`_Profile`)."""
     os.makedirs(logdir, exist_ok=True)
     prof = profiler()
     prof.start()

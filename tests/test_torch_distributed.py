@@ -6,7 +6,8 @@
 - `parallel.launch` refuses an nccl world without CUDA, and one larger than
   the visible cards, each with its message, and never falls back to gloo.
 - The launcher gives each rank as many BLAS threads as torch threads, and
-  fails a rank that leaves a step graph alive before its group goes.
+  fails a rank that leaves a step graph alive before its group goes. A
+  failed world's report names every rank that failed, each with its code.
 - A host-side wait on the primary rank's work outlives the collectives'
   timeout: the materials script on a 2-rank mesh whose group times out
   after 2 s completes while rank 0's data setup takes 4 s longer.
@@ -91,6 +92,18 @@ def test_launcher_fails_a_rank_that_leaves_a_step_graph_alive():
     env = {"PYTHONPATH": os.pathsep.join([str(ROOT / "tests"), str(ROOT)])}
     with pytest.raises(RuntimeError, match=r"rank 1 exited with 1(.|\n)*left 1 step graph\(s\) alive"):
         launch.run_ranks("test_torch_parallel_ranks:graph_left_alive", 2, timeout_s=120, env=env)
+
+
+def test_launcher_names_every_rank_that_failed():
+    """A peer's later failure never hides the rank that failed first: rank
+    1 fails, rank 0 fails after it (its barrier's peer is gone), and the
+    report names both with their codes, and keeps both logs."""
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT / "tests"), str(ROOT)])}
+    with pytest.raises(RuntimeError) as err:
+        launch.run_ranks("test_torch_parallel_ranks:both_fail", 2, timeout_s=120, env=env)
+    first = str(err.value).splitlines()[0]
+    assert "rank 1 exited with 1" in first and "rank 0 exited with 1" in first, first
+    assert "rank 1 fails first" in str(err.value) and "rank 0 fails after its peer" in str(err.value)
 
 
 def test_setup_wait_outlives_the_group_timeout(tmp_path):

@@ -1113,8 +1113,22 @@ def test_two_rank_nccl_graphed_steps_trace_in_consecutive_profile_trace_sessions
             assert p0["nccl_kernels"] > 0 and p0["nccl_ms"] > 0, (c["name"], how)
 
 
+def _graphed_sessions_case_after_case(twins):
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
+    import chip_smoke
+
+    structures, rows = chip_smoke.draw_structures()
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
+    cases, world = chip_smoke.graph_probe_steps(structures, rows, env, twins)
+    with world:
+        steps = world.join()
+    assert chip_smoke.check_probe_steps(cases, steps) == "exact sums"
+
+
 def test_two_rank_nccl_graphed_sessions_case_after_case():
-    """The order of the open profiler fault (ROADMAP §3), as the probe's
+    """The order of ROADMAP §3's repaired profiler fault, as the probe's
     variant (e) runs it (`chip_smoke.graph_probe_steps`): dp 2 x 1
     unprofiled, then edge and node 1 x 2 on a 2-rank nccl world, each
     case's step graphs replayed in two `profile_trace` sessions and freed,
@@ -1123,17 +1137,18 @@ def test_two_rank_nccl_graphed_sessions_case_after_case():
     ranks' parameters after them the same bits, and each of rank 0's
     traces hold each conv kernel kind as counted and NCCL kernels
     (`chip_smoke.check_probe_steps`)."""
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if cards < 2:
-        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
-    import chip_smoke
+    _graphed_sessions_case_after_case(None)
 
-    structures, rows = chip_smoke.draw_structures()
-    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
-    cases, world = chip_smoke.graph_probe_steps(structures, rows, env)
-    with world:
-        steps = world.join()
-    assert chip_smoke.check_probe_steps(cases, steps) == "exact sums"
+
+def test_two_rank_nccl_sessions_after_a_second_trainer_s_graphs_were_freed():
+    """The smallest order that faulted before the repair
+    (`profiler_fault.py`'s (e12)): (e) with only node 1 x 2's eager twin,
+    a second trainer whose graphs are captured and freed (by `set_lr` and
+    `free_graphs`) after edge's sessions and before node's. A rank died on
+    a segmentation fault inside CUPTI at node's first graphed session;
+    with `StepGraphs.drop` running the trainer's eval forward under the
+    profiler first, every rank lives with exact sums."""
+    _graphed_sessions_case_after_case(("node 1x2",))
 
 
 def test_two_rank_nccl_fit_order_traces_every_session():

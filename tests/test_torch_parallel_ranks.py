@@ -93,12 +93,9 @@ def run_cases(rank, world_size, cases):
     return out
 
 
-def shard_step_on_cpu(rank, world_size, job):
-    """One 2-rank node-mode step of a tiny model from its own seeded crystals
-    (the imports test runs it from a copy of the port alone): (the loss,
-    the modules of JAX, pandas, pyyaml, sklearn or `matten_tpu` loaded)."""
-    import sys
-
+def _tiny_node_trainer(hparams):
+    """A tiny model's SGD trainer on a 1 x 2 node mesh of this world, and
+    this rank's block of a batch of 4 seeded crystals."""
     from matten_tpu_torch.data.datamodule import BatchLoader
     from matten_tpu_torch.data.graph import CrystalGraph
     from matten_tpu_torch.data.structure import Structure
@@ -118,13 +115,23 @@ def shard_step_on_cpu(rank, world_size, job):
         graphs.append(g)
     mesh = make_mesh(1, 2, "node")
     model = create_scalar_tensor_model(
-        dict(job["hparams"], graph_parallel_axis="graph", graph_parallel_mode="node"),
+        dict(hparams, graph_parallel_axis="graph", graph_parallel_mode="node"),
         dict(allowed_species=[8, 14], average_num_neighbors=20.0), device="cpu")
     trainer = Trainer(model, [CanonicalRegressionTask(name="elastic_tensor_full")],
                       TrainerConfig(lr=0.01, optimizer="sgd"), device="cpu", mesh=mesh)
     batch = next(iter(BatchLoader(graphs, batch_size=4, species_map=atomic_number_map([8, 14]),
                                   num_edge_shards=2, node_shard=True)))
-    loss, _ = trainer.train_step(*shard_batch(mesh, *batch, "cpu"))
+    return trainer, shard_batch(mesh, *batch, "cpu")
+
+
+def shard_step_on_cpu(rank, world_size, job):
+    """One 2-rank node-mode step of a tiny model from its own seeded crystals
+    (the imports test runs it from a copy of the port alone): (the loss,
+    the modules of JAX, pandas, pyyaml, sklearn or `matten_tpu` loaded)."""
+    import sys
+
+    trainer, batch = _tiny_node_trainer(job["hparams"])
+    loss, _ = trainer.train_step(*batch)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "yaml", "sklearn", "matten_tpu"))
     return float(loss), loaded
@@ -178,6 +185,49 @@ class _Graph:
 _KEPT = []
 
 
+def eval_forward_before_free(rank, world_size, job):
+    """A tiny trainer on a 1 x 2 node mesh with stand-in step graphs that
+    hold this rank's block as a capture's static inputs: its graphs
+    dropped before any profiler session, during one and after one. Per
+    drop: whether each eager eval step ran under the profiler, the model's
+    mode after it, and the graphs left."""
+    import os
+    import tempfile
+
+    import torch
+
+    from matten_tpu_torch.train.graphs import StepGraphs
+    from matten_tpu_torch.utils.timing import profile_trace
+
+    os.environ.pop("TEARDOWN_CUPTI", None)  # the port's to set in this process
+    trainer, (data, targets) = _tiny_node_trainer(job["hparams"])
+    runs, eval_step = [], trainer._eval_step
+
+    def recorded(d, t):
+        runs.append((torch.autograd._profiler_enabled(), d is data and t is targets))
+        return eval_step(d, t)
+    trainer._eval_step = recorded
+    graphs = StepGraphs({}, forward=trainer._eval_forward)
+    out = []
+
+    def drop(kind):
+        for k in ("train", "eval"):
+            graphs.graphs[(k,)] = _Graph()
+            graphs.graphs[(k,)].data, graphs.graphs[(k,)].targets = data, targets
+        trainer.model.train()
+        runs.clear()
+        graphs.drop(kind)
+        out.append({"runs": list(runs), "training": trainer.model.training, "left": sorted(graphs.graphs)})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        drop("train")  # before any session
+        with profile_trace(tmp):
+            drop("train")  # during one
+        drop("train")  # after one
+        drop(None)
+    return out
+
+
 def graph_left_alive(rank, world_size, _):
     """Rank 1 keeps a (stand-in) step graph alive past its target."""
     from matten_tpu_torch.train import graphs
@@ -185,6 +235,20 @@ def graph_left_alive(rank, world_size, _):
     if rank == 1:
         _KEPT.append(_Graph())
         graphs._LIVE.add(_KEPT[-1])
+    return rank
+
+
+def both_fail(rank, world_size, _):
+    """Rank 1 fails; rank 0 fails after it, in a barrier that rank 1 never
+    reaches (gloo raises once rank 1's connection closes)."""
+    import torch.distributed as dist
+
+    if rank == 1:
+        raise RuntimeError("rank 1 fails first")
+    try:
+        dist.barrier()
+    except RuntimeError as err:
+        raise RuntimeError("rank 0 fails after its peer") from err
     return rank
 
 

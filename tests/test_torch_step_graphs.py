@@ -223,6 +223,34 @@ def test_a_step_graph_key_holds_the_mesh_shape_and_mode():
     assert torch.equal(graphs.run("train", data, {}), 2 * torch.ones(3)) and not graphs.graphs
 
 
+def test_mesh_ranks_run_their_eval_forward_under_the_profiler_before_freeing_graphs():
+    """Once a profiler session has run in a process, `StepGraphs.drop`
+    runs the trainer's eager eval forward on the first freed graph's
+    inputs inside a session of its own before it frees them (the repair of
+    CUPTI's fault on later graph launches, `utils.timing._Profile`): on 2
+    gloo ranks of a node mesh both ranks run it, so its collectives meet,
+    and the model keeps its train mode; before any session, and during
+    one, no forward runs. The kinds not dropped stay."""
+    import os
+    from pathlib import Path
+
+    from matten_tpu_torch.parallel.launch import run_ranks
+
+    root = Path(__file__).resolve().parent
+    hp = dict(species_embedding_dim=4, irreps_edge_sh="0e+1o+2e", num_layers=1, invariant_layers=1,
+              invariant_neurons=4, average_num_neighbors=20.0, conv_layer_irreps="2x0o+2x0e+1x1o+1x1e",
+              normalization="batch", conv_to_output_hidden_irreps_out="2x0e+2e+4e")
+    env = {"PYTHONPATH": os.pathsep.join([str(root), str(root.parent)])}
+    results = run_ranks("test_torch_parallel_ranks:eval_forward_before_free", 2, {"hparams": hp}, timeout_s=240,
+                        env=env)
+    for out in results:
+        before, during, after, every = out
+        assert before == {"runs": [], "training": True, "left": [("eval",)]}
+        assert during == {"runs": [], "training": True, "left": [("eval",)]}
+        assert after == {"runs": [(True, True)], "training": True, "left": [("eval",)]}
+        assert every == {"runs": [(True, True)], "training": True, "left": []}
+
+
 def test_drop_forgets_one_kind_or_every_graph():
     """`drop(kind)` forgets that kind's graphs (an lr change drops the
     train graphs), `drop()` every graph (what `Trainer.free_graphs` does

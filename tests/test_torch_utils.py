@@ -230,6 +230,66 @@ def test_a_session_during_which_a_step_graph_is_freed_ends_with_a_teardown(monke
     assert events[2:] == [("start", "1"), ("stop", "0")] and state["kept"]
 
 
+def test_traced_before_free_runs_its_forward_in_a_session_once_one_has_run(monkeypatch, tmp_path, cupti):
+    """`traced_before_free` runs nothing before a session of the port has
+    ended having set TEARDOWN_CUPTI (not while the user's setting holds),
+    nothing while one runs, and after one its forward inside a session of
+    its own, which ends as the port last set TEARDOWN_CUPTI."""
+    from matten_tpu_torch.train import graphs
+    from matten_tpu_torch.utils.timing import traced_before_free
+
+    state, events = cupti
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    ran = []
+    forward = lambda: ran.append(torch.autograd._profiler_enabled())
+    traced_before_free(forward)
+    monkeypatch.setenv("TEARDOWN_CUPTI", "1")
+    with profile_trace(str(tmp_path / "users")):
+        torch.ones(8) * 2
+    traced_before_free(forward)
+    assert ran == [] and len(events) == 2
+    monkeypatch.delenv("TEARDOWN_CUPTI")
+    with profile_trace(str(tmp_path / "trace")):
+        traced_before_free(forward)
+    assert ran == [] and events[2:] == [("start", None), ("stop", "0")]
+    traced_before_free(forward)
+    assert ran == [True] and events[4:] == [("start", "0"), ("stop", "0")]
+
+
+def test_drop_runs_the_forward_on_a_freed_graph_s_inputs_uncounted(monkeypatch, tmp_path, cupti):
+    """After a session, `StepGraphs.drop` runs its `forward` on the first
+    freed graph's static inputs under the profiler while the graphs are
+    still held, then frees them; the forward's kernel launches are not
+    counted (the counters as before, as around a capture)."""
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.train import graphs
+    from matten_tpu_torch.train.graphs import StepGraphs
+
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    seen = []
+
+    def forward(data, targets):
+        seen.append((data, targets, torch.autograd._profiler_enabled(), sorted(steps.graphs)))
+        fused_conv.launches += 4
+        fused_conv.tier_launches["fwd te16+w"] += 4
+
+    steps = StepGraphs({}, forward=forward)
+    held = {}
+    for i, kind in enumerate(("train", "eval", "train")):
+        held[(kind, i)] = type("Held", (), {"data": {"x": i}, "targets": {"y": i}})()
+    steps.graphs = dict(held)
+    before = fused_conv.launches, dict(fused_conv.tier_launches)
+    steps.drop("train")  # no session has run: no forward
+    assert seen == [] and list(steps.graphs) == [("eval", 1)]
+    with profile_trace(str(tmp_path / "trace")):
+        torch.ones(8) * 2
+    steps.graphs = dict(held)
+    steps.drop("train")
+    assert seen == [({"x": 0}, {"y": 0}, True, [("eval", 1), ("train", 0), ("train", 2)])]
+    assert list(steps.graphs) == [("eval", 1)]
+    assert (fused_conv.launches, dict(fused_conv.tier_launches)) == before
+
+
 def test_two_profile_trace_sessions_in_one_process_each_write_their_trace(tmp_path):
     """Consecutive `profile_trace` sessions in one process each write the
     trace of their own block."""
