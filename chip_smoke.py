@@ -278,9 +278,11 @@ profiler's fault on replays of graphs that hold NCCL collectives
 (`graph_probe`: one all-reduce on 2 ranks grown to an all-gather on an
 axis group, the ring shift, two graphs alive, (e) rank steps of three
 2-rank meshes in turn with only graphed sessions from one to the next,
-and (f) a fit's order of captures, sessions and `set_lr`, a world per
-variant, each to be exact on every rank with NCCL kernels in each
-session's trace; (e) is the order of ROADMAP §3's repaired fault). A
+(f) a fit's order of captures, sessions and `set_lr`, and (e') and (f')
+with `set_lr` freeing the train graphs inside a session, as a profiled
+fit's plateau step does, a world per variant, each to be exact on every
+rank with NCCL kernels in each session's trace; (e) and (e') are the
+orders of ROADMAP §3's repaired faults). A
 variant that is not exact makes the probe raise and the run exit
 non-zero after the rest has run. It prints the N cards' nvidia-smi lines
 and ends with the same last line, with "count": N.
@@ -634,6 +636,23 @@ def in_range(ev, label):
     return [e for e in ev if r["ts"] <= e["ts"] and (e.get("cat") in DEVICE_OPS or e["ts"] + e["dur"] <= end)]
 
 
+def free_range_start(ev):
+    """When a trace's first `traced_before_free` range began
+    (`utils.timing.FREE_RANGE`: the eager forward that a free during the
+    session ran, uncounted); inf where it has none."""
+    from matten_tpu_torch.utils.timing import FREE_RANGE
+
+    return min((e["ts"] for e in ev if e.get("cat") == "user_annotation" and e["name"] == FREE_RANGE),
+               default=math.inf)
+
+
+def before_free_range(ev):
+    """The events of a trace that started before its first
+    `traced_before_free` range (`free_range_start`)."""
+    cut = free_range_start(ev)
+    return [e for e in ev if e["ts"] < cut]
+
+
 def trace_stats(ev, n):
     """Per-run device stats of a trace of n runs: counts of each device
     operation, the span and busy ms, `cudaLaunchKernel` and
@@ -651,7 +670,8 @@ def trace_stats(ev, n):
         busy += max(0.0, t - max(s, end))
         end = max(end, t)
     stats = {c: sum(e["cat"] == c for e in dev_ops) / n for c in DEVICE_OPS}
-    stats["span_ms"] = (dev_ops[-1]["ts"] + dev_ops[-1]["dur"] - dev_ops[0]["ts"]) / n / 1e3
+    # a session that traced no device operation has a span of 0
+    stats["span_ms"] = (dev_ops[-1]["ts"] + dev_ops[-1]["dur"] - dev_ops[0]["ts"]) / n / 1e3 if dev_ops else 0.0
     stats["busy_ms"] = busy / n / 1e3
     for key, call in (("launches", "cudaLaunchKernel"), ("graph_launches", "cudaGraphLaunch")):
         stats[key] = sum(e.get("cat") == "cuda_runtime" and e["name"].startswith(call) for e in ev) / n
@@ -1780,13 +1800,18 @@ def mesh_rank(rank, world_size, job):
     clock (`rank_step_ms`; under nccl graphed and eager, the step graphs
     set aside); under nccl, unless the case sets `twins` False, the graphed
     Adam trainer against its eager twin (`mesh_twins`, a second trainer
-    whose graphs are made and freed on the same communicators). Then, for
+    whose graphs are made and freed on the same communicators; inside a
+    session of the port's profiler where the case sets `twins_in_session`).
+    Then, for
     a case with `profile`, under nccl MESH_PROFILED_STEPS steps in each of
     the GRAPHED_SESSIONS sessions of the port's `profile_trace` in turn
     (`profiled_steps`): replays of the step graphs the unprofiled steps
     replayed, under the same keys and with no capture, and the parameters
     after them (every rank's must be the same bits); then the graphed step
-    timed again, with CUPTI left attached by the sessions. Then, the case's
+    timed again, with CUPTI left attached by the sessions. A case with
+    `lr_in_session` instead ends its last graphed session with `set_lr`,
+    which frees the train graphs inside it (a profiled fit's plateau step),
+    and is not timed again. Then, the case's
     graphs freed, as many eager steps in another session, unless the case
     sets `eager_profile` False: the next case's graphed sessions then
     follow this one's with no session between, the order of ROADMAP §3's
@@ -1807,6 +1832,7 @@ def mesh_rank(rank, world_size, job):
     from matten_tpu_torch.parallel import make_mesh, shard_batch
     from matten_tpu_torch.parallel.collectives import captures_collectives, stages_through_host
     from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+    from matten_tpu_torch.utils.timing import profile_trace
 
     dev = torch.device("cuda", torch.cuda.current_device())
     out = {}
@@ -1866,7 +1892,13 @@ def mesh_rank(rank, world_size, job):
             res["eager_ms"], res["eager_wall_ms"] = rank_step_ms(step, torch)
             trainer._graphs = graphs
         marks.append(time.perf_counter())
-        res["twin"] = mesh_twins(case, mesh, dev, task, torch) if graphed and case.get("twins", True) else None
+        res["twin"] = None
+        if graphed and case.get("twins", True):
+            # with `twins_in_session`, the second trainer's graphs are made
+            # and freed inside a session of the port's profiler
+            with tempfile.TemporaryDirectory() as tmp, (
+                    profile_trace(tmp) if case.get("twins_in_session") else contextlib.nullcontext()):
+                res["twin"] = mesh_twins(case, mesh, dev, task, torch)
         marks.append(time.perf_counter())
         # every rank profiles the same steps (they meet in their collectives):
         # under nccl the replays of the step graphs the unprofiled steps
@@ -1876,18 +1908,29 @@ def mesh_rank(rank, world_size, job):
         with tempfile.TemporaryDirectory() as tmp:
             if case["profile"] and graphed:
                 held = dict(graphs.graphs)  # the captured steps themselves: a capture would replace one
+
+                def check_held():
+                    if graphs.graphs.keys() != held.keys() or any(graphs.graphs[k] is not g
+                                                                  for k, g in held.items()):
+                        raise AssertionError(f"{case['name']}: the profiled steps captured graphs anew: keys "
+                                             f"{sorted(map(repr, graphs.graphs))}, held {sorted(map(repr, held))}")
+
+                def set_lr():  # a fit's plateau step inside its session: the train graphs freed there
+                    check_held()
+                    trainer.set_lr(trainer.config.lr / 2)
+
                 for how in GRAPHED_SESSIONS:
+                    inside = set_lr if case.get("lr_in_session") and how == GRAPHED_SESSIONS[-1] else None
                     res["profiles"][how] = profiled_steps(step, Path(tmp) / how.replace(" ", "_"), rank,
-                                                          fused_conv, torch, f"{case['name']} {how}")
-                if graphs.graphs.keys() != held.keys() or any(graphs.graphs[k] is not g for k, g in held.items()):
-                    raise AssertionError(f"{case['name']}: the profiled steps captured graphs anew: keys "
-                                         f"{sorted(map(repr, graphs.graphs))}, held {sorted(map(repr, held))}")
+                                                          fused_conv, torch, f"{case['name']} {how}", inside)
+                if not case.get("lr_in_session"):
+                    check_held()
                 del held
                 # the gradients' all-reduce under the profiler gives every rank the same sums
                 res["profiled_params"] = hashlib.sha256(b"".join(
                     p.detach().cpu().numpy().tobytes() for p in trainer.model.parameters())).hexdigest()
-                # the graphed step again, CUPTI left attached by the sessions
-                res["attached_ms"], res["attached_wall_ms"] = rank_step_ms(step, torch)
+                if not case.get("lr_in_session"):  # the graphed step again, CUPTI left attached by the sessions
+                    res["attached_ms"], res["attached_wall_ms"] = rank_step_ms(step, torch)
             trainer.free_graphs()  # before the group's communicators go: never left to the garbage collector
             eager(trainer)
             if case["profile"] and case.get("eager_profile", True):
@@ -1899,10 +1942,11 @@ def mesh_rank(rank, world_size, job):
     return out
 
 
-def profiled_steps(step, logdir, rank, fused_conv, torch, label):
+def profiled_steps(step, logdir, rank, fused_conv, torch, label, inside=None):
     """MESH_PROFILED_STEPS calls of `step` in a session of the port's
     `profile_trace` (CPU and CUDA activity), traced into `logdir`, after a
-    warm-up call and a barrier of every rank inside the session: of the
+    warm-up call and a barrier of every rank inside the session, then
+    `inside`, if given, before the session ends: of the
     steps in the STEADY range only (`in_range`), the device's busy ms,
     span, kernels, `cudaLaunchKernel` and `cudaGraphLaunch` calls per step,
     and on rank 0 the conv kernels' and NCCL kernels' device ms per step
@@ -1926,8 +1970,10 @@ def profiled_steps(step, logdir, rank, fused_conv, torch, label):
                 step()
             torch.cuda.synchronize()
         counted = {k: (v - before[k]) / n for k, v in counts(fused_conv).items()}
+        if inside is not None:
+            inside()
     print(f"rank {rank}: {label} session ended", file=sys.stderr, flush=True)
-    ev = in_range(trace_events(logdir / "trace.json"), STEADY)
+    ev = in_range(before_free_range(trace_events(logdir / "trace.json")), STEADY)
     st = trace_stats(ev, n)
     prof = {"busy": {k: st[k] for k in ("busy_ms", "span_ms", "kernel", "launches", "graph_launches")},
             "device_ms": None, "nccl_ms": None, "nccl_kernels": None, "in_trace": None}
@@ -2523,7 +2569,8 @@ def torchrun_fit(n, card, torch):
 # and freed before its profiled replays; "sessions" profiler sessions in
 # turn around replays; "cuda_only" CUDA activity alone; "before" a session
 # around an all-reduce's graph first; "size" the floats per rank. The last
-# variant runs `mesh_rank` over rank steps in turn (`graph_probe_steps`).
+# four have no job: (e) and (e') run `mesh_rank` over rank steps in turn
+# (`graph_probe_steps`), (f) and (f') `fit_probe_rank`.
 PROBE_VARIANTS = (
     ("unprofiled, after a freed graph", dict(ops=("all_reduce",), freed=True, sessions=0)),
     ("profiled (CPU and CUDA), no graph freed before", dict(ops=("all_reduce",), sessions=1)),
@@ -2540,6 +2587,8 @@ PROBE_VARIANTS = (
     ("(e) rank steps in turn as mesh_rank opens their sessions: dp 2x1 unprofiled, then edge and node 1x2, "
      "graphed sessions only from one case's to the next", None),
     ("(f) a fit's order: sessions between a new pad shape's capture and set_lr's, other graphs alive", None),
+    ("(e') (e) with set_lr inside each case's last graphed session, freeing its train graphs there", None),
+    ("(f') (f) with set_lr inside session 2, as a profiled fit's plateau step", None),
 )
 # (e)'s cases, on 2 ranks (`graph_probe_steps`), and (f)'s (`fit_probe_rank`)
 PROBE_STEPS = (("dp 2x1", 2, 1, "edge", "no_bn"), ("edge 1x2", 1, 2, "edge", "production"),
@@ -2555,6 +2604,10 @@ PROBE_FIT_STEPS = (("train_step", "a", 0), ("train_step", "a", 0), ("eval_step",
                    ("set_lr", None, 0), ("train_step", "a", 0), ("train_step", "b", 0),
                    ("train_step", "a", 3), ("train_step", "b", 3),
                    ("eval_step", "a", 4))
+# (f) with set_lr at the end of session 2, inside it, as a profiled fit's
+# plateau step frees the train graphs
+PROBE_FIT_STEPS_LR_IN_SESSION = tuple(("set_lr", None, 2) if kind == "set_lr" else (kind, batch, session)
+                                      for kind, batch, session in PROBE_FIT_STEPS)
 PROBE_TIMEOUT_S = 120
 PROBE_REPLAYS = 2  # replays per session
 
@@ -2669,8 +2722,12 @@ def fit_probe_rank(rank, world_size, job):
     both shapes' train steps and the eval step; `set_lr` (the train graphs
     freed, the eval graph alive) and both train graphs captured anew;
     session 3 around them; session 4 around the eval graph, which lived
-    through the release. Returns per session (1-4) each conv kernel kind in
-    the trace and counted (rank 0), NCCL kernels (rank 0) and
+    through the release. With job["lr_in_session"] the steps are
+    PROBE_FIT_STEPS_LR_IN_SESSION: `set_lr` frees the train graphs inside
+    session 2, after the eager eval forward that the free runs there
+    (`utils.timing.traced_before_free`). Returns per session (1-4) each
+    conv kernel kind in the trace before that forward's range and counted
+    (rank 0), the conv kernels in the range, NCCL kernels (rank 0) and
     `cudaGraphLaunch` calls; the parameters and Adam moments against the
     twin's and a hash of the parameters."""
     import torch
@@ -2692,8 +2749,9 @@ def fit_probe_rank(rank, world_size, job):
     batches = {"a": shard_batch(mesh, *job["batch"], dev), "b": shard_batch(mesh, *job["batch_half"], dev)}
     convs = job["hparams"]["num_layers"] + 1
     sessions = {}
+    plan = PROBE_FIT_STEPS_LR_IN_SESSION if job.get("lr_in_session") else PROBE_FIT_STEPS
     with tempfile.TemporaryDirectory() as tmp:
-        for session, run in itertools.groupby(PROBE_FIT_STEPS, key=lambda step: step[2]):
+        for session, run in itertools.groupby(plan, key=lambda step: step[2]):
             run = list(run)
             before = counts(fused_conv)
             logdir = Path(tmp) / f"session{session}"
@@ -2707,14 +2765,18 @@ def fit_probe_rank(rank, world_size, job):
                     graphed_step(f"(f) rank {rank}", g, e, kind, batches[batch], want, torch)
                 torch.cuda.synchronize()
             if session:
-                ev = trace_events(logdir / "trace.json")
+                whole = trace_events(logdir / "trace.json")
+                cut = free_range_start(whole)
+                ev = [x for x in whole if x["ts"] < cut]
                 sessions[session] = {
-                    "steps": len(run),
+                    "steps": sum(kind != "set_lr" for kind, _, _ in run),
                     "graph_launches": sum(x.get("cat") == "cuda_runtime" and x["name"].startswith("cudaGraphLaunch")
                                           for x in ev),
                     "in_trace": {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev)
                                  for k in KERNEL_NAMES},
                     "counted": {k: v - before[k] for k, v in counts(fused_conv).items()},
+                    "in_free_range": {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) and x["ts"] >= cut
+                                             for x in whole) for k in KERNEL_NAMES},
                     "nccl_kernels": sum(x.get("cat") == "kernel" and x["name"].startswith("nccl") for x in ev)}
     out = {"sessions": sessions, "state_err": state_errors(g, e)[0],
            "params": hashlib.sha256(b"".join(p.detach().cpu().numpy().tobytes()
@@ -2729,7 +2791,8 @@ def check_fit_probe(res):
     bits, each of sessions 1-3 made a graph launch per step on every rank
     and traced, on rank 0, each conv kernel kind as counted (the graphed
     and the twin's steps, some of each) and NCCL kernels. Session 4, the
-    eval graph that lived through set_lr's release, is reported beside
+    eval graph that lived through set_lr's release, and the conv kernels
+    of the forward that a free inside a session ran are reported beside
     it."""
     s0 = res[0]["sessions"]
     ok = (all(r["state_err"][0] <= MODEL_TOL for r in res) and len({r["params"] for r in res}) == 1
@@ -2737,25 +2800,114 @@ def check_fit_probe(res):
           and all(s0[k]["in_trace"] == s0[k]["counted"] and min(s0[k]["counted"].values()) > 0
                   and s0[k]["nccl_kernels"] > 0 for k in (1, 2, 3)))
     found = (f"session 4 (the eval graph through the release): conv kernels in the trace {s0[4]['in_trace']} of "
-             f"{s0[4]['counted']} counted (its twin's eager half of them), {s0[4]['nccl_kernels']} NCCL kernels")
+             f"{s0[4]['counted']} counted (its twin's eager half of them), {s0[4]['nccl_kernels']} NCCL kernels; "
+             f"conv kernels in a traced_before_free range per session "
+             f"{ {k: v['in_free_range'] for k, v in s0.items()} }")
     if ok:
         return "exact sums", found
     return (f"twin {[r['state_err'] for r in res]}, {len({r['params'] for r in res})} distinct parameter sets, "
             f"sessions {[r['sessions'] for r in res]}"), found
 
 
-def graph_probe_steps(structures, target_rows, env, twins=None):
+# a second trainer's phases in a session probe (`session_probe_rank`), in order
+SESSION_PROBE_PHASES = ("captures", "lr", "free")
+
+
+def session_probe_rank(rank, world_size, job):
+    """A rank of `profiler_fault.py`'s one-card worlds, on its own card:
+    trainer A's graphed train step (the production model on the flagship
+    batch, SGD) replayed PROBE_REPLAYS times in each of sessions 1, 3 and
+    4 of the port's `profile_trace`, and between sessions 1 and 3 a second
+    trainer B (Adam) of the same model and batch, whose SESSION_PROBE_PHASES
+    run in order: "captures" its first sight, capture and a replay; "lr"
+    `set_lr`, which frees its train graph, and a capture anew and a
+    replay; "free" `free_graphs`. The phases in job["inside"] (a run of
+    them) run inside session 2, the others before or after it. Returns
+    per session 1, 3 and 4 the conv kernels in
+    the trace (before any `traced_before_free` range) and counted, and
+    `cudaGraphLaunch` calls per replay."""
+    import torch
+
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+    from matten_tpu_torch.utils.timing import profile_trace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    structures, rows = draw_structures()
+    data, targets = collate(structures, rows)
+    batch = batch_to_device(data, dev, targets)
+    task = CanonicalRegressionTask(name=TARGET)
+    a, b = (Trainer(create_scalar_tensor_model(HPARAMS, DATASET_HPARAMS, device=dev, seed=SEED), [task],
+                    TrainerConfig(lr=0.01, optimizer=opt, scheduler="none"), device=dev) for opt in ("sgd", "adam"))
+    for _ in range(2):  # A's first sight and capture
+        a.train_step(*batch)
+    phases = {"captures": lambda: [b.train_step(*batch) for _ in range(3)],
+              "lr": lambda: (b.set_lr(0.005), [b.train_step(*batch) for _ in range(2)]),
+              "free": b.free_graphs}
+    inside = [p for p in SESSION_PROBE_PHASES if p in job["inside"]]
+    first = SESSION_PROBE_PHASES.index(inside[0])
+    sessions = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def session(k, work):
+            before = counts(fused_conv)
+            with profile_trace(str(Path(tmp) / f"session{k}")):
+                work()
+                torch.cuda.synchronize()
+            ev = before_free_range(trace_events(Path(tmp) / f"session{k}" / "trace.json"))
+            sessions[k] = {
+                "in_trace": {c: sum(x.get("cat") == "kernel" and is_kind(x["name"], c) for x in ev)
+                             for c in KERNEL_NAMES},
+                "counted": {c: v - before[c] for c, v in counts(fused_conv).items()},
+                "graph_launches": sum(x.get("cat") == "cuda_runtime" and x["name"].startswith("cudaGraphLaunch")
+                                      for x in ev) / PROBE_REPLAYS}
+
+        def a_steps():
+            for _ in range(PROBE_REPLAYS):
+                a.train_step(*batch)
+
+        session(1, a_steps)
+        for p in SESSION_PROBE_PHASES[:first]:
+            phases[p]()
+        with profile_trace(str(Path(tmp) / "session2")):
+            for p in inside:
+                phases[p]()
+            torch.cuda.synchronize()
+        for p in SESSION_PROBE_PHASES[first + len(inside):]:
+            phases[p]()
+        session(3, a_steps)
+        session(4, a_steps)
+    a.free_graphs()
+    return sessions
+
+
+def check_session_probe(res):
+    """What a session probe found: "exact sums" when each of sessions 1, 3
+    and 4 made a graph launch per replay and traced each conv kernel kind
+    of A's replays as counted."""
+    (r,) = res
+    ok = all(s["graph_launches"] == 1 and s["in_trace"] == s["counted"] and min(s["counted"].values()) > 0
+             for s in r.values())
+    return "exact sums" if ok else f"sessions {r}"
+
+
+def graph_probe_steps(structures, target_rows, env, twins=None, lr_in_session=False):
     """`graph_probe`'s variant (e), started: `mesh_rank` on 2 ranks over
     PROBE_STEPS in turn, each without its eager session (`eager_profile`
     False), so that node 1 x 2's graphs, captured after edge 1 x 2's were
     traced and freed, are replayed in sessions with no other session
     between edge's and node's graphed ones. With `twins` (case names) only
     those cases run `mesh_twins`: ("node 1x2",) is the smallest order that
-    faulted before the repair (`profiler_fault.py`'s (e12)). Returns the
-    cases and the world (`check_probe_steps` reads it)."""
+    faulted before the repair (`profiler_fault.py`'s (e12)). With
+    `lr_in_session` each profiled case's last graphed session ends with
+    `set_lr`, which frees its train graphs inside it (`profiler_fault.py`'s
+    (r5f)). Returns the cases and the world (`check_probe_steps` reads
+    it)."""
     from matten_tpu_torch.parallel.launch import start_ranks
 
-    cases = [dict(c, eager_profile=False, twins=twins is None or c["name"] in twins)
+    cases = [dict(c, eager_profile=False, twins=twins is None or c["name"] in twins, lr_in_session=lr_in_session)
              for c in mesh_cases(PROBE_STEPS, structures, target_rows, False)]
     job = [{k: v for k, v in c.items() if k != "single"} for c in cases]
     return cases, start_ranks("chip_smoke:mesh_rank", 2, job, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS,
@@ -2785,8 +2937,9 @@ def graph_probe(structures, target_rows, n, card):
     """`--cards n`' probe of the profiler on replays of graphs that hold
     NCCL collectives (ROADMAP §3): every variant of PROBE_VARIANTS on 2
     ranks at once, a world each, the `graph_probe_rank` ones on cards 0
-    and 1, (e) (`graph_probe_steps`) and (f) (`fit_probe_rank`) on cards 2
-    and 3 where n >= 4. Each must give exact values on every rank after
+    and 1, (e) (`graph_probe_steps`), (f) (`fit_probe_rank`) and their
+    set_lr-in-session twins (e') and (f') on cards 2 and 3 where n >= 4.
+    Each must give exact values on every rank after
     every run, profiled or not, and every session's trace must hold NCCL
     kernels (with the conv kernels as counted in (e) and (f)); a world that
     ends otherwise (a rank killed by a signal included) is reported with
@@ -2804,15 +2957,21 @@ def graph_probe(structures, target_rows, n, card):
                 + (f" ({errors[-1]})" if errors else ""))
 
     last = dict(env, CUDA_VISIBLE_DEVICES=",".join(visible[2:4])) if n >= 4 else env
-    step_cases, step_world = graph_probe_steps(structures, target_rows, last)
     fit_job = {k: v for k, v in mesh_cases([PROBE_FIT], structures, target_rows, False)[0].items() if k != "single"}
-    fit_world = start_ranks("chip_smoke:fit_probe_rank", 2, fit_job, timeout_s=MESH_TIMEOUT_S,
-                            threads=MESH_THREADS, env=last, backend="nccl")
-    (label_e, _), (label_f, _) = PROBE_VARIANTS[-2:]
+    (label_e, _), (label_f, _), (label_e_lr, _), (label_f_lr, _) = PROBE_VARIANTS[-4:]
+    # (e), (f) and their set_lr-in-session twins: each world with its check
+    checks = {}
+    for label, lr_in_session in ((label_e, False), (label_e_lr, True)):
+        cases, world = graph_probe_steps(structures, target_rows, last, lr_in_session=lr_in_session)
+        checks[label] = world, functools.partial(check_probe_steps, cases)
+    for label, lr_in_session in ((label_f, False), (label_f_lr, True)):
+        checks[label] = (start_ranks("chip_smoke:fit_probe_rank", 2, dict(fit_job, lr_in_session=lr_in_session),
+                                     timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS, env=last, backend="nccl"),
+                         check_fit_probe)
     worlds = [(label, start_ranks("chip_smoke:graph_probe_rank", 2, job, timeout_s=PROBE_TIMEOUT_S,
                                   env=dict(env, CUDA_VISIBLE_DEVICES=",".join(visible[:2])), backend="nccl"))
-              for label, job in PROBE_VARIANTS if job is not None] + [(label_e, step_world), (label_f, fit_world)]
-    reported = ""
+              for label, job in PROBE_VARIANTS if job is not None] + [(k, w) for k, (w, _) in checks.items()]
+    reported = {}
     for label, ranks in worlds:
         with ranks:
             try:
@@ -2820,11 +2979,10 @@ def graph_probe(structures, target_rows, n, card):
             except RuntimeError as err:
                 found[label] = ended(err)
                 continue
-        if ranks is step_world:
-            found[label] = check_probe_steps(step_cases, res)
-            continue
-        if ranks is fit_world:
-            found[label], reported = check_fit_probe(res)
+        if label in checks:
+            found[label] = checks[label][1](res)
+            if isinstance(found[label], tuple):  # (f)'s: what it found, what it reports beside
+                found[label], reported[label.split()[0]] = found[label]
             continue
         sessions = [r["nccl_in_trace"] for r in res]
         exact = all(all(r["exact"]) for r in res) and all(k > 0 for ks in sessions for k in ks)
@@ -2834,7 +2992,7 @@ def graph_probe(structures, target_rows, n, card):
           f"replayed, unprofiled and in profile_trace sessions ({PROBE_REPLAYS} replays each; (e) "
           f"{MESH_PROFILED_STEPS} steps per session), a world per variant, its ranks started with TEARDOWN_CUPTI "
           f"{os.environ.get('TEARDOWN_CUPTI', 'unset')}: " + "; ".join(f"{k}: {v}" for k, v in found.items())
-          + (f"; (f)'s {reported}" if reported else ""), flush=True)
+          + "".join(f"; {k}'s {v}" for k, v in reported.items()), flush=True)
     faulted = [k for k, v in found.items() if v != "exact sums"]
     if faulted:
         raise AssertionError(f"graph probe: {faulted[0]} is the first variant that did not give exact sums "

@@ -54,10 +54,12 @@ the model, whose `load_state_dict` copies in place.
 Under `utils.timing.profile_trace` a replay is traced like eager steps;
 the port's profiler keeps CUPTI attached between sessions while the
 graphs it traced live, and `drop` tears it down once it has freed any.
-Once a session has run, `drop` first runs the owner's eager forward
-(`forward`, the trainer's eval step) on a freed graph's inputs inside a
-session of its own: without it, a later session's launch of another
-step graph died on a segmentation fault inside CUPTI
+`drop` first runs the owner's eager forward (`forward`, the trainer's
+eval step) on a freed graph's inputs under the profiler: inside the
+running session, in a range of its own, or, once a session has ended, in
+a session of its own. Without it, a later session's launch of another
+step graph died on a segmentation fault inside CUPTI; where the user has
+set TEARDOWN_CUPTI, later sessions are refused instead
 (`utils.timing._Profile` says why).
 """
 
@@ -206,13 +208,14 @@ class StepGraphs:
 
     def drop(self, kind: Optional[str] = None) -> None:
         """Free the graphs of `kind` (every graph with None); the next step
-        of each key seen before captures anew. Once a profiler session has
-        run, `forward` first runs on the first freed graph's inputs inside
-        a session of its own (`utils.timing.traced_before_free`; its
-        launches are not counted, as a capture's are not); once they are
-        freed, a CUPTI that a session left attached is torn down
-        (`utils.timing.release_cupti`). On a mesh every rank drops the same
-        graphs at the same point of its steps, as every rank steps."""
+        of each key seen before captures anew. `forward` first runs on the
+        first freed graph's inputs under the profiler, inside the running
+        session or, once a session has ended, in a session of its own
+        (`utils.timing.traced_before_free`; its launches are not counted, as
+        a capture's are not); once they are freed, a CUPTI that a session
+        left attached is torn down (`utils.timing.release_cupti`). On a mesh
+        every rank drops the same graphs at the same point of its steps, as
+        every rank steps."""
         kept = {k: g for k, g in self.graphs.items() if kind is not None and k[0] != kind}
         freed = [g for k, g in self.graphs.items() if k not in kept]
         if not freed:

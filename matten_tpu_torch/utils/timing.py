@@ -9,9 +9,13 @@ the jax profiler's. Every session is a `profiler()`, which keeps CUPTI
 attached between sessions while the step graphs it traced live, and
 `release_cupti` tears it down as one of them is freed, so that the card's
 step graphs, those that hold NCCL collectives included, are traced in
-sessions in turn; `traced_before_free` runs an eager forward under the
-profiler before step graphs are freed, once a session has run, without
-which a later session's graph launch faulted in CUPTI (`_Profile`).
+sessions in turn. `traced_before_free` runs an eager forward under the
+profiler before step graphs are freed, inside the running session or,
+once a session has ended, in one of its own, without which a later
+session's graph launch faulted in CUPTI. Where the user (or
+torch.compile) has set TEARDOWN_CUPTI, that repair does not hold: once
+step graphs are freed in or after a session, later sessions are refused
+with a RuntimeError (`_Profile`).
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ from typing import Callable
 
 import torch
 
-__all__ = ["TimeMeter", "StepTimer", "profiler", "profile_trace", "release_cupti", "traced_before_free"]
+__all__ = ["FREE_RANGE", "TimeMeter", "StepTimer", "profiler", "profile_trace", "release_cupti",
+           "traced_before_free"]
 
 
 class TimeMeter:
@@ -84,8 +89,14 @@ class StepTimer:
 # CUPTI, the card's tracing interface, as this module's sessions leave it:
 # "wrote" the TEARDOWN_CUPTI value the module last set, "kept" whether the
 # last session ended with CUPTI attached, "dropped" whether a step graph
-# was freed during a session (`_Profile`, `release_cupti`)
-_cupti = {"wrote": None, "kept": False, "dropped": False}
+# was freed during the running session, "started" whether a session of
+# this module has started in this process, "refuse" why every later
+# session is refused (None: none is) (`_Profile`, `release_cupti`)
+_cupti = {"wrote": None, "kept": False, "dropped": False, "started": False, "refuse": None}
+
+# the range of the trace that holds `traced_before_free`'s forward when a
+# session is running as step graphs are freed
+FREE_RANGE = "matten_tpu_torch.traced_before_free"
 
 
 def _sets_teardown() -> bool:
@@ -99,6 +110,17 @@ def _sets_teardown() -> bool:
 
 def _set_teardown(value: str) -> None:
     os.environ["TEARDOWN_CUPTI"] = _cupti["wrote"] = value
+
+
+def _refusal() -> str:
+    """The message of a session refused after step graphs were freed in or
+    after a session while TEARDOWN_CUPTI was not the port's to set."""
+    names = [k for k in ("TEARDOWN_CUPTI", "DISABLE_CUPTI_LAZY_REINIT") if k in os.environ]
+    return (f"profiler session refused: step graphs were freed in or after a profiler session while "
+            f"{' and '.join(f'{k}={os.environ[k]}' for k in names)} was set outside the port, and a later "
+            f"session's launch of a step graph then dies inside CUPTI (a segmentation fault in libcupti, called "
+            f"from cuGraphLaunch). Unset {' and '.join(names)} before the process starts and let the port manage "
+            f"CUPTI's teardown (matten_tpu_torch.utils.timing).")
 
 
 class _Profile(torch.profiler.profile):
@@ -117,24 +139,41 @@ class _Profile(torch.profiler.profile):
     with the teardown a graph replayed in a session ran in later sessions
     with none of its kernels in the trace (`chip_smoke.py::graph_probe`'s
     (a)); so CUPTI stays attached while the graphs it traced live, and is
-    torn down once none does or as one of them is freed.
+    torn down once none does or as one of them is freed. A session during
+    which a step graph was freed ends with the teardown. Open: where
+    another trainer's graphs were freed inside it, the next session traced
+    no CUDA activity at all (`profiler_fault.py`'s (r5f'), (s1) and (s3);
+    ROADMAP §3).
 
     A second fault is CUPTI's own: once a session has run, step graphs
     freed with no eager run of their model's forward under the profiler
     since (a second trainer's graphs, freed by `set_lr` and
     `free_graphs`) made a later session's first launch of another such
     graph die on a segmentation fault inside libcupti, called from
-    `cuGraphLaunch`, reading address 0x113 in libcuda (probe (e) on two
-    H100s, `profiler_fault.py`). It struck whether CUPTI
-    was torn down or kept attached, with graphs freed inside an active
-    session, with the kernels linked to torch's CUDA runtime, and after
-    eager runs of the conv kernels alone; it did not with no graph freed,
-    with the conv's plain versions in the graphs, or with one session of
-    eager train or eval steps before the frees. So the port does the
-    last: `StepGraphs.drop` runs its trainer's eager eval forward inside a
-    session of its own before it frees graphs (`traced_before_free`)."""
+    `cuGraphLaunch`, reading address 0x113 in libcuda (`profiler_fault.py`
+    on two H100s). It struck whether CUPTI was torn down or kept attached;
+    it did not with no graph freed, with the conv's plain versions in the
+    graphs, or with one session of eager train or eval steps before the
+    frees. So `StepGraphs.drop` runs its trainer's eager eval forward under
+    the profiler before it frees graphs (`traced_before_free`): inside the
+    running session when there is one, else, once a session has ended, in
+    a session of its own.
+
+    That repair holds only where the port manages the teardown: with
+    TEARDOWN_CUPTI set by the user (or by torch.compile, with
+    DISABLE_CUPTI_LAZY_REINIT), CUPTI stays attached throughout, and a
+    session of eager steps before the frees did not avert the fault. So
+    once step graphs are freed in or after a session of this module while
+    the variable is not the port's to set, every later session of this
+    module raises a RuntimeError as it starts, before any launch in it
+    (`release_cupti`); the variable itself is left as it is. A process
+    with no session, or with no step graph freed in or after one, is never
+    refused."""
 
     def start(self):
+        if _cupti["refuse"] is not None:
+            raise RuntimeError(_cupti["refuse"])
+        _cupti["started"] = True
         self._owns_teardown = _sets_teardown()
         super().start()
 
@@ -154,7 +193,11 @@ def release_cupti() -> None:
     that session ends with the teardown. With it, a fit's order of events
     (a new pad shape captured after a session, `set_lr` freeing the train
     graphs while the eval graph lives) traced every session, the graphs
-    that lived through it included (`chip_smoke.py::graph_probe`'s (f))."""
+    that lived through it included (`chip_smoke.py::graph_probe`'s (f)).
+    A free in or after a session of this module while TEARDOWN_CUPTI is
+    not the port's to set refuses every later session (`_Profile`)."""
+    if _cupti["started"] and not _sets_teardown():
+        _cupti["refuse"] = _refusal()
     if torch.autograd._profiler_enabled():
         _cupti["dropped"] = True
         return
@@ -170,19 +213,28 @@ def release_cupti() -> None:
 
 def traced_before_free(forward: Callable[[], None]) -> None:
     """Run `forward`, an eager forward of the model whose step graphs are
-    about to be freed, inside a session of its own (CPU and CUDA activity,
-    nothing written), once a session of this module has ended in this
-    process having set TEARDOWN_CUPTI (`_sets_teardown`: not where the
-    user or torch.compile set it); no session runs before that, nor
-    while one is running. The step graphs' repair of CUPTI's fault
-    (`_Profile`): on a mesh every rank frees its graphs at the same point,
-    so the forward's collectives meet."""
-    if _cupti["wrote"] is None or torch.autograd._profiler_enabled():
+    about to be freed, under the profiler: while a session runs, inside it,
+    in a FREE_RANGE range of its trace; else, once a session of this module
+    has ended having set TEARDOWN_CUPTI, inside a session of its own (CPU
+    and CUDA activity, nothing written), which ends as the port last set
+    the variable. Before any such session it runs nothing. The step
+    graphs' repair of CUPTI's fault (`_Profile`): on a mesh every rank
+    frees its graphs at the same point, so the forward's collectives
+    meet."""
+    if torch.autograd._profiler_enabled():
+        with torch.profiler.record_function(FREE_RANGE):
+            _synchronized(forward)
+        return
+    if _cupti["wrote"] is None:
         return
     with torch.profiler.profile(activities=_activities()):
-        forward()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        _synchronized(forward)
+
+
+def _synchronized(forward: Callable[[], None]) -> None:
+    forward()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def _activities():

@@ -1113,7 +1113,7 @@ def test_two_rank_nccl_graphed_steps_trace_in_consecutive_profile_trace_sessions
             assert p0["nccl_kernels"] > 0 and p0["nccl_ms"] > 0, (c["name"], how)
 
 
-def _graphed_sessions_case_after_case(twins):
+def _graphed_sessions_case_after_case(twins, lr_in_session=False):
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if cards < 2:
         pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
@@ -1121,7 +1121,7 @@ def _graphed_sessions_case_after_case(twins):
 
     structures, rows = chip_smoke.draw_structures()
     env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
-    cases, world = chip_smoke.graph_probe_steps(structures, rows, env, twins)
+    cases, world = chip_smoke.graph_probe_steps(structures, rows, env, twins, lr_in_session)
     with world:
         steps = world.join()
     assert chip_smoke.check_probe_steps(cases, steps) == "exact sums"
@@ -1151,6 +1151,36 @@ def test_two_rank_nccl_sessions_after_a_second_trainer_s_graphs_were_freed():
     _graphed_sessions_case_after_case(("node 1x2",))
 
 
+def test_two_rank_nccl_set_lr_inside_a_session_then_another_mesh_s_sessions():
+    """A profiled fit's plateau step on a 2-rank nccl world
+    (`profiler_fault.py`'s (r5f)): (e), with each profiled case's last
+    graphed session ending in `set_lr`, which frees the train graphs inside
+    it after their eval forward ran there (`utils.timing.
+    traced_before_free`), then the next mesh's graphs replayed in later
+    sessions. Every rank must survive, and every session hold each conv
+    kernel kind of its counted steps as counted, and NCCL kernels
+    (`chip_smoke.check_probe_steps`)."""
+    _graphed_sessions_case_after_case(None, lr_in_session=True)
+
+
+def _fit_probe(lr_in_session):
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < 2:
+        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
+    import chip_smoke
+    from matten_tpu_torch.parallel.launch import run_ranks
+
+    structures, rows = chip_smoke.draw_structures()
+    case = chip_smoke.mesh_cases([chip_smoke.PROBE_FIT], structures, rows, profile_all=False)[0]
+    job = dict({k: v for k, v in case.items() if k != "single"}, lr_in_session=lr_in_session)
+    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
+    res = run_ranks("chip_smoke:fit_probe_rank", 2, job, timeout_s=chip_smoke.MESH_TIMEOUT_S,
+                    threads=chip_smoke.MESH_THREADS, env=env, backend="nccl")
+    found, reported = chip_smoke.check_fit_probe(res)
+    assert found == "exact sums", (found, reported)
+    return res
+
+
 def test_two_rank_nccl_fit_order_traces_every_session():
     """A fit's order of events on a 2-rank nccl world, a card per rank
     (`chip_smoke.fit_probe_rank`, the probe's variant (f)): on a node 1 x 2
@@ -1162,20 +1192,21 @@ def test_two_rank_nccl_fit_order_traces_every_session():
     same bits, and each of those sessions made a graph launch per step and
     traced each conv kernel kind as counted and NCCL kernels on rank 0
     (`chip_smoke.check_fit_probe`)."""
-    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if cards < 2:
-        pytest.skip(f"needs 2 CUDA devices for a 2-rank nccl world; found {cards}")
-    import chip_smoke
-    from matten_tpu_torch.parallel.launch import run_ranks
+    _fit_probe(False)
 
-    structures, rows = chip_smoke.draw_structures()
-    case = chip_smoke.mesh_cases([chip_smoke.PROBE_FIT], structures, rows, profile_all=False)[0]
-    job = {k: v for k, v in case.items() if k != "single"}
-    env = {"PYTHONPATH": os.path.dirname(os.path.abspath(chip_smoke.__file__)), "PYTHONFAULTHANDLER": "1"}
-    res = run_ranks("chip_smoke:fit_probe_rank", 2, job, timeout_s=chip_smoke.MESH_TIMEOUT_S,
-                    threads=chip_smoke.MESH_THREADS, env=env, backend="nccl")
-    found, reported = chip_smoke.check_fit_probe(res)
-    assert found == "exact sums", (found, reported)
+
+def test_two_rank_nccl_fit_order_with_set_lr_inside_a_session_traces_every_session():
+    """The fit's order above with `set_lr` at the end of session 2, inside
+    it, as a profiled fit's plateau step frees the train graphs
+    (`chip_smoke.PROBE_FIT_STEPS_LR_IN_SESSION`): the same checks, session
+    2's counted steps as counted, and on rank 0 the eval forward that the
+    free ran inside session 2 in its `traced_before_free` range (each of
+    K1's kernels once per conv layer)."""
+    import chip_smoke
+
+    res = _fit_probe(True)
+    convs = chip_smoke.HPARAMS["num_layers"] + 1
+    assert res[0]["sessions"][2]["in_free_range"] == {"fwd": convs, "fwd_sum": convs, "bwd": 0, "dx_sum": 0}
 
 
 def test_predict_over_chunks_of_three_pad_shapes_on_the_card(dev):

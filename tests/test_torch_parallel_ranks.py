@@ -228,6 +228,26 @@ def eval_forward_before_free(rank, world_size, job):
     return out
 
 
+def refused_after_a_free(rank, world_size, _):
+    """A profiler session, then stand-in step graphs freed, then another
+    session: refused where the user set TEARDOWN_CUPTI."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from matten_tpu_torch.train.graphs import StepGraphs
+    from matten_tpu_torch.utils.timing import profile_trace
+
+    graphs = StepGraphs({})
+    graphs.graphs[("train",)] = _Graph()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            dist.barrier()
+        graphs.drop()
+        with profile_trace(tmp):
+            raise AssertionError("the refused session's block ran")
+
+
 def graph_left_alive(rank, world_size, _):
     """Rank 1 keeps a (stand-in) step graph alive past its target."""
     from matten_tpu_torch.train import graphs

@@ -224,13 +224,13 @@ def test_a_step_graph_key_holds_the_mesh_shape_and_mode():
 
 
 def test_mesh_ranks_run_their_eval_forward_under_the_profiler_before_freeing_graphs():
-    """Once a profiler session has run in a process, `StepGraphs.drop`
-    runs the trainer's eager eval forward on the first freed graph's
-    inputs inside a session of its own before it frees them (the repair of
-    CUPTI's fault on later graph launches, `utils.timing._Profile`): on 2
-    gloo ranks of a node mesh both ranks run it, so its collectives meet,
-    and the model keeps its train mode; before any session, and during
-    one, no forward runs. The kinds not dropped stay."""
+    """`StepGraphs.drop` runs the trainer's eager eval forward on the first
+    freed graph's inputs under the profiler before it frees them (the
+    repair of CUPTI's fault on later graph launches, `utils.timing.
+    _Profile`): during a session inside it, after one in a session of its
+    own; on 2 gloo ranks of a node mesh both ranks run it, so its
+    collectives meet, and the model keeps its train mode; before any
+    session no forward runs. The kinds not dropped stay."""
     import os
     from pathlib import Path
 
@@ -246,9 +246,75 @@ def test_mesh_ranks_run_their_eval_forward_under_the_profiler_before_freeing_gra
     for out in results:
         before, during, after, every = out
         assert before == {"runs": [], "training": True, "left": [("eval",)]}
-        assert during == {"runs": [], "training": True, "left": [("eval",)]}
+        assert during == {"runs": [(True, True)], "training": True, "left": [("eval",)]}
         assert after == {"runs": [(True, True)], "training": True, "left": [("eval",)]}
         assert every == {"runs": [(True, True)], "training": True, "left": []}
+
+
+def test_mesh_ranks_are_refused_at_the_same_session_after_a_free_under_the_user_s_setting():
+    """With TEARDOWN_CUPTI=0 set by the user for both ranks of a gloo
+    world, step graphs freed after a session make each rank's next
+    session raise as it starts: the launcher names both ranks, and each
+    log ends in the refusal."""
+    import os
+    from pathlib import Path
+
+    from matten_tpu_torch.parallel.launch import run_ranks
+
+    root = Path(__file__).resolve().parent
+    env = {"PYTHONPATH": os.pathsep.join([str(root), str(root.parent)]), "TEARDOWN_CUPTI": "0"}
+    with pytest.raises(RuntimeError) as err:
+        run_ranks("test_torch_parallel_ranks:refused_after_a_free", 2, timeout_s=120, env=env)
+    first = str(err.value).splitlines()[0]
+    assert "rank 0 exited with 1" in first and "rank 1 exited with 1" in first, first
+    assert str(err.value).count("RuntimeError: profiler session refused") == 2
+    assert "the refused session's block ran" not in str(err.value)
+
+
+class _EagerGraphs(StepGraphs):
+    """Step graphs on the CPU: every step runs eagerly, and each key holds a
+    stand-in graph with the inputs of its last step."""
+
+    def run(self, kind, data, targets):
+        self.graphs[self.key(kind, data, targets)] = type("Held", (), {"data": data, "targets": targets})()
+        return self.steps[kind](data, targets)
+
+
+def test_a_fit_whose_plateau_step_lowers_the_lr_in_a_session_runs_the_forward_before_the_free(monkeypatch,
+                                                                                             tmp_path):
+    """A `Trainer.fit` profiled whole in one `profile_trace` session, its
+    plateau scheduler lowering the lr at each epoch's end (no val score
+    improves on a best of -inf), with `_EagerGraphs` for step graphs: each
+    `set_lr` frees the train graphs inside the session, after the
+    trainer's eval forward ran there, under the profiler, on the freed
+    train graph's inputs while it was still held; the eval graph stays."""
+    from matten_tpu_torch.utils import timing
+
+    monkeypatch.setattr(timing, "_cupti", dict(timing._cupti, wrote=None, kept=False, dropped=False,
+                                               started=False, refuse=None))
+    monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
+    monkeypatch.delenv("DISABLE_CUPTI_LAZY_REINIT", raising=False)
+    graphs = _graphs(4, seed=3)
+    data = type("Data", (), {"train_dataloader": lambda self: BatchLoader(graphs, 4, SMAP)})()
+    data.val_dataloader = data.train_dataloader
+    t = Trainer(create_scalar_tensor_model(HPARAMS, DS, device="cpu"), [CanonicalRegressionTask(name=TARGET)],
+                TrainerConfig(max_epochs=2, lr=0.01, lr_patience=0), device="cpu")
+    t.scheduler.best = -np.inf
+    forwards = []
+
+    def forward(d, tg):
+        held = {k[0]: g for k, g in t._graphs.graphs.items()}
+        forwards.append((torch.autograd._profiler_enabled(), sorted(held), d is held["train"].data))
+        t._eval_forward(d, tg)
+
+    t._graphs = _EagerGraphs({"train": t._flat(t._train_step), "eval": t._flat(t._eval_step)},
+                             lambda kind: t.model.train(kind == "train"), forward)
+    with timing.profile_trace(str(tmp_path)):
+        history = t.fit(data)
+    assert [h["epoch"] for h in history] == [0, 1]
+    assert [g["lr"] for g in t.optimizer.param_groups] == [0.0025]
+    assert forwards == [(True, ["eval", "train"], True)] * 2
+    assert [k[0] for k in t._graphs.graphs] == ["eval"]
 
 
 def test_drop_forgets_one_kind_or_every_graph():

@@ -106,7 +106,7 @@ def cupti(monkeypatch):
     recorded with the TEARDOWN_CUPTI it saw: (state, events)."""
     from matten_tpu_torch.utils import timing
 
-    state = {"wrote": None, "kept": False, "dropped": False}
+    state = {"wrote": None, "kept": False, "dropped": False, "started": False, "refuse": None}
     monkeypatch.setattr(timing, "_cupti", state)
     monkeypatch.delenv("TEARDOWN_CUPTI", raising=False)
     monkeypatch.delenv("DISABLE_CUPTI_LAZY_REINIT", raising=False)
@@ -233,8 +233,9 @@ def test_a_session_during_which_a_step_graph_is_freed_ends_with_a_teardown(monke
 def test_traced_before_free_runs_its_forward_in_a_session_once_one_has_run(monkeypatch, tmp_path, cupti):
     """`traced_before_free` runs nothing before a session of the port has
     ended having set TEARDOWN_CUPTI (not while the user's setting holds),
-    nothing while one runs, and after one its forward inside a session of
-    its own, which ends as the port last set TEARDOWN_CUPTI."""
+    its forward inside the running session while one runs (no session of
+    its own), and after one its forward inside a session of its own, which
+    ends as the port last set TEARDOWN_CUPTI."""
     from matten_tpu_torch.train import graphs
     from matten_tpu_torch.utils.timing import traced_before_free
 
@@ -251,9 +252,9 @@ def test_traced_before_free_runs_its_forward_in_a_session_once_one_has_run(monke
     monkeypatch.delenv("TEARDOWN_CUPTI")
     with profile_trace(str(tmp_path / "trace")):
         traced_before_free(forward)
-    assert ran == [] and events[2:] == [("start", None), ("stop", "0")]
+    assert ran == [True] and events[2:] == [("start", None), ("stop", "0")]
     traced_before_free(forward)
-    assert ran == [True] and events[4:] == [("start", "0"), ("stop", "0")]
+    assert ran == [True, True] and events[4:] == [("start", "0"), ("stop", "0")]
 
 
 def test_drop_runs_the_forward_on_a_freed_graph_s_inputs_uncounted(monkeypatch, tmp_path, cupti):
@@ -288,6 +289,117 @@ def test_drop_runs_the_forward_on_a_freed_graph_s_inputs_uncounted(monkeypatch, 
     assert seen == [({"x": 0}, {"y": 0}, True, [("eval", 1), ("train", 0), ("train", 2)])]
     assert list(steps.graphs) == [("eval", 1)]
     assert (fused_conv.launches, dict(fused_conv.tier_launches)) == before
+
+
+def test_a_drop_inside_a_session_runs_its_forward_there_before_the_free(monkeypatch, tmp_path, cupti):
+    """A step graph freed while a session runs (a profiled fit's `set_lr`):
+    `StepGraphs.drop` runs its `forward` on the first freed graph's inputs
+    inside that session, in a `traced_before_free` range of its trace, with
+    the graphs still held and its launches not counted; no session of its
+    own starts, and the session ends with a teardown."""
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.train import graphs
+    from matten_tpu_torch.train.graphs import StepGraphs
+    from matten_tpu_torch.utils.timing import FREE_RANGE
+
+    state, events = cupti
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    seen = []
+
+    def forward(data, targets):
+        seen.append((data, targets, torch.autograd._profiler_enabled(), sorted(steps.graphs)))
+        torch.ones(4) * 3
+        fused_conv.launches += 4
+
+    steps = StepGraphs({}, forward=forward)
+    steps.graphs = {(kind, i): type("Held", (), {"data": {"x": i}, "targets": {"y": i}})()
+                    for i, kind in enumerate(("eval", "train", "train"))}
+    before = fused_conv.launches
+    with profile_trace(str(tmp_path / "trace")):
+        steps.drop("train")
+    assert seen == [({"x": 1}, {"y": 1}, True, [("eval", 0), ("train", 1), ("train", 2)])]
+    assert list(steps.graphs) == [("eval", 0)] and fused_conv.launches == before
+    assert events == [("start", None), ("stop", "1")] and not state["kept"]
+    ev = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
+    ranges = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] == FREE_RANGE]
+    assert len(ranges) == 1
+    r = ranges[0]
+    assert any(e.get("cat") == "cpu_op" and e["name"] == "aten::mul" and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]
+               for e in ev)
+
+
+def _freeing_session(tmp_path, steps, where):
+    """A session of `profile_trace`, with `steps`' train graphs freed inside
+    it (`where` "during") or after it ("after")."""
+    with profile_trace(str(tmp_path / "first")):
+        torch.ones(8) * 2
+        if where == "during":
+            steps.drop("train")
+    if where == "after":
+        steps.drop("train")
+
+
+USER_SETTINGS = {"TEARDOWN_CUPTI=0": {"TEARDOWN_CUPTI": "0"}, "TEARDOWN_CUPTI=1": {"TEARDOWN_CUPTI": "1"},
+                 "torch.compile's pair": {"TEARDOWN_CUPTI": "0", "DISABLE_CUPTI_LAZY_REINIT": "1"}}
+
+
+@pytest.mark.parametrize("where", ["during", "after"])
+@pytest.mark.parametrize("setting", list(USER_SETTINGS))
+def test_a_session_after_a_free_under_the_user_s_teardown_setting_is_refused(monkeypatch, tmp_path, cupti,
+                                                                              setting, where):
+    """With TEARDOWN_CUPTI (or torch.compile's pair) set by the user, step
+    graphs freed inside or after a session of the port make every later
+    session raise as it starts, before anything runs in it, with a message
+    that names each variable and the remedy; the user's values stay as they
+    were, and no forward runs in a session of its own (it would not avert
+    the fault)."""
+    from matten_tpu_torch.train import graphs
+    from matten_tpu_torch.train.graphs import StepGraphs
+
+    state, events = cupti
+    for k, v in USER_SETTINGS[setting].items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    ran = []
+    steps = StepGraphs({}, forward=lambda data, targets: ran.append(torch.autograd._profiler_enabled()))
+    steps.graphs = {("train", 0): type("Held", (), {"data": {}, "targets": {}})()}
+    _freeing_session(tmp_path, steps, where)
+    assert ran == ([True] if where == "during" else []) and len(events) == 2
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="profiler session refused") as err:
+            with profile_trace(str(tmp_path / "refused")):
+                raise AssertionError("the refused session's block ran")
+        assert len(events) == 2
+    for k, v in USER_SETTINGS[setting].items():
+        assert f"{k}={v}" in str(err.value) and f"Unset {' and '.join(USER_SETTINGS[setting])} " in str(err.value)
+        assert os.environ[k] == v
+    assert "cuGraphLaunch" in str(err.value)
+
+
+@pytest.mark.parametrize("order", ["no session", "frees before the first session", "no free", "the port's teardown"])
+def test_a_run_with_no_free_in_or_after_a_session_under_the_user_s_setting_is_not_refused(monkeypatch, tmp_path,
+                                                                                       cupti, order):
+    """Not refused: frees in a process with no session, frees before the
+    first session, sessions in turn with no free, and frees after a session
+    where the port manages the teardown (its forward then runs instead)."""
+    from matten_tpu_torch.train import graphs
+    from matten_tpu_torch.train.graphs import StepGraphs
+
+    state, _ = cupti
+    if order != "the port's teardown":
+        monkeypatch.setenv("TEARDOWN_CUPTI", "0")
+    monkeypatch.setattr(graphs, "live_graphs", lambda: 1)
+    ran = []
+    steps = StepGraphs({}, forward=lambda data, targets: ran.append(torch.autograd._profiler_enabled()))
+    for i in range(3):
+        steps.graphs = {("train", i): type("Held", (), {"data": {}, "targets": {}})()}
+        if {"no session": True, "frees before the first session": i == 0, "no free": False,
+                "the port's teardown": i > 0}[order]:
+            steps.drop()
+        if order != "no session":
+            with profile_trace(str(tmp_path / f"session{i}")):
+                torch.ones(8) * 2
+    assert state["refuse"] is None and ran == ([True, True] if order == "the port's teardown" else [])
 
 
 def test_two_profile_trace_sessions_in_one_process_each_write_their_trace(tmp_path):
