@@ -212,11 +212,44 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      `predict(32 flagship crystals, directory)` call, whole and split into
      load, graph building, collation, host check, copy, forward and
      readout.
+ 28. 73 species, the seventeenth: bench.py's S=73 batch
+     (`build_batch(np.random.default_rng(3), species=SPECIES_73)`: 32
+     crystals of 4-12 atoms over range(3, 76), loaded by the port's
+     `BatchLoader` as build_batch loads it) through the production model
+     at 73 species with seeded weights: K1 (item pass and partial-row sum)
+     and the merged backward (with the dx sum) at each conv layer's own
+     inputs against their plain versions (KERNEL_TOL, two runs bitwise
+     equal), their ms per layer against plain beside the bound; the
+     forward and one pass's gradients against `force_plain()`
+     (MODEL_TOL, 4 launches of K1's two kernels per forward); the species
+     FCTPs as the masked contraction against the weight gather
+     (`apply_onehot2`, `MATTEN_ONEHOT_GATHER_MIN_S=16`): the forward within
+     1e-5 and one pass's gradients within 1e-4 relative, the eager forward
+     and train step of each form in turns (CUDA events), their own peak
+     memory, and the FCTPs' device ms per layer of each form (the
+     profiler); phase 26's graphed trainer against its eager twin on this
+     batch under each form (6 train steps, the lr halved after 4, 3 eval
+     steps; replays without a host sync, launches exact; pools, a step's
+     own peak, CUDA-event and host ms, the conv kernels' device ms per
+     layer); a checkpoint directory of the model served by
+     `predict(structures, directory)`, `load_pretrained`'s weights equal to
+     the model's, every result a finite [3, 3, 3, 3] within 1e-6 of the
+     in-memory `predict`;
+ 29. 128 crystals, the eighteenth: bench.py's `BENCH_EXTRA` batch
+     (`build_batch(np.random.default_rng(1), 128, 8, 14)`, loaded as
+     build_batch loads it: N = 1408, E = 109568) through the production
+     model: K1's static grid against its items; the kernels at each conv
+     layer's own inputs against their plain versions, with their times and
+     bounds; the forward and one pass's gradients against `force_plain()`;
+     the forward's ms kernel against plain and real edges/s; phase 26's
+     graphed trainer against its eager twin as in phase 28, with the train
+     step's real edges/s.
 The line before the last is the kernels JSON (its times are phase 9's; its
 max |d| the worst of the script's direct comparisons of a kernel with its
 plain version, phases 20-22's included; its launches count every main
 path's run: phases 6, 8, 12-14, 16-19, the graphed trainers of 26, the
-counted predict calls of 27 and, summed over both ranks, 20-22; the two
+counted predict calls of 27, the counted forwards, graphed trainers and
+predict call of 28-29 and, summed over both ranks, 20-22; the two
 bf16-storage entries' times, bounds, max |d| and launches are phase 23's;
 the last two entries, K1 and the merged backward at the plans past
 production, are phase 25's, with their
@@ -396,11 +429,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 
 
-def draw_structures(seed=0, n_graphs=32, per_atom=False, atoms_lo=4, atoms_hi=12):
+def draw_structures(seed=0, n_graphs=32, per_atom=False, atoms_lo=4, atoms_hi=12, species=SPECIES_5):
     """The crystals of `bench.py::build_batch(np.random.default_rng(seed),
-    n_graphs, per_atom=per_atom)`, drawn in the same order (each target
-    right after its crystal), and their targets: [1, 21] per crystal, or
-    [n, 6] per atom."""
+    n_graphs, atoms_lo, atoms_hi, per_atom, species)`, drawn in the same
+    order (each target right after its crystal), and their targets: [1, 21]
+    per crystal, or [n, 6] per atom."""
     from matten_tpu_torch.data.structure import Structure
 
     rng = np.random.default_rng(seed)
@@ -411,7 +444,7 @@ def draw_structures(seed=0, n_graphs=32, per_atom=False, atoms_lo=4, atoms_hi=12
             Structure(
                 lattice=np.eye(3) * (3.5 + rng.uniform(0, 1.5)) + rng.normal(size=(3, 3)) * 0.1,
                 frac_coords=rng.uniform(0, 1, size=(n, 3)),
-                atomic_numbers=rng.choice(SPECIES_5, size=n),
+                atomic_numbers=rng.choice(species, size=n),
             )
         )
         targets.append(rng.normal(size=(n, 6) if per_atom else (1, 21)))
@@ -455,6 +488,17 @@ def collate(structures, targets, target=TARGET, selected=None):
     return collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(SPECIES_5))
 
 
+def bench_batch(structures, targets, species=SPECIES_5):
+    """(data, targets) numpy dicts of one batch of all the crystals, loaded
+    as `bench.py::build_batch` loads its draw: the port's `BatchLoader`
+    with its defaults and a batch size of the crystal count."""
+    from matten_tpu_torch.data.datamodule import BatchLoader
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+
+    graphs = graphs_of(structures, targets)
+    return next(iter(BatchLoader(graphs, batch_size=len(graphs), species_map=atomic_number_map(species))))
+
+
 def cuda_ms(fn, torch):
     """Milliseconds of one call of fn, by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -465,12 +509,12 @@ def cuda_ms(fn, torch):
     return start.elapsed_time(end)
 
 
-def interleaved(fa, fb, torch):
+def interleaved(fa, fb, torch, reps=REPS):
     """Median ms of fa and fb, timed in turns (a b, b a, ...) after warm-up."""
     for _ in range(WARMUP):
         fa(), fb()
     ta, tb = [], []
-    for r in range(REPS):
+    for r in range(reps):
         if r % 2 == 0:
             ta.append(cuda_ms(fa, torch))
             tb.append(cuda_ms(fb, torch))
@@ -3477,25 +3521,30 @@ def state_errors(g, e):
     return sorted(errs, reverse=True)
 
 
-def graph_phase(label, dev, card, torch, trainer, batches):
+def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr_step=GRAPH_LR_STEP, phase=26):
     """Phase 26 on one family: a graphed trainer over a deep copy of
     `trainer`'s model and optimizer state against an eager one
     (`eager`, the same capturable Adam) from the same state, step for
-    step (`graphed_step`): GRAPH_STEPS train steps on batch A with the lr
-    halved after GRAPH_LR_STEP (the train graph captured anew), then batch
-    B, another pad shape (eager, capture, replay) and A again, then
-    `load_state_dict` of the state after step GRAPH_LR_STEP (captured anew)
-    and 2 steps; each step's loss and metric sums within GRAPH_LOSS_TOL
-    relative, the parameters and Adam moments at the end within MODEL_TOL
-    of their largest entry; 3 eval steps (eager, capture, replay) against
-    eager. Every replay runs under `set_sync_debug_mode("error")` and
-    launches exactly one of each kernel per conv layer. Then host ms per
-    step, graphed against eager (synced wall clock), the device's busy
-    share of a profiled step and its conv kernels in the trace by kind
-    (equal to what the counters added), the graphed step's host ms again
-    with CUPTI left attached by those sessions, the bytes of the graphs'
-    pools and the capture time of each key; then the graphs are freed.
-    Returns the graphed trainer's launches in the checked steps."""
+    step (`graphed_step`): `steps` train steps on batch A with the lr
+    halved after `lr_step` (the train graph captured anew), then, where
+    `batches` holds a batch B, B, another pad shape (eager, capture,
+    replay) and A again, then `load_state_dict` of the state after step
+    `lr_step` (captured anew) and 2 steps; each step's loss and metric sums
+    within GRAPH_LOSS_TOL relative, the parameters and Adam moments at the
+    end within MODEL_TOL of their largest entry; 3 eval steps (eager,
+    capture, replay) against eager. Every replay runs under
+    `set_sync_debug_mode("error")` and launches exactly one of each kernel
+    per conv layer. Then host ms per step, graphed against eager (synced
+    wall clock), the device's busy share of a profiled step and its conv
+    kernels in the trace by kind (equal to what the counters added), the
+    graphed step's host ms again with CUPTI left attached by those
+    sessions, the bytes of the graphs' pools, a step's own peak memory
+    graphed and eager and the capture time of each key; then the graphs
+    are freed. Its lines are labelled with `phase` (28-29 run it on one
+    batch). Returns the graphed trainer's launches in the checked steps
+    ("launched"), the host ms and CUDA-event ms of the timed steps ("wall",
+    "event_ms"), the profiled steps' stats ("prof"), the pools' MiB
+    ("pool_mib") and the peaks ("peak_mib")."""
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.train import Trainer, TrainerConfig
@@ -3506,7 +3555,7 @@ def graph_phase(label, dev, card, torch, trainer, batches):
     if g._graphs is None or e._graphs is not None or not g.optimizer.defaults["capturable"]:
         raise AssertionError(f"{label}: the graphed trainer has no step graphs or the eager one has")
     convs = len(conv_layers(g.model))
-    a, b = batches
+    a, b = batches if len(batches) == 2 else (batches[0], None)
     launched = {k: 0 for k in COUNTERS}
     errs, replays = [], 0
 
@@ -3521,18 +3570,19 @@ def graph_phase(label, dev, card, torch, trainer, batches):
         return loss
 
     losses, saved = [], None
-    for i in range(GRAPH_STEPS):
+    for i in range(steps):
         losses.append(step("train_step", a))
-        if i + 1 == GRAPH_LR_STEP:
-            saved = copy.deepcopy(g.state_dict())
+        if i + 1 == lr_step:
+            saved = copy.deepcopy(g.state_dict()) if b is not None else None
             for t in (g, e):
                 t.set_lr(config.lr / 2)
-    for batch in (b, b, b, a):
-        losses.append(step("train_step", batch))
-    for t in (g, e):
-        t.load_state_dict(copy.deepcopy(saved))  # each its own tensors, as from a checkpoint
-    for _ in range(2):
-        losses.append(step("train_step", a))
+    if b is not None:
+        for batch in (b, b, b, a):
+            losses.append(step("train_step", batch))
+        for t in (g, e):
+            t.load_state_dict(copy.deepcopy(saved))  # each its own tensors, as from a checkpoint
+        for _ in range(2):
+            losses.append(step("train_step", a))
     for _ in range(3):
         step("eval_step", a)
     state_err = state_errors(g, e)
@@ -3542,20 +3592,25 @@ def graph_phase(label, dev, card, torch, trainer, batches):
     capture_s = {f"{k[0]} N={next(shp[0] for n, shp, _ in k[-1][0] if n == K.NODE_MASK)}": v
                  for k, v in g._graphs.capture_seconds().items()}
     pool_mib = g._graphs.pool_bytes() / 2**20
+    # what a step adds at its peak to the resident (a replay: its pool resident)
+    peak_mib = {name: own_peak_mib(lambda: t.train_step(*a), torch) for name, t in (("graphed", g), ("eager", e))}
 
     # host ms per step (synced wall) and the device's busy share, graphed against eager
-    wall = {}
+    wall, event_ms = {}, {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for name, t in (("graphed", g), ("eager", e)):
         for _ in range(WARMUP):
             t.train_step(*a)
         torch.cuda.synchronize()
-        ms = []
+        wall[name], event_ms[name] = [], []
         for _ in range(REPS):
             t0 = time.perf_counter()
+            start.record()
             t.train_step(*a)
+            end.record()
             torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
-        wall[name] = ms
+            wall[name].append((time.perf_counter() - t0) * 1e3)
+            event_ms[name].append(start.elapsed_time(end))
     # the kernels each profiled step ran on the card, by kind, against what
     # the counters added: a replay adds its capture's launches, so this is
     # what shows that the graph holds every kernel
@@ -3579,24 +3634,26 @@ def graph_phase(label, dev, card, torch, trainer, batches):
         torch.cuda.synchronize()
         wall["graphed, CUPTI attached"].append((time.perf_counter() - t0) * 1e3)
     g.free_graphs()
-    print(f"[26 compiled steps, {label}] {card}: {GRAPH_STEPS} graphed train steps on batch A (N="
+    then_b = ("" if b is None else f", then batch B (N={b[0][K.NODE_MASK].shape[0]}) x3 and A, then "
+              f"load_state_dict of step {lr_step}'s state and 2 steps")
+    print(f"[{phase} compiled steps, {label}] {card}: {steps} graphed train steps on batch A (N="
           f"{a[0][K.NODE_MASK].shape[0]}) against eager from the same state, lr halved after step "
-          f"{GRAPH_LR_STEP}, then batch B (N={b[0][K.NODE_MASK].shape[0]}) x3 and A, then load_state_dict of "
-          f"step {GRAPH_LR_STEP}'s state and 2 steps, then 3 eval steps: losses "
+          f"{lr_step}{then_b}, then 3 eval steps: losses "
           + ", ".join(f"{x:.6f}" for x in losses)
           + f"; worst relative difference of a loss or metric sum {max(errs):.3e} (tol {GRAPH_LOSS_TOL}); "
           f"parameters and Adam moments worst {state_err[0][1]} {state_err[0][0]:.3e} (tol {MODEL_TOL}); "
           f"{replays} replays under set_sync_debug_mode('error'), launches exact ({convs} of each kernel per "
           f"step); kernels per profiled step in the trace, graphed {in_trace['graphed']}, eager "
           f"{in_trace['eager']}, each equal to the counters' step", flush=True)
-    print(f"[26 step time, {label}] {card}: host ms per train step on batch A (synced wall, median and q1-q3 of "
+    print(f"[{phase} step time, {label}] {card}: host ms per train step on batch A (synced wall, median and q1-q3 of "
           f"{REPS}; the last after the profiled sessions below): " + "; ".join(f"{n} {np.median(v):.4f} ({np.percentile(v, 25):.4f}-{np.percentile(v, 75):.4f})"
                                   for n, v in wall.items())
           + f"; under the profiler, per step of {GRAPH_PROFILED_STEPS}: "
           + "; ".join(f"{n}: {device_summary(st)}" for n, st in prof.items()), flush=True)
-    print(f"[26 graph memory, {label}] {card}: the graphs' pools {pool_mib:.1f} MiB; capture s per key (kind, N): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items()), flush=True)
-    return launched
+    print(f"[{phase} graph memory, {label}] {card}: the graphs' pools {pool_mib:.1f} MiB; a train step's own peak "
+          f"MiB above the resident, graphed {peak_mib['graphed']:.1f}, eager {peak_mib['eager']:.1f}; capture s per "
+          "key (kind, N): " + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items()), flush=True)
+    return dict(launched=launched, wall=wall, event_ms=event_ms, prof=prof, pool_mib=pool_mib, peak_mib=peak_mib)
 
 
 # phase 27: predict, its forward eager chunk by chunk (predict.py), and what
@@ -3867,6 +3924,390 @@ def predict_phase(dev, card, torch, ckpt_root, families):
               f"{1e3 * np.percentile(whole_s, 75):.3f}); split, each stage until the card has finished it: "
               + ", ".join(f"{k} {1e3 * np.median(v):.3f}" for k, v in split.items()), flush=True)
     return launched
+
+
+# phases 28-29: the production model at bench.py's other two batches
+# (BENCH_EXTRA): its 73-species batch, under both forms of the species FCTPs,
+# and its 128-crystal batch
+SPECIES_73 = tuple(range(3, 76))  # bench.py SPECIES_73: the production elasticity set's species count
+GATHER_VAR = "MATTEN_ONEHOT_GATHER_MIN_S"
+GATHER_MIN_S = 16  # phase 28's gather form of the species FCTPs: from 16 species on, so at 73
+# the masked contraction against the gather: the same products summed in
+# another order; a forward relative to its largest entry, a step's gradients
+# each relative to its parameter's largest
+BRANCH_FWD_TOL, BRANCH_GRAD_TOL = 1e-5, 1e-4
+BATCH_STEPS, BATCH_LR_STEP = 6, 4  # phase 26's twin on one batch: 4 steps, the lr halved, 2 more
+BATCH_REPS = 10  # interleaved kernel / plain pairs per layer at these batches (the plain backward is slow)
+FCTP_PROFILED = 5  # profiled runs of each layer's species FCTPs per form
+
+
+@contextlib.contextmanager
+def gathered_species():
+    """The convs' species FCTPs as the weight gather (`apply_onehot2`)
+    from GATHER_MIN_S species on while the block runs, as the JAX package
+    takes it; every `apply_onehot2` call counted in the list it yields."""
+    from matten_tpu_torch.ops.tensor_product import TensorProductPlan
+
+    old, calls, gather = os.environ.get(GATHER_VAR), [], TensorProductPlan.apply_onehot2
+
+    def counted(self, *args, **kwargs):
+        calls.append(self)
+        return gather(self, *args, **kwargs)
+
+    os.environ[GATHER_VAR] = str(GATHER_MIN_S)
+    TensorProductPlan.apply_onehot2 = counted
+    try:
+        yield calls
+    finally:
+        TensorProductPlan.apply_onehot2 = gather
+        if old is None:
+            del os.environ[GATHER_VAR]
+        else:
+            os.environ[GATHER_VAR] = old
+
+
+def conv_inputs(model, data, torch):
+    """What each conv layer hands `fused_uvu_conv` in one forward of
+    `model` on `data` without gradients: (plan, x, sh, w, src, dst, n_out)."""
+    from matten_tpu_torch.nn import conv as conv_mod
+
+    seen, real = [], conv_mod.fused_uvu_conv
+
+    def record(plan, x, sh, w, src, dst, n_out, edges=None):
+        seen.append((plan, x, sh, w, src.contiguous(), dst.contiguous(), n_out))
+        return real(plan, x, sh, w, src, dst, n_out, edges)
+
+    conv_mod.fused_uvu_conv = record
+    try:
+        with torch.no_grad():
+            model(data)
+    finally:
+        conv_mod.fused_uvu_conv = real
+    return seen
+
+
+def range_device_ms(ev, label):
+    """Mean device ms of the device operations that started inside each CPU
+    range `label` of a trace (each range opens and closes on a synchronized
+    card)."""
+    ranges = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] == label]
+    ops = [e for e in ev if e.get("cat") in DEVICE_OPS]
+    if not ranges:
+        raise AssertionError(f"no range {label!r} in the trace")
+    return sum(e["dur"] for r in ranges for e in ops if r["ts"] <= e["ts"] < r["ts"] + r["dur"]) / len(ranges) / 1e3
+
+
+def fctp_device_ms(model, data, out_dir, name, torch):
+    """Device ms of each conv layer's species FCTPs (sc and lin1 on seeded
+    inputs of the layer's width, lin2 on its aggregate's), forward and
+    backward of a seeded cotangent, in the form the conv takes for `data`
+    (`PointConv.species_fctp`), from one profiler session of FCTP_PROFILED
+    runs, each part in a range of its own: {"forward": [per layer],
+    "backward": [...]}."""
+    from torch.profiler import record_function
+
+    from matten_tpu_torch.data import keys as K
+
+    dev = data[K.NODE_MASK].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    n = data[K.NODE_MASK].shape[0]
+    convs = conv_layers(model)
+    seen = []  # the batch as the first conv sees it: its species one-hot made
+    hook = convs[0].register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(data)
+    finally:
+        hook.remove()
+    data = seen[0]
+    runs = []
+    for conv in convs:
+        x = torch.randn(n, conv.sc_plan.irreps_in1.dim, generator=gen, device=dev).requires_grad_()
+        agg = torch.randn(n, conv.lin2_plan.irreps_in1.dim, generator=gen, device=dev).requires_grad_()
+        apply = conv.species_fctp(data)
+        outs = [(x, conv.w_sc, conv.sc_plan), (x, conv.w_lin1, conv.lin1_plan), (agg, conv.w_lin2, conv.lin2_plan)]
+        cot = [torch.randn(n, p.irreps_out.dim, generator=gen, device=dev) for _, _, p in outs]
+        runs.append((apply, outs, cot))
+
+    def session():
+        for i, (apply, outs, cot) in enumerate(runs):
+            torch.cuda.synchronize()
+            with record_function(f"fctp L{i} forward"):
+                ys = [apply(*args) for args in outs]
+                torch.cuda.synchronize()
+            with record_function(f"fctp L{i} backward"):
+                torch.autograd.backward(ys, cot)
+                torch.cuda.synchronize()
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ev, _ = traced(session, FCTP_PROFILED, out_dir, name, torch)
+    model.zero_grad(set_to_none=True)
+    return {part: [range_device_ms(ev, f"fctp L{i} {part}") for i in range(len(runs))]
+            for part in ("forward", "backward")}
+
+
+def batch_kernel_phase(phase, label, dev, card, torch, check_forward, check_backward, model, data):
+    """K1 (item pass and partial-row sum) and the merged backward (with the
+    dx sum) at each conv layer's own inputs (`conv_inputs`; a seeded
+    cotangent) against their plain versions (`check_forward`,
+    `check_backward`: KERNEL_TOL, two runs bitwise equal, K1's static grid
+    bitwise its counted grid); then per layer the kernels' ms against the
+    plain versions' (BATCH_REPS interleaved pairs) and the bound
+    (`kernel_work`)."""
+    from matten_tpu_torch.kernels import fused_conv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + phase)
+    layers = conv_inputs(model, data, torch)
+    parity, ms, bounds = [], {"fwd": [], "bwd": []}, {"fwd": [], "bwd": []}
+    for i, (plan, x, sh, w, src, dst, n) in enumerate(layers):
+        g = torch.randn(n, plan.irreps_out.dim, generator=gen, device=dev)
+        parity.append(f"L{i} d1={plan.irreps_in1.dim} dw={plan.weight_numel} dout={plan.irreps_out.dim}: K1 "
+                      + check_forward(plan, x, w, sh, src, dst, n)[1] + "; backward "
+                      + check_backward(plan, x, w, g, sh, src, dst, n))
+        edges = fused_conv.edge_plan(src, dst, n, n, with_src_order=True)
+        with torch.no_grad():
+            ms["fwd"].append(interleaved(
+                functools.partial(fused_conv.fused_uvu_conv, plan, x, sh, w, src, dst, n, edges),
+                lambda: fused_conv.uvu_conv_reference(plan, x, sh, w, src, dst, n), torch, BATCH_REPS))
+            ms["bwd"].append(interleaved(
+                lambda: fused_conv._launch_bwd_edges(plan, x, g, sh, w, edges),
+                lambda: fused_conv.uvu_conv_bwd_reference(plan, x, g, sh, w, src, dst, n), torch, BATCH_REPS))
+        work = kernel_work(plan, n, n, src.shape[0], int(edges.item_ptr[-1]))
+        for kind in bounds:
+            bounds[kind].append(bound_ms(*work[kind]))
+    torch.cuda.empty_cache()
+    print(f"[{phase} kernels, {label}] at each conv layer's own inputs, max|d|/max|ref| (tol {KERNEL_TOL}): "
+          + "; ".join(parity), flush=True)
+    print(f"[{phase} kernel timings, {label}] {card}: median ms of {BATCH_REPS} interleaved pairs per layer L0 / L1 "
+          "/ L2 / L3, kernel vs plain (fwd: K1 with its partial-row sum; bwd: the merged kernel vs the plain "
+          "backward): " + "; ".join(f"{k} " + " / ".join(f"{a:.4f} vs {b:.4f}" for a, b in v) for k, v in ms.items())
+          + "; bound ms per layer: " + "; ".join(
+              f"{k} " + " / ".join(f"{b:.4f} ({by})" for b, by in v) for k, v in bounds.items()), flush=True)
+
+
+def model_against_plain(phase, label, model, trainer, data, targets, torch):
+    """The eval forward through the kernels against `force_plain()`
+    (MODEL_TOL), exactly 4 launches of K1's two kernels; one train-mode
+    pass's gradients against a deep copy under `force_plain()`
+    (MODEL_TOL, each parameter against its largest entry). Returns the
+    forward's launches and a line's text."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.train import Trainer
+
+    convs = len(conv_layers(model))
+    reset_counts(fused_conv)
+    with torch.inference_mode():
+        out = model(data)
+        launched = counts(fused_conv)
+        with fused_conv.force_plain():
+            ref = model(data)
+    if launched != {"fwd": convs, "fwd_sum": convs, "bwd": 0, "dx_sum": 0} or counts(fused_conv) != launched:
+        raise AssertionError(f"{phase} {label}: launches of a forward {counts(fused_conv)}, expected {convs} of K1's two")
+    real = data[K.GRAPH_MASK]
+    if tuple(out.shape) != (real.shape[0], 21) or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{phase} {label}: model output {tuple(out.shape)} not finite [G, 21]")
+    fwd_err = rel_err(out[real], ref[real])
+    plain = Trainer(copy.deepcopy(trainer.model), trainer.tasks, trainer.config, device=trainer.device)
+    loss_k, grads_k = step_grads(trainer, data, targets)
+    with fused_conv.force_plain():
+        loss_p, grads_p = step_grads(plain, data, targets)
+    grad_err = sorted(((rel_err(grads_k[n], r), n) for n, r in grads_p.items()), reverse=True)
+    # the gradient passes moved each model's running statistics: back to the seed state
+    trainer.model.load_state_dict(model.state_dict())
+    if not (fwd_err <= MODEL_TOL and grad_err[0][0] <= MODEL_TOL):
+        raise AssertionError(f"{phase} {label}: the kernels disagree with the plain path: forward {fwd_err}, "
+                             f"gradients {grad_err[:3]}")
+    return launched, (f"forward {tuple(out.shape)} max|d|/max|ref| K1 vs plain {fwd_err:.3e}; loss {loss_k:.6f} "
+                      f"vs {loss_p:.6f} plain, gradients of {len(grad_err)} parameters worst "
+                      + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:3]) + f" (tol {MODEL_TOL})")
+
+
+def step_device_text(res, real_edges):
+    """A train step's CUDA-event ms graphed and eager and the graphed
+    step's real edges/s (`graph_phase`'s timed steps); the conv kernels'
+    device ms per layer in a graphed step under the profiler, and the
+    step's busy share."""
+    st = res["prof"]["graphed"]
+    ms = {k: float(np.median(v)) for k, v in res["event_ms"].items()}
+    return (f"train step CUDA-event ms, median of {REPS}: graphed {ms['graphed']:.4f} ("
+            f"{real_edges / ms['graphed'] * 1e3:.1f} real edges/s), eager {ms['eager']:.4f}; "
+            "conv kernels' device ms per graphed step, per layer L0 / L1 / L2 / L3: " + "; ".join(
+        # the backward launches its kernels from the last layer down
+        f"{k} " + " / ".join(f"{t:.4f}" for t in (v if k.startswith("fwd") else v[::-1]))
+        for k, v in st["per_layer"].items()) + "; " + device_summary(st))
+
+
+def s73_phase(dev, card, torch, check_forward, check_backward, ckpt_root, out_dir):
+    """Phase 28: the production model at bench.py's 73-species batch, under
+    the masked contraction and the gather. Returns the counted main-path
+    launches."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.predict import batch_to_device, load_pretrained, predict
+    from matten_tpu_torch.train import (CanonicalRegressionTask, CheckpointManager, Trainer, TrainerConfig,
+                                        save_sidecar)
+
+    structures, rows = draw_structures(seed=3, species=SPECIES_73)
+    data_np, targets_np = bench_batch(structures, rows, SPECIES_73)
+    data, targets = batch_to_device(data_np, dev, targets_np)
+    ds = dict(allowed_species=list(SPECIES_73), average_num_neighbors=30.0)
+    model = create_scalar_tensor_model(HPARAMS, ds, device=dev, seed=SEED).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    real_edges = int(data[K.EDGE_MASK].sum())
+    print(f"[28 batch] bench.py's S=73 batch (rng 3, 32 crystals of 4-12 atoms over range(3, 76)): "
+          f"{int(data[K.NODE_MASK].sum())} real nodes / N={data[K.NODE_MASK].shape[0]}, "
+          f"{real_edges} real edges / E={data[K.EDGE_INDEX].shape[1]}; the production model at "
+          f"73 species, {n_params} parameters", flush=True)
+    batch_kernel_phase(28, "S=73", dev, card, torch, check_forward, check_backward, model, data)
+
+    task = CanonicalRegressionTask(name=TARGET)
+    config = TrainerConfig(lr=0.01)
+    trainer = Trainer(copy.deepcopy(model), [task], config, device=dev)
+    launched, text = model_against_plain(28, "S=73", model, trainer, data, targets, torch)
+    print(f"[28 model, S=73] masked contraction: {text}; launches per forward {launched}", flush=True)
+
+    # the masked contraction against the gather, the forward and one step's gradients
+    def fwd():
+        with torch.inference_mode():
+            return model(data)
+
+    gather_twin = Trainer(copy.deepcopy(model), [task], config, device=dev)
+    out_m = fwd()
+    loss_m, grads_m = step_grads(trainer, data, targets)
+    with gathered_species() as calls:
+        out_g = fwd()
+        per_fwd = len(calls)
+        loss_g, grads_g = step_grads(gather_twin, data, targets)
+    for t in (trainer, gather_twin):
+        t.model.load_state_dict(model.state_dict())
+    convs = len(conv_layers(model))
+    real = data[K.GRAPH_MASK]
+    fwd_err = rel_err(out_g[real], out_m[real])
+    grad_err = sorted(((rel_err(grads_g[n], r), n) for n, r in grads_m.items()), reverse=True)
+    if per_fwd != 3 * convs:
+        raise AssertionError(f"28: the gather form ran {per_fwd} species FCTPs in a forward, expected {3 * convs}")
+    if not (fwd_err <= BRANCH_FWD_TOL and grad_err[0][0] <= BRANCH_GRAD_TOL):
+        raise AssertionError(f"28: the gather and the masked contraction disagree: forward {fwd_err}, "
+                             f"gradients {grad_err[:3]}")
+    # times and memory of both forms: the eager forward and train step, in turns
+    e_mask = eager(Trainer(copy.deepcopy(model), [task], config, device=dev))
+    e_gather = eager(Trainer(copy.deepcopy(model), [task], config, device=dev))
+
+    def gathered(fn):
+        def run():
+            with gathered_species():
+                return fn()
+        return run
+
+    fwd_ms = interleaved(fwd, gathered(fwd), torch)
+    step_ms = interleaved(lambda: e_mask.train_step(data, targets),
+                          gathered(lambda: e_gather.train_step(data, targets)), torch)
+    peak, fctp = {}, {}
+    for form, t in (("masked", e_mask), ("gather", e_gather)):
+        with (gathered_species() if form == "gather" else contextlib.nullcontext()):
+            peak[form] = (own_peak_mib(fwd, torch), own_peak_mib(lambda: t.train_step(data, targets), torch))
+            fctp[form] = fctp_device_ms(model, data, out_dir, f"fctp_{form}", torch)
+    print(f"[28 species FCTP forms, S=73] {card}: masked contraction vs gather ({GATHER_VAR}={GATHER_MIN_S}, "
+          f"{per_fwd} apply_onehot2 calls per forward): forward max|d|/max|ref| {fwd_err:.3e} (tol "
+          f"{BRANCH_FWD_TOL}); loss {loss_m:.6f} vs {loss_g:.6f}, gradients worst "
+          + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:3]) + f" (tol {BRANCH_GRAD_TOL}); eager ms, median of "
+          f"{REPS} in turns: forward {fwd_ms[0]:.4f} vs {fwd_ms[1]:.4f}, train step {step_ms[0]:.4f} vs "
+          f"{step_ms[1]:.4f}; own peak MiB above the resident, forward / train step: "
+          + ", ".join(f"{k} {f:.1f} / {s:.1f}" for k, (f, s) in peak.items())
+          + "; the species FCTPs' device ms per layer L0 / L1 / L2 / L3 (sc, lin1, lin2; the profiler, "
+          f"{FCTP_PROFILED} runs): " + "; ".join(
+              f"{form} {part} " + " / ".join(f"{t:.4f}" for t in v)
+              for form, parts in fctp.items() for part, v in parts.items()), flush=True)
+
+    # the train and eval steps as CUDA graph replays against an eager twin, each form
+    launched_graphs = {k: 0 for k in COUNTERS}
+    res = {}
+    for form in ("masked", "gather"):
+        with (gathered_species() if form == "gather" else contextlib.nullcontext()):
+            res[form] = graph_phase(f"S=73, {form}", dev, card, torch, trainer, ((data, targets),),
+                                    BATCH_STEPS, BATCH_LR_STEP, phase=28)
+        launched_graphs = {k: launched_graphs[k] + v for k, v in res[form]["launched"].items()}
+        print(f"[28 step, S=73, {form}] {card}: " + step_device_text(res[form], real_edges), flush=True)
+
+    # from disk: a checkpoint directory of the 73-species model, served by predict
+    stats = DatasetStatistics.compute(graphs_of(structures, rows), TensorDatasetConfig(**ELASTIC_DATA),
+                                      normalize_tensor_target=True)
+    ckpt = ckpt_root / "s73"
+    save_sidecar(ckpt, {"model": HPARAMS, "data": ELASTIC_DATA, "dataset_hparams": ds,
+                        "normalize_tensor_target": True}, stats.to_arrays())
+    manager = CheckpointManager(ckpt)
+    manager.save(0, {"model": model.state_dict()}, {"val/score": 1.0})
+    manager.save_last({"model": model.state_dict()})
+    disk, _, _, _ = load_pretrained(ckpt, dev)
+    same = all(torch.equal(v, model.state_dict()[k]) for k, v in disk.state_dict().items())
+    reset_counts(fused_conv)
+    results = predict(structures, ckpt)
+    torch.cuda.synchronize()
+    served = counts(fused_conv)
+    refs = predict(structures, model, stats.target_normalizer)
+    for r in results:
+        if r is None or r.shape != (3, 3, 3, 3) or not np.isfinite(r).all():
+            raise AssertionError("28: predict from the 73-species checkpoint gave no finite [3,3,3,3] tensor")
+    err = max_rel(results, refs)
+    if not (same and err <= 1e-6) or served["fwd"] == 0 or served["fwd_sum"] == 0:
+        raise AssertionError(f"28: the 73-species directory's model (weights equal: {same}) or its predict "
+                             f"({err}, launches {served}) disagrees with the in-memory model")
+    print(f"[28 from disk, S=73] load_pretrained's weights equal the in-memory model's; predict({len(structures)} "
+          f"crystals, directory): all finite [3,3,3,3], max|d|/max|ref| {err:.3e} against the in-memory predict (tol 1e-6), "
+          f"launches {served}", flush=True)
+    total = {k: launched[k] + launched_graphs[k] + served[k] for k in COUNTERS}
+    print(f"[28 launches, S=73] the counted forward, graphed trainers' steps and predict call: {total}", flush=True)
+    return total
+
+
+def bench128_phase(dev, card, torch, check_forward, check_backward):
+    """Phase 29: the production model at bench.py's 128-crystal batch.
+    Returns the counted main-path launches."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.kernels import fused_conv
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+
+    structures, rows = draw_structures(seed=1, n_graphs=128, atoms_lo=8, atoms_hi=14)
+    data_np, targets_np = bench_batch(structures, rows)
+    data, targets = batch_to_device(data_np, dev, targets_np)
+    n_nodes, n_edges = data[K.NODE_MASK].shape[0], data[K.EDGE_INDEX].shape[1]
+    real_edges = int(data[K.EDGE_MASK].sum())
+    model = create_scalar_tensor_model(HPARAMS, DATASET_HPARAMS, device=dev, seed=SEED).eval()
+    src, dst = data[K.EDGE_INDEX][0].contiguous(), data[K.EDGE_INDEX][1].contiguous()
+    edges = fused_conv.edge_plan(src, dst, n_nodes, n_nodes)
+    print(f"[29 batch] bench.py's 128-crystal batch (rng 1, 8-14 atoms, SPECIES_5), the port's BatchLoader: "
+          f"{int(data[K.NODE_MASK].sum())} real nodes / N={n_nodes}, {real_edges} real edges / E={n_edges}, "
+          f"G={data[K.GRAPH_MASK].shape[0]}; K1's static grid {edges.items(16)[1]} blocks for "
+          f"{int(edges.item_ptr[-1])} items (items of 16 edges)", flush=True)
+    batch_kernel_phase(29, "128 crystals", dev, card, torch, check_forward, check_backward, model, data)
+
+    task = CanonicalRegressionTask(name=TARGET)
+    trainer = Trainer(copy.deepcopy(model), [task], TrainerConfig(lr=0.01), device=dev)
+    launched, text = model_against_plain(29, "128 crystals", model, trainer, data, targets, torch)
+
+    def fwd():
+        with torch.inference_mode():
+            return model(data)
+
+    def fwd_plain():
+        with fused_conv.force_plain():
+            return fwd()
+
+    fwd_ms = interleaved(fwd, fwd_plain, torch, BATCH_REPS)
+    print(f"[29 model, 128 crystals] {card}: {text}; launches per forward {launched}; forward ms (CUDA events, "
+          f"median of {BATCH_REPS} in turns) {fwd_ms[0]:.4f} vs {fwd_ms[1]:.4f} plain, "
+          f"{real_edges / fwd_ms[0] * 1e3:.1f} real edges/s", flush=True)
+    res = graph_phase("128 crystals", dev, card, torch, trainer, ((data, targets),), BATCH_STEPS, BATCH_LR_STEP,
+                      phase=29)
+    print(f"[29 step, 128 crystals] {card}: " + step_device_text(res, real_edges), flush=True)
+    total = {k: launched[k] + res["launched"][k] for k in COUNTERS}
+    print(f"[29 launches, 128 crystals] the counted forward and graphed trainer's steps: {total}", flush=True)
+    return total
 
 
 def main() -> int:
@@ -4271,13 +4712,21 @@ def main() -> int:
     for label, tr, a_batch, half in (
             ("flagship", trainer, (data, targets), collate(structures[:16], target_rows[:16])),
             ("NMR", nmr_trainer, nmr_batch, collate(nmr_structures[:8], nmr_rows[:8], NMR_TARGET, SI))):
-        c = graph_phase(label, dev, card, torch, tr, (a_batch, batch_to_device(half[0], dev, half[1])))
+        c = graph_phase(label, dev, card, torch, tr, (a_batch, batch_to_device(half[0], dev, half[1])))["launched"]
         graph_launched = {k: graph_launched[k] + c[k] for k in COUNTERS}
 
     # 27. predict from phase 14's directories, and its forward as a graph replay
     predict_launched = predict_phase(dev, card, torch, Path(ckpts.name),
                                      (("elasticity", structures, 8), ("NMR", nmr_structures, 4)))
     ckpts.cleanup()
+
+    # 28. the production model at bench.py's 73-species batch, under both
+    #     forms of the species FCTPs, graphed and served from a directory
+    with tempfile.TemporaryDirectory() as tmp:
+        s73_launched = s73_phase(dev, card, torch, check_forward, check_backward, Path(tmp), Path(tmp) / "traces")
+
+    # 29. the production model at bench.py's 128-crystal batch
+    big_launched = bench128_phase(dev, card, torch, check_forward, check_backward)
 
     if args.profile is not None:
         print(profile_forward(model, fwd, data, args.profile, torch), flush=True)
@@ -4305,7 +4754,8 @@ def main() -> int:
     kernels = []
     for kind in COUNTERS:
         launched = (served[kind] + trained[kind] + nmr[kind] + fitted[kind] + variants[kind] + variants_fit[kind]
-                    + mesh_launched[kind] + graph_launched[kind] + predict_launched[kind])
+                    + mesh_launched[kind] + graph_launched[kind] + predict_launched[kind] + s73_launched[kind]
+                    + big_launched[kind])
         if trained[kind] == 0:
             raise AssertionError(f"the train step never launched the {kind} kernel")
         kernels.append({

@@ -27,6 +27,7 @@ mesh's graph axis (`parallel/`), in one of three modes:
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -141,21 +142,39 @@ class PointConv(torch.nn.Module):
         )
         self.radial_mlp = ScalarMLP(hs, act="silu", generator=generator)
 
+    def species_fctp(self, data: Dict[str, torch.Tensor]):
+        """The form of this layer's species FCTPs (sc, lin1, lin2) for a
+        batch, as `apply(x, w, plan)`, chosen as the JAX module chooses it:
+        with every FCTP one-hot compatible, `K.SPECIES_INDEX` in the batch
+        and S >= `MATTEN_ONEHOT_GATHER_MIN_S` (default 100000), the gather
+        (`apply_onehot2` on the index clipped to [0, S-1], padded rows
+        zeroed by the node mask); else from 16 species on the plain
+        contraction against the one-hot times the node mask; else the plain
+        contraction (the JAX module's scalar-matmul form below 16 species
+        gives the same values). The variable is read on the host at every
+        call, as the JAX module reads it when it traces: a step captured as
+        a CUDA graph keeps the form it was captured with."""
+        attrs = data[K.NODE_ATTRS]
+        mask = data.get(K.NODE_MASK)
+        s = attrs.shape[-1]
+        if (self._onehot_attrs and K.SPECIES_INDEX in data
+                and s >= int(os.environ.get("MATTEN_ONEHOT_GATHER_MIN_S", "100000"))):
+            idx = data[K.SPECIES_INDEX].long().clamp(0, s - 1)
+            return lambda x, w, plan: plan.apply_onehot2(x, idx, w, mask=mask)
+        masked = self._onehot_attrs and s >= 16 and mask is not None
+
+        def apply(x, w, plan):
+            res = plan.apply(x, attrs, w)
+            return res * mask[:, None].to(res.dtype) if masked else res
+
+        return apply
+
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = dict(data)
         feats = data[K.NODE_FEATURES]
-        attrs = data[K.NODE_ATTRS]
         src, dst = data[K.EDGE_INDEX]
         num_nodes = feats.shape[0]
-        mask = data.get(K.NODE_MASK)
-
-        # species one-hot FCTPs: from 16 species on the JAX module masks the
-        # padded rows, below 16 it leaves them as they are; the values agree
-        masked = self._onehot_attrs and attrs.shape[-1] >= 16 and mask is not None
-
-        def apply_sc(x, w, plan):
-            res = plan.apply(x, attrs, w)
-            return res * mask[:, None].to(res.dtype) if masked else res
+        apply_sc = self.species_fctp(data)
 
         self_connection = apply_sc(feats, self.w_sc, self.sc_plan)
         feats = apply_sc(feats, self.w_lin1, self.lin1_plan)

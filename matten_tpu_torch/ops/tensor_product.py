@@ -197,6 +197,42 @@ class TensorProductPlan:
             and all(ins.mode == "uvw" and ins.has_weight for ins in self.instructions)
         )
 
+    def apply_onehot2(
+        self,
+        x1: torch.Tensor,
+        idx: torch.Tensor,
+        weights: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """`apply(x1, one_hot(idx), weights)` for a one-hot compatible plan,
+        by gathering each row's per-species weight matrices instead of
+        contracting against the S-wide one-hot (the l (x) 0e -> l CG block is
+        delta / sqrt(2l+1)): each uvw path's [u, S, w] table indexed by
+        `idx` [N] and contracted "nui,unw->nwi", times the path weight and
+        1/sqrt(2l+1). `mask` [N] zeroes rows whose one-hot would be all
+        zeros (padded nodes). Counterpart of the JAX function of the same
+        name; the gather is `index_select`, so its backward is autograd's
+        `index_add_` into the tables."""
+        if not self.in2_is_onehot_compatible:
+            raise ValueError("plan is not one-hot specializable")
+        dtype = x1.dtype
+        chunks: List[Optional[torch.Tensor]] = [None] * len(self.irreps_out)
+        for ins, pw, w in zip(self.instructions, self.path_weights, self.split_weights(weights)):
+            mul1, ir1 = self.irreps_in1[ins.i_in1]
+            mul_out, ir_out = self.irreps_out[ins.i_out]
+            b1 = x1[..., self._in1_slices[ins.i_in1]].reshape(x1.shape[:-1] + (mul1, ir1.dim))
+            c0 = float(wigner_3j(ir1.l, 0, ir1.l)[0, 0, 0])  # 1/sqrt(2l+1)
+            w_sel = torch.index_select(w, 1, idx).to(dtype)  # [u, N, w]
+            res = torch.einsum("nui,unw->nwi", b1, w_sel) * (pw * c0)
+            res = res.reshape(res.shape[:-2] + (mul_out * ir_out.dim,))
+            chunks[ins.i_out] = res if chunks[ins.i_out] is None else chunks[ins.i_out] + res
+        out = [x1.new_zeros(x1.shape[:-1] + (mul * ir.dim,)) if c is None else c
+               for c, (mul, ir) in zip(chunks, self.irreps_out)]
+        res = torch.cat(out, dim=-1)
+        if mask is not None:
+            res = res * mask[:, None].to(dtype)
+        return res
+
     def __repr__(self) -> str:
         return (
             f"TensorProductPlan({self.irreps_in1} x {self.irreps_in2} "

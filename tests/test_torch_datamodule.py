@@ -7,7 +7,10 @@
   `set_epoch`, for each loader option (buckets 1 and 4, `batch_by_size` on
   and off, `drop_last`, a ragged tail, no shuffle, per-atom targets, a
   dataset of one-atom graphs, no precomputed edge vectors); the pad ladders
-  are equal.
+  are equal; and on bench.py's 128-crystal and 73-species draws, loaded
+  as its `build_batch` loads them (one batch of every crystal), the JAX
+  loader's batch in its unchunked layout, at the pad shapes the port's
+  card phases run (N 1408, E 109568; N 256, E 14848).
 - `TensorDataModule.setup` on files pandas writes (an elasticity set with a
   feature column, an NMR set with an atom selector, targets normalized; the
   elasticity set with a logged and standardized scalar target, the tensor
@@ -109,6 +112,52 @@ def test_batch_loader_matches_jax(case):
         jl.set_epoch(epoch)
         pl.set_epoch(epoch)
         _assert_batches_equal(list(pl), list(jl))
+
+
+# bench.py's batches beside its flagship: `build_batch(np.random.default_rng(1),
+# 128, 8, 14)` (BENCH_EXTRA's large batch) and `build_batch(
+# np.random.default_rng(3), species=SPECIES_73)`, one batch of all their
+# crystals each; their pad shapes (nodes, edges) as the port collates them
+BENCH = {
+    "bench128": dict(seed=1, n=128, atoms=(8, 14), species=(8, 13, 14, 22, 56), pad=(1408, 109568)),
+    "bench_s73": dict(seed=3, n=32, atoms=(4, 12), species=tuple(range(3, 76)), pad=(256, 14848)),
+}
+
+
+def _bench_graphs(seed, n, atoms, species):
+    """The JAX graphs of `bench.py::build_batch`, drawn in its order."""
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(n):
+        k = int(rng.integers(atoms[0], atoms[1] + 1))
+        s = JaxStructure(
+            lattice=np.eye(3) * (3.5 + rng.uniform(0, 1.5)) + rng.normal(size=(3, 3)) * 0.1,
+            frac_coords=rng.uniform(0, 1, size=(k, 3)),
+            atomic_numbers=rng.choice(species, size=k),
+        )
+        g = JaxGraph.from_structure(s, r_cut=5.0)
+        g.y["elastic_tensor_full"] = rng.normal(size=(1, 21))
+        graphs.append(g)
+    return graphs
+
+
+@pytest.mark.parametrize("case", list(BENCH), ids=list(BENCH))
+def test_batch_loader_matches_jax_on_bench_batches(case):
+    """bench.py's 128-crystal batch and its 73-species batch, loaded as
+    `build_batch` loads them (one batch of every crystal, the loader's
+    defaults), equal the JAX loader's batch in its unchunked layout."""
+    c = BENCH[case]
+    graphs = _bench_graphs(c["seed"], c["n"], c["atoms"], c["species"])
+    smap = atomic_number_map(c["species"])
+    jl = JaxLoader(graphs, batch_size=c["n"], species_map=smap, node_chunk=None)
+    pl = BatchLoader(_port(graphs), batch_size=c["n"], species_map=smap)
+    assert _pads(pl) == _pads(jl)
+    ours, ref = list(pl), list(jl)
+    _assert_batches_equal(ours, ref)
+    data = ours[0][0]
+    assert (data["node_mask"].shape[0], data["edge_index"].shape[1]) == c["pad"]
+    assert data["graph_mask"].all() and data["graph_mask"].shape == (c["n"],)
+    assert data["species_index"].max() < len(c["species"])
 
 
 SHARDED = {

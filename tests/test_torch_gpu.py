@@ -17,7 +17,10 @@ configuration's width 1e-4; `predict` from a checkpoint directory equal to
 the in-memory `predict` of the same weights within 1e-6 relative; K1 and
 the merged backward at bf16 storage of sh and w against their plain
 versions at the same rounding with K1's tolerance (both read the same
-rounded inputs). The 2-rank nccl steps need two cards and skip with fewer,
+rounded inputs); at bench.py's 73-species batch the species FCTPs'
+masked contraction and weight gather, the forward within 1e-5 and the
+gradients within 1e-4 relative; at its 128-crystal batch a graphed train
+step and its eager twin, losses within 1e-5. The 2-rank nccl steps need two cards and skip with fewer,
 naming the count found; they import `chip_smoke` from the repository's
 root, from which pytest runs.
 """
@@ -1239,3 +1242,88 @@ def test_predict_over_chunks_of_three_pad_shapes_on_the_card(dev):
     eager = [r for chunk in chunks for r in predict(chunk, model, batch_size=3)]
     for x, y in zip(served, eager):
         _assert_rel(torch.as_tensor(np.asarray(x)), torch.as_tensor(np.asarray(y)), 1e-6)
+
+
+
+def _bench_setup(dev, seed, n_graphs, atoms, species, num_layers=2):
+    """A batch of bench.py's draw (`chip_smoke.draw_structures`, loaded as
+    `build_batch` loads it) on the card, and a maker of trainers (Adam, lr
+    0.01) over copies of one production model at `num_layers` for its
+    species, with seeded weights."""
+    import copy
+
+    import chip_smoke
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+
+    structures, rows = chip_smoke.draw_structures(seed=seed, n_graphs=n_graphs, atoms_lo=atoms[0],
+                                                  atoms_hi=atoms[1], species=species)
+    data_np, targets_np = chip_smoke.bench_batch(structures, rows, species)
+    model = create_scalar_tensor_model(dict(PRODUCTION, num_layers=num_layers),
+                                       dict(allowed_species=list(species), average_num_neighbors=30.0),
+                                       device=dev, seed=0)
+    task = CanonicalRegressionTask(name="elastic_tensor_full")
+
+    def trainer():
+        return Trainer(copy.deepcopy(model), [task], TrainerConfig(lr=0.01), device=dev)
+
+    return (*batch_to_device(data_np, dev, targets_np), trainer)
+
+
+def test_species_fctp_forms_agree_at_73_species(dev):
+    """bench.py's 73-species batch through the production model: the
+    masked contraction and the weight gather (`MATTEN_ONEHOT_GATHER_MIN_S`
+    at 16, `chip_smoke.gathered_species`) of the species FCTPs give the
+    forward within 1e-5 of its largest entry and a train-mode pass's
+    gradients within 1e-4 of each parameter's largest, the gather taking
+    every species FCTP."""
+    import chip_smoke
+
+    data, targets, trainer = _bench_setup(dev, 3, 32, (4, 12), chip_smoke.SPECIES_73)
+    real = data[K.GRAPH_MASK]
+
+    def run(t):
+        with torch.inference_mode():
+            out = t.model.eval()(data)[real]
+        return (out,) + chip_smoke.step_grads(t, data, targets)
+
+    masked, gather = trainer(), trainer()
+    out_m, _, grads_m = run(masked)
+    with chip_smoke.gathered_species() as calls:
+        out_g, _, grads_g = run(gather)
+    # sc, lin1 and lin2 of every conv layer, in the forward and in the pass
+    assert len(calls) == 2 * 3 * len(chip_smoke.conv_layers(gather.model))
+    _assert_rel(out_g, out_m, 1e-5)
+    for n, r in grads_m.items():
+        _assert_rel(grads_g[n], r, 1e-4)
+
+
+def test_graphed_128_crystal_train_step_equals_eager(dev):
+    """bench.py's 128-crystal batch (N 1408, E 109568): a graphed trainer
+    and its eager twin from the same state, step for step (eager, capture,
+    replays, the lr halved, capture, replay; then the eval step's eager,
+    capture and replay): every loss and metric sum within 1e-5 relative,
+    each replay without a host sync and with one launch of each kernel per
+    conv layer; the parameters and Adam moments at the end within 1e-4 of
+    their largest entry."""
+    import chip_smoke
+
+    data, targets, trainer = _bench_setup(dev, 1, 128, (8, 14), chip_smoke.SPECIES_5)
+    assert (data[K.NODE_MASK].shape[0], data[K.EDGE_INDEX].shape[1]) == (1408, 109568)
+    g, e = trainer(), chip_smoke.eager(trainer())
+    assert g._graphs is not None
+    convs = len(chip_smoke.conv_layers(g.model))
+    try:
+        for i, kind in enumerate(["train_step"] * 6 + ["eval_step"] * 3):
+            want = {k: convs if kind == "train_step" or k.startswith("fwd") else 0 for k in chip_smoke.COUNTERS}
+            chip_smoke.graphed_step("128 crystals", g, e, kind, (data, targets), want, torch)
+            if i == 3:
+                g.set_lr(0.005)
+                e.set_lr(0.005)
+        for (n, p), q in zip(g.model.named_parameters(), e.model.parameters()):
+            _assert_rel(p, q, 1e-4)
+            for k in ("exp_avg", "exp_avg_sq"):
+                _assert_rel(g.optimizer.state[p][k], e.optimizer.state[q][k], 1e-4)
+    finally:
+        g.free_graphs()

@@ -4,9 +4,10 @@ Small widths (2 conv layers, SH lmax 2, and once SH lmax 5 with l=5 conv
 irreps; 2 crystals). The JAX side gets its
 parameter layout from `jax.eval_shape(init)`, filled with seeded numpy
 values, runs under jit on the CPU, and the same values reach the port
-through `convert.flax_to_state_dict`. Both FCTP branches are covered:
-5 species (scalar-matmul form) and 16 species (plain contraction times the
-node mask). Tolerances: modules rtol=atol=1e-5; the whole model and
+through `convert.flax_to_state_dict`. Every FCTP branch is covered:
+5 species (scalar-matmul form), 16 and 73 species (plain contraction times
+the node mask), and 73 species with `MATTEN_ONEHOT_GATHER_MIN_S=16` set for
+both packages (the weight gather, `apply_onehot2`). Tolerances: modules rtol=atol=1e-5; the whole model and
 predict() rtol=atol=1e-4 (float32 with another summation order, carried
 through the convs and batch norm).
 """
@@ -33,6 +34,7 @@ from matten_tpu_torch.data.structure import Structure as PortStructure
 from matten_tpu_torch.models import create_scalar_tensor_model
 from matten_tpu_torch.nn.conv import PointConv, PointConvWithActivation
 from matten_tpu_torch.nn.embedding import atomic_number_map
+from matten_tpu_torch.ops.tensor_product import TensorProductPlan
 from matten_tpu_torch.predict import predict
 
 torch.set_num_threads(2)
@@ -67,7 +69,10 @@ HPARAMS = dict(
     output_formula="ijkl=jikl=klij",
     reduce="mean",
 )
-SPECIES = {5: (8, 13, 14, 22, 56), 16: tuple(range(3, 19))}
+SPECIES = {5: (8, 13, 14, 22, 56), 16: tuple(range(3, 19)), 73: tuple(range(3, 76))}
+# the species count from which both packages' convs gather the species
+# FCTPs' weights (`apply_onehot2`) in the "S73-gather" case
+GATHER_VAR, GATHER_MIN_S = "MATTEN_ONEHOT_GATHER_MIN_S", 16
 # above l=4: SH up to 5o and 5o / 5e conv irreps (the conv kernels' generic
 # paths on the card), 5 species
 HPARAMS_L5 = dict(HPARAMS, irreps_edge_sh="0e+1o+2e+3o+4e+5o", conv_layer_irreps=CONV_IRREPS + "+1x5o+1x5e")
@@ -179,12 +184,14 @@ def test_point_conv_with_activation_matches_jax(s, train):
 # ---------------------------------------------------------------- model
 
 
-@pytest.fixture(scope="module", params=[(5, HPARAMS), (16, HPARAMS), (5, HPARAMS_L5)],
-                ids=["S5", "S16", "L5"])
-def case(request):
+@pytest.fixture(scope="module", params=[(5, HPARAMS, False), (16, HPARAMS, False), (5, HPARAMS_L5, False),
+                                        (73, HPARAMS, False), (73, HPARAMS, True)],
+                ids=["S5", "S16", "L5", "S73", "S73-gather"])
+def _case(request):
     """JAX model output on a 2-crystal batch, and the port model loaded
-    with the same (converted) variables."""
-    s, hparams = request.param
+    with the same (converted) variables; with `gather`, the JAX model runs
+    its species FCTPs as the gather (`apply_onehot2`)."""
+    s, hparams, gather = request.param
     species = SPECIES[s]
     ds = dict(allowed_species=list(species), average_num_neighbors=30.0)
     structures = _structures(species)
@@ -192,13 +199,34 @@ def case(request):
     data, _ = collate_graphs(graphs, pad_spec_for(graphs), species_map=atomic_number_map(species))
     jm = jax_create_model(hparams, ds)
     jd = {k: jnp.asarray(v) for k, v in data.items()}
-    variables = _fill(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jd)), seed=s)
-    ref = np.asarray(jax.jit(lambda v, d: jm.apply(v, d, use_running_average=True))(variables, jd))
+    with pytest.MonkeyPatch.context() as mp:
+        if gather:
+            mp.setenv(GATHER_VAR, str(GATHER_MIN_S))
+        variables = _fill(jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jd)), seed=s)
+        ref = np.asarray(jax.jit(lambda v, d: jm.apply(v, d, use_running_average=True))(variables, jd))
     tm = create_scalar_tensor_model(hparams, ds, device="cpu")
     return dict(
         data=data, ref=ref, variables=variables, structures=structures,
-        model=_load(tm, variables),
+        model=_load(tm, variables), gather=gather,
     )
+
+
+@pytest.fixture
+def case(_case, monkeypatch):
+    """`_case`, with the port's species FCTPs taking the gather while the
+    test runs where the JAX model took it; every `apply_onehot2` call is
+    counted in `case["gathers"]`."""
+    if _case["gather"]:
+        monkeypatch.setenv(GATHER_VAR, str(GATHER_MIN_S))
+    calls = []
+    gather = TensorProductPlan.apply_onehot2
+
+    def counted(self, *args, **kwargs):
+        calls.append(self)
+        return gather(self, *args, **kwargs)
+
+    monkeypatch.setattr(TensorProductPlan, "apply_onehot2", counted)
+    return dict(_case, gathers=calls)
 
 
 def test_convert_covers_every_flax_leaf(case):
@@ -225,6 +253,9 @@ def test_model_matches_jax(case):
     with torch.inference_mode():
         out = case["model"]({k: torch.as_tensor(v) for k, v in case["data"].items()})
     assert out.shape == case["ref"].shape
+    # the gather form takes sc, lin1 and lin2 of every conv layer, and only it
+    convs = [m for m in case["model"].modules() if isinstance(m, PointConv)]
+    assert len(case["gathers"]) == (3 * len(convs) if case["gather"] else 0)
     real = case["data"][K.GRAPH_MASK]
     np.testing.assert_allclose(out.numpy()[real], case["ref"][real], **MODEL_TOL)
 

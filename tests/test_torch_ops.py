@@ -89,6 +89,45 @@ def test_apply_scalar_matmul_matches_jax_and_apply():
     assert not out[-2:].any()
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("s", [16, 73])
+def test_apply_onehot2_matches_jax_and_apply(s, masked):
+    """The species FCTP's gather form (`apply_onehot2`) against the JAX
+    function and against the port's `apply` on the one-hot (times the node
+    mask, as the conv applies it from 16 species on): values, and the
+    gradients of a seeded cotangent with respect to x1 and the weights
+    against autograd of `apply`."""
+    rng = np.random.default_rng(s + masked)
+    pj = jtp.fully_connected_tp_plan(FEATS, Irreps(f"{s}x0e"), FEATS)
+    pt = ttp.fully_connected_tp_plan(FEATS, Irreps(f"{s}x0e"), FEATS)
+    n = 11
+    x1 = rng.normal(size=(n, pj.irreps_in1.dim)).astype(np.float32)
+    idx = rng.integers(0, s, n).astype(np.int32)
+    mask = np.arange(n) < n - 3 if masked else None  # three padded nodes
+    w = rng.normal(size=(pj.weight_numel,)).astype(np.float32)
+    g = rng.normal(size=(n, pj.irreps_out.dim)).astype(np.float32)
+    ref = np.asarray(pj.apply_onehot2(jnp.asarray(x1), jnp.asarray(idx), jnp.asarray(w),
+                                      mask=None if mask is None else jnp.asarray(mask)))
+
+    def grads(fn):
+        xt, wt = _t(x1).requires_grad_(), _t(w).requires_grad_()
+        out = fn(xt, wt)
+        out.backward(_t(g))
+        return out.detach().numpy(), xt.grad.numpy(), wt.grad.numpy()
+
+    tmask = None if mask is None else _t(mask)
+    out, dx, dw = grads(lambda x, wt: pt.apply_onehot2(x, _t(idx).long(), wt, mask=tmask))
+    onehot = np.eye(s, dtype=np.float32)[idx] * (1.0 if mask is None else mask[:, None])
+    keep = 1.0 if mask is None else tmask[:, None].float()
+    ref_t, dx_ref, dw_ref = grads(lambda x, wt: pt.apply(x, _t(onehot), wt) * keep)
+    np.testing.assert_allclose(out, ref, **TOL)
+    np.testing.assert_allclose(out, ref_t, **TOL)
+    np.testing.assert_allclose(dx, dx_ref, **TOL)
+    np.testing.assert_allclose(dw, dw_ref, **TOL)
+    if masked:
+        assert not out[~mask].any() and not dx[~mask].any()
+
+
 def test_linear_plan_matches_jax():
     rng = np.random.default_rng(2)
     lj = jtp.LinearPlan(Irreps("4x0e+2x1o+2x2e+4e"), Irreps("2x0e+2x2e+4e"))
