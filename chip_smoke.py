@@ -170,7 +170,7 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      `DetectAnomaly` after every backbone layer) with the INFO model's
      weights gives its output bitwise; a NaN put into one node feature
      after the first layer raises FloatingPointError naming the field and
-     the layer; one `StepTimer` step reports edges/s; `profile_trace`
+     the layer; one synchronised forward reports edges/s; `profile_trace`
      writes a Chrome trace;
  25. plans past production, the fourteenth: the three WIDE_CONFIGS (SH up
      to l=5; the conv multiplicities doubled; SH up to l=5 with 4o/4e/5o/5e
@@ -620,6 +620,37 @@ def counts(fused_conv, counters=COUNTERS):
     return {k: getattr(fused_conv, c) for k, c in counters.items()}
 
 
+@contextlib.contextmanager
+def counting():
+    """The tracer on without device marks (`utils.timing.enable(marks=False)`)
+    around a block that counts launches across replays: a replay adds its
+    capture's launches to the kernel counters only while the tracer is
+    on, and without marks the step graphs are those of the tracer off, so
+    the block captures and replays what a user's run does. Inside a block
+    that already counts, it changes nothing."""
+    from matten_tpu_torch.utils import timing
+
+    if timing.enabled():
+        yield
+        return
+    with timing.tracing(marks=False):
+        yield
+
+
+def capture_seconds(since):
+    """The seconds of each step graph capture since the tracer's span
+    `since` (`len(timing.record().spans)` taken before), in capture order."""
+    from matten_tpu_torch.utils import timing
+
+    return [(s.end_ns - s.start_ns) * 1e-9 for s in timing.record().spans[since:] if s.name == "graphs.capture"]
+
+
+def span_count():
+    from matten_tpu_torch.utils import timing
+
+    return len(timing.record().spans)
+
+
 def reset_counts(fused_conv):
     for c in (*COUNTERS.values(), *BF16_COUNTERS.values()):
         setattr(fused_conv, c, 0)
@@ -992,7 +1023,8 @@ def nmr_phases(dev, card, torch, check_forward, check_backward, elastic_model, e
     losses = []
     for _ in range(TRAIN_STEPS):
         reset_counts(fused_conv)
-        loss, metric_sums = trainer.train_step(data, targets)
+        with counting():
+            loss, metric_sums = trainer.train_step(data, targets)
         losses.append(float(loss))
         step_counts = counts(fused_conv)
         if any(v != len(convs) for v in step_counts.values()):
@@ -1152,7 +1184,8 @@ def run_script(script, config, fused_conv, torch):
     try:
         reset_counts(fused_conv)
         t0 = time.perf_counter()
-        metrics = script.main(config)
+        with counting():
+            metrics = script.main(config)
         torch.cuda.synchronize()
         launched = counts(fused_conv)
     finally:
@@ -1210,7 +1243,8 @@ def fit_against_plain(label, trainer, convs, fused_conv, torch):
     for split in ("train", "val", "test"):
         batches = list(getattr(dm, f"{split}_dataloader")())
         before = counts(fused_conv)
-        k = trainer._run_eval(batches)
+        with counting():
+            k = trainer._run_eval(batches)
         mid = counts(fused_conv)
         with fused_conv.force_plain():
             p = plain._run_eval(batches)
@@ -1533,7 +1567,8 @@ def variant_phases(dev, card, torch, check_forward, check_backward, production, 
     losses = []
     for _ in range(TRAIN_STEPS):
         reset_counts(fused_conv)
-        loss, metric_sums = trainer.train_step(data, targets_d)
+        with counting():
+            loss, metric_sums = trainer.train_step(data, targets_d)
         losses.append(float(loss))
         step_counts = counts(fused_conv)
         if any(v != len(convs) for v in step_counts.values()):
@@ -1794,6 +1829,7 @@ def mesh_twins(case, mesh, dev, task, torch):
                "b": shard_batch(mesh, *case["batch_half"], dev, per_atom)}
     if batch_key(*batches["a"]) == batch_key(*batches["b"]):
         raise AssertionError(f"{case['name']}: its two batches share one pad shape")
+    since = span_count()
     label = f"{case['name']} rank {mesh.rank}"
     convs = (case["hparams"]["num_layers"] + 1) * (case["n_graph"] if case["mode"] == "node_ring" else 1)
     errs, replays = [], 0
@@ -1810,7 +1846,7 @@ def mesh_twins(case, mesh, dev, task, torch):
     state.update({f"{n} {k}": g.optimizer.state[p][k].cpu().numpy().copy()
                   for n, p in g.model.named_parameters() for k in ("exp_avg", "exp_avg_sq")})
     out = {"loss_err": max(errs), "state_err": state_errors(g, e)[:3], "replays": replays, "state": state,
-           "pool_mib": g._graphs.pool_bytes() / 2**20, "capture_s": sorted(g._graphs.capture_seconds().values())}
+           "pool_mib": g._graphs.pool_bytes() / 2**20, "capture_s": sorted(capture_seconds(since))}
     g.free_graphs()  # before the group's communicators go: never left to the garbage collector
     return out
 
@@ -1903,7 +1939,8 @@ def mesh_rank(rank, world_size, job):
         if graphed:
             torch.cuda.set_sync_debug_mode("error")
         try:
-            loss, metrics = trainer.train_step(data, targets)
+            with counting():
+                loss, metrics = trainer.train_step(data, targets)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -2009,7 +2046,7 @@ def profiled_steps(step, logdir, rank, fused_conv, torch, label, inside=None):
         dist.barrier()
         torch.cuda.synchronize()
         before = counts(fused_conv)
-        with torch.profiler.record_function(STEADY):
+        with counting(), torch.profiler.record_function(STEADY):
             for _ in range(n):
                 step()
             torch.cuda.synchronize()
@@ -2897,7 +2934,7 @@ def session_probe_rank(rank, world_size, job):
     with tempfile.TemporaryDirectory() as tmp:
         def session(k, work):
             before = counts(fused_conv)
-            with profile_trace(str(Path(tmp) / f"session{k}")):
+            with profile_trace(str(Path(tmp) / f"session{k}")), counting():
                 work()
                 torch.cuda.synchronize()
             ev = before_free_range(trace_events(Path(tmp) / f"session{k}" / "trace.json"))
@@ -3248,7 +3285,7 @@ def debug_phase(dev, card, torch, model, data):
     `DetectAnomaly` after every backbone layer) with the INFO model's
     weights, its output bitwise equal to the INFO model's; a NaN put into
     one node feature after the first layer raises FloatingPointError naming
-    the field and the layer; one `StepTimer` step reports edges/s and
+    the field and the layer; one synchronised forward reports edges/s and
     `profile_trace` writes a trace."""
     import re
 
@@ -3256,7 +3293,7 @@ def debug_phase(dev, card, torch, model, data):
     from matten_tpu_torch.models import create_scalar_tensor_model
     from matten_tpu_torch.utils.anomaly import DetectAnomaly
     from matten_tpu_torch.utils.logging import get_log_level, set_logger
-    from matten_tpu_torch.utils.timing import StepTimer, profile_trace
+    from matten_tpu_torch.utils.timing import profile_trace
 
     prev = get_log_level()
     set_logger("DEBUG", filename=None)
@@ -3296,12 +3333,14 @@ def debug_phase(dev, card, torch, model, data):
     if "'node_features'" not in raised or "species_embedding" not in raised:
         raise AssertionError(f"the DEBUG check names another field or layer: {raised}")
 
-    timer = StepTimer()
     n_edges = int(data[K.EDGE_MASK].sum())
     with torch.inference_mode():
-        # the step ends when the card behind the batch has finished
-        with timer.step(data[K.POSITIONS], num_edges=n_edges):
-            out = model(data)
+        # the step ends when the card has finished it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(data)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
         with tempfile.TemporaryDirectory() as logdir:
             with profile_trace(logdir):
                 model(data)
@@ -3309,11 +3348,11 @@ def debug_phase(dev, card, torch, model, data):
             trace = Path(logdir, "trace.json").read_text()
     json.loads(trace)
     kernels_traced = "fused_uvu_conv_fwd" in trace
-    if not (timer.edges_per_s > 0 and bool(torch.isfinite(out).all())):
-        raise AssertionError(f"StepTimer: {timer.edges_per_s} edges/s")
+    if not (seconds > 0 and bool(torch.isfinite(out).all())):
+        raise AssertionError(f"one synced forward: {seconds} s, finite {bool(torch.isfinite(out).all())}")
     print(f"[24 DEBUG and timing] {card}: DEBUG model ({n_checks} anomaly checks) bitwise equal to the "
-          f"INFO model; NaN after layer 0 raised: {raised}; StepTimer one forward "
-          f"{timer.seconds * 1e3:.3f} ms, {timer.edges_per_s:.4g} real edges/s; profile_trace wrote "
+          f"INFO model; NaN after layer 0 raised: {raised}; one synced forward "
+          f"{seconds * 1e3:.3f} ms, {n_edges / seconds:.4g} real edges/s; profile_trace wrote "
           f"{len(trace)} bytes of Chrome trace, K1 in it: {kernels_traced}", flush=True)
 
 
@@ -3441,7 +3480,8 @@ def wide_phase(dev, card, torch, check_forward, check_backward, data, targets, s
             if not worst[0] <= MODEL_TOL:
                 raise AssertionError(f"{name}: step {step}'s gradients disagree with the plain path: {worst}")
             reset_counts(fused_conv)
-            loss, _ = trainer.train_step(data, targets)
+            with counting():
+                loss, _ = trainer.train_step(data, targets)
             torch.cuda.synchronize()
             step_counts, by_tier = counts(fused_conv), Counter(fused_conv.tier_launches)
             if any(v != len(plans) for v in step_counts.values()) or by_tier != step_tiers:
@@ -3495,7 +3535,8 @@ def graphed_step(label, g, e, kind, batch, want, torch):
     if replay:
         torch.cuda.set_sync_debug_mode("error")
     try:
-        lg, mg = getattr(g, kind)(*batch)
+        with counting():
+            lg, mg = getattr(g, kind)(*batch)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     got = {k: v - before[k] for k, v in counts(fused_conv).items()}
@@ -3552,6 +3593,7 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
     config = TrainerConfig(lr=0.01, weight_decay=trainer.config.weight_decay)
     g = Trainer(copy.deepcopy(trainer.model), trainer.tasks, config, device=dev)
     e = eager(Trainer(copy.deepcopy(trainer.model), trainer.tasks, config, device=dev))
+    since = span_count()
     if g._graphs is None or e._graphs is not None or not g.optimizer.defaults["capturable"]:
         raise AssertionError(f"{label}: the graphed trainer has no step graphs or the eager one has")
     convs = len(conv_layers(g.model))
@@ -3589,8 +3631,7 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
     if not state_err[0][0] <= MODEL_TOL:
         raise AssertionError(f"{label}: graphed and eager parameters or Adam moments apart: {state_err[:3]}")
     # each key by its kind and its node count
-    capture_s = {f"{k[0]} N={next(shp[0] for n, shp, _ in k[-1][0] if n == K.NODE_MASK)}": v
-                 for k, v in g._graphs.capture_seconds().items()}
+    capture_s = capture_seconds(since)
     pool_mib = g._graphs.pool_bytes() / 2**20
     # what a step adds at its peak to the resident (a replay: its pool resident)
     peak_mib = {name: own_peak_mib(lambda: t.train_step(*a), torch) for name, t in (("graphed", g), ("eager", e))}
@@ -3618,8 +3659,9 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
     with tempfile.TemporaryDirectory() as tmp:
         for name, t in (("graphed", g), ("eager", e)):
             before = counts(fused_conv)
-            ev, prof[name] = traced(lambda: t.train_step(*a), GRAPH_PROFILED_STEPS, Path(tmp),
-                                    f"{name}_step", torch)
+            with counting():
+                ev, prof[name] = traced(lambda: t.train_step(*a), GRAPH_PROFILED_STEPS, Path(tmp),
+                                        f"{name}_step", torch)
             counted = {k: (v - before[k]) / GRAPH_PROFILED_STEPS for k, v in counts(fused_conv).items()}
             in_trace[name] = {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev)
                               / GRAPH_PROFILED_STEPS for k in KERNEL_NAMES}
@@ -3652,7 +3694,7 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
           + "; ".join(f"{n}: {device_summary(st)}" for n, st in prof.items()), flush=True)
     print(f"[{phase} graph memory, {label}] {card}: the graphs' pools {pool_mib:.1f} MiB; a train step's own peak "
           f"MiB above the resident, graphed {peak_mib['graphed']:.1f}, eager {peak_mib['eager']:.1f}; capture s per "
-          "key (kind, N): " + ", ".join(f"{k} {v:.3f}" for k, v in capture_s.items()), flush=True)
+          "capture, in order: " + ", ".join(f"{v:.3f}" for v in capture_s), flush=True)
     return dict(launched=launched, wall=wall, event_ms=event_ms, prof=prof, pool_mib=pool_mib, peak_mib=peak_mib)
 
 
@@ -3751,9 +3793,12 @@ def screening_call(model, normalizer, card, torch):
 
     def graphed_call():
         steps = StepGraphs({"forward": lambda data, _targets: _served(model, data)})
+        nonlocal since
+        since = span_count()
         return serve_chunks(graphs, model, normalizer, SCREEN_BATCH,
                             lambda b: steps.run("forward", b, {}), torch), steps
 
+    since = 0
     eager_call()  # warm: every shape's tables and caches
     wall = {"eager": [], "graphed": []}
     for r in range(2 * SCREEN_REPS):
@@ -3775,7 +3820,7 @@ def screening_call(model, normalizer, card, torch):
         shapes = {field: shape for field, shape, _ in key[-1][0]}
         return shapes["pos"][0], shapes["edge_index"][1]
 
-    capture = {padded(k): g.capture_s for k, g in steps.graphs.items()}
+    capture = dict(zip((padded(k) for k in steps.graphs), capture_seconds(since)[-len(steps.graphs):]))
     pools = {padded(k): g.pool_bytes() / 2**20 for k, g in steps.graphs.items()}
     captures = len(steps.graphs)
     replays = sum(n - 2 for n in seen.values() if n > 2)
@@ -3853,6 +3898,7 @@ def predict_phase(dev, card, torch, ckpt_root, families):
         data, _ = collate_graphs(whole, pad_spec_for(whole), species_map=atomic_number_map(SPECIES_5))
         batch = batch_to_device(data, dev)
         steps = StepGraphs({"forward": lambda d, _t: _served(model, d)})
+        since = span_count()
 
         def replay():
             return steps.run("forward", batch, {})
@@ -3862,12 +3908,14 @@ def predict_phase(dev, card, torch, ckpt_root, families):
             replay()
             replay()  # captured, replayed
             before = counts(fused_conv)
-            out_g = replay()
+            with counting():
+                out_g = replay()
             replayed = {k: v - before[k] for k, v in counts(fused_conv).items()}
             fwd_err = rel_err(out_g, out_e)
             with tempfile.TemporaryDirectory() as tmp:
                 before = counts(fused_conv)
-                ev, _ = traced(replay, PREDICT_TRACED, Path(tmp), "forward", torch)
+                with counting():
+                    ev, _ = traced(replay, PREDICT_TRACED, Path(tmp), "forward", torch)
             counted = {k: (v - before[k]) / PREDICT_TRACED for k, v in counts(fused_conv).items()}
             in_trace = {k: sum(x.get("cat") == "kernel" and is_kind(x["name"], k) for x in ev) / PREDICT_TRACED
                         for k in KERNEL_NAMES}
@@ -3881,7 +3929,7 @@ def predict_phase(dev, card, torch, ckpt_root, families):
                     torch.cuda.synchronize()
                     wall[how].append((time.perf_counter() - t0) * 1e3)
         pool_mib = steps.pool_bytes() / 2**20
-        capture_s = list(steps.capture_seconds().values())
+        capture_s = capture_seconds(since)
         steps.drop()
         if replayed != per_chunk or not fwd_err <= PREDICT_TOL:
             raise AssertionError(f"27 {name}: a replayed forward launched {replayed}, max|d|/max|ref| {fwd_err}")
@@ -4590,7 +4638,8 @@ def main() -> int:
     losses, trained = [], {k: 0 for k in COUNTERS}
     for _ in range(TRAIN_STEPS):
         reset_counts(fused_conv)
-        loss, metric_sums = trainer.train_step(data, targets)
+        with counting():
+            loss, metric_sums = trainer.train_step(data, targets)
         losses.append(float(loss))
         step_counts = counts(fused_conv)
         if any(v != len(convs) for v in step_counts.values()):

@@ -97,11 +97,17 @@ def build() -> Path:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load once, and declare the C signatures."""
+    """Build if needed, load once, and declare the C signatures. The build
+    and load are the span "kernels.load" of the tracer (`utils.timing`),
+    recorded whether it is on or not: the first step that launches a
+    kernel holds them, and a reader of that step's time can take them out."""
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(str(build()))
+    from matten_tpu_torch.utils import timing
+
+    with timing.span("kernels.load", always=True):
+        lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_uvu_conv_fwd.argtypes = [p] * 16 + [i] * 13 + [p]
     lib.fused_uvu_conv_fwd.restype = ctypes.c_int
@@ -109,6 +115,8 @@ def load_library() -> ctypes.CDLL:
     lib.fused_uvu_conv_bwd.restype = ctypes.c_int
     lib.segment_sum.argtypes = [p] * 4 + [i] * 3 + [p]
     lib.segment_sum.restype = ctypes.c_int
+    lib.stamp.argtypes = [p, p]
+    lib.stamp.restype = ctypes.c_int
     for kind in ("fwd", "bwd"):
         fn = getattr(lib, f"fused_uvu_conv_{kind}_smem")
         fn.argtypes = [i] * 9

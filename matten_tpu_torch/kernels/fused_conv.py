@@ -94,9 +94,10 @@ __all__ = [
 # kernel launches in this process: K1's item pass (`launches`), the segment
 # sum in its two roles (K1's partial rows, dx), the merged backward, and the
 # bf16-storage instances of K1's item pass and the merged backward; each is
-# added to right where its kernel launches, and by the replay of a captured
-# step (train/graphs.py) what its capture launched; nothing else touches
-# them except a caller resetting them
+# added to right where its kernel launches, and, while the tracer
+# (utils/timing.py) is on, by the replay of a captured step
+# (train/graphs.py) what its capture launched; nothing else touches them
+# except a caller resetting them
 launches = 0
 fwd_sum_launches = 0
 bwd_launches = 0

@@ -45,6 +45,7 @@ from matten_tpu_torch.nn.nodewise import NodewiseLinear, NodewiseReduce
 from matten_tpu_torch.nn.sequential import Sequential
 from matten_tpu_torch.ops.cartesian import cartesian_tensor_map
 from matten_tpu_torch.ops.tensor_product import LinearPlan
+from matten_tpu_torch.utils import timing
 from matten_tpu_torch.utils.anomaly import DetectAnomaly
 from matten_tpu_torch.utils.logging import get_log_level
 
@@ -184,15 +185,16 @@ class ScalarTensorModel(torch.nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
         x = self.backbone(data)[OUT_FIELD]
+        timing.mark("head")
         out = self.plan.apply(x, self.w_out)
         if self.output_format == "cartesian" and self.output_formula != "scalar":
             out = cartesian_tensor_map(self.output_formula).to_cartesian(out)
         if not self.scalar_target_names:
-            return out
+            return timing.grad_mark(out, "head")
         preds = {self.tensor_target_name: out}
         for name in self.scalar_target_names:
             preds[name] = self.scalar_plan.apply(x, getattr(self, f"w_{name}"))
-        return preds
+        return {k: timing.grad_mark(v, "head") for k, v in preds.items()}
 
 
 class AtomicTensorModel(torch.nn.Module):

@@ -47,6 +47,7 @@ from matten_tpu_torch.ops.tensor_product import (
 )
 from matten_tpu_torch.parallel.collectives import all_gather, psum, ring_shift
 from matten_tpu_torch.parallel.sharding import GRAPH_MODES, NODE_MODES, bound_axis
+from matten_tpu_torch.utils import timing
 
 
 # the conv kernels' edge plan (`kernels.fused_conv.EdgePlan`: the checked
@@ -176,9 +177,15 @@ class PointConv(torch.nn.Module):
         num_nodes = feats.shape[0]
         apply_sc = self.species_fctp(data)
 
-        self_connection = apply_sc(feats, self.w_sc, self.sc_plan)
-        feats = apply_sc(feats, self.w_lin1, self.lin1_plan)
-        edge_weights = self.radial_mlp(data[K.EDGE_EMBEDDING]).contiguous()
+        # the device's time by layer while a step's marks are recorded
+        # (`utils.timing`): the species FCTPs, the radial MLP, the conv
+        # (edge plan, K1 and its sums); each output's backward twin
+        timing.mark("fctp")
+        self_connection = timing.grad_mark(apply_sc(feats, self.w_sc, self.sc_plan), "fctp")
+        feats = timing.grad_mark(apply_sc(feats, self.w_lin1, self.lin1_plan), "fctp")
+        timing.mark("radial")
+        edge_weights = timing.grad_mark(self.radial_mlp(data[K.EDGE_EMBEDDING]).contiguous(), "radial")
+        timing.mark("conv")
         sh = data[K.EDGE_ATTRS].contiguous()
         mode = None if self.graph_axis is None else self.graph_shard_mode
         axis = None if mode is None else bound_axis(data, self.graph_axis)
@@ -218,8 +225,10 @@ class PointConv(torch.nn.Module):
             agg = agg / float(np.sqrt(self.avg_num_neighbors))
         else:
             agg = agg / torch.sqrt(data[K.NUM_NEIGH].clamp_min(1.0))[:, None]
+        agg = timing.grad_mark(agg, "conv")
 
-        conv_out = apply_sc(agg, self.w_lin2, self.lin2_plan)
+        timing.mark("fctp")
+        conv_out = timing.grad_mark(apply_sc(agg, self.w_lin2, self.lin2_plan), "fctp")
         if mode == "edge":
             # each rank's partial convolution, linear in agg through lin2
             conv_out = psum(conv_out, axis)
@@ -286,7 +295,9 @@ class PointConvWithActivation(torch.nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = self.conv(data)
-        x = self.activation(data[K.NODE_FEATURES])
+        timing.mark("gate")
+        x = timing.grad_mark(self.activation(data[K.NODE_FEATURES]), "gate")
+        timing.mark("norm")
         mask = data.get(K.NODE_MASK)
         if isinstance(self.norm, IrrepsInstanceNorm):
             num_graphs = data[K.CELL].reshape(-1, 3, 3).shape[0]
@@ -295,5 +306,5 @@ class PointConvWithActivation(torch.nn.Module):
             x = self.norm(x, mask=mask, data=data)
         if mask is not None:
             x = x * mask[:, None].to(x.dtype)
-        data[K.NODE_FEATURES] = x
+        data[K.NODE_FEATURES] = timing.grad_mark(x, "norm")
         return data

@@ -79,6 +79,8 @@ class SphericalHarmonicEdgeAttrs(torch.nn.Module):
     `gather_axis` names the graph axis of a node-sharded model
     (`gather_positions`)."""
 
+    MARK = "embed"  # its device time's name (`nn.sequential.Sequential`)
+
     def __init__(self, irreps_in: Mapping, irreps_edge_sh: Irreps, require_position_gradients: bool = False,
                  gather_axis: Optional[str] = None):
         super().__init__()

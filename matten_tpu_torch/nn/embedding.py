@@ -37,6 +37,8 @@ class SpeciesEmbedding(torch.nn.Module):
     `use_global_feats` its per-crystal `global_feats` [G, F], gathered per
     node by `batch` and zeroed on padded nodes: features [N, D + A + F]."""
 
+    MARK = "embed"  # its device time's name (`nn.sequential.Sequential`)
+
     def __init__(
         self,
         irreps_in: Mapping,
@@ -143,6 +145,8 @@ class EdgeLengthEmbedding(torch.nn.Module):
     scaled by sqrt(num_basis) and zeroed on padding edges by the edge mask
     (the bessel window already zeroes their zero length; the gaussian has
     no window). `gather_axis`: as `SphericalHarmonicEdgeAttrs`'."""
+
+    MARK = "embed"  # its device time's name (`nn.sequential.Sequential`)
 
     def __init__(
         self,

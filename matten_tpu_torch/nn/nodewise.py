@@ -22,6 +22,8 @@ from matten_tpu_torch.parallel.sharding import bound_axis
 class NodewiseLinear(torch.nn.Module):
     """Equivariant linear map on a node field (e3nn o3.Linear, no bias)."""
 
+    MARK = "head"  # its device time's name (`nn.sequential.Sequential`)
+
     def __init__(
         self,
         irreps_in: Mapping,
@@ -52,6 +54,8 @@ class NodewiseReduce(torch.nn.Module):
     the graph axis of a node-sharded model, a graph's nodes may lie on
     several ranks: the per-graph sums and counts are summed over the axis
     (sum, mean), the per-graph extremes reduced by pmin / pmax (min, max)."""
+
+    MARK = "head"  # its device time's name (`nn.sequential.Sequential`)
 
     def __init__(
         self,

@@ -2,7 +2,10 @@
 
 Counterpart of `matten_tpu/nn/sequential.py`: consecutive dict-passing
 modules are checked at build time so that each one's declared outputs cover
-the next one's inputs with matching irreps.
+the next one's inputs with matching irreps. While a step's layer marks are
+recorded (`utils.timing`), a layer with a `MARK` name is marked on the
+device by it, and its new outputs that take a gradient by its backward
+twin; the convs mark their own parts.
 """
 
 from __future__ import annotations
@@ -10,6 +13,8 @@ from __future__ import annotations
 from typing import Dict, Sequence
 
 import torch
+
+from matten_tpu_torch.utils import timing
 
 
 def validate_chain(modules: Sequence[torch.nn.Module]) -> None:
@@ -44,5 +49,12 @@ class Sequential(torch.nn.Module):
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         for layer in self.layers:
-            data = layer(data)
+            name = getattr(layer, "MARK", None)
+            if name is None or not timing.marking():
+                data = layer(data)
+                continue
+            timing.mark(name)
+            out = layer(data)
+            data = {k: timing.grad_mark(v, name) if torch.is_tensor(v) and v is not data.get(k) else v
+                    for k, v in out.items()}
         return data

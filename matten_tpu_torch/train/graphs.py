@@ -20,11 +20,20 @@ mesh the NCCL communicators created, the point-to-point one of the ring
 shift included); the second captures the step into a graph with its own
 memory pool and replays it; every later sight replays it. So no extra step
 is taken: every call is one real step. A replay copies the batch into the
-graph's static inputs (device-to-device, no host sync), launches the graph,
-adds to the kernel launch counters of `kernels.fused_conv` what the capture
-launched, and returns a copy of the step's outputs, which the next replay
-overwrites. A capture that fails raises; nothing falls back to the eager
-step.
+graph's static inputs (device-to-device, no host sync), launches the graph
+and returns a copy of the step's outputs, which the next replay
+overwrites; while the tracer (`utils.timing`) is on it also adds to the
+kernel launch counters of `kernels.fused_conv` what the capture launched.
+A capture that fails raises; nothing falls back to the eager step.
+
+With the tracer recording device marks, a key's graph is another
+(`utils.timing.marks_on` is part of the key): its capture bakes the
+model's layer marks into it, as kernel nodes
+(`utils.timing.DeviceClock`); with the tracer on without marks, the
+graphs are those of the tracer off. A first sight, a capture and a drop
+are spans of the tracer ("graphs.first_sight", "graphs.capture",
+"graphs.drop", recorded whether it is on or not); a replay is one
+("graphs.replay") while it is on, with the counter "graphs.replays".
 
 A capture records the NCCL collectives of a mesh step (all-reduces,
 all-gathers and the ring's sends and receives) with the kernels around
@@ -61,11 +70,15 @@ a session of its own. Without it, a later session's launch of another
 step graph died on a segmentation fault inside CUPTI; where the user has
 set TEARDOWN_CUPTI, later sessions are refused instead
 (`utils.timing._Profile` says why).
+
+Python's garbage collector is off while a step is captured: a collection
+that fell inside a capture (moved there by the allocations before it) made
+the capture fail with cudaErrorStreamCaptureInvalidated on an H100.
 """
 
 from __future__ import annotations
 
-import time
+import gc
 import weakref
 from collections import Counter
 from typing import Any, Callable, Dict, Optional, Tuple, Union
@@ -75,6 +88,7 @@ import torch
 from matten_tpu_torch.kernels import fused_conv, fused_tp
 from matten_tpu_torch.parallel.sharding import MESH
 from matten_tpu_torch.utils.anomaly import DetectAnomaly
+from matten_tpu_torch.utils import timing
 from matten_tpu_torch.utils.timing import release_cupti, traced_before_free
 
 __all__ = ["StepGraphs", "batch_key", "can_capture", "live_graphs"]
@@ -124,8 +138,8 @@ def _set_counts(counts: Dict[str, int], tiers: Counter) -> None:
 
 
 class _Captured:
-    """One captured step: its graph, static inputs and outputs, and the
-    launches its capture made."""
+    """One captured step: its graph, static inputs and outputs, the
+    launches its capture made, and its layer marks while the tracer is on."""
 
     def __init__(self, step: Callable[[Dict, Dict], Outputs], data: Dict, targets: Dict):
         # the batch's other entries (the mesh) go into the static dict as they are
@@ -137,7 +151,10 @@ class _Captured:
                        for k, v in part.items() if torch.is_tensor(v)]
         self.graph = torch.cuda.CUDAGraph()
         before = _counts()
-        t0 = time.perf_counter()
+        # no garbage collection inside the capture (`torch.cuda.graph` runs
+        # one before it): one that fell inside a capture made it fail
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # the graph's own memory pool: nothing else allocates from it
             with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
@@ -145,22 +162,35 @@ class _Captured:
                 self.single = torch.is_tensor(out)
                 self.out = (out,) if self.single else tuple(out)
         finally:
+            if collecting:
+                gc.enable()
             after = _counts()
             _set_counts(*before)
-        self.capture_s = time.perf_counter() - t0
+        self.marks = timing.captured_marks()
         _LIVE.add(self)
         self.launches = {c: after[0][c] - before[0][c] for c in COUNTERS}
         self.tier_launches = after[1] - before[1]
 
     def replay(self, data: Dict, targets: Dict) -> Outputs:
-        batch = (data, targets)
-        for v, i, k in self.inputs:
-            v.copy_(batch[i][k], non_blocking=True)
-        self.graph.replay()
-        counts, tiers = _counts()
-        _set_counts({c: counts[c] + self.launches[c] for c in COUNTERS}, tiers + self.tier_launches)
-        out = tuple(x.clone() for x in self.out)
+        with timing.span("graphs.replay"):
+            batch = (data, targets)
+            for v, i, k in self.inputs:
+                v.copy_(batch[i][k], non_blocking=True)
+            timing.step_launch()
+            self.graph.replay()
+            if timing.enabled():
+                self._count()
+            out = tuple(x.clone() for x in self.out)
         return out[0] if self.single else out
+
+    def _count(self) -> None:
+        """A replay in the tracer's counter and marks, and its launches in
+        the counters of `kernels.fused_conv`."""
+        timing.replayed(self.marks)
+        timing.count("graphs.replays")
+        for c, n in self.launches.items():
+            setattr(fused_conv, c, getattr(fused_conv, c) + n)
+        fused_conv.tier_launches.update(self.tier_launches)
 
     def pool_bytes(self) -> int:
         """Bytes of the device memory segments of the graph's pool."""
@@ -189,10 +219,11 @@ class StepGraphs:
 
     def key(self, kind: str, data: Dict, targets: Dict) -> Tuple:
         """(kind, the conv's tier settings, the mesh's (n_data, n_graph,
-        mode) or None, `batch_key`)."""
+        mode) or None, whether the tracer records marks, `batch_key`)."""
         mesh = data.get(MESH)
         return (kind, fused_tp.get_tp_impl(), fused_tp.get_kernel_in_dtype(), fused_conv._smem_cap,
-                None if mesh is None else (mesh.n_data, mesh.n_graph, mesh.mode), batch_key(data, targets))
+                None if mesh is None else (mesh.n_data, mesh.n_graph, mesh.mode), timing.marks_on(),
+                batch_key(data, targets))
 
     def run(self, kind: str, data: Dict, targets: Dict) -> Outputs:
         key = self.key(kind, data, targets)
@@ -200,8 +231,10 @@ class StepGraphs:
         if captured is None:
             if key not in self.seen:
                 self.seen.add(key)
-                return self.steps[kind](data, targets)
-            captured = self.graphs[key] = _Captured(self.steps[kind], data, targets)
+                with timing.span("graphs.first_sight", always=True):
+                    return self.steps[kind](data, targets)
+            with timing.span("graphs.capture", always=True):
+                captured = self.graphs[key] = _Captured(self.steps[kind], data, targets)
         if self.prepare is not None:
             self.prepare(kind)
         return captured.replay(data, targets)
@@ -220,18 +253,16 @@ class StepGraphs:
         freed = [g for k, g in self.graphs.items() if k not in kept]
         if not freed:
             return
-        if self.forward is not None:
-            counts = _counts()
-            first = freed[0]
-            traced_before_free(lambda: self.forward(first.data, first.targets))
-            _set_counts(*counts)
-            del first
-        self.graphs = kept
-        del freed  # the last references: the graphs are freed here
-        release_cupti()
-
-    def capture_seconds(self) -> Dict[Tuple, float]:
-        return {k: g.capture_s for k, g in self.graphs.items()}
+        with timing.span("graphs.drop", always=True):
+            if self.forward is not None:
+                counts = _counts()
+                first = freed[0]
+                traced_before_free(lambda: self.forward(first.data, first.targets))
+                _set_counts(*counts)
+                del first
+            self.graphs = kept
+            del freed  # the last references: the graphs are freed here
+            release_cupti()
 
     def pool_bytes(self) -> int:
         """Bytes held by the pools of every graph."""

@@ -52,6 +52,18 @@ running statistics are averaged over the data axis; the metric sums are
 summed as the loss's. So every rank holds the same parameters, losses and
 metrics and takes the same plateau and early-stopping decisions; only the
 primary rank writes checkpoints and logs, and every rank reads them back.
+
+The fit loop's spans (`utils.timing`; recorded while the tracer is on,
+"fit.epoch" always): "fit.loader" (each batch the loader yields),
+"fit.feed" (`_device_group`: the host check, stack, pin and copy of a
+group; counter "feed.h2d_bytes", the bytes copied to the card), "fit.step" (a train or eval step),
+"fit.eval" (the validation), "fit.epoch_end" (from the validation's end to
+the epoch's end) and "fit.sync" (each host read that waits for the card,
+inside "fit.eval" and "fit.epoch_end"). A step's device time is marked by
+layer (`utils.timing.mark`: "embed", "fctp", "radial", "conv", "gate",
+"norm", "head", "loss", "adam" and their backward twins "bwd.<name>") and
+as a whole (`step_start` / `step_end`); the marks are read at the epoch
+end, after its sync.
 """
 
 from __future__ import annotations
@@ -71,6 +83,7 @@ from matten_tpu_torch.parallel.sharding import MESH, NODE_MODES, Mesh, check_blo
 from matten_tpu_torch.train.checkpoint import CheckpointManager
 from matten_tpu_torch.train.graphs import StepGraphs, batch_key, can_capture
 from matten_tpu_torch.train.task import Task, masked_abs_err_sum, masked_mse_sums
+from matten_tpu_torch.utils import timing
 
 logger = logging.getLogger(__name__)
 
@@ -240,6 +253,7 @@ class Trainer:
     def _compute_loss(self, preds: Dict, data: Dict, targets: Dict) -> torch.Tensor:
         """Weighted multi-task masked MSE; with a mesh the exact mean over
         the whole batch's rows, the same on every rank."""
+        timing.mark("loss")
         loss = 0.0
         for task in self.tasks:
             mask = self._task_mask(task, data, targets)
@@ -249,7 +263,7 @@ class Trainer:
             num, den = masked_mse_sums(preds[task.name], targets[task.name], mask, sw)
             term = self._global(task, num) / self._global(task, den).clamp_min(1.0)
             loss = loss + task.loss_weight * term
-        return loss
+        return timing.grad_mark(loss, "loss")
 
     @torch.no_grad()
     def _metric_sums(self, preds: Dict, data: Dict, targets: Dict) -> MetricSums:
@@ -293,10 +307,14 @@ class Trainer:
         return flat
 
     def _step(self, kind: str, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
+        started = timing.step_start(kind)
         if self._graphs is None or torch.is_anomaly_enabled():
-            return (self._train_step if kind == "train" else self._eval_step)(data, targets)
-        out = self._graphs.run(kind, data, targets)
-        return out[0], {t.name: (out[1 + 2 * i], out[2 + 2 * i]) for i, t in enumerate(self.tasks)}
+            out = (self._train_step if kind == "train" else self._eval_step)(data, targets)
+        else:
+            flat = self._graphs.run(kind, data, targets)
+            out = flat[0], {t.name: (flat[1 + 2 * i], flat[2 + 2 * i]) for i, t in enumerate(self.tasks)}
+        timing.step_end(started)
+        return out
 
     def train_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
         """Forward (train mode), loss, backward, one optimizer update; on the
@@ -314,6 +332,7 @@ class Trainer:
 
     def _train_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
         """`train_step`, eagerly."""
+        timing.begin_step("train")
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         preds = self._preds(data)
@@ -321,8 +340,12 @@ class Trainer:
         loss.backward()
         if self.mesh is not None:
             self._reduce_across_ranks()
+        timing.mark("adam")
         self.optimizer.step()
-        return loss.detach(), self._metric_sums(preds, data, targets)
+        timing.mark("loss")
+        sums = self._metric_sums(preds, data, targets)
+        timing.end_step()
+        return loss.detach(), sums
 
     def _eval_forward(self, data: Dict, targets: Dict) -> None:
         """`_eval_step` with the model left in the mode it was in: the
@@ -337,9 +360,12 @@ class Trainer:
     @torch.no_grad()
     def _eval_step(self, data: Dict, targets: Dict) -> Tuple[torch.Tensor, MetricSums]:
         """`eval_step`, eagerly."""
+        timing.begin_step("eval")
         self.model.eval()
         preds = self._preds(data)
-        return self._compute_loss(preds, data, targets), self._metric_sums(preds, data, targets)
+        out = self._compute_loss(preds, data, targets), self._metric_sums(preds, data, targets)
+        timing.end_step()
+        return out
 
     def set_lr(self, lr: float) -> None:
         """The learning rate of every param group; a captured train step,
@@ -398,7 +424,12 @@ class Trainer:
         end cuts the group short."""
         k = max(self.config.scan_steps, 1)
         group, key = [], None
-        for batch in loader:
+        batches = iter(loader)
+        while True:
+            with timing.span("fit.loader"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             b_key = batch_key(*batch)
             if group and b_key != key:
                 yield group
@@ -421,25 +452,28 @@ class Trainer:
         of the group's batches is stacked and copied in one copy, on the
         card from pinned memory and non-blocking, so that no copy waits for
         the steps queued before it."""
-        if self.mesh is None:
-            blocks = group
-        else:
-            per_atom = [t.name for t in self.tasks if t.per_atom]
-            blocks = [local_block(self.mesh, b, per_atom) for b in group]
-        for data, _ in blocks:
-            check_block_edges(self.mesh, data)
-        parts = []
-        for i in range(2):
-            stacked = {}
-            for k in blocks[0][i]:
-                host = torch.from_numpy(np.stack([np.asarray(b[i][k]) for b in blocks]))
-                if self.device.type == "cuda":
-                    host = host.pin_memory()
-                stacked[k] = host.to(self.device, non_blocking=True).unbind(0)
-            parts.append([{k: v[j] for k, v in stacked.items()} for j in range(len(blocks))])
-        if self.mesh is not None:
-            parts[0] = [dict(d, **{MESH: self.mesh}) for d in parts[0]]
-        return list(zip(group, zip(*parts)))
+        with timing.span("fit.feed"):
+            if self.mesh is None:
+                blocks = group
+            else:
+                per_atom = [t.name for t in self.tasks if t.per_atom]
+                blocks = [local_block(self.mesh, b, per_atom) for b in group]
+            for data, _ in blocks:
+                check_block_edges(self.mesh, data)
+            parts = []
+            for i in range(2):
+                stacked = {}
+                for k in blocks[0][i]:
+                    host = torch.from_numpy(np.stack([np.asarray(b[i][k]) for b in blocks]))
+                    if self.device.type == "cuda":
+                        host = host.pin_memory()
+                    stacked[k] = host.to(self.device, non_blocking=True).unbind(0)
+                parts.append([{k: v[j] for k, v in stacked.items()} for j in range(len(blocks))])
+            if timing.enabled() and self.device.type == "cuda":
+                timing.count("feed.h2d_bytes", sum(v.nbytes for part in parts for d in part for v in d.values()))
+            if self.mesh is not None:
+                parts[0] = [dict(d, **{MESH: self.mesh}) for d in parts[0]]
+            return list(zip(group, zip(*parts)))
 
     def _run_eval(self, loader: Iterable) -> Dict[str, float]:
         """Loss and MAE per task over a loader, and the score (the sum of
@@ -452,13 +486,15 @@ class Trainer:
         for group in self._groups(loader):
             n += len(group)
             for _, (data, targets) in self._device_group(group):
-                loss, ms = self.eval_step(data, targets)
+                with timing.span("fit.step"):
+                    loss, ms = self.eval_step(data, targets)
                 loss_sum = loss_sum + loss
                 for name, (s, c) in ms.items():
                     sums[name] = [sums[name][0] + s, sums[name][1] + c]
         if n == 0:
             return {"loss": float("nan"), "score": float("inf")}
-        packed = torch.stack([loss_sum] + [x for t in self.tasks for x in sums[t.name]]).tolist()
+        with timing.span("fit.sync"):
+            packed = torch.stack([loss_sum] + [x for t in self.tasks for x in sums[t.name]]).tolist()
         out = {"loss": packed[0] / n}
         score = 0.0
         for i, t in enumerate(self.tasks):
@@ -535,72 +571,78 @@ class Trainer:
             logger.info("resumed from `last` at epoch %d", start_epoch)
 
         for epoch in range(start_epoch, cfg.max_epochs):
-            t0 = time.time()
-            # per-epoch reseed: epoch k draws the same batch order whether or
-            # not training was interrupted before it
-            if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
-            train_losses = []
-            epoch_edges = 0
-            for group in self._groups(train_loader):
-                losses = []
-                for (host, _), (data, targets) in self._device_group(group):
-                    epoch_edges += int(host[K.EDGE_MASK].sum())
-                    losses.append(self.train_step(data, targets)[0])
-                train_losses.append(torch.stack(losses))
+            with timing.epoch(epoch):
+                t0 = time.time()
+                # per-epoch reseed: epoch k draws the same batch order whether or
+                # not training was interrupted before it
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                train_losses = []
+                epoch_edges = 0
+                for group in self._groups(train_loader):
+                    losses = []
+                    for (host, _), (data, targets) in self._device_group(group):
+                        epoch_edges += int(host[K.EDGE_MASK].sum())
+                        with timing.span("fit.step"):
+                            losses.append(self.train_step(data, targets)[0])
+                    train_losses.append(torch.stack(losses))
 
-            val_metrics = self._run_eval(val_loader)
-            score = val_metrics["score"]
-            train_loss = torch.cat(train_losses).mean().item() if train_losses else float("nan")
+                with timing.span("fit.eval"):
+                    val_metrics = self._run_eval(val_loader)
+                with timing.span("fit.epoch_end"):
+                    score = val_metrics["score"]
+                    with timing.span("fit.sync"):
+                        train_loss = torch.cat(train_losses).mean().item() if train_losses else float("nan")
+                    timing.read_marks()
 
-            # plateau scheduler, then best-k save and early stopping on val/score
-            if self.scheduler is not None and self.scheduler.step(score):
-                new_lr = cfg.lr * self.scheduler.scale
-                logger.info("epoch %d: reducing lr to %g", epoch, new_lr)
-                self.set_lr(new_lr)
+                    # plateau scheduler, then best-k save and early stopping on val/score
+                    if self.scheduler is not None and self.scheduler.step(score):
+                        new_lr = cfg.lr * self.scheduler.scale
+                        logger.info("epoch %d: reducing lr to %g", epoch, new_lr)
+                        self.set_lr(new_lr)
 
-            if score < best_score:
-                best_score = score
-                best_epoch = epoch
-                epochs_no_improve = 0
-                if self._ckpt_manager is not None:
-                    self._ckpt_manager.save(epoch, self.state_dict(), metrics={"val/score": score})
-            else:
-                epochs_no_improve += 1
+                    if score < best_score:
+                        best_score = score
+                        best_epoch = epoch
+                        epochs_no_improve = 0
+                        if self._ckpt_manager is not None:
+                            self._ckpt_manager.save(epoch, self.state_dict(), metrics={"val/score": score})
+                    else:
+                        epochs_no_improve += 1
 
-            epoch_time = time.time() - t0
-            rec = {
-                "epoch": epoch,
-                "train/loss": train_loss,
-                "val/loss": val_metrics["loss"],
-                "val/score": score,
-                "lr_scale": self.scheduler.scale if self.scheduler else 1.0,
-                "epoch_time": epoch_time,
-                "cumulative_time": time.time() - t_start,
-                "train/edges_per_s": epoch_edges / max(epoch_time, 1e-9),
-            }
-            rec.update({f"val/{k}": v for k, v in val_metrics.items() if k.startswith("mae")})
-            self.history.append(rec)
-            if self.metrics_logger is not None and self.primary:
-                self.metrics_logger.log(rec, step=epoch)
-            if epoch % cfg.log_every_epochs == 0 and self.primary:
-                logger.info(
-                    "epoch %d: train loss %.5f | val score %.5f | %.2fs",
-                    epoch, rec["train/loss"], score, epoch_time,
-                )
-            stop = epochs_no_improve > cfg.early_stopping_patience
-            if self._ckpt_manager is not None and (
-                stop
-                or epoch == cfg.max_epochs - 1
-                or (epoch + 1) % max(cfg.save_last_every_epochs, 1) == 0
-            ):
-                self._ckpt_manager.save_last(
-                    self.state_dict(),
-                    self._loop_state(epoch, best_score, best_epoch, epochs_no_improve),
-                )
-            if stop:
-                logger.info("early stopping at epoch %d (best %.5f @ %d)", epoch, best_score, best_epoch)
-                break
+                    epoch_time = time.time() - t0
+                    rec = {
+                        "epoch": epoch,
+                        "train/loss": train_loss,
+                        "val/loss": val_metrics["loss"],
+                        "val/score": score,
+                        "lr_scale": self.scheduler.scale if self.scheduler else 1.0,
+                        "epoch_time": epoch_time,
+                        "cumulative_time": time.time() - t_start,
+                        "train/edges_per_s": epoch_edges / max(epoch_time, 1e-9),
+                    }
+                    rec.update({f"val/{k}": v for k, v in val_metrics.items() if k.startswith("mae")})
+                    self.history.append(rec)
+                    if self.metrics_logger is not None and self.primary:
+                        self.metrics_logger.log(rec, step=epoch)
+                    if epoch % cfg.log_every_epochs == 0 and self.primary:
+                        logger.info(
+                            "epoch %d: train loss %.5f | val score %.5f | %.2fs",
+                            epoch, rec["train/loss"], score, epoch_time,
+                        )
+                    stop = epochs_no_improve > cfg.early_stopping_patience
+                    if self._ckpt_manager is not None and (
+                        stop
+                        or epoch == cfg.max_epochs - 1
+                        or (epoch + 1) % max(cfg.save_last_every_epochs, 1) == 0
+                    ):
+                        self._ckpt_manager.save_last(
+                            self.state_dict(),
+                            self._loop_state(epoch, best_score, best_epoch, epochs_no_improve),
+                        )
+                    if stop:
+                        logger.info("early stopping at epoch %d (best %.5f @ %d)", epoch, best_score, best_epoch)
+                        break
         if self.mesh is not None:
             # the other ranks read what the primary rank wrote
             self.mesh.barrier()

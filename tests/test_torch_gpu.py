@@ -794,7 +794,97 @@ def _fit_setup(dev, num_layers=2):
     return DataModule(), task, model
 
 
-def test_fit_launch_counts_and_host_syncs(dev):
+@pytest.fixture
+def tracer():
+    """The port's tracer on for the test, with its device marks."""
+    from matten_tpu_torch.utils import timing
+
+    timing.enable()
+    yield timing
+    timing.disable()
+    timing.clear()
+
+
+@pytest.fixture
+def counting():
+    """The port's tracer on without device marks, for a test that counts
+    launches across replays: a step graph's replay adds its capture's
+    launches to the kernel counters only while the tracer is on, and
+    without marks the step graphs are those of the tracer off."""
+    from matten_tpu_torch.utils import timing
+
+    timing.enable(marks=False)
+    yield timing
+    timing.disable()
+    timing.clear()
+
+
+def _replay_ms(trainer, batch, n=20):
+    """(device ms, host ms) of one train step replay: the medians over `n`
+    synced calls of a pair of CUDA events around it and of the host's time
+    in the call."""
+    import time
+
+    device, host = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        host.append(1e3 * (time.perf_counter() - t0))
+        end.record()
+        torch.cuda.synchronize()
+        device.append(start.elapsed_time(end))
+    return float(np.median(device)), float(np.median(host))
+
+
+def test_graph_layer_marks_hold_across_replays_and_cover_the_step(dev, tracer):
+    """A train step captured with the tracer on holds the model's layer
+    marks as kernel nodes (`utils.timing.DeviceClock`): over 5 replays, each synced and read, the
+    layers' device ms per replay spread by under 2% of their median and sum
+    to at least 90% of the step marks' interval; every layer is there,
+    forward and backward. Printed: a replay's device ms with the marks
+    against the same step captured with the tracer off."""
+    import copy
+
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import Trainer, TrainerConfig
+
+    dm, task, model = _fit_setup(dev)
+    cfg = TrainerConfig(lr=0.01)
+    plain = Trainer(copy.deepcopy(model), [task], cfg, device=dev)
+    t = Trainer(model, [task], cfg, device=dev)
+    data, targets = next(iter(dm.train_dataloader()))
+    batch = batch_to_device(data, dev, targets)
+    for _ in range(3):  # eager, capture, replay
+        t.train_step(*batch)
+    torch.cuda.synchronize()
+    tracer.read_marks()
+    sums, steps = [], []
+    for _ in range(5):
+        t.train_step(*batch)
+        torch.cuda.synchronize()
+        tracer.read_marks()
+        read = tracer.record().reads[-1]
+        assert read.layer_steps == {"train": 1} and [k for k, *_ in read.steps] == ["train"]
+        sums.append(sum(read.layer_ms["train"].values()))
+        steps.append((read.steps[0][2] - read.steps[0][1]) / 1e6)
+    assert set(read.layer_ms["train"]) == {
+        "embed", "fctp", "radial", "conv", "gate", "norm", "head", "loss", "adam", "bwd.loss", "bwd.head",
+        "bwd.fctp", "bwd.conv", "bwd.radial", "bwd.gate", "bwd.norm", "bwd.embed"}, sorted(read.layer_ms["train"])
+    marked = _replay_ms(t, batch)
+    tracer.disable()
+    for _ in range(3):
+        plain.train_step(*batch)
+    unmarked = _replay_ms(plain, batch)
+    print(f"replay (device ms, host ms) with the layer marks {marked}, without {unmarked}; layers per "
+          f"replay {sums}, step marks {steps}; " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                                          sorted(read.layer_ms["train"].items())))
+    assert (max(sums) - min(sums)) / float(np.median(sums)) < 0.02, sums
+    assert all(s >= 0.9 * m for s, m in zip(sums, steps)), (sums, steps)
+
+
+def test_fit_launch_counts_and_host_syncs(dev, counting):
     """A 2-epoch `fit` on the card, after a warm-up epoch that runs each
     batch shape's train and eval step eagerly (building the kernels and
     copying their tables): one launch of each of K1's kernels per conv
@@ -806,7 +896,8 @@ def test_fit_launch_counts_and_host_syncs(dev):
     eager step reads back `edge_plan`'s check. The second sight captures
     the step; the `torch.cuda.synchronize` that `torch.cuda.graph` makes
     before a capture is not reported by the debug mode. A replay waits on
-    nothing."""
+    nothing. The tracer is on without marks (a replay's launches are
+    counted only then; the graphs are those of the tracer off)."""
     import dataclasses
     import warnings
 
@@ -840,7 +931,7 @@ def test_fit_launch_counts_and_host_syncs(dev):
     assert all(np.isfinite(h[k]) for h in history for k in ("train/loss", "val/loss", "val/score"))
 
 
-def test_graphed_steps_match_eager_through_shapes_lr_and_restore(dev, tmp_path):
+def test_graphed_steps_match_eager_through_shapes_lr_and_restore(dev, tmp_path, counting):
     """A graphed trainer and an eager one (its step graphs dropped, as on
     the CPU; the same capturable Adam) from the same weights, step for step through two pad
     shapes, an lr change (the train graphs captured anew) and
@@ -848,7 +939,8 @@ def test_graphed_steps_match_eager_through_shapes_lr_and_restore(dev, tmp_path):
     loss and metric sum within 1e-5 relative, the parameters and Adam
     moments at the end within 1e-4 of their largest entry; the eval step
     graphed against eager; replays without a host sync and with exact
-    launches; a failed capture raises."""
+    launches (the tracer on without marks, which counts a replay's); a failed capture
+    raises."""
     import copy
 
     from matten_tpu_torch.predict import batch_to_device
@@ -1299,14 +1391,14 @@ def test_species_fctp_forms_agree_at_73_species(dev):
         _assert_rel(grads_g[n], r, 1e-4)
 
 
-def test_graphed_128_crystal_train_step_equals_eager(dev):
+def test_graphed_128_crystal_train_step_equals_eager(dev, counting):
     """bench.py's 128-crystal batch (N 1408, E 109568): a graphed trainer
     and its eager twin from the same state, step for step (eager, capture,
     replays, the lr halved, capture, replay; then the eval step's eager,
     capture and replay): every loss and metric sum within 1e-5 relative,
     each replay without a host sync and with one launch of each kernel per
-    conv layer; the parameters and Adam moments at the end within 1e-4 of
-    their largest entry."""
+    conv layer (the tracer on without marks, which counts a replay's); the parameters and
+    Adam moments at the end within 1e-4 of their largest entry."""
     import chip_smoke
 
     data, targets, trainer = _bench_setup(dev, 1, 128, (8, 14), chip_smoke.SPECIES_5)
