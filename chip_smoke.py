@@ -222,19 +222,31 @@ Phases (each prints one line; any failure raises and the exit code is not 0):
      equal), their ms per layer against plain beside the bound; the
      forward and one pass's gradients against `force_plain()`
      (MODEL_TOL, 4 launches of K1's two kernels per forward); the species
-     FCTPs as the masked contraction against the weight gather
-     (`apply_onehot2`, `MATTEN_ONEHOT_GATHER_MIN_S=16`): the forward within
-     1e-5 and one pass's gradients within 1e-4 relative, the eager forward
-     and train step of each form in turns (CUDA events), their own peak
-     memory, and the FCTPs' device ms per layer of each form (the
-     profiler); phase 26's graphed trainer against its eager twin on this
-     batch under each form (6 train steps, the lr halved after 4, 3 eval
-     steps; replays without a host sync, launches exact; pools, a step's
+     FCTPs' three forms (`species_form`: the masked contraction, the weight
+     gather `apply_onehot2` at `MATTEN_ONEHOT_GATHER_MIN_S=16`, and the
+     species FCTP kernels, the card's form), the gather and the kernels
+     against the masked form: the forward within 1e-5 and one pass's
+     gradients within 1e-4 relative, the kernels' "fctp.kernel" count, the
+     eager forward and train step of each form against the kernels in
+     turns (CUDA events), their own peak memory, and the FCTPs' device ms
+     per layer of each form (the profiler); the species FCTP kernels
+     (forward, dx, dW) at each conv layer's own inputs against their plain
+     twin and autograd of it (KERNEL_TOL, two runs bitwise equal), their ms
+     against the twin's beside the bound; phase 26's graphed trainer
+     against its eager twin on this batch under each form (6 train steps,
+     the lr halved after 4, 3 eval
+     steps; replays without a host sync, launches exact, the species FCTP
+     kernels' at their budget under the kernels and none else; pools, a step's
      own peak, CUDA-event and host ms, the conv kernels' device ms per
      layer); a checkpoint directory of the model served by
      `predict(structures, directory)`, `load_pretrained`'s weights equal to
      the model's, every result a finite [3, 3, 3, 3] within 1e-6 of the
-     in-memory `predict`;
+     in-memory `predict`; 28b: the three forms' checks, times, peaks and
+     device ms at 16 species (bench.py's draw over range(3, 19)), the
+     one-hot forms' threshold; 28c: the species FCTP kernels against the
+     masked contraction under edge, node and node_ring sharding, graph 2
+     on a 2-rank gloo world sharing the card (forward and summed
+     gradients, every rank);
  29. 128 crystals, the eighteenth: bench.py's `BENCH_EXTRA` batch
      (`build_batch(np.random.default_rng(1), 128, 8, 14)`, loaded as
      build_batch loads it: N = 1408, E = 109568) through the production
@@ -251,9 +263,12 @@ path's run: phases 6, 8, 12-14, 16-19, the graphed trainers of 26, the
 counted predict calls of 27, the counted forwards, graphed trainers and
 predict call of 28-29 and, summed over both ranks, 20-22; the two
 bf16-storage entries' times, bounds, max |d| and launches are phase 23's;
-the last two entries, K1 and the merged backward at the plans past
+the two entries after them, K1 and the merged backward at the plans past
 production, are phase 25's, with their
-launches per tier and their max |d| at bf16 storage beside); the last line is
+launches per tier and their max |d| at bf16 storage beside; the last three,
+the species FCTP kernels' forward, dx and dW, are phase 28's: times,
+bounds and max |d| at the S=73 batch's own inputs, launches those of the
+kernels' graphed trainer's checked steps); the last line is
 {"ok": true, "device": {...}}. There is no CPU path: without CUDA the
 script fails. The run uses one card: only the first visible device is
 left visible.
@@ -616,8 +631,20 @@ COUNTERS = {"fwd": "launches", "fwd_sum": "fwd_sum_launches", "bwd": "bwd_launch
 BF16_COUNTERS = {"fwd_bf16": "bf16_launches", "bwd_bf16": "bf16_bwd_launches"}
 
 
+# the species FCTP kernels' launch counters in kernels/species_fctp.py:
+# the forward and dx of `species_linear_kernel`, `species_dw_kernel`
+SPECIES_COUNTERS = {"species_fwd": "fwd_launches", "species_dx": "bwd_dx_launches",
+                    "species_dw": "bwd_dw_launches"}
+
+
 def counts(fused_conv, counters=COUNTERS):
     return {k: getattr(fused_conv, c) for k, c in counters.items()}
+
+
+def species_counts():
+    from matten_tpu_torch.kernels import species_fctp
+
+    return counts(species_fctp, SPECIES_COUNTERS)
 
 
 @contextlib.contextmanager
@@ -3524,14 +3551,15 @@ def graphed_step(label, g, e, kind, batch, want, torch):
     """One step of `kind` ("train_step" or "eval_step") on the graphed
     trainer g, then on its eager twin e: g's step a replay (its kind and
     batch key captured before) runs under `set_sync_debug_mode("error")`;
-    its launches must be `want`, and its loss and metric sums within
+    its launches must be `want` (keys of COUNTERS, and of SPECIES_COUNTERS
+    where it names them), and its loss and metric sums within
     GRAPH_LOSS_TOL relative of e's. Returns (g's launches, whether it
     replayed, the relative differences, g's loss)."""
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.train.graphs import batch_key
 
     replay = any(k[0] == kind.split("_")[0] and k[-1] == batch_key(*batch) for k in g._graphs.graphs)
-    before = counts(fused_conv)
+    before = {**counts(fused_conv), **species_counts()}
     if replay:
         torch.cuda.set_sync_debug_mode("error")
     try:
@@ -3539,7 +3567,8 @@ def graphed_step(label, g, e, kind, batch, want, torch):
             lg, mg = getattr(g, kind)(*batch)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    got = {k: v - before[k] for k, v in counts(fused_conv).items()}
+    now = {**counts(fused_conv), **species_counts()}
+    got = {k: now[k] - before[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: launches of one {kind} {got}, expected {want}")
     le, me = getattr(e, kind)(*batch)
@@ -3562,7 +3591,8 @@ def state_errors(g, e):
     return sorted(errs, reverse=True)
 
 
-def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr_step=GRAPH_LR_STEP, phase=26):
+def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr_step=GRAPH_LR_STEP, phase=26,
+                species=False):
     """Phase 26 on one family: a graphed trainer over a deep copy of
     `trainer`'s model and optimizer state against an eager one
     (`eager`, the same capturable Adam) from the same state, step for
@@ -3582,10 +3612,14 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
     sessions, the bytes of the graphs' pools, a step's own peak memory
     graphed and eager and the capture time of each key; then the graphs
     are freed. Its lines are labelled with `phase` (28-29 run it on one
-    batch). Returns the graphed trainer's launches in the checked steps
-    ("launched"), the host ms and CUDA-event ms of the timed steps ("wall",
-    "event_ms"), the profiled steps' stats ("prof"), the pools' MiB
-    ("pool_mib") and the peaks ("peak_mib")."""
+    batch). The species FCTP kernels launch in each checked step at their
+    budget where `species` says the model takes them (2 forward launches
+    per conv layer, and 2 of dx and 2 of dW a train step), else never.
+    Returns the graphed trainer's launches in the checked steps
+    ("launched"; the species FCTP kernels' in "species_launched"), the
+    host ms and CUDA-event ms of the timed steps ("wall", "event_ms"), the
+    profiled steps' stats ("prof"), the pools' MiB ("pool_mib") and the
+    peaks ("peak_mib")."""
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.kernels import fused_conv
     from matten_tpu_torch.train import Trainer, TrainerConfig
@@ -3599,16 +3633,21 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
     convs = len(conv_layers(g.model))
     a, b = batches if len(batches) == 2 else (batches[0], None)
     launched = {k: 0 for k in COUNTERS}
+    species_launched = {k: 0 for k in SPECIES_COUNTERS}
     errs, replays = [], 0
 
     def step(kind, batch):
         nonlocal replays
         want = {k: convs if kind == "train_step" or k.startswith("fwd") else 0 for k in COUNTERS}
+        want.update({k: 2 * convs if species and (kind == "train_step" or k == "species_fwd") else 0
+                     for k in SPECIES_COUNTERS})
         got, replay, step_errs, loss = graphed_step(label, g, e, kind, batch, want, torch)
         replays += replay
         errs.extend(step_errs)
         for k in COUNTERS:
             launched[k] += got[k]
+        for k in SPECIES_COUNTERS:
+            species_launched[k] += got[k]
         return loss
 
     losses, saved = [], None
@@ -3685,8 +3724,9 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
           + f"; worst relative difference of a loss or metric sum {max(errs):.3e} (tol {GRAPH_LOSS_TOL}); "
           f"parameters and Adam moments worst {state_err[0][1]} {state_err[0][0]:.3e} (tol {MODEL_TOL}); "
           f"{replays} replays under set_sync_debug_mode('error'), launches exact ({convs} of each kernel per "
-          f"step); kernels per profiled step in the trace, graphed {in_trace['graphed']}, eager "
-          f"{in_trace['eager']}, each equal to the counters' step", flush=True)
+          f"step; species FCTP kernels {species_launched} in the checked steps); kernels per profiled step in the "
+          f"trace, graphed {in_trace['graphed']}, eager {in_trace['eager']}, each equal to the counters' step",
+          flush=True)
     print(f"[{phase} step time, {label}] {card}: host ms per train step on batch A (synced wall, median and q1-q3 of "
           f"{REPS}; the last after the profiled sessions below): " + "; ".join(f"{n} {np.median(v):.4f} ({np.percentile(v, 25):.4f}-{np.percentile(v, 75):.4f})"
                                   for n, v in wall.items())
@@ -3695,7 +3735,8 @@ def graph_phase(label, dev, card, torch, trainer, batches, steps=GRAPH_STEPS, lr
     print(f"[{phase} graph memory, {label}] {card}: the graphs' pools {pool_mib:.1f} MiB; a train step's own peak "
           f"MiB above the resident, graphed {peak_mib['graphed']:.1f}, eager {peak_mib['eager']:.1f}; capture s per "
           "capture, in order: " + ", ".join(f"{v:.3f}" for v in capture_s), flush=True)
-    return dict(launched=launched, wall=wall, event_ms=event_ms, prof=prof, pool_mib=pool_mib, peak_mib=peak_mib)
+    return dict(launched=launched, species_launched=species_launched, wall=wall, event_ms=event_ms, prof=prof,
+                pool_mib=pool_mib, peak_mib=peak_mib)
 
 
 # phase 27: predict, its forward eager chunk by chunk (predict.py), and what
@@ -4014,6 +4055,34 @@ def gathered_species():
             os.environ[GATHER_VAR] = old
 
 
+SPECIES_16 = tuple(range(3, 19))  # the threshold from which the species FCTPs take a one-hot form
+SPECIES_FORMS = ("masked", "gather", "kernel")
+
+
+@contextlib.contextmanager
+def species_form(form):
+    """The convs' species FCTPs in `form` while the block runs, the conv
+    kernels on: "kernel", the species FCTP kernels (the card's form from 16
+    species on); "masked", the plain contraction against the one-hot times
+    the node mask (the form before them), or "gather", `apply_onehot2`
+    from GATHER_MIN_S species on: `PointConv.species_fctp` sees the "xla"
+    tier, the conv its own. Yields the list of `apply_onehot2` calls."""
+    from types import SimpleNamespace
+
+    from matten_tpu_torch.nn import conv as conv_mod
+
+    if form == "kernel":
+        yield []
+        return
+    tier = conv_mod.fused_tp
+    conv_mod.fused_tp = SimpleNamespace(get_tp_impl=lambda: "xla")
+    try:
+        with (gathered_species() if form == "gather" else contextlib.nullcontext([])) as calls:
+            yield calls
+    finally:
+        conv_mod.fused_tp = tier
+
+
 def conv_inputs(model, data, torch):
     """What each conv layer hands `fused_uvu_conv` in one forward of
     `model` on `data` without gradients: (plan, x, sh, w, src, dst, n_out)."""
@@ -4073,15 +4142,17 @@ def fctp_device_ms(model, data, out_dir, name, torch):
         x = torch.randn(n, conv.sc_plan.irreps_in1.dim, generator=gen, device=dev).requires_grad_()
         agg = torch.randn(n, conv.lin2_plan.irreps_in1.dim, generator=gen, device=dev).requires_grad_()
         apply = conv.species_fctp(data)
-        outs = [(x, conv.w_sc, conv.sc_plan), (x, conv.w_lin1, conv.lin1_plan), (agg, conv.w_lin2, conv.lin2_plan)]
-        cot = [torch.randn(n, p.irreps_out.dim, generator=gen, device=dev) for _, _, p in outs]
-        runs.append((apply, outs, cot))
+        # sc and lin1 share x (one launch of the kernels), lin2 alone
+        calls = [(x, (conv.w_sc, conv.sc_plan), (conv.w_lin1, conv.lin1_plan)), (agg, (conv.w_lin2, conv.lin2_plan))]
+        cot = [torch.randn(n, p.irreps_out.dim, generator=gen, device=dev)
+               for p in (conv.sc_plan, conv.lin1_plan, conv.lin2_plan)]
+        runs.append((apply, calls, cot))
 
     def session():
-        for i, (apply, outs, cot) in enumerate(runs):
+        for i, (apply, calls, cot) in enumerate(runs):
             torch.cuda.synchronize()
             with record_function(f"fctp L{i} forward"):
-                ys = [apply(*args) for args in outs]
+                ys = [y for args in calls for y in apply(*args)]
                 torch.cuda.synchronize()
             with record_function(f"fctp L{i} backward"):
                 torch.autograd.backward(ys, cot)
@@ -4186,10 +4257,328 @@ def step_device_text(res, real_edges):
         for k, v in st["per_layer"].items()) + "; " + device_summary(st))
 
 
+def species_forms_phase(phase, label, card, torch, model, task, config, data, targets, out_dir):
+    """The species FCTPs' three forms (`species_form`) at one batch: the
+    gather and the kernels against the masked contraction, the forward
+    within BRANCH_FWD_TOL and one train pass's gradients within
+    BRANCH_GRAD_TOL relative, the tracer's "fctp.kernel" counting every
+    species FCTP of the kernels' forward and pass and the gather's
+    `apply_onehot2` calls every one of its forward; the eager forward and
+    train step of each form against the kernels' in turns (CUDA events),
+    their own peak memory, and the FCTPs' device ms per layer of each form
+    (the profiler)."""
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.train import Trainer
+    from matten_tpu_torch.utils import timing
+
+    convs = len(conv_layers(model))
+    real = data[K.GRAPH_MASK]
+
+    def fwd():
+        with torch.inference_mode():
+            return model(data)
+
+    out, grads, loss, counted = {}, {}, {}, {}
+    for form in SPECIES_FORMS:
+        twin = Trainer(copy.deepcopy(model), [task], config, device=data[K.NODE_MASK].device)
+        with species_form(form) as calls, timing.tracing(marks=False):
+            timing.clear()
+            out[form] = fwd()[real]
+            per_fwd = len(calls)
+            loss[form], grads[form] = step_grads(twin, data, targets)
+            counted[form] = timing.record().counters
+            timing.clear()
+        if form == "gather" and per_fwd != 3 * convs:
+            raise AssertionError(f"{phase}: the gather ran {per_fwd} species FCTPs in a forward, expected {3 * convs}")
+    if counted["kernel"] != {"fctp.kernel": 2 * 3 * convs}:
+        raise AssertionError(f"{phase} {label}: the kernels' forward and pass counted {counted['kernel']}, expected "
+                             f"{2 * 3 * convs} species FCTPs on the kernels")
+    errs = {}
+    for form in ("gather", "kernel"):
+        errs[form] = (rel_err(out[form], out["masked"]),
+                      sorted(((rel_err(grads[form][n], r), n) for n, r in grads["masked"].items()), reverse=True))
+        if not (errs[form][0] <= BRANCH_FWD_TOL and errs[form][1][0][0] <= BRANCH_GRAD_TOL):
+            raise AssertionError(f"{phase} {label}: the {form} form and the masked contraction disagree: forward "
+                                 f"{errs[form][0]}, gradients {errs[form][1][:3]}")
+    # times and memory of the forms: the eager forward and train step, each against the kernels in turns
+    trainers = {form: eager(Trainer(copy.deepcopy(model), [task], config, device=data[K.NODE_MASK].device))
+                for form in SPECIES_FORMS}
+
+    def in_form(form, fn):
+        def run():
+            with species_form(form):
+                return fn()
+        return run
+
+    fwd_ms, step_ms = {}, {}
+    for form in ("masked", "gather"):
+        fwd_ms[form], fwd_ms["kernel"] = interleaved(in_form(form, fwd), fwd, torch)
+        step_ms[form], step_ms["kernel"] = interleaved(in_form(form, lambda: trainers[form].train_step(data, targets)),
+                                                       lambda: trainers["kernel"].train_step(data, targets), torch)
+    peak, fctp = {}, {}
+    for form, t in trainers.items():
+        with species_form(form):
+            peak[form] = (own_peak_mib(fwd, torch), own_peak_mib(lambda: t.train_step(data, targets), torch))
+            fctp[form] = fctp_device_ms(model, data, out_dir, f"fctp_{label}_{form}".replace("=", ""), torch)
+    print(f"[{phase} species FCTP forms, {label}] {card}: masked contraction, gather ({GATHER_VAR}={GATHER_MIN_S}) "
+          f"and the species FCTP kernels; against the masked contraction: "
+          + "; ".join(f"{form} forward max|d|/max|ref| {e[0]:.3e}, gradients worst "
+                      + ", ".join(f"{n} {v:.3e}" for v, n in e[1][:3]) for form, e in errs.items())
+          + f" (tol {BRANCH_FWD_TOL}, {BRANCH_GRAD_TOL}); losses "
+          + ", ".join(f"{form} {v:.6f}" for form, v in loss.items())
+          + f"; fctp.kernel {counted['kernel']['fctp.kernel']} in the kernels' forward and pass; eager ms, median of "
+          f"{REPS} in turns with the kernels (the kernels' last): forward "
+          + ", ".join(f"{form} {v:.4f}" for form, v in fwd_ms.items()) + "; train step "
+          + ", ".join(f"{form} {v:.4f}" for form, v in step_ms.items())
+          + "; own peak MiB above the resident, forward / train step: "
+          + ", ".join(f"{k} {f:.1f} / {st:.1f}" for k, (f, st) in peak.items())
+          + "; the species FCTPs' device ms per layer L0 / L1 / L2 / L3 (sc, lin1, lin2; the profiler, "
+          f"{FCTP_PROFILED} runs): " + "; ".join(
+              f"{form} {part} " + " / ".join(f"{t:.4f}" for t in v) + f" ({sum(v):.4f})"
+              for form, parts in fctp.items() for part, v in parts.items()), flush=True)
+
+
+def s16_phase(dev, card, torch, out_dir):
+    """Phase 28b: the production model at 16 species, the one-hot forms'
+    threshold, on bench.py's draw over range(3, 19): the species FCTPs'
+    three forms (`species_forms_phase`)."""
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.predict import batch_to_device
+    from matten_tpu_torch.train import CanonicalRegressionTask, TrainerConfig
+
+    structures, rows = draw_structures(seed=3, species=SPECIES_16)
+    data_np, targets_np = bench_batch(structures, rows, SPECIES_16)
+    data, targets = batch_to_device(data_np, dev, targets_np)
+    ds = dict(allowed_species=list(SPECIES_16), average_num_neighbors=30.0)
+    model = create_scalar_tensor_model(HPARAMS, ds, device=dev, seed=SEED).eval()
+    species_forms_phase("28b", "S=16", card, torch, model, CanonicalRegressionTask(name=TARGET),
+                        TrainerConfig(lr=0.01), data, targets, out_dir)
+
+
+def species_inputs(model, data, torch):
+    """What the conv layers hand the species FCTP kernels in one forward of
+    `model` on `data` without gradients: per launch group, in order (sc
+    with lin1, lin2; layer by layer), (plans, x, weights, species plan)."""
+    from matten_tpu_torch.nn import conv as conv_mod
+
+    seen, kernel = [], conv_mod.species_fctp
+
+    def record(x, splan, products):
+        seen.append((tuple(p for _, p in products), x.detach().clone(), [w.detach() for w, _ in products], splan))
+        return kernel(x, splan, products)
+
+    conv_mod.species_fctp = record
+    try:
+        with torch.no_grad():
+            model(data)
+    finally:
+        conv_mod.species_fctp = kernel
+    return seen
+
+
+def species_work(plans, n, n_real, present):
+    """(bytes, float32 operations) each species FCTP kernel's function needs
+    for a launch group on n nodes, n_real of them real and `present` of the
+    S species with nodes: the real rows of x and of the cotangents read
+    once, every output row written once, the present species' weights read
+    once (dW: every weight written), the node order (int32) read once; 2
+    operations per multiply-add of a real node's paths. "fwd" x -> outputs,
+    "dx" the cotangents -> dx, "dw" x and the cotangents -> dW."""
+    from matten_tpu_torch.kernels.species_fctp import _paths
+
+    s_n = plans[0].irreps_in2[0].mul
+    d_in, d_out = plans[0].irreps_in1.dim, sum(p.irreps_out.dim for p in plans)
+    w_all = sum(p.weight_numel for p in plans)
+    w_read = w_all * present / s_n
+    flops = 2 * n_real * sum(q.mul_in * q.mul_out * q.d for p in plans for q in _paths(p))
+    return {"fwd": (4 * (n_real * d_in + n * d_out + w_read + n), flops),
+            "dx": (4 * (n_real * d_out + n * d_in + w_read + n), flops),
+            "dw": (4 * (n_real * (d_in + d_out) + w_all + n_real), flops)}
+
+
+SPECIES_KINDS = ("fwd", "dx", "dw")
+
+
+def species_kernel_phase(phase, label, card, torch, model, data):
+    """The species FCTP kernels at each conv layer's own inputs in a forward
+    of `model` on `data` (`species_inputs`), with seeded cotangents: the
+    forward, dx and dW against the plain twin (`species_fctp_reference`,
+    and autograd of it for dx and dW) within KERNEL_TOL of the largest
+    entry, two runs bitwise equal; the median ms of each against the twin's,
+    in turns (CUDA events; dx and dW as autograd of the kernels' Function
+    with only x, or only the weights, taking a gradient, which launches
+    that kernel alone), beside the bound (`species_work`). Returns per kind
+    of SPECIES_KINDS the ms, plain ms and (bound ms, what bounds it) per
+    launch group, and the worst max |d|."""
+    from matten_tpu_torch.kernels import species_fctp as sf
+
+    groups = species_inputs(model, data, torch)
+    if len(groups) != 2 * len(conv_layers(model)):
+        raise AssertionError(f"{phase}: {len(groups)} species FCTP launch groups in a forward, expected "
+                             f"{2 * len(conv_layers(model))}")
+    gen = torch.Generator(device=groups[0][1].device).manual_seed(SEED)
+    res = {k: {"ms": [], "plain_ms": [], "bounds": [], "max_abs": 0.0, "rel": []} for k in SPECIES_KINDS}
+    for plans, x, ws, splan in groups:
+        n = x.shape[0]
+        seg = splan.seg_ptr.cpu().numpy()
+        n_real, present = int(seg[-2]), int((np.diff(seg[:-1]) > 0).sum())
+        work = species_work(plans, n, n_real, present)
+        gs = [torch.randn(n, p.irreps_out.dim, generator=gen, device=x.device) for p in plans]
+        xg, wg = x.clone().requires_grad_(), [w.clone().requires_grad_() for w in ws]
+        by_x = sf.species_fctp(xg, splan, list(zip(ws, plans)))
+        by_w = sf.species_fctp(x, splan, list(zip(wg, plans)))
+        twin = sf.species_fctp_reference(plans, xg, wg, splan)
+
+        def fwd():
+            with torch.no_grad():
+                return sf.species_fctp(x, splan, list(zip(ws, plans)))
+
+        def fwd_twin():
+            with torch.no_grad():
+                return sf.species_fctp_reference(plans, x, ws, splan)
+
+        runs = {"fwd": (fwd, fwd_twin),
+                "dx": (lambda: torch.autograd.grad(by_x, xg, gs, retain_graph=True),
+                       lambda: torch.autograd.grad(twin, xg, gs, retain_graph=True)),
+                "dw": (lambda: torch.autograd.grad(by_w, wg, gs, retain_graph=True),
+                       lambda: torch.autograd.grad(twin, wg, gs, retain_graph=True))}
+        for kind, (kernel, plain) in runs.items():
+            first, second, ref = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"{phase} {label}: two runs of the species {kind} kernel differ")
+            rel = max(rel_err(a, r) for a, r in zip(first, ref))
+            if not rel <= KERNEL_TOL:
+                raise AssertionError(f"{phase} {label}: the species {kind} kernel against its twin: {rel}")
+            res[kind]["rel"].append(rel)
+            res[kind]["max_abs"] = max(res[kind]["max_abs"],
+                                       max(float((a - r).abs().max()) for a, r in zip(first, ref)))
+            t_kernel, t_plain = interleaved(kernel, plain, torch)
+            res[kind]["ms"].append(t_kernel)
+            res[kind]["plain_ms"].append(t_plain)
+            res[kind]["bounds"].append(bound_ms(*work[kind]))
+    print(f"[{phase} species FCTP kernels, {label}] {card}: at each conv layer's own inputs, per launch group "
+          f"L0 sc+lin1 / L0 lin2 / ... / L3 lin2: " + "; ".join(
+              f"{kind} max|d|/max|ref| " + " / ".join(f"{v:.2e}" for v in r["rel"])
+              + f" (tol {KERNEL_TOL}), bitwise equal twice; ms, median of {REPS} in turns, kernel vs twin "
+              + " / ".join(f"{a:.4f} vs {b:.4f}" for a, b in zip(r["ms"], r["plain_ms"]))
+              + f" ({sum(r['ms']):.4f} vs {sum(r['plain_ms']):.4f}); bound ms "
+              + " / ".join(f"{t:.4f}" for t, _ in r["bounds"])
+              + f" ({sum(t for t, _ in r['bounds']):.4f}, {bound_by(r['bounds'])})"
+              for kind, r in res.items()), flush=True)
+    return res
+
+
+def species_mesh_rank(rank, world_size, job):
+    """A rank of phase 28c: the production model at 73 species, graph-parallel
+    over a data 1 x graph `world_size` mesh of each mode of `job` (its
+    block of the mode's stacked batch), and an eager SGD trainer: the
+    forward, and one train pass's gradients summed over the ranks as a
+    step sums them, with the species FCTPs in each form of `job["forms"]`
+    (`species_form`), and the tracer's counters of each. Returns per mode
+    and form (forward of the real graphs, loss, gradients, counters), as
+    numpy."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from matten_tpu_torch.data import keys as K
+    from matten_tpu_torch.models import create_scalar_tensor_model
+    from matten_tpu_torch.parallel import make_mesh, shard_batch
+    from matten_tpu_torch.train import CanonicalRegressionTask, Trainer, TrainerConfig
+    from matten_tpu_torch.utils import timing
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for mode, (hparams, batch) in job["modes"].items():
+        mesh = make_mesh(1, world_size, mode)
+        task = CanonicalRegressionTask(name=TARGET)
+        data, targets = shard_batch(mesh, *batch, dev, [])
+        real = data[K.GRAPH_MASK]
+        for form in job["forms"]:
+            # each form's trainer from the seed: a train pass moves the batch norms' running statistics
+            model = create_scalar_tensor_model(hparams, job["ds"], device=dev, seed=SEED)
+            trainer = Trainer(model, [task], TrainerConfig(lr=0.01, optimizer="sgd", scheduler="none"), device=dev,
+                              mesh=mesh)
+            with species_form(form), timing.tracing(marks=False):
+                timing.clear()
+                with torch.inference_mode():
+                    fwd = trainer.model.eval()(data)[real].cpu().numpy()
+                loss, grads = step_grads(trainer, data, targets)
+                counters = dict(timing.record().counters)
+                timing.clear()
+            out[mode, form] = (fwd, loss, {n: g.cpu().numpy() for n, g in grads.items()}, counters)
+    return out
+
+
+SPECIES_MESH_MODES = ("edge", "node", "node_ring")
+
+
+def species_mesh_phase(card, torch):
+    """Phase 28c: the species FCTP kernels under graph parallelism, on one
+    card: the production model at bench.py's 73-species draw on a 2-rank
+    gloo world (`species_mesh_rank` through `parallel.launch`, the ranks
+    sharing the card), graph 2 under each of SPECIES_MESH_MODES (edge: lin2
+    runs on each rank's partial aggregate before the sum over the ranks;
+    node and node_ring: each rank's own nodes, the species plan built from
+    its block):
+    on every rank the kernels against the masked contraction, the forward
+    within BRANCH_FWD_TOL and the summed gradients within BRANCH_GRAD_TOL
+    relative, the tracer counting every species FCTP of the kernels'
+    forward and pass as "fctp.kernel" and of the masked form's as
+    "fctp.plain". Returns the text of its line."""
+    from matten_tpu_torch.data.datamodule import BatchLoader
+    from matten_tpu_torch.nn.embedding import atomic_number_map
+    from matten_tpu_torch.parallel.launch import start_ranks
+    from matten_tpu_torch.train.config import MeshSpec
+
+    structures, rows = draw_structures(seed=3, species=SPECIES_73)
+    graphs = graphs_of(structures, rows)
+    smap = atomic_number_map(SPECIES_73)
+    modes = {}
+    for mode in SPECIES_MESH_MODES:
+        batch = next(iter(BatchLoader(graphs, batch_size=len(graphs), species_map=smap, num_buckets=1,
+                                      **MeshSpec(1, 2, mode).loader_kwargs())))
+        modes[mode] = (dict(HPARAMS, graph_parallel_axis="graph", graph_parallel_mode=mode), batch)
+    job = {"modes": modes, "forms": ("masked", "kernel"),
+           "ds": dict(allowed_species=list(SPECIES_73), average_num_neighbors=30.0)}
+    env = {"PYTHONPATH": str(Path(__file__).resolve().parent), "PYTHONFAULTHANDLER": "1"}
+    t0 = time.perf_counter()
+    with start_ranks("chip_smoke:species_mesh_rank", 2, job, timeout_s=MESH_TIMEOUT_S, threads=MESH_THREADS,
+                     env=env, backend="gloo") as ranks:
+        steps = ranks.join()
+    world_s = time.perf_counter() - t0
+    convs = HPARAMS["num_layers"] + 1  # the conv layers (`conv_layers`)
+    parts = []
+    for mode in SPECIES_MESH_MODES:
+        for rank, res in enumerate(steps):
+            out_m, loss_m, grads_m, count_m = res[mode, "masked"]
+            out_k, loss_k, grads_k, count_k = res[mode, "kernel"]
+            if count_k != {"fctp.kernel": 2 * 3 * convs} or count_m != {"fctp.plain": 2 * 3 * convs}:
+                raise AssertionError(f"28c {mode} rank {rank}: species FCTPs counted {count_k} on the kernels and "
+                                     f"{count_m} masked, expected {2 * 3 * convs} each")
+            fwd_err = rel_err(torch.as_tensor(out_k), torch.as_tensor(out_m))
+            grad_err = sorted(((rel_err(torch.as_tensor(grads_k[n]), torch.as_tensor(r)), n)
+                               for n, r in grads_m.items()), reverse=True)
+            if not (fwd_err <= BRANCH_FWD_TOL and grad_err[0][0] <= BRANCH_GRAD_TOL):
+                raise AssertionError(f"28c {mode} rank {rank}: the kernels and the masked contraction disagree: "
+                                     f"forward {fwd_err}, gradients {grad_err[:3]}")
+            parts.append(f"{mode} rank {rank}: forward {fwd_err:.3e}, loss {loss_k:.6f} vs {loss_m:.6f}, gradients "
+                         f"worst " + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:2]))
+    text = (f"{card}: the production model at 73 species, graph 2 on a 2-rank gloo world sharing the card "
+            f"({world_s:.1f} s), the species FCTP kernels against the masked contraction on every rank (tol "
+            f"{BRANCH_FWD_TOL}, {BRANCH_GRAD_TOL}), fctp.kernel {2 * 3 * convs} per forward and pass: "
+            + "; ".join(parts))
+    print(f"[28c species FCTP kernels under graph parallelism] {text}", flush=True)
+    return text
+
+
 def s73_phase(dev, card, torch, check_forward, check_backward, ckpt_root, out_dir):
-    """Phase 28: the production model at bench.py's 73-species batch, under
-    the masked contraction and the gather. Returns the counted main-path
-    launches."""
+    """Phase 28: the production model at bench.py's 73-species batch, its
+    species FCTPs in each of their three forms. Returns the counted
+    main-path launches of the conv kernels, and the species FCTP kernels'
+    (`species_kernel_phase`'s results, with their launches in the kernels'
+    graphed trainer, "launched")."""
     from matten_tpu_torch.data import keys as K
     from matten_tpu_torch.data.dataset import DatasetStatistics, TensorDatasetConfig
     from matten_tpu_torch.kernels import fused_conv
@@ -4215,68 +4604,18 @@ def s73_phase(dev, card, torch, check_forward, check_backward, ckpt_root, out_di
     config = TrainerConfig(lr=0.01)
     trainer = Trainer(copy.deepcopy(model), [task], config, device=dev)
     launched, text = model_against_plain(28, "S=73", model, trainer, data, targets, torch)
-    print(f"[28 model, S=73] masked contraction: {text}; launches per forward {launched}", flush=True)
+    print(f"[28 model, S=73] species FCTP kernels: {text}; launches per forward {launched}", flush=True)
 
-    # the masked contraction against the gather, the forward and one step's gradients
-    def fwd():
-        with torch.inference_mode():
-            return model(data)
-
-    gather_twin = Trainer(copy.deepcopy(model), [task], config, device=dev)
-    out_m = fwd()
-    loss_m, grads_m = step_grads(trainer, data, targets)
-    with gathered_species() as calls:
-        out_g = fwd()
-        per_fwd = len(calls)
-        loss_g, grads_g = step_grads(gather_twin, data, targets)
-    for t in (trainer, gather_twin):
-        t.model.load_state_dict(model.state_dict())
-    convs = len(conv_layers(model))
-    real = data[K.GRAPH_MASK]
-    fwd_err = rel_err(out_g[real], out_m[real])
-    grad_err = sorted(((rel_err(grads_g[n], r), n) for n, r in grads_m.items()), reverse=True)
-    if per_fwd != 3 * convs:
-        raise AssertionError(f"28: the gather form ran {per_fwd} species FCTPs in a forward, expected {3 * convs}")
-    if not (fwd_err <= BRANCH_FWD_TOL and grad_err[0][0] <= BRANCH_GRAD_TOL):
-        raise AssertionError(f"28: the gather and the masked contraction disagree: forward {fwd_err}, "
-                             f"gradients {grad_err[:3]}")
-    # times and memory of both forms: the eager forward and train step, in turns
-    e_mask = eager(Trainer(copy.deepcopy(model), [task], config, device=dev))
-    e_gather = eager(Trainer(copy.deepcopy(model), [task], config, device=dev))
-
-    def gathered(fn):
-        def run():
-            with gathered_species():
-                return fn()
-        return run
-
-    fwd_ms = interleaved(fwd, gathered(fwd), torch)
-    step_ms = interleaved(lambda: e_mask.train_step(data, targets),
-                          gathered(lambda: e_gather.train_step(data, targets)), torch)
-    peak, fctp = {}, {}
-    for form, t in (("masked", e_mask), ("gather", e_gather)):
-        with (gathered_species() if form == "gather" else contextlib.nullcontext()):
-            peak[form] = (own_peak_mib(fwd, torch), own_peak_mib(lambda: t.train_step(data, targets), torch))
-            fctp[form] = fctp_device_ms(model, data, out_dir, f"fctp_{form}", torch)
-    print(f"[28 species FCTP forms, S=73] {card}: masked contraction vs gather ({GATHER_VAR}={GATHER_MIN_S}, "
-          f"{per_fwd} apply_onehot2 calls per forward): forward max|d|/max|ref| {fwd_err:.3e} (tol "
-          f"{BRANCH_FWD_TOL}); loss {loss_m:.6f} vs {loss_g:.6f}, gradients worst "
-          + ", ".join(f"{n} {e:.3e}" for e, n in grad_err[:3]) + f" (tol {BRANCH_GRAD_TOL}); eager ms, median of "
-          f"{REPS} in turns: forward {fwd_ms[0]:.4f} vs {fwd_ms[1]:.4f}, train step {step_ms[0]:.4f} vs "
-          f"{step_ms[1]:.4f}; own peak MiB above the resident, forward / train step: "
-          + ", ".join(f"{k} {f:.1f} / {s:.1f}" for k, (f, s) in peak.items())
-          + "; the species FCTPs' device ms per layer L0 / L1 / L2 / L3 (sc, lin1, lin2; the profiler, "
-          f"{FCTP_PROFILED} runs): " + "; ".join(
-              f"{form} {part} " + " / ".join(f"{t:.4f}" for t in v)
-              for form, parts in fctp.items() for part, v in parts.items()), flush=True)
+    species_forms_phase(28, "S=73", card, torch, model, task, config, data, targets, out_dir)
+    species = species_kernel_phase(28, "S=73", card, torch, model, data)
 
     # the train and eval steps as CUDA graph replays against an eager twin, each form
     launched_graphs = {k: 0 for k in COUNTERS}
     res = {}
-    for form in ("masked", "gather"):
-        with (gathered_species() if form == "gather" else contextlib.nullcontext()):
+    for form in SPECIES_FORMS:
+        with species_form(form):
             res[form] = graph_phase(f"S=73, {form}", dev, card, torch, trainer, ((data, targets),),
-                                    BATCH_STEPS, BATCH_LR_STEP, phase=28)
+                                    BATCH_STEPS, BATCH_LR_STEP, phase=28, species=form == "kernel")
         launched_graphs = {k: launched_graphs[k] + v for k, v in res[form]["launched"].items()}
         print(f"[28 step, S=73, {form}] {card}: " + step_device_text(res[form], real_edges), flush=True)
 
@@ -4307,8 +4646,10 @@ def s73_phase(dev, card, torch, check_forward, check_backward, ckpt_root, out_di
           f"crystals, directory): all finite [3,3,3,3], max|d|/max|ref| {err:.3e} against the in-memory predict (tol 1e-6), "
           f"launches {served}", flush=True)
     total = {k: launched[k] + launched_graphs[k] + served[k] for k in COUNTERS}
-    print(f"[28 launches, S=73] the counted forward, graphed trainers' steps and predict call: {total}", flush=True)
-    return total
+    species["launched"] = res["kernel"]["species_launched"]
+    print(f"[28 launches, S=73] the counted forward, graphed trainers' steps and predict call: {total}; the species "
+          f"FCTP kernels in the graphed trainer's checked steps: {species['launched']}", flush=True)
+    return total, species
 
 
 def bench128_phase(dev, card, torch, check_forward, check_backward):
@@ -4769,10 +5110,15 @@ def main() -> int:
                                      (("elasticity", structures, 8), ("NMR", nmr_structures, 4)))
     ckpts.cleanup()
 
-    # 28. the production model at bench.py's 73-species batch, under both
-    #     forms of the species FCTPs, graphed and served from a directory
+    # 28. the production model at bench.py's 73-species batch, under the
+    #     three forms of the species FCTPs, graphed and served from a directory
     with tempfile.TemporaryDirectory() as tmp:
-        s73_launched = s73_phase(dev, card, torch, check_forward, check_backward, Path(tmp), Path(tmp) / "traces")
+        s73_launched, species = s73_phase(dev, card, torch, check_forward, check_backward, Path(tmp),
+                                          Path(tmp) / "traces")
+        # 28b. the species FCTPs' forms at 16 species
+        s16_phase(dev, card, torch, Path(tmp) / "traces")
+    # 28c. the species FCTP kernels under graph parallelism
+    species_mesh_phase(card, torch)
 
     # 29. the production model at bench.py's 128-crystal batch
     big_launched = bench128_phase(dev, card, torch, check_forward, check_backward)
@@ -4854,6 +5200,26 @@ def main() -> int:
             "library_ms": None,
             "tiers": {label: n for (k, label), n in sorted(wide_tiers.items()) if k == kind},
             "bf16_max_abs_err": wide_errs[kind + "_bf16"],
+        })
+    species_names = {"fwd": "species_linear_kernel (species FCTPs' forward: sc with lin1, lin2)",
+                     "dx": "species_linear_kernel (species FCTPs' dx)",
+                     "dw": "species_dw_kernel (species FCTPs' dW)"}
+    for kind in SPECIES_KINDS:
+        r, launched = species[kind], species["launched"][f"species_{kind}"]
+        if launched == 0:
+            raise AssertionError(f"phase 28's graphed trainer never launched the species {kind} kernel")
+        kernels.append({
+            "name": species_names[kind],
+            "route": "cuda",
+            "source": "matten_tpu_torch/kernels/csrc/species_fctp.cu",
+            "replaces": "none: plain jnp in matten_tpu/ops/tensor_product.py:140 (apply) and :345 (apply_onehot2)",
+            "launches": launched,
+            "max_abs_err": r["max_abs"],
+            "ms": sum(r["ms"]),
+            "plain_ms": sum(r["plain_ms"]),
+            "bound_ms": sum(b for b, _ in r["bounds"]),
+            "bound_by": bound_by(r["bounds"]),
+            "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

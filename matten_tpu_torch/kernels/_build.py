@@ -117,6 +117,10 @@ def load_library() -> ctypes.CDLL:
     lib.segment_sum.restype = ctypes.c_int
     lib.stamp.argtypes = [p, p]
     lib.stamp.restype = ctypes.c_int
+    lib.species_linear.argtypes = [p, p, i, i, p, p, p, p, i, i] + [p] * 6 + [i] * 6 + [p]
+    lib.species_linear.restype = ctypes.c_int
+    lib.species_dw.argtypes = [p, i, p, p, i, i, p, p] + [p] * 4 + [i] * 5 + [p]
+    lib.species_dw.restype = ctypes.c_int
     for kind in ("fwd", "bwd"):
         fn = getattr(lib, f"fused_uvu_conv_{kind}_smem")
         fn.argtypes = [i] * 9

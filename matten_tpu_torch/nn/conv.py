@@ -35,7 +35,9 @@ import torch
 
 from matten_tpu_torch.data import keys as K
 from matten_tpu_torch.ops.irreps import Irreps
+from matten_tpu_torch.kernels import fused_tp
 from matten_tpu_torch.kernels.fused_conv import edge_plan, fused_uvu_conv, item_edges_for
+from matten_tpu_torch.kernels.species_fctp import species_fctp, species_plan
 from matten_tpu_torch.nn.common import check_required, merge_irreps, normal_parameter
 from matten_tpu_torch.nn.gate import ActivationInfo
 from matten_tpu_torch.nn.norm import IrrepsBatchNorm, IrrepsInstanceNorm
@@ -59,6 +61,11 @@ from matten_tpu_torch.utils import timing
 # edges; under "node_ring" a tuple of one (src - g * c, dst, plan or None)
 # per ring group g
 EDGE_PLAN = "edge_plan"
+# the species FCTP kernels' species plan (`kernels.species_fctp.SpeciesPlan`:
+# the nodes grouped by species, padded ones last) in the batch dict: built on
+# the card by the first PointConv of a forward that takes the kernels, with
+# no host read, and read by the others, which share the nodes
+SPECIES_PLAN = "species_plan"
 
 
 @functools.lru_cache(maxsize=None)
@@ -145,44 +152,73 @@ class PointConv(torch.nn.Module):
 
     def species_fctp(self, data: Dict[str, torch.Tensor]):
         """The form of this layer's species FCTPs (sc, lin1, lin2) for a
-        batch, as `apply(x, w, plan)`, chosen as the JAX module chooses it:
-        with every FCTP one-hot compatible, `K.SPECIES_INDEX` in the batch
-        and S >= `MATTEN_ONEHOT_GATHER_MIN_S` (default 100000), the gather
-        (`apply_onehot2` on the index clipped to [0, S-1], padded rows
-        zeroed by the node mask); else from 16 species on the plain
-        contraction against the one-hot times the node mask; else the plain
-        contraction (the JAX module's scalar-matmul form below 16 species
-        gives the same values). The variable is read on the host at every
-        call, as the JAX module reads it when it traces: a step captured as
-        a CUDA graph keeps the form it was captured with."""
+        batch, as `apply(x, *products)`: the outputs of the (weights, plan)
+        products of x, a tuple. With every FCTP one-hot compatible and
+        `K.SPECIES_INDEX` in the batch, a layer takes a one-hot form from 16
+        species on, or from S >= `MATTEN_ONEHOT_GATHER_MIN_S` (default
+        100000) on:
+          * on the card under the hand-written tier (`fused_tp.get_tp_impl()
+            == "pallas"`), the species FCTP kernels
+            (`kernels.species_fctp`): the products of one call in one launch,
+            on the species plan that the first layer of a forward builds on
+            the device and leaves in the batch dict (`SPECIES_PLAN`);
+          * else, as the JAX module chooses: the gather (`apply_onehot2` on
+            the index clipped to [0, S-1], padded rows zeroed by the node
+            mask) from `MATTEN_ONEHOT_GATHER_MIN_S` species on, else from 16
+            species on the plain contraction against the one-hot times the
+            node mask.
+        Below 16 species the plain contraction (the JAX module's
+        scalar-matmul form gives the same values). The variable is read on
+        the host at every call, as the JAX module reads it when it traces: a
+        step captured as a CUDA graph keeps the form it was captured with.
+        The tracer counts each product as "fctp.kernel" or "fctp.plain"."""
         attrs = data[K.NODE_ATTRS]
         mask = data.get(K.NODE_MASK)
         s = attrs.shape[-1]
-        if (self._onehot_attrs and K.SPECIES_INDEX in data
-                and s >= int(os.environ.get("MATTEN_ONEHOT_GATHER_MIN_S", "100000"))):
+        onehot = self._onehot_attrs and K.SPECIES_INDEX in data
+        gather = onehot and s >= int(os.environ.get("MATTEN_ONEHOT_GATHER_MIN_S", "100000"))
+        if onehot and (gather or s >= 16) and attrs.is_cuda and fused_tp.get_tp_impl() == "pallas":
+            if SPECIES_PLAN not in data:
+                data[SPECIES_PLAN] = species_plan(data[K.SPECIES_INDEX], s, mask)
+            splan = data[SPECIES_PLAN]
+
+            def kernel(x, *products):
+                timing.count("fctp.kernel", len(products))
+                return species_fctp(x.contiguous(), splan, products)
+
+            return kernel
+        if gather:
             idx = data[K.SPECIES_INDEX].long().clamp(0, s - 1)
-            return lambda x, w, plan: plan.apply_onehot2(x, idx, w, mask=mask)
-        masked = self._onehot_attrs and s >= 16 and mask is not None
 
-        def apply(x, w, plan):
-            res = plan.apply(x, attrs, w)
-            return res * mask[:, None].to(res.dtype) if masked else res
+            def one(x, w, plan):
+                return plan.apply_onehot2(x, idx, w, mask=mask)
+        else:
+            masked = self._onehot_attrs and s >= 16 and mask is not None
 
-        return apply
+            def one(x, w, plan):
+                res = plan.apply(x, attrs, w)
+                return res * mask[:, None].to(res.dtype) if masked else res
+
+        def plain(x, *products):
+            timing.count("fctp.plain", len(products))
+            return tuple(one(x, w, plan) for w, plan in products)
+
+        return plain
 
     def forward(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         data = dict(data)
         feats = data[K.NODE_FEATURES]
         src, dst = data[K.EDGE_INDEX]
         num_nodes = feats.shape[0]
-        apply_sc = self.species_fctp(data)
 
         # the device's time by layer while a step's marks are recorded
-        # (`utils.timing`): the species FCTPs, the radial MLP, the conv
-        # (edge plan, K1 and its sums); each output's backward twin
+        # (`utils.timing`): the species FCTPs (with the species plan that
+        # the first layer builds), the radial MLP, the conv (edge plan, K1
+        # and its sums); each output's backward twin
         timing.mark("fctp")
-        self_connection = timing.grad_mark(apply_sc(feats, self.w_sc, self.sc_plan), "fctp")
-        feats = timing.grad_mark(apply_sc(feats, self.w_lin1, self.lin1_plan), "fctp")
+        apply_sc = self.species_fctp(data)
+        self_connection, feats = (timing.grad_mark(y, "fctp") for y in apply_sc(
+            feats, (self.w_sc, self.sc_plan), (self.w_lin1, self.lin1_plan)))
         timing.mark("radial")
         edge_weights = timing.grad_mark(self.radial_mlp(data[K.EDGE_EMBEDDING]).contiguous(), "radial")
         timing.mark("conv")
@@ -228,7 +264,8 @@ class PointConv(torch.nn.Module):
         agg = timing.grad_mark(agg, "conv")
 
         timing.mark("fctp")
-        conv_out = timing.grad_mark(apply_sc(agg, self.w_lin2, self.lin2_plan), "fctp")
+        (conv_out,) = apply_sc(agg, (self.w_lin2, self.lin2_plan))
+        conv_out = timing.grad_mark(conv_out, "fctp")
         if mode == "edge":
             # each rank's partial convolution, linear in agg through lin2
             conv_out = psum(conv_out, axis)

@@ -23,7 +23,8 @@ is taken: every call is one real step. A replay copies the batch into the
 graph's static inputs (device-to-device, no host sync), launches the graph
 and returns a copy of the step's outputs, which the next replay
 overwrites; while the tracer (`utils.timing`) is on it also adds to the
-kernel launch counters of `kernels.fused_conv` what the capture launched.
+kernel launch counters of `kernels.fused_conv` and `kernels.species_fctp`
+what the capture launched.
 A capture that fails raises; nothing falls back to the eager step.
 
 With the tracer recording device marks, a key's graph is another
@@ -85,7 +86,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
-from matten_tpu_torch.kernels import fused_conv, fused_tp
+from matten_tpu_torch.kernels import fused_conv, fused_tp, species_fctp
 from matten_tpu_torch.parallel.sharding import MESH
 from matten_tpu_torch.utils.anomaly import DetectAnomaly
 from matten_tpu_torch.utils import timing
@@ -97,6 +98,10 @@ __all__ = ["StepGraphs", "batch_key", "can_capture", "live_graphs"]
 # beside them, its `tier_launches` Counter
 COUNTERS = ("launches", "fwd_sum_launches", "bwd_launches", "dx_sum_launches", "bf16_launches",
             "bf16_bwd_launches")
+# (module, counter) of every kernel launch counter a replay adds to: the
+# above and kernels/species_fctp.py's
+_ALL_COUNTERS = tuple((fused_conv, c) for c in COUNTERS) + tuple(
+    (species_fctp, c) for c in ("fwd_launches", "bwd_dx_launches", "bwd_dw_launches"))
 
 Outputs = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
 
@@ -126,13 +131,13 @@ def live_graphs() -> int:
     return len(_LIVE)
 
 
-def _counts() -> Tuple[Dict[str, int], Counter]:
-    return {c: getattr(fused_conv, c) for c in COUNTERS}, Counter(fused_conv.tier_launches)
+def _counts() -> Tuple[Dict[Tuple[Any, str], int], Counter]:
+    return {mc: getattr(*mc) for mc in _ALL_COUNTERS}, Counter(fused_conv.tier_launches)
 
 
-def _set_counts(counts: Dict[str, int], tiers: Counter) -> None:
-    for c, v in counts.items():
-        setattr(fused_conv, c, v)
+def _set_counts(counts: Dict[Tuple[Any, str], int], tiers: Counter) -> None:
+    for (module, c), v in counts.items():
+        setattr(module, c, v)
     fused_conv.tier_launches.clear()
     fused_conv.tier_launches.update(tiers)
 
@@ -168,7 +173,7 @@ class _Captured:
             _set_counts(*before)
         self.marks = timing.captured_marks()
         _LIVE.add(self)
-        self.launches = {c: after[0][c] - before[0][c] for c in COUNTERS}
+        self.launches = {mc: after[0][mc] - before[0][mc] for mc in _ALL_COUNTERS}
         self.tier_launches = after[1] - before[1]
 
     def replay(self, data: Dict, targets: Dict) -> Outputs:
@@ -185,11 +190,11 @@ class _Captured:
 
     def _count(self) -> None:
         """A replay in the tracer's counter and marks, and its launches in
-        the counters of `kernels.fused_conv`."""
+        the counters of `kernels.fused_conv` and `kernels.species_fctp`."""
         timing.replayed(self.marks)
         timing.count("graphs.replays")
-        for c, n in self.launches.items():
-            setattr(fused_conv, c, getattr(fused_conv, c) + n)
+        for (module, c), n in self.launches.items():
+            setattr(module, c, getattr(module, c) + n)
         fused_conv.tier_launches.update(self.tier_launches)
 
     def pool_bytes(self) -> int:

@@ -18,9 +18,12 @@ the in-memory `predict` of the same weights within 1e-6 relative; K1 and
 the merged backward at bf16 storage of sh and w against their plain
 versions at the same rounding with K1's tolerance (both read the same
 rounded inputs); at bench.py's 73-species batch the species FCTPs'
-masked contraction and weight gather, the forward within 1e-5 and the
-gradients within 1e-4 relative; at its 128-crystal batch a graphed train
-step and its eager twin, losses within 1e-5. The 2-rank nccl steps need two cards and skip with fewer,
+masked contraction, weight gather and kernels, the forward within 1e-5
+and the gradients within 1e-4 relative, also under edge, node and
+node_ring sharding on a 2-rank gloo world sharing one card; the species FCTP
+kernels against their plain twin and autograd of it 1e-5 of the largest
+entry, two runs bitwise equal; at the 73-species and 128-crystal batches a
+graphed train step and its eager twin, losses within 1e-5. The 2-rank nccl steps need two cards and skip with fewer,
 naming the count found; they import `chip_smoke` from the repository's
 root, from which pytest runs.
 """
@@ -1363,32 +1366,161 @@ def _bench_setup(dev, seed, n_graphs, atoms, species, num_layers=2):
     return (*batch_to_device(data_np, dev, targets_np), trainer)
 
 
-def test_species_fctp_forms_agree_at_73_species(dev):
+def test_species_fctp_forms_agree_at_73_species(dev, counting):
     """bench.py's 73-species batch through the production model: the
-    masked contraction and the weight gather (`MATTEN_ONEHOT_GATHER_MIN_S`
-    at 16, `chip_smoke.gathered_species`) of the species FCTPs give the
-    forward within 1e-5 of its largest entry and a train-mode pass's
-    gradients within 1e-4 of each parameter's largest, the gather taking
-    every species FCTP."""
+    masked contraction, the weight gather (`MATTEN_ONEHOT_GATHER_MIN_S` at
+    16) and the species FCTP kernels (the card's form; `chip_smoke.
+    species_form` picks each with the conv kernels on) give the forward
+    within 1e-5 of its largest entry and a train-mode pass's gradients
+    within 1e-4 of each parameter's largest; the gather takes every species
+    FCTP, and the tracer counts every one of the kernels' forward and pass
+    as "fctp.kernel"."""
     import chip_smoke
 
     data, targets, trainer = _bench_setup(dev, 3, 32, (4, 12), chip_smoke.SPECIES_73)
     real = data[K.GRAPH_MASK]
+    convs = len(chip_smoke.conv_layers(trainer().model))
 
     def run(t):
         with torch.inference_mode():
             out = t.model.eval()(data)[real]
         return (out,) + chip_smoke.step_grads(t, data, targets)
 
-    masked, gather = trainer(), trainer()
-    out_m, _, grads_m = run(masked)
-    with chip_smoke.gathered_species() as calls:
-        out_g, _, grads_g = run(gather)
-    # sc, lin1 and lin2 of every conv layer, in the forward and in the pass
-    assert len(calls) == 2 * 3 * len(chip_smoke.conv_layers(gather.model))
-    _assert_rel(out_g, out_m, 1e-5)
-    for n, r in grads_m.items():
-        _assert_rel(grads_g[n], r, 1e-4)
+    res, counters = {}, {}
+    for form in chip_smoke.SPECIES_FORMS:
+        counting.clear()
+        with chip_smoke.species_form(form) as calls:
+            res[form] = run(trainer())
+        counters[form] = counting.record().counters
+        if form == "gather":
+            assert len(calls) == 2 * 3 * convs
+    assert counters["kernel"] == {"fctp.kernel": 2 * 3 * convs}
+    assert counters["masked"] == counters["gather"] == {"fctp.plain": 2 * 3 * convs}
+    out_m, _, grads_m = res["masked"]
+    for form in ("gather", "kernel"):
+        out, _, grads = res[form]
+        _assert_rel(out, out_m, 1e-5)
+        for n, r in grads_m.items():
+            _assert_rel(grads[n], r, 1e-4)
+
+
+def _species_groups(dev, s, seed, n=256, pad=20):
+    """The production model's conv layers at s species, as the species FCTP
+    kernels take them: per layer (sc with lin1 on x, lin2 on the aggregate),
+    with seeded inputs, weights and cotangents, on a batch of n nodes whose
+    last `pad` are padded and where 3 species are absent."""
+    import chip_smoke
+    from matten_tpu_torch.kernels import species_fctp as sf
+    from matten_tpu_torch.models import create_scalar_tensor_model
+
+    species = tuple(range(3, 3 + s))
+    model = create_scalar_tensor_model(PRODUCTION, dict(allowed_species=list(species), average_num_neighbors=30.0),
+                                       device=dev, seed=0)
+    rng = np.random.default_rng(seed)
+    absent = (0, s // 2, s - 1)
+    idx = rng.choice([k for k in range(s) if k not in absent], size=n)
+    mask = np.arange(n) < n - pad
+    idx[~mask] = rng.integers(0, s, pad)
+    splan = sf.species_plan(torch.as_tensor(idx, device=dev), s, torch.as_tensor(mask, device=dev))
+    groups = []
+    for conv in chip_smoke.conv_layers(model):
+        for plans in ((conv.sc_plan, conv.lin1_plan), (conv.lin2_plan,)):
+            x = torch.as_tensor(rng.normal(size=(n, plans[0].irreps_in1.dim)), dtype=torch.float32, device=dev)
+            ws = [torch.as_tensor(rng.normal(size=p.weight_numel), dtype=torch.float32, device=dev) for p in plans]
+            gs = [torch.as_tensor(rng.normal(size=(n, p.irreps_out.dim)), dtype=torch.float32, device=dev)
+                  for p in plans]
+            groups.append((plans, x, ws, gs))
+    return splan, torch.as_tensor(mask, device=dev), absent, groups
+
+
+@pytest.mark.parametrize("s", [16, 73])
+def test_species_fctp_kernels_match_the_gather_and_are_deterministic(dev, s):
+    """The kernels at the production model's 8 product groups (sc with lin1,
+    lin2; 4 layers) at s species: the forward against `apply_onehot2` (its
+    plain twin) within 1e-5, dx and dW against autograd of the twin within
+    1e-5 of the largest entry (sums of both signs over many nodes and
+    channels); two runs bitwise equal; padded rows of the output and of dx
+    and every weight of an absent species in dW exactly zero; one launch
+    of each kernel per group."""
+    from matten_tpu_torch.kernels import species_fctp as sf
+
+    splan, mask, absent, groups = _species_groups(dev, s, s)
+    for plans, x, ws, gs in groups:
+        def kernels():
+            xg = x.clone().requires_grad_()
+            wg = [w.clone().requires_grad_() for w in ws]
+            outs = sf.species_fctp(xg, splan, list(zip(wg, plans)))
+            return tuple(t.detach() for t in (*outs, *torch.autograd.grad(outs, [xg, *wg], gs)))
+
+        before = (sf.fwd_launches, sf.bwd_dx_launches, sf.bwd_dw_launches)
+        first = kernels()
+        assert (sf.fwd_launches, sf.bwd_dx_launches, sf.bwd_dw_launches) == tuple(b + 1 for b in before)
+        second = kernels()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+        outs, dx, dws = first[:len(plans)], first[len(plans)], first[len(plans) + 1:]
+        xr = x.clone().requires_grad_()
+        wr = [w.clone().requires_grad_() for w in ws]
+        refs = sf.species_fctp_reference(plans, xr, wr, splan)
+        dx_ref, *dw_refs = torch.autograd.grad(refs, [xr, *wr], gs)
+        for out, ref in zip(outs, refs):
+            _assert_rel(out, ref.detach(), 1e-5)
+            assert not out[~mask].any()
+        _assert_rel(dx, dx_ref, 1e-5)
+        assert not dx[~mask].any()
+        for plan, dw, ref in zip(plans, dws, dw_refs):
+            _assert_rel(dw, ref, 1e-5)
+            for tab in plan.split_weights(dw):
+                assert not tab[:, list(absent)].any()
+
+
+def test_graphed_73_species_train_step_equals_eager(dev, counting):
+    """bench.py's 73-species batch: a graphed trainer and its eager twin
+    from the same state (5 train steps: eager, capture, replays; 3 eval
+    steps): losses within 1e-5 relative, each replay without a host sync,
+    and the species FCTP kernels at their budget per conv layer (2 forward
+    launches, 2 of dx and 2 of dW a train step; 2 forward an eval step);
+    the parameters at the end within 1e-4 of their largest entry."""
+    import chip_smoke
+    from matten_tpu_torch.kernels import species_fctp as sf
+
+    data, targets, trainer = _bench_setup(dev, 3, 32, (4, 12), chip_smoke.SPECIES_73)
+    g, e = trainer(), chip_smoke.eager(trainer())
+    convs = len(chip_smoke.conv_layers(g.model))
+    names = ("fwd_launches", "bwd_dx_launches", "bwd_dw_launches")
+    seen = {}
+    try:
+        for kind in ["train_step"] * 5 + ["eval_step"] * 3:
+            seen[kind] = seen.get(kind, -1) + 1
+            before = [getattr(sf, c) for c in names]
+            if seen[kind] >= 2:  # a replay of the graph captured at the second sight
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lg, _ = getattr(g, kind)(data, targets)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            got = [getattr(sf, c) - b for c, b in zip(names, before)]
+            assert got == ([2 * convs] * 3 if kind == "train_step" else [2 * convs, 0, 0]), (kind, got)
+            le, _ = getattr(e, kind)(data, targets)
+            assert abs(float(lg) - float(le)) <= 1e-5 * abs(float(le)), (kind, float(lg), float(le))
+        for p, q in zip(g.model.parameters(), e.model.parameters()):
+            _assert_rel(p, q, 1e-4)
+    finally:
+        g.free_graphs()
+
+
+def test_species_fctp_kernels_under_graph_sharding(dev):
+    """bench.py's 73-species draw, graph-parallel over 2 ranks of a gloo
+    world on one card, under edge sharding (lin2 on each rank's partial
+    aggregate before the sum over the ranks), node and node_ring sharding
+    (each rank's own nodes): on every rank the species FCTP kernels against the masked
+    contraction, the forward within 1e-5 and the summed gradients within
+    1e-4 relative, every species FCTP on the kernels
+    (`chip_smoke.species_mesh_phase`)."""
+    import chip_smoke
+
+    chip_smoke.species_mesh_phase(torch.cuda.get_device_name(dev), torch)
 
 
 def test_graphed_128_crystal_train_step_equals_eager(dev, counting):
